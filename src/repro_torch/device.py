@@ -1,0 +1,32 @@
+"""Device selection and the numeric settings the parity contract needs."""
+from __future__ import annotations
+
+import torch
+
+
+def setup_device(device: str | torch.device = "cuda") -> torch.device:
+    """Resolve ``device`` and fix the fp32 settings every entry point needs.
+
+    CUDA is the default.  When it is asked for and no GPU is present this
+    raises: there is no silent CPU fallback, the CPU must be asked for.
+    TF32 is switched off for matmuls and for cuDNN convolutions
+    (``cudnn.allow_tf32`` defaults to True), so convolutions keep fp32
+    parity with the reference.  Sorts are made stable at each call site
+    (``torch.argsort(..., stable=True)``).
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {str(device)!r}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for queued work on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,418 @@
+"""Round engine: strategy lifecycle hooks + streaming rounds, loop path
+(reference ``repro.fl.engine``).
+
+``RoundEngine`` owns the round loop — sample the topology, mix, run each
+active client's local phase, evolve, evaluate on a cadence, account
+comm/FLOPs — and a strategy supplies the hooks that differ
+(``StrategyBase``).  ``engine.rounds()`` streams ``RoundMetrics``;
+``engine.run()`` drains it into an ``FLResult``.
+
+Determinism: all randomness comes from ``(cfg.seed, round, client, stream)``
+through ``np.random.SeedSequence`` exactly as in the reference, so batch
+orders, topologies and evolve batches replay the reference's draws, and a
+resumed run is identical to an uninterrupted one.
+
+Archives are the reference's (``save``/``restore``, lists stored under
+``__list__`` keys): a reference engine archive loads here and this engine's
+archives load into the reference.
+
+Per-phase wall times (mix, local, evolve, eval), each ended by a device
+synchronise, are kept in ``engine.phase_s``, one dict per round.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.npz import load_pytree, save_pytree
+from repro_torch.core.accounting import CommReport, FlopsReport
+from repro_torch.core.evolve import cosine_prune_rate
+from repro_torch.core.topology import make_adjacency
+from repro_torch.device import setup_device, synchronize
+from repro_torch.fl.base import (
+    FLConfig,
+    FLResult,
+    Task,
+    evaluate_clients,
+    rounds_to_targets,
+)
+from repro_torch.optim.sgd import SGDConfig
+from repro_torch.utils.tree import tree_map
+
+PyTree = Any
+
+# rng sub-stream (the last SeedSequence word), as in the reference
+STREAM_CLIENT = 0       # per-(round, client) training randomness
+
+
+def derive_rng(seed: int, round_idx: int, k: int = 0,
+               stream: int = STREAM_CLIENT) -> np.random.Generator:
+    """Order-independent generator for (seed, round, client, stream)."""
+    return np.random.default_rng(
+        np.random.SeedSequence([seed, round_idx, k, stream]))
+
+
+@dataclasses.dataclass
+class RoundCtx:
+    """Everything a hook may need about the current round.  Generators are
+    cached per round, so successive hook calls for one client continue one
+    stream (local-phase draws, then evolve draws)."""
+    t: int
+    cfg: FLConfig
+    task: Task
+    clients: Sequence[Any]
+    lr: float
+    prune_rate: float
+    adjacency: np.ndarray
+    _rngs: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def _rng(self, k: int, stream: int) -> np.random.Generator:
+        key = (k, stream)
+        if key not in self._rngs:
+            self._rngs[key] = derive_rng(self.cfg.seed, self.t, k, stream)
+        return self._rngs[key]
+
+    def client_rng(self, k: int) -> np.random.Generator:
+        return self._rng(k, STREAM_CLIENT)
+
+
+class StrategyBase:
+    """Default hooks; subclass and override what differs.  ``init_state``
+    returns the mutable, checkpointable state (nested dicts/lists of
+    tensors); static derived quantities live on ``self`` and are re-derived
+    by ``init_state`` on resume."""
+
+    name: str = "strategy"
+
+    def init_state(self, task: Task, clients, cfg: FLConfig) -> dict:
+        self.task, self.clients, self.cfg = task, clients, cfg
+        self.opt = SGDConfig(momentum=cfg.momentum,
+                             weight_decay=cfg.weight_decay)
+        self.n_samples = int(np.mean([c.n_train for c in clients]))
+        return {}
+
+    def mix(self, state: dict, ctx: RoundCtx) -> None:
+        """Communication phase."""
+
+    def active_clients(self, state: dict, ctx: RoundCtx) -> Sequence[int]:
+        return range(len(self.clients))
+
+    def local_update(self, state: dict, k: int, ctx: RoundCtx) -> None:
+        raise NotImplementedError
+
+    def evolve(self, state: dict, k: int, ctx: RoundCtx) -> None:
+        """Optional per-client mask search after the local phase."""
+
+    def post_round(self, state: dict, ctx: RoundCtx) -> None:
+        """Optional aggregation after all clients finished."""
+
+    def eval_params(self, state: dict, ctx: RoundCtx) -> list[PyTree]:
+        return state["params"]
+
+    def finalize_eval_params(self, state: dict) -> list[PyTree]:
+        return state["params"]
+
+    def round_comm(self, state: dict, ctx: RoundCtx) -> CommReport:
+        raise NotImplementedError
+
+    def round_flops(self, state: dict, ctx: RoundCtx) -> FlopsReport:
+        raise NotImplementedError
+
+
+_REGISTRY: dict[str, tuple[type, dict]] = {}
+
+
+def register(name: str, **defaults):
+    """Class decorator: ``@register("dispfl")``."""
+
+    def deco(cls):
+        _REGISTRY[name] = (cls, dict(defaults))
+        return cls
+
+    return deco
+
+
+def _ensure_zoo() -> None:
+    import repro_torch.fl.dispfl  # noqa: F401
+
+
+def strategy_names() -> list[str]:
+    _ensure_zoo()
+    return sorted(_REGISTRY)
+
+
+def make_strategy(name: str, **overrides) -> StrategyBase:
+    _ensure_zoo()
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"unknown strategy '{name}'; available: {sorted(_REGISTRY)}")
+    cls, defaults = _REGISTRY[name]
+    strat = cls(**{**defaults, **overrides})
+    strat.name = name
+    return strat
+
+
+@dataclasses.dataclass
+class RoundMetrics:
+    round: int                       # 0-based round index
+    lr: float
+    prune_rate: float
+    comm_busiest_mb: float           # this round, from the current adjacency
+    comm_rows: dict
+    flops_round: float               # per client, this round
+    cum_flops: float                 # per client, cumulative
+    acc_mean: Optional[float]        # None on non-eval rounds
+    acc_std: Optional[float]
+    wall_s: float
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+class Callback:
+    def on_round_end(self, engine: "RoundEngine", metrics: RoundMetrics) -> None:
+        pass
+
+    def on_run_end(self, engine: "RoundEngine") -> None:
+        pass
+
+
+class JsonlLogger(Callback):
+    """Append one JSON object per round; truncated when a run starts at
+    round 0, so a resumed run keeps the rounds before the checkpoint."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def on_round_end(self, engine, metrics):
+        mode = "w" if metrics.round == 0 else "a"
+        with open(self.path, mode) as f:
+            f.write(json.dumps(metrics.to_dict()) + "\n")
+
+
+class Checkpointer(Callback):
+    """Save the full engine state every ``every`` rounds (and at run end)."""
+
+    def __init__(self, path: str, every: int = 1):
+        self.path = path
+        self.every = max(1, every)
+
+    def on_round_end(self, engine, metrics):
+        if (metrics.round + 1) % self.every == 0:
+            engine.save(self.path)
+
+    def on_run_end(self, engine):
+        engine.save(self.path)
+
+
+class EarlyStopAtTarget(Callback):
+    """Stop once mean personalized accuracy reaches ``target``."""
+
+    def __init__(self, target: float):
+        self.target = target
+
+    def on_round_end(self, engine, metrics):
+        if metrics.acc_mean is not None and metrics.acc_mean >= self.target:
+            engine.request_stop()
+
+
+# lists <-> marked dicts, so '/'-joined archive paths round-trip (the
+# reference's layout, fl/engine.py _pack/_unpack)
+_LIST_KEY = "__list__"
+
+
+def _pack(tree):
+    if isinstance(tree, dict):
+        return {k: _pack(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {_LIST_KEY: {f"{i:06d}": _pack(v) for i, v in enumerate(tree)}}
+    return tree
+
+
+def _unpack(tree):
+    if isinstance(tree, dict):
+        if set(tree.keys()) == {_LIST_KEY}:
+            inner = tree[_LIST_KEY]
+            return [_unpack(inner[k]) for k in sorted(inner)]
+        return {k: _unpack(v) for k, v in tree.items()}
+    return tree
+
+
+class RoundEngine:
+    """Owns the round loop for any strategy, on ``task.device``.
+
+    ``local_exec``: ``"loop"`` runs the per-client loop (the reference
+    semantics); ``"auto"`` resolves to it until the stacked vmap local phase
+    is ported; ``"vmap"`` raises ``NotImplementedError``.
+    """
+
+    def __init__(self, strategy: StrategyBase, task: Task, clients,
+                 cfg: FLConfig, callbacks: Sequence[Callback] = (),
+                 local_exec: str = "auto"):
+        if local_exec not in ("auto", "loop", "vmap"):
+            raise ValueError(f"local_exec must be auto|loop|vmap, got {local_exec}")
+        if local_exec == "vmap":
+            raise NotImplementedError(
+                "local_exec='vmap' (the stacked local phase) is not ported "
+                "yet: ROADMAP item A6; use 'loop' or 'auto'")
+        self.device = setup_device(task.device)
+        self.strategy = strategy
+        self.task = task
+        self.clients = clients
+        self.cfg = cfg
+        self.callbacks = list(callbacks)
+        self.state = strategy.init_state(task, clients, cfg)
+        self._next_round = 0
+        self._stop = False
+        self._acc_history: list[float] = []
+        self._acc_stds: list[float] = []
+        self._eval_rounds: list[int] = []
+        self._comm: dict[str, list[float]] = {
+            "busiest_mb": [], "avg_per_node_mb": [], "total_mb": [],
+            "busiest_mb_with_bitmap": []}
+        self._flops: dict[str, list[float]] = {
+            "per_round_flops": [], "dense_per_round_flops": [],
+            "fwd_flops_per_sample": []}
+        #: per round: seconds in each phase, each ended by a device sync
+        self.phase_s: list[dict[str, float]] = []
+
+    def request_stop(self) -> None:
+        self._stop = True
+
+    # -- checkpointing -----------------------------------------------------
+    def _checkpoint_payload(self) -> dict:
+        return {
+            "engine": {
+                "next_round": np.asarray(self._next_round, np.int64),
+                "acc_history": np.asarray(self._acc_history, np.float64),
+                "acc_stds": np.asarray(self._acc_stds, np.float64),
+                "eval_rounds": np.asarray(self._eval_rounds, np.int64),
+                "comm": {k: np.asarray(v, np.float64)
+                         for k, v in self._comm.items()},
+                "flops": {k: np.asarray(v, np.float64)
+                          for k, v in self._flops.items()},
+            },
+            "state": _pack(self.state),
+        }
+
+    def save(self, path: str) -> None:
+        save_pytree(path, self._checkpoint_payload())
+
+    def restore(self, path: str) -> "RoundEngine":
+        """Load an archive written by this engine or the reference's."""
+        payload = load_pytree(path)
+        eng = payload["engine"]
+        self._next_round = int(eng["next_round"])
+        self._acc_history = [float(a) for a in eng["acc_history"]]
+        self._acc_stds = [float(a) for a in eng["acc_stds"]]
+        self._eval_rounds = [int(r) for r in eng["eval_rounds"]]
+        self._comm = {k: [float(x) for x in v] for k, v in eng["comm"].items()}
+        self._flops = {k: [float(x) for x in v]
+                       for k, v in eng["flops"].items()}
+        self.state = tree_map(
+            lambda a: torch.as_tensor(a).to(self.device),
+            _unpack(payload["state"]))
+        return self
+
+    # -- the round loop ----------------------------------------------------
+    def _make_ctx(self, t: int) -> RoundCtx:
+        cfg = self.cfg
+        return RoundCtx(
+            t=t, cfg=cfg, task=self.task, clients=self.clients,
+            lr=cfg.lr_at(t),
+            prune_rate=cosine_prune_rate(cfg.alpha0, t, cfg.rounds),
+            adjacency=make_adjacency(cfg.topology, len(self.clients), t,
+                                     cfg.degree, cfg.seed, cfg.drop_prob))
+
+    def _timed(self, phases: dict, name: str, t0: float) -> float:
+        synchronize(self.device)
+        t1 = time.perf_counter()
+        phases[name] = t1 - t0
+        return t1
+
+    def _run_one_round(self, t: int) -> RoundMetrics:
+        cfg = self.cfg
+        strat = self.strategy
+        phases: dict[str, float] = {}
+        synchronize(self.device)
+        t0 = tp = time.perf_counter()
+        ctx = self._make_ctx(t)
+        strat.mix(self.state, ctx)
+        tp = self._timed(phases, "mix", tp)
+        active = list(strat.active_clients(self.state, ctx))
+        for k in active:
+            strat.local_update(self.state, k, ctx)
+        tp = self._timed(phases, "local", tp)
+        for k in active:
+            strat.evolve(self.state, k, ctx)
+        strat.post_round(self.state, ctx)
+        tp = self._timed(phases, "evolve", tp)
+
+        comm = strat.round_comm(self.state, ctx)
+        flops = strat.round_flops(self.state, ctx)
+        for key in self._comm:
+            self._comm[key].append(float(getattr(comm, key)))
+        for key in self._flops:
+            self._flops[key].append(float(getattr(flops, key)))
+
+        acc_mean = acc_std = None
+        if (t + 1) % cfg.eval_every == 0 or t == cfg.rounds - 1:
+            accs = evaluate_clients(self.task, strat.eval_params(self.state, ctx),
+                                    self.clients)
+            acc_mean = float(np.mean(accs))
+            acc_std = float(np.std(accs))
+            self._acc_history.append(acc_mean)
+            self._acc_stds.append(acc_std)
+            self._eval_rounds.append(t)
+        tp = self._timed(phases, "eval", tp)
+        self.phase_s.append(phases)
+
+        self._next_round = t + 1
+        return RoundMetrics(
+            round=t, lr=ctx.lr, prune_rate=ctx.prune_rate,
+            comm_busiest_mb=comm.busiest_mb, comm_rows=comm.row(),
+            flops_round=flops.per_round_flops,
+            cum_flops=float(np.sum(self._flops["per_round_flops"])),
+            acc_mean=acc_mean, acc_std=acc_std, wall_s=tp - t0)
+
+    def rounds(self) -> Iterator[RoundMetrics]:
+        for t in range(self._next_round, self.cfg.rounds):
+            metrics = self._run_one_round(t)
+            for cb in self.callbacks:
+                cb.on_round_end(self, metrics)
+            yield metrics
+            if self._stop:
+                break
+        for cb in self.callbacks:
+            cb.on_run_end(self)
+
+    # -- results -----------------------------------------------------------
+    def result(self, targets: Sequence[float] = (0.5,)) -> FLResult:
+        """Paper-table ``FLResult``; comm/FLOP columns are means over the
+        executed rounds."""
+        final = evaluate_clients(
+            self.task, self.strategy.finalize_eval_params(self.state),
+            self.clients)
+        comm = CommReport(**{k: float(np.mean(v)) if v else 0.0
+                             for k, v in self._comm.items()})
+        flops = FlopsReport(**{k: float(np.mean(v)) if v else 0.0
+                               for k, v in self._flops.items()})
+        return FLResult(
+            acc_history=list(self._acc_history),
+            final_accs=final,
+            comm_busiest_mb=comm.busiest_mb, comm_rows=comm.row(),
+            flops_per_round=flops.per_round_flops, flops_rows=flops.row(),
+            rounds_to=rounds_to_targets(self._acc_history, list(targets)))
+
+    def run(self, targets: Sequence[float] = (0.5,)) -> FLResult:
+        for _ in self.rounds():
+            pass
+        return self.result(targets)
+
