@@ -80,6 +80,8 @@ packed_accum_kernel(float* __restrict__ num, float* __restrict__ den,
   if (bit) {
     const int idx = offsets[b] + warp_before[warp] +
                     __popc(word & ((1u << lane) - 1u));
+    // the wrapper has checked that the bitmap holds nnz set bits; this
+    // guard only keeps a malformed payload's reads in bounds
     if (idx < nnz) v = to_f32(values[idx]);
   }
   num[c] = __fadd_rn(num[c], __fmul_rn(alpha, v));

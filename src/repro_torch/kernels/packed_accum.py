@@ -12,7 +12,10 @@ held values in coordinate order, in place::
 The block offsets (exclusive prefix of per-1024-block popcounts) are made
 on the device: a popcount kernel, then ``torch.cumsum``.  ``packed_accum``
 runs the plain version for CPU tensors and launches
-``csrc/packed_accum.cu`` for CUDA tensors (or raises) — no fallback.
+``csrc/packed_accum.cu`` for CUDA tensors (or raises) — no fallback.  Both
+raise ``ValueError`` when the bitmap's set bits are not exactly
+``values.numel()``; on the card that check reads the popcount back to the
+host (one synchronisation per fold).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ def packed_accum_plain(num: torch.Tensor, den: torch.Tensor,
     """The kernel's arithmetic in PyTorch ops (separately rounded multiply
     and add), in place on ``num`` and ``den``."""
     flags = unpack_bits(words, num.numel())
+    _check_nnz(int(flags.sum()), values)
     contrib = torch.zeros_like(num)
     contrib[flags] = values.to(num.dtype)
     num.add_(alpha * contrib)
@@ -70,6 +74,12 @@ def _check(num, den, words, values) -> None:
         raise ValueError(f"{num.numel()} coordinates exceed int32 indexing")
 
 
+def _check_nnz(set_bits: int, values: torch.Tensor) -> None:
+    if set_bits != values.numel():
+        raise ValueError(f"the bitmap holds {set_bits} set bits but there "
+                         f"are {values.numel()} values")
+
+
 def packed_accum(num: torch.Tensor, den: torch.Tensor, words: torch.Tensor,
                  values: torch.Tensor, alpha: float = 1.0):
     """Fold one payload into ``num``/``den`` in place; returns them."""
@@ -90,6 +100,7 @@ def packed_accum(num: torch.Tensor, den: torch.Tensor, words: torch.Tensor,
     with torch.cuda.device(num.device):
         build.check(pop(words.data_ptr(), counts.data_ptr(), words.numel(),
                         n_blocks, stream), "block_popcount")
+        _check_nnz(int(counts.sum()), values)
         offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
         build.check(fold(num.data_ptr(), den.data_ptr(), words.data_ptr(),
                          values.data_ptr(), offsets.data_ptr(), float(alpha),

@@ -74,3 +74,13 @@ def test_fold_kernel_equals_plain_on_card(cuda_device, n, alpha, vdtype):
                                             vals, alpha)
     assert torch.equal(got_num, want_num)
     assert torch.equal(got_den, want_den)
+
+
+@pytest.mark.parametrize("extra", [-1, 1])
+def test_fold_kernel_refuses_wrong_value_count(cuda_device, extra):
+    flags, values, num0, den0 = _fold_inputs(3 * BLOCK_N, 0.5, 7)
+    words = pack_bits(torch.from_numpy(flags).to(cuda_device))
+    vals = torch.zeros(values.size + extra, device=cuda_device)
+    num, den = (torch.from_numpy(x).to(cuda_device) for x in (num0, den0))
+    with pytest.raises(ValueError, match="set bits"):
+        packed_accum(num, den, words, vals)

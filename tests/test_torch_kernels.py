@@ -139,3 +139,8 @@ def test_fold_wrapper_rejects_bad_input():
         packed_accum(num.double(), den, words, torch.zeros(0))
     with pytest.raises(TypeError):
         packed_accum(num, den, words, torch.zeros(0, dtype=torch.float64))
+    # the bitmap's set bits and the values must agree in number, both ways
+    words[0] = 0b101
+    for k in (1, 3):
+        with pytest.raises(ValueError, match="2 set bits"):
+            packed_accum(num, den, words, torch.zeros(k))

@@ -4,7 +4,9 @@ rule that the port imports neither jax nor ``repro``.
 
 Tolerance: masks, comm rows, FLOPs, lr, prune rate and accuracies must be
 equal; parameters agree to fp32 rounding of the convolutions, stated as
-atol 1e-6 (the measured gap after 3 rounds is ~3e-8).
+atol 1e-6 (the measured gap after 3 rounds is ~3e-8).  The same holds with
+fp16 payload values: both packages round the same fp32 values to fp16
+before the mix, so the cast adds no gap between them.
 """
 import ast
 import json
@@ -23,7 +25,10 @@ from repro_torch.fl.base import make_cnn_task as port_make_task
 from repro_torch.fl.engine import RoundEngine as PortEngine
 from repro_torch.fl.engine import make_strategy as port_make_strategy
 from repro_torch.launch import train as port_train
+from repro_torch.sparse.packed import is_packed
+from repro_torch.utils.tree import tree_leaves as port_tree_leaves
 from repro_torch.utils.tree import tree_leaves_with_path as port_leaves
+from repro_torch.utils.tree import tree_map as port_tree_map
 
 pytestmark = pytest.mark.tier1
 
@@ -46,18 +51,27 @@ def _assert_trees(ref_tree, port_tree, exact: bool, what: str):
                                        err_msg=f"{what} {path}")
 
 
-@pytest.mark.parametrize("name", ["dispfl", "dispfl_anneal"])
-def test_slice_gate_matches_reference_from_one_archive(name, tmp_path):
+@pytest.mark.parametrize("name,kw", [
+    pytest.param("dispfl", {}, id="dispfl"),
+    pytest.param("dispfl_anneal", {}, id="dispfl_anneal"),
+    pytest.param("dispfl", {"payload_dtype": "fp16"}, id="dispfl-fp16"),
+])
+def test_slice_gate_matches_reference_from_one_archive(name, kw, tmp_path):
     clients, _ = build_federated_image_task(0, **DATA)
-    ref = RoundEngine(make_strategy(name), make_cnn_task("smallcnn", 10, 8, width=4),
+    ref = RoundEngine(make_strategy(name, **kw),
+                      make_cnn_task("smallcnn", 10, 8, width=4),
                       clients, FLConfig(**CFG), local_exec="loop")
     archive = str(tmp_path / "round0.npz")
     ref.save(archive)
     port_clients, _ = port_build(0, **DATA)
-    port = PortEngine(port_make_strategy(name),
+    port = PortEngine(port_make_strategy(name, **kw),
                       port_make_task("smallcnn", 10, 8, width=4, device="cpu"),
                       port_clients, PortFLConfig(**CFG), local_exec="loop")
     port.restore(archive)
+    wire = torch.float16 if kw.get("payload_dtype") == "fp16" else torch.float32
+    msg = port.strategy.snapshot_message(port.state, 0)["packed"]
+    assert set(port_tree_leaves(port_tree_map(
+        lambda p: p.values.dtype, msg, is_leaf=is_packed))) == {wire}
     n_rounds = 0
     for a, b in zip(ref.rounds(), port.rounds()):
         ra, rb = a.to_dict(), b.to_dict()
