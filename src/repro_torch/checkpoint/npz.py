@@ -14,7 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import tree_leaves_with_path
+from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
 PyTree = Any
 
@@ -23,6 +23,12 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def tree_from_numpy(tree: PyTree, device="cpu") -> PyTree:
+    """A tree of numpy arrays (a reference tree, after ``np.asarray`` of
+    its leaves) as a tree of tensors on ``device``, copied bit for bit."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
 
 
 def save_pytree(path: str, tree: PyTree) -> None:

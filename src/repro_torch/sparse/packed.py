@@ -20,7 +20,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -127,3 +127,8 @@ def unpack_tree(packed: PyTree) -> PyTree:
 
 def unpack_mask_tree(packed: PyTree, dtype=torch.float32) -> PyTree:
     return tree_map(lambda p: unpack_mask(p, dtype), packed, is_leaf=is_packed)
+
+
+def tree_packed_nnz(packed: PyTree) -> int:
+    """Total transmitted values across a packed tree."""
+    return sum(p.nnz for p in tree_leaves(packed, is_leaf=is_packed))

@@ -48,14 +48,17 @@ def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree,
                               is_leaf=is_leaf)
 
 
-def tree_leaves_with_path(tree: PyTree) -> list[tuple[str, Any]]:
+def tree_leaves_with_path(tree: PyTree,
+                          is_leaf: Optional[Callable[[Any], bool]] = None
+                          ) -> list[tuple[str, Any]]:
     out: list[tuple[str, Any]] = []
-    tree_map_with_path(lambda p, x: out.append((p, x)), tree)
+    tree_map_with_path(lambda p, x: out.append((p, x)), tree, is_leaf=is_leaf)
     return out
 
 
-def tree_leaves(tree: PyTree) -> list[Any]:
-    return [x for _, x in tree_leaves_with_path(tree)]
+def tree_leaves(tree: PyTree,
+                is_leaf: Optional[Callable[[Any], bool]] = None) -> list[Any]:
+    return [x for _, x in tree_leaves_with_path(tree, is_leaf=is_leaf)]
 
 
 def tree_unflatten_like(tree: PyTree, leaves) -> PyTree:
@@ -83,3 +86,12 @@ def tree_nnz(tree: PyTree) -> int:
     if not leaves:
         return 0
     return int(torch.stack([(x != 0).sum() for x in leaves]).sum())
+
+
+def tree_ones_like(tree: PyTree) -> PyTree:
+    return tree_map(torch.ones_like, tree)
+
+
+def tree_index(tree: PyTree, i) -> PyTree:
+    """Index every leaf's leading dimension (a stacked tree's slot ``i``)."""
+    return tree_map(lambda x: x[i], tree)

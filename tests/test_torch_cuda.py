@@ -5,14 +5,19 @@ port only, so it runs on a machine without jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each kernel must equal its plain version bit for bit (fp32 and bf16 gossip,
-fp32 and fp16 payload values, any alpha).
+The gossip and fold kernels must equal their plain versions bit for bit
+(fp32 and bf16 gossip, fp32 and fp16 payload values, any alpha).  The
+masked matmul sums in another order than cuBLAS, so it agrees with its
+plain version to atol 1e-5 and rtol 1e-5 on inputs scaled as the served
+MLP's (x ~ N(0, 1), w ~ N(0, 1/K)); a user's rows in a mixed batch are
+bit-equal to the same user served alone.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.gossip_avg import gossip_avg, gossip_avg_plain
+from repro_torch.kernels import masked_matmul as mmk
 from repro_torch.kernels.packed_accum import (
     BLOCK_N,
     packed_accum,
@@ -84,3 +89,84 @@ def test_fold_kernel_refuses_wrong_value_count(cuda_device, extra):
     num, den = (torch.from_numpy(x).to(cuda_device) for x in (num0, den0))
     with pytest.raises(ValueError, match="set bits"):
         packed_accum(num, den, words, vals)
+
+
+def _mm_inputs(u, m, k, n, density, seed, device):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((u, m, k)).astype(np.float32)
+    w = (rng.standard_normal((u, k, n)) / np.sqrt(k)).astype(np.float32)
+    mask = (rng.random((u, k, n)) < density).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (x, w, mask))
+
+
+MM_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 128, 128), (128, 256, 128),
+                                   (70, 200, 90), (13, 50, 17)])
+@pytest.mark.parametrize("density", [0.0, 0.2, 1.0])
+def test_masked_matmul_kernel_matches_plain_on_card(cuda_device, shape,
+                                                    density):
+    m, k, n = shape
+    x, w, mask = (t[0] for t in _mm_inputs(1, m, k, n, density, m + k,
+                                           cuda_device))
+    launches = mmk.LAUNCHES
+    got = mmk.masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    assert mmk.LAUNCHES == launches + 1
+    torch.testing.assert_close(got, mmk.masked_matmul_plain(x, w, mask),
+                               **MM_TOL)
+
+
+@pytest.mark.parametrize("u,m", [(256, 4), (7, 1), (3, 16), (2, 33)])
+@pytest.mark.parametrize("k,n", [(64, 128), (128, 128), (128, 32)])
+def test_batched_kernel_matches_plain_at_serve_shapes(cuda_device, u, m, k, n):
+    x, w, mask = _mm_inputs(u, m, k, n, 0.5, u * m + k + n, cuda_device)
+    got = mmk.batched_masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, mmk.batched_masked_matmul_plain(x, w, mask), **MM_TOL)
+
+
+def test_batched_kernel_skips_empty_tiles_exactly(cuda_device):
+    """Whole empty 128x128 tiles (and so empty kernel tiles): the result
+    equals the plain version, and the dead tiles add nothing."""
+    x, w, mask = _mm_inputs(3, 5, 256, 384, 0.3, 1, cuda_device)
+    mask[:, :128, 128:] = 0.0
+    mask[1, 128:, :] = 0.0
+    assert mmk.block_occupancy(mask) < 1.0
+    got = mmk.batched_masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, mmk.batched_masked_matmul_plain(x, w, mask), **MM_TOL)
+    live = mmk.batched_masked_matmul(x[1:2, :, :128].contiguous(),
+                                     w[1:2, :128].contiguous(),
+                                     mask[1:2, :128].contiguous())
+    assert torch.equal(got[1:2], live)
+
+
+def test_batched_kernel_mixed_batch_equals_alone(cuda_device):
+    u, m, k, n = 16, 4, 128, 128
+    x, w, mask = _mm_inputs(u, m, k, n, 0.5, 2, cuda_device)
+    mixed = mmk.batched_masked_matmul(x, w, mask)
+    for i in (0, 5, 15):
+        for slot in (i, 0):
+            xs, ws, ms = (torch.zeros_like(t) for t in (x, w, mask))
+            xs[slot], ws[slot], ms[slot] = x[i], w[i], mask[i]
+            alone = mmk.batched_masked_matmul(xs, ws, ms)
+            assert torch.equal(alone[slot], mixed[i]), (i, slot)
+
+
+def test_batched_kernel_refuses_bad_dtype_and_shapes(cuda_device):
+    x, w, mask = _mm_inputs(2, 3, 8, 5, 0.5, 3, cuda_device)
+    launches = mmk.LAUNCHES
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32"):
+            mmk.batched_masked_matmul(x.to(dtype), w.to(dtype), mask)
+    with pytest.raises(ValueError, match="chain"):
+        mmk.batched_masked_matmul(x, w[:, :7].contiguous(), mask)
+    with pytest.raises(ValueError, match="chain"):
+        mmk.batched_masked_matmul(x[:1].contiguous(), w, mask)
+    with pytest.raises(ValueError, match="on cpu"):
+        mmk.batched_masked_matmul(x, w, mask.cpu())
+    assert mmk.LAUNCHES == launches
