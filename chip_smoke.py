@@ -13,19 +13,35 @@ line):
    ResNet18-GN gives the mix (J=4 rows of the largest leaf and of the whole
    flattened tree, fp32 and bf16; the packed fold at density 0.5), with its
    time, the plain version's time and its HBM-bytes bound; the masked
-   matmul over the reference's kernel-test sweep, at the serving shapes
-   (U = cache size, M = rows, the MLP's three layers) and on a mask with
-   whole empty 128x128 tiles, each within 1e-5 of its plain version, and a
-   user's rows in a mixed batch bit-equal to the same user served alone;
+   matmul over the reference's kernel-test sweep (its U=1 form timed at
+   (128, 256, 128), density 0.2, against ``torch.mm``), at the serving
+   shapes (U = cache size, M = rows, the MLP's three layers) and on a mask
+   with whole empty 128x128 tiles, each within 1e-5 of its plain version,
+   and a user's rows in a mixed batch bit-equal to the same user served
+   alone; the stacked fold and the prune/regrow apply at K=4 rows of the
+   largest leaf and of the whole flattened tree, bit-equal to their plain
+   versions, with the ``torch.sort`` time of the prune/regrow thresholds;
 4. the training path through its CLI entry functions: ``simulate
    --model resnet18 --hw 32 --clients 4 --rounds 2`` on the default device
    (cuda), with launch counters zeroed just before and read just after —
    both kernels must have run, every mask must hold its ERK budget after
    each evolve, accuracy must be finite — then a shorter ``packed=False``
    round (the gossip kernel on the dense mix);
-5. a small smallcnn round on the card against the same round on the CPU
+5. the stacked path through the CLI's entry functions: ``simulate --scale
+   --model resnet18 --hw 32 --clients 4 --rounds 2``, once per
+   ``--scale-reduction``, counters zeroed just before and read just after —
+   ``ordered`` must launch the gossip kernel and ``einsum`` must not, every
+   mask must hold its ERK budget after each evolve, the comm rows must equal
+   the loop engine's run, accuracy must be finite; then, on the engine's own
+   state, ``fold_stacked(0, 0, pack_stacked(params, masks))`` must give
+   ``(w⊙m, m)`` exactly with one stacked-fold launch per leaf, and
+   ``stacked_prune_regrow_threshold`` (a vmapped dense gradient of the
+   round's evolve batch, the round's prune rate) must launch the
+   prune/regrow kernel once per sparsifiable leaf and equal the same call on
+   the CPU; a profiled stacked round;
+6. a small smallcnn round on the card against the same round on the CPU
    (the plain versions), from one state;
-6. the serving path through its CLI entry functions (``launch/serve.py``:
+7. the serving path through its CLI entry functions (``launch/serve.py``:
    1024 users of the 64-128-128-32 MLP, a 256-slot pool, 4096 requests),
    counters zeroed just before and read just after: ``--backend kernel``
    must launch the masked matmul 3 x (batches + 1 warmup) times, match
@@ -34,7 +50,7 @@ line):
    untraced and in the order kernel, vmap, vmap, kernel; then a traced
    kernel run for the split of service time by span, and one under
    torch.profiler for the device's busy share;
-7. a ``{"kernels": [...]}`` line, then the last line
+8. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA GPU or without the
@@ -174,6 +190,96 @@ def check_fold(torch, pa, pack_bits, dev, n, alpha, gen):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def check_fold_rows(torch, pa, dev, k, n, alpha, gen):
+    """The stacked fold of K payloads packed as the scale path packs them
+    (``pack_stacked`` of masked rows at density 0.5), kernel vs plain, into
+    non-zero accumulators."""
+    from repro_torch.scale.stacked import pack_stacked
+    m = (torch.rand((k, n), generator=gen, device=dev) < 0.5).float()
+    w = torch.randn((k, n), generator=gen, device=dev) * m
+    sp = pack_stacked({"w": w}, {"w": m})["w"]
+    num0 = torch.randn((k, n), generator=gen, device=dev)
+    den0 = torch.rand((k, n), generator=gen, device=dev)
+    args = (sp.bitmap, sp.values, sp.nnz, alpha)
+    got = pa.packed_accum_rows(num0.clone(), den0.clone(), *args)
+    torch.cuda.synchronize()
+    want = pa.packed_accum_rows_plain(num0.clone(), den0.clone(), *args)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"packed_accum_rows K={k} N={n} alpha={alpha}: "
+                             f"kernel != plain (max abs err {err})")
+    num, den = num0.clone(), den0.clone()
+    nnz = int(sp.nnz.sum())
+    ms_k = cuda_ms(lambda: pa.packed_accum_rows(num, den, *args))
+    dev_k = device_ms(lambda: pa.packed_accum_rows(num, den, *args))
+    ms_p = cuda_ms(lambda: pa.packed_accum_rows_plain(num, den, *args))
+    # num, den read and written once; the bitmaps and the held values read
+    # once (padding excluded); nnz and the per-block offsets are negligible
+    b_ms, b_by = bound(16 * k * n + 4 * sp.bitmap.numel() + 4 * nnz,
+                       3 * k * n)
+    return {"K": k, "N": n, "nnz": nnz, "alpha": alpha, "max_abs_err": err,
+            "ms": ms_k, "device_ms": dev_k, "plain_ms": ms_p,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_prune_regrow(torch, pr, dev, k, n, gen):
+    """The prune/regrow apply on K rows at a round's counts (held density
+    0.5, prune rate 0.25), thresholds by ``sort_thresholds``: kernel vs
+    plain bit for bit, and the time of the two sorts beside it."""
+    m = (torch.rand((k, n), generator=gen, device=dev) < 0.5).float()
+    w = torch.randn((k, n), generator=gen, device=dev) * m
+    g = torch.randn((k, n), generator=gen, device=dev)
+    n_active = n // 2
+    n_prune = math.ceil(0.25 * n_active)
+    th = pr.sort_thresholds(w, g, m, n_active - n_prune, n_prune)
+    got = pr.prune_regrow_rows(w, g, m, th)
+    torch.cuda.synchronize()
+    want = pr.prune_regrow_rows_plain(w, g, m, th)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not (torch.equal(got[0], want[0]) and torch.equal(
+            got[1].view(torch.int32), want[1].view(torch.int32))):
+        raise AssertionError(f"prune_regrow K={k} N={n}: kernel != plain "
+                             f"(max abs err {err})")
+    ms_k = cuda_ms(lambda: pr.prune_regrow_rows(w, g, m, th))
+    dev_k = device_ms(lambda: pr.prune_regrow_rows(w, g, m, th))
+    ms_p = cuda_ms(lambda: pr.prune_regrow_rows_plain(w, g, m, th))
+    ms_sort = cuda_ms(lambda: pr.sort_thresholds(w, g, m, n_active - n_prune,
+                                                 n_prune), iters=5)
+    # w, g, m read once, new_m and new_w written once (the (K, 2)
+    # thresholds are negligible); about eight comparisons a coordinate
+    b_ms, b_by = bound(20 * k * n, 8 * k * n)
+    return {"K": k, "N": n, "max_abs_err": err, "ms": ms_k,
+            "device_ms": dev_k, "plain_ms": ms_p, "sort_ms": ms_sort,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_mm_single(torch, mmk, dev, gen):
+    """The U=1 masked matmul (the reference's ``masked_matmul``) at the
+    sweep's (128, 256, 128) shape, density 0.2: kernel within 1e-5 of its
+    plain version, its times, ``torch.mm`` on the pre-masked weights, and
+    the bound over every weight tile it reads."""
+    x, w, mask = (t[0] for t in mm_inputs(torch, dev, 1, 128, 256, 128, 0.2,
+                                          gen))
+    got = mmk.masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    want = mmk.masked_matmul_plain(x, w, mask)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **MM_TOL):
+        raise AssertionError(f"masked_matmul U=1: kernel != plain ({err})")
+    wm = w * mask
+    occ = mmk.block_occupancy(mask[None], mmk.TILE_K, mmk.TILE_N)
+    m_, k_ = x.shape
+    n_ = w.shape[1]
+    b_ms, b_by = bound(4 * (m_ * k_ + (1 + occ) * k_ * n_ + m_ * n_),
+                       2 * m_ * k_ * n_ * occ)
+    return {"M": m_, "K": k_, "N": n_, "occupancy": occ, "max_abs_err": err,
+            "ms": cuda_ms(lambda: mmk.masked_matmul(x, w, mask)),
+            "device_ms": device_ms(lambda: mmk.masked_matmul(x, w, mask)),
+            "plain_ms": cuda_ms(lambda: mmk.masked_matmul_plain(x, w, mask)),
+            "library_ms": cuda_ms(lambda: torch.mm(x, wm)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def mm_inputs(torch, dev, u, m, k, n, density, gen):
     """x ~ N(0, 1) and w ~ N(0, 1/K), scaled as the served MLP's weights,
     and a Bernoulli(density) mask."""
@@ -247,9 +353,12 @@ class BudgetCheck:
         self.rounds_checked = 0
 
     def on_round_end(self, engine, metrics):
-        from repro_torch.utils.tree import tree_leaves_with_path
+        from repro_torch.utils.tree import tree_index, tree_leaves_with_path
         strat = engine.strategy
-        for k, mask in enumerate(engine.state["masks"]):
+        masks = engine.state["masks"]
+        if isinstance(masks, dict):                 # ScaleEngine: stacked
+            masks = [tree_index(masks, k) for k in range(len(engine.clients))]
+        for k, mask in enumerate(masks):
             budgets = strat.budgets_at(metrics.round, k)
             nnz = {p: int((x != 0).sum()) for p, x in
                    tree_leaves_with_path(mask) if p in budgets}
@@ -281,9 +390,10 @@ def main() -> int:
     from repro_torch.kernels import gossip_avg as ga
     from repro_torch.kernels import masked_matmul as mmk
     from repro_torch.kernels import packed_accum as pa
+    from repro_torch.kernels import prune_regrow as pr
     from repro_torch.launch import train
     from repro_torch.sparse.packed import pack_bits
-    counters = (ga, pa, mmk)
+    counters = (ga, pa, mmk, pr)
 
     # 1. the card
     smi = subprocess.run(
@@ -326,7 +436,21 @@ def main() -> int:
     for r in fold_rows:
         log(f"packed_accum N={r['N']} nnz={r['nnz']} alpha={r['alpha']}: "
             + _times(r))
+    rows_rows = [check_fold_rows(torch, pa, dev, 4, n, alpha, gen)
+                 for n in (n_leaf, n_tree) for alpha in (1.0, 0.75)]
+    pr_rows = [check_prune_regrow(torch, pr, dev, 4, n, gen)
+               for n in (n_leaf, n_tree)]
+    for r in rows_rows:
+        log(f"packed_accum_rows K={r['K']} N={r['N']} nnz={r['nnz']} "
+            f"alpha={r['alpha']}: " + _times(r))
+    for r in pr_rows:
+        log(f"prune_regrow K={r['K']} N={r['N']}: " + _times(r)
+            + f", torch.sort of the two thresholds {r['sort_ms']} ms")
     mm_rows = mm_checks(torch, mmk, dev, gen)
+    mm1 = check_mm_single(torch, mmk, dev, gen)
+    log(f"masked_matmul U=1 M={mm1['M']} K={mm1['K']} N={mm1['N']} density "
+        f"0.2 occupancy {mm1['occupancy']:.4f}: " + _times(mm1)
+        + f", torch.mm {mm1['library_ms']} ms")
 
     # 4. the training path through the CLI's entry functions
     args = train.build_parser().parse_args([
@@ -373,11 +497,21 @@ def main() -> int:
 
     profile_round(torch, train, args)
 
-    # 5. a small round on the card against the same round on the CPU
-    cross = cross_check(torch, train)
-    log(f"cuda vs cpu smallcnn round: {cross}")
+    # 5. the stacked path through the CLI's entry functions, then both
+    # stacked kernels on the engine's own state
+    scale_runs = scale_path(torch, train, counters, out)
+    scale_launches = scale_state_kernels(torch, scale_runs["ordered"][0])
+    profile_round(torch, train, train.build_parser().parse_args(
+        SCALE_ARGS + ["--scale-reduction", "ordered"]))
 
-    # 6. the serving path through the CLI's entry functions
+    # 6. a small round on the card against the same round on the CPU, on
+    # the loop engine and on the stacked engine's ordered mix
+    for engine_args in (["--exec", "loop"],
+                        ["--scale", "--scale-reduction", "ordered"]):
+        cross = cross_check(torch, train, engine_args)
+        log(f"cuda vs cpu smallcnn round {' '.join(engine_args)}: {cross}")
+
+    # 7. the serving path through the CLI's entry functions
     serve_launches = serve_path(torch, counters)
     profile_serve(torch)
     mm = mm_rows["serve"][1]          # the (128, 128) layer at serve shapes
@@ -387,6 +521,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/gossip_avg.cu",
          "replaces": "src/repro/kernels/gossip_avg.py:37",
          "launches": launches["gossip_avg"],
+         "launches_scale_ordered": scale_runs["ordered"][2]["gossip_avg"],
          "shape": f"J=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in gossip_rows),
          "ms": gossip_rows[0]["ms"], "device_ms": gossip_rows[0]["device_ms"],
@@ -403,6 +538,26 @@ def main() -> int:
          "plain_ms": fold_rows[0]["plain_ms"],
          "bound_ms": fold_rows[0]["bound_ms"],
          "bound_by": fold_rows[0]["bound_by"], "library_ms": None},
+        {"name": "packed_accum_rows", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/packed_accum.cu",
+         "replaces": "src/repro/kernels/packed_accum.py:105",
+         "launches": scale_launches["packed_accum_rows"],
+         "shape": f"K=4 N={n_leaf} density 0.5 alpha 1",
+         "max_abs_err": max(r["max_abs_err"] for r in rows_rows),
+         "ms": rows_rows[0]["ms"], "device_ms": rows_rows[0]["device_ms"],
+         "plain_ms": rows_rows[0]["plain_ms"],
+         "bound_ms": rows_rows[0]["bound_ms"],
+         "bound_by": rows_rows[0]["bound_by"], "library_ms": None},
+        {"name": "prune_regrow", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/prune_regrow.cu",
+         "replaces": "src/repro/kernels/prune_regrow.py:44",
+         "launches": scale_launches["prune_regrow"],
+         "shape": f"K=4 N={n_leaf} float32",
+         "max_abs_err": max(r["max_abs_err"] for r in pr_rows),
+         "ms": pr_rows[0]["ms"], "device_ms": pr_rows[0]["device_ms"],
+         "plain_ms": pr_rows[0]["plain_ms"], "sort_ms": pr_rows[0]["sort_ms"],
+         "bound_ms": pr_rows[0]["bound_ms"],
+         "bound_by": pr_rows[0]["bound_by"], "library_ms": None},
         {"name": "masked_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul.py:131",
@@ -420,6 +575,126 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+SCALE_ARGS = ["simulate", "--scale", "--model", "resnet18", "--hw", "32",
+              "--clients", "4", "--rounds", "2", "--local-epochs", "1",
+              "--samples-per-class", "20"]
+
+
+def scale_path(torch, train, counters, loop_out):
+    """Phase 5: ``simulate --scale`` through the CLI's entry functions, once
+    per reduction, launch counters zeroed just before each run and read
+    just after; then both stacked kernels on the ordered run's own state.
+    Returns the runs' summaries and launches and the kernels' rows."""
+    from repro_torch.kernels import gossip_avg as ga
+    from repro_torch.kernels import packed_accum as pa
+    from repro_torch.kernels import prune_regrow as pr
+    runs = {}
+    for reduction in ("ordered", "einsum"):
+        args = train.build_parser().parse_args(
+            SCALE_ARGS + ["--scale-reduction", reduction])
+        engine = train.build_engine(args)
+        budget_check = BudgetCheck()
+        engine.callbacks.append(budget_check)
+        for c in counters:
+            c.LAUNCHES = 0
+        pa.LAUNCHES_ROWS = 0
+        out = train.run_engine(args, engine)
+        launches = {"gossip_avg": ga.LAUNCHES, "packed_accum": pa.LAUNCHES,
+                    "packed_accum_rows": pa.LAUNCHES_ROWS,
+                    "prune_regrow": pr.LAUNCHES}
+        log(f"scale --scale-reduction {reduction} launches: {launches}")
+        want_gossip = (ga.LAUNCHES >= 1) if reduction == "ordered" else (
+            ga.LAUNCHES == 0)
+        if not want_gossip:
+            raise AssertionError(f"{reduction}: gossip kernel launches "
+                                 f"{ga.LAUNCHES}")
+        if budget_check.rounds_checked != args.rounds:
+            raise AssertionError("the ERK budget check did not run every round")
+        accs = out["acc_history"] + [out["final_acc"]]
+        if not all(a == a and 0.0 <= a <= 1.0 for a in accs):
+            raise AssertionError(f"{reduction}: accuracy not finite: {accs}")
+        if out["comm"] != loop_out["comm"] or out["device"] != "cuda":
+            raise AssertionError(f"{reduction}: comm rows {out['comm']} != "
+                                 f"the loop engine's {loop_out['comm']}")
+        for t, (wall, ph) in enumerate(zip(out["round_wall_s"],
+                                           out["phase_s"])):
+            log(f"scale {reduction} round {t}: wall {wall:.4f} s; " + ", ".join(
+                f"{k} {v:.4f} s" for k, v in ph.items()))
+        log(f"scale {reduction}: step_calls {engine.scale_obs.snapshot()}, "
+            f"accs {accs}")
+        runs[reduction] = (engine, out, launches)
+    return runs
+
+
+def scale_state_kernels(torch, engine):
+    """Phase 5 (c): the stacked fold and the threshold prune/regrow on the
+    engine's own state after its rounds, counters zeroed just before and
+    read just after each; returns their launches."""
+    from repro_torch.kernels import packed_accum as pa
+    from repro_torch.kernels import prune_regrow as pr
+    from repro_torch.scale.stacked import (
+        default_threshold_sparsifiable,
+        fold_stacked,
+        pack_stacked,
+        stacked_grads,
+        stacked_prune_regrow_threshold,
+    )
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    params, masks = engine.state["params"], engine.state["masks"]
+    leaves = tree_leaves(params)
+    packed = pack_stacked(params, masks)
+    zeros = lambda: tree_map(torch.zeros_like, params)  # noqa: E731
+    pa.LAUNCHES_ROWS = 0
+    num, den = fold_stacked(zeros(), zeros(), packed)
+    torch.cuda.synchronize()
+    fold_launches = pa.LAUNCHES_ROWS
+    for a, b, w, m in zip(tree_leaves(num), tree_leaves(den), leaves,
+                          tree_leaves(masks)):
+        if not (torch.equal(a, w * m) and torch.equal(b, m)):
+            raise AssertionError("fold_stacked(0, 0, pack_stacked(w, m)) != "
+                                 "(w*m, m)")
+    if fold_launches != len(leaves):
+        raise AssertionError(f"fold_stacked launched {fold_launches} times "
+                             f"for {len(leaves)} leaves")
+    # the last round's evolve batch: its draws follow the batch schedule's
+    ctx = engine._make_ctx(engine.cfg.rounds - 1)
+    engine._batch_schedule(ctx)
+    grads = stacked_grads(engine.task.apply_fn, params,
+                          *engine._evolve_batches(ctx))
+    density = engine.cfg.density
+    pr.LAUNCHES = 0
+    new_m, new_w = stacked_prune_regrow_threshold(
+        params, masks, grads, ctx.prune_rate, density)
+    torch.cuda.synchronize()
+    pr_launches = pr.LAUNCHES
+    n_sparse = sum(default_threshold_sparsifiable(w) for w in leaves)
+    if pr_launches != n_sparse:
+        raise AssertionError(f"prune_regrow launched {pr_launches} times for "
+                             f"{n_sparse} sparsifiable leaves")
+    cpu = lambda t: tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    want_m, want_w = stacked_prune_regrow_threshold(
+        cpu(params), cpu(masks), cpu(grads), ctx.prune_rate, density)
+    for a, b in zip(tree_leaves(new_m) + tree_leaves(new_w),
+                    tree_leaves(want_m) + tree_leaves(want_w)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("stacked_prune_regrow_threshold on the card "
+                                 "!= the same call on the CPU")
+    drift = []
+    for w, m in zip(leaves, tree_leaves(new_m)):
+        if default_threshold_sparsifiable(w):
+            n_active = max(1, int(round(density * w[0].numel())))
+            drift += [int(x) - n_active for x in
+                      (m != 0).reshape(m.shape[0], -1).sum(dim=1).tolist()]
+    log(f"scale state kernels: fold_stacked {fold_launches} launches "
+        f"(= leaves), exact; stacked_prune_regrow_threshold {pr_launches} "
+        f"launches (= sparsifiable leaves), equal to the CPU call; nnz drift "
+        f"against the static budget per (leaf, client): sum {sum(drift)}, "
+        f"max |drift| {max((abs(d) for d in drift), default=0)} over "
+        f"{len(drift)}, prune "
+        f"rate {ctx.prune_rate}")
+    return {"packed_accum_rows": fold_launches, "prune_regrow": pr_launches}
 
 
 def _serve_arg(flag):
@@ -593,21 +868,26 @@ def profile_round(torch, train, args):
     if rows is None:
         return
     busy_s = sum(r[0] for r in rows) / 1e6
-    log(f"profiled round: wall {wall:.4f} s, device busy {busy_s:.4f} s "
+    what = (f"scale {args.scale_reduction} round" if args.scale
+            else "loop round")
+    log(f"profiled {what}: wall {wall:.4f} s, device busy {busy_s:.4f} s "
         f"({100 * busy_s / wall:.1f}%), phases {engine.phase_s[0]}")
     for us, count, key in sorted(rows, reverse=True)[:10]:
         log(f"  {us / 1e3:.3f} ms in {count} launches: {key[:90]}")
 
 
-def cross_check(torch, train):
+def cross_check(torch, train, engine_args):
     """One smallcnn round from one state on cuda (kernels) and on cpu
-    (plain versions): the mix is exact on both; convolutions differ by fp32
-    rounding, so masks must agree on all but a 1e-3 share of coordinates and
-    parameters to 1e-3 where they agree."""
+    (plain versions), on the engine ``engine_args`` selects (the data
+    gives every client one batch size, as ScaleEngine needs): the mix is
+    exact on both; convolutions differ by fp32 rounding, so masks must agree
+    on all but a 1e-3 share of coordinates and parameters to 1e-3 where they
+    agree."""
     from repro_torch.utils.tree import tree_leaves, tree_map
     argv = ["simulate", "--rounds", "1", "--clients", "4", "--hw", "8",
             "--width", "4", "--samples-per-class", "12", "--degree", "2",
-            "--exec", "loop"]
+            "--partition", "pathological", "--batch-size", "8",
+            *engine_args]
     gpu = train.build_engine(train.build_parser().parse_args(argv))
     cpu = train.build_engine(train.build_parser().parse_args(
         argv + ["--device", "cpu"]))

@@ -288,6 +288,8 @@ class RoundEngine:
 
     # -- checkpointing -----------------------------------------------------
     def _checkpoint_payload(self) -> dict:
+        """The full serializable engine state (subclasses extend or reshape
+        it: ``ScaleEngine`` writes its stacked state as per-client lists)."""
         return {
             "engine": {
                 "next_round": np.asarray(self._next_round, np.int64),
@@ -307,7 +309,10 @@ class RoundEngine:
 
     def restore(self, path: str) -> "RoundEngine":
         """Load an archive written by this engine or the reference's."""
-        payload = load_pytree(path)
+        self._restore_payload(load_pytree(path))
+        return self
+
+    def _restore_payload(self, payload: dict) -> None:
         eng = payload["engine"]
         self._next_round = int(eng["next_round"])
         self._acc_history = [float(a) for a in eng["acc_history"]]
@@ -319,7 +324,6 @@ class RoundEngine:
         self.state = tree_map(
             lambda a: torch.as_tensor(a).to(self.device),
             _unpack(payload["state"]))
-        return self
 
     # -- the round loop ----------------------------------------------------
     def _make_ctx(self, t: int) -> RoundCtx:
@@ -337,13 +341,10 @@ class RoundEngine:
         phases[name] = t1 - t0
         return t1
 
-    def _run_one_round(self, t: int) -> RoundMetrics:
-        cfg = self.cfg
+    def _round_phases(self, ctx: RoundCtx, phases: dict, tp: float) -> float:
+        """mix -> local -> evolve through the strategy's hooks, each phase
+        timed into ``phases``; returns the clock after the last."""
         strat = self.strategy
-        phases: dict[str, float] = {}
-        synchronize(self.device)
-        t0 = tp = time.perf_counter()
-        ctx = self._make_ctx(t)
         strat.mix(self.state, ctx)
         tp = self._timed(phases, "mix", tp)
         active = list(strat.active_clients(self.state, ctx))
@@ -353,10 +354,27 @@ class RoundEngine:
         for k in active:
             strat.evolve(self.state, k, ctx)
         strat.post_round(self.state, ctx)
-        tp = self._timed(phases, "evolve", tp)
+        return self._timed(phases, "evolve", tp)
 
-        comm = strat.round_comm(self.state, ctx)
-        flops = strat.round_flops(self.state, ctx)
+    def _round_accounting(self, ctx: RoundCtx):
+        """(CommReport, FlopsReport) of the round just run."""
+        return (self.strategy.round_comm(self.state, ctx),
+                self.strategy.round_flops(self.state, ctx))
+
+    def _eval_accs(self, ctx: RoundCtx) -> list[float]:
+        return evaluate_clients(
+            self.task, self.strategy.eval_params(self.state, ctx),
+            self.clients)
+
+    def _run_one_round(self, t: int) -> RoundMetrics:
+        cfg = self.cfg
+        phases: dict[str, float] = {}
+        synchronize(self.device)
+        t0 = tp = time.perf_counter()
+        ctx = self._make_ctx(t)
+        tp = self._round_phases(ctx, phases, tp)
+
+        comm, flops = self._round_accounting(ctx)
         for key in self._comm:
             self._comm[key].append(float(getattr(comm, key)))
         for key in self._flops:
@@ -364,8 +382,7 @@ class RoundEngine:
 
         acc_mean = acc_std = None
         if (t + 1) % cfg.eval_every == 0 or t == cfg.rounds - 1:
-            accs = evaluate_clients(self.task, strat.eval_params(self.state, ctx),
-                                    self.clients)
+            accs = self._eval_accs(ctx)
             acc_mean = float(np.mean(accs))
             acc_std = float(np.std(accs))
             self._acc_history.append(acc_mean)
@@ -394,12 +411,16 @@ class RoundEngine:
             cb.on_run_end(self)
 
     # -- results -----------------------------------------------------------
+    def _final_accs(self) -> list[float]:
+        """Per-client personalized accuracy of the final models."""
+        return evaluate_clients(
+            self.task, self.strategy.finalize_eval_params(self.state),
+            self.clients)
+
     def result(self, targets: Sequence[float] = (0.5,)) -> FLResult:
         """Paper-table ``FLResult``; comm/FLOP columns are means over the
         executed rounds."""
-        final = evaluate_clients(
-            self.task, self.strategy.finalize_eval_params(self.state),
-            self.clients)
+        final = self._final_accs()
         comm = CommReport(**{k: float(np.mean(v)) if v else 0.0
                              for k, v in self._comm.items()})
         flops = FlopsReport(**{k: float(np.mean(v)) if v else 0.0

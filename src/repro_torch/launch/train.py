@@ -1,12 +1,16 @@
-"""Training launcher: the paper's experiment on the port's loop engine
-(reference ``repro.launch.train simulate``).
+"""Training launcher: the paper's experiment on the port's loop engine or,
+with ``--scale``, its stacked engine (reference ``repro.launch.train
+simulate``).
 
     PYTHONPATH=src python -m repro_torch.launch.train simulate \
         --strategy dispfl --clients 16 --rounds 30 --partition dirichlet
+    PYTHONPATH=src python -m repro_torch.launch.train simulate --scale \
+        --scale-reduction ordered --strategy dispfl
 
 Runs on CUDA unless ``--device cpu`` is given.  Prints one line per
 evaluated round, then a JSON object with the run's results, per-round wall
-times and per-phase times (mix, local, evolve, eval).
+times and per-phase times (mix, local, evolve, eval; ``--scale`` adds the
+host inputs phase).
 """
 from __future__ import annotations
 
@@ -55,8 +59,16 @@ def build_engine(args):
                                       every=args.checkpoint_every))
     if args.target > 0:
         callbacks.append(EarlyStopAtTarget(args.target))
-    engine = RoundEngine(make_strategy(args.strategy), task, clients, cfg,
-                         callbacks=callbacks, local_exec=args.local_exec)
+    if args.scale:
+        from repro_torch.scale import ScaleEngine
+
+        engine = ScaleEngine(make_strategy(args.strategy), task, clients, cfg,
+                             callbacks=callbacks,
+                             reduction=args.scale_reduction)
+    else:
+        engine = RoundEngine(make_strategy(args.strategy), task, clients,
+                             cfg, callbacks=callbacks,
+                             local_exec=args.local_exec)
     if args.resume:
         engine.restore(args.resume)
         print(f"resumed from {args.resume} at round {engine._next_round}")
@@ -145,11 +157,27 @@ def build_parser() -> argparse.ArgumentParser:
                      help="early-stop once mean personalized acc >= target")
     sim.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                      help="cuda (default; raises without a GPU) or cpu")
+    sim.add_argument("--scale", action="store_true",
+                     help="run through ScaleEngine: every phase of the round "
+                          "once over client-stacked state (dispfl / "
+                          "dispfl_anneal)")
+    sim.add_argument("--scale-reduction", default="einsum",
+                     dest="scale_reduction", choices=["einsum", "ordered"],
+                     help="gossip fold: einsum = matmul (default), ordered = "
+                          "the loop's accumulation order (gossip kernel)")
     return ap
 
 
+def check_args(ap: argparse.ArgumentParser, args) -> None:
+    """The reference's refusals of flag combinations (``ap.error`` exits)."""
+    if not args.scale and args.scale_reduction != "einsum":
+        ap.error("--scale-reduction require(s) --scale")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    check_args(ap, args)
     return run_simulate(args)
 
 

@@ -11,6 +11,7 @@ from repro_torch.obs.counters import (
     CounterSet,
     Gauge,
     snapshot_counters,
+    torch_compile_count,
 )
 from repro_torch.obs.series import (
     LogHistogram,
@@ -46,4 +47,5 @@ __all__ = [
     "snapshot_counters",
     "snapshot_series",
     "span",
+    "torch_compile_count",
 ]

@@ -13,10 +13,13 @@ Two metric types:
   a callback at read time.
 
 The reference's ``jax.monitoring`` compile-event bridge
-(``install_jax_hooks``, ``jax_compile_count``) has no counterpart here yet.
+(``install_jax_hooks``, ``jax_compile_count``) becomes
+``torch_compile_count``: the graphs ``torch.compile`` has compiled in this
+process, which ``ScaleEngine`` snapshots around its round step.
 """
 from __future__ import annotations
 
+import sys
 import threading
 import weakref
 from typing import Callable, Optional
@@ -129,3 +132,13 @@ def snapshot_counters(prefix: Optional[str] = None) -> dict:
             key = f"{cs.namespace}/{name}"
             out[key] = out.get(key, 0) + value
     return out
+
+
+def torch_compile_count() -> int:
+    """Graphs compiled by ``torch.compile`` (TorchDynamo) in this process;
+    0 while nothing has imported ``torch._dynamo``, since then nothing has
+    been compiled.  Snapshot before/after a call to detect compiles."""
+    if "torch._dynamo" not in sys.modules:
+        return 0
+    from torch._dynamo.utils import counters
+    return int(counters["stats"]["unique_graphs"])

@@ -53,21 +53,33 @@ def _shifts(device) -> torch.Tensor:
     return torch.arange(BITS_PER_WORD, dtype=torch.int64, device=device)
 
 
+def pack_bits_rows(flags: torch.Tensor) -> torch.Tensor:
+    """Bool (K, n) -> int32 words (K, n_words(n)), each row packed
+    little-endian on its own (rows padded with zeros to whole words)."""
+    k, n = flags.shape
+    pad = (-n) % BITS_PER_WORD
+    if pad:
+        flags = torch.cat([flags, flags.new_zeros((k, pad))], dim=1)
+    bits = flags.reshape(k, -1, BITS_PER_WORD).to(torch.int64)
+    words = (bits << _shifts(flags.device)).sum(dim=2)      # in [0, 2**32)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def unpack_bits_rows(words: torch.Tensor, n_coords: int) -> torch.Tensor:
+    """Int32 words (K, n_words) -> bool (K, n_coords), inverse of
+    ``pack_bits_rows``."""
+    bits = (words.to(torch.int64)[:, :, None] >> _shifts(words.device)) & 1
+    return bits.reshape(words.shape[0], -1)[:, :n_coords].bool()
+
+
 def pack_bits(flags: torch.Tensor) -> torch.Tensor:
     """Bool (n,) -> int32 words (n_words,), little-endian bit order."""
-    flags = flags.reshape(-1)
-    pad = (-flags.numel()) % BITS_PER_WORD
-    if pad:
-        flags = torch.cat([flags, flags.new_zeros(pad)])
-    bits = flags.reshape(-1, BITS_PER_WORD).to(torch.int64)
-    words = (bits << _shifts(flags.device)).sum(dim=1)      # in [0, 2**32)
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    return pack_bits_rows(flags.reshape(1, -1))[0]
 
 
 def unpack_bits(words: torch.Tensor, n_coords: int) -> torch.Tensor:
     """Int32 words -> bool (n_coords,), inverse of ``pack_bits``."""
-    bits = (words.to(torch.int64)[:, None] >> _shifts(words.device)) & 1
-    return bits.reshape(-1)[:n_coords].bool()
+    return unpack_bits_rows(words.reshape(1, -1), n_coords)[0]
 
 
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:

@@ -95,3 +95,14 @@ def tree_ones_like(tree: PyTree) -> PyTree:
 def tree_index(tree: PyTree, i) -> PyTree:
     """Index every leaf's leading dimension (a stacked tree's slot ``i``)."""
     return tree_map(lambda x: x[i], tree)
+
+
+def tree_stack(trees: list[PyTree]) -> PyTree:
+    """Same-structure trees -> one tree whose leaves gain a leading K dim."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(tree: PyTree, k: int) -> list[PyTree]:
+    """Inverse of ``tree_stack``: K trees of slot views (contiguous, sharing
+    the stacked tensors' storage)."""
+    return [tree_index(tree, i) for i in range(k)]

@@ -5,12 +5,16 @@ port only, so it runs on a machine without jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The gossip and fold kernels must equal their plain versions bit for bit
-(fp32 and bf16 gossip, fp32 and fp16 payload values, any alpha).  The
+The gossip, fold (flat and stacked rows) and prune/regrow kernels must
+equal their plain versions bit for bit (fp32 and bf16 gossip, fp32 and fp16
+flat payload values, fp32 stacked payload values, any alpha, per-row thresholds, ties, zero gradients).  The
 masked matmul sums in another order than cuBLAS, so it agrees with its
 plain version to atol 1e-5 and rtol 1e-5 on inputs scaled as the served
 MLP's (x ~ N(0, 1), w ~ N(0, 1/K)); a user's rows in a mixed batch are
-bit-equal to the same user served alone.
+bit-equal to the same user served alone.  An ``ordered`` stacked round on
+the card agrees with the same round on the CPU up to the convolutions' fp32
+rounding: masks on all but a 1e-3 share of coordinates, parameters within
+1e-3 where the masks agree.
 """
 import numpy as np
 import pytest
@@ -18,12 +22,14 @@ import torch
 
 from repro_torch.kernels.gossip_avg import gossip_avg, gossip_avg_plain
 from repro_torch.kernels import masked_matmul as mmk
+from repro_torch.kernels import packed_accum as pa
+from repro_torch.kernels import prune_regrow as pr
 from repro_torch.kernels.packed_accum import (
     BLOCK_N,
     packed_accum,
     packed_accum_plain,
 )
-from repro_torch.sparse.packed import pack_bits
+from repro_torch.sparse.packed import pack_bits, pack_bits_rows
 
 pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
 
@@ -170,3 +176,129 @@ def test_batched_kernel_refuses_bad_dtype_and_shapes(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         mmk.batched_masked_matmul(x, w, mask.cpu())
     assert mmk.LAUNCHES == launches
+
+
+def _rows_inputs(k, n, seed, device):
+    """K payloads of ragged density (row 1 empty) with left-aligned,
+    zero-padded values, and non-zero accumulators."""
+    rng = np.random.default_rng(seed)
+    dens = np.linspace(0.9, 0.1, k)
+    dens[1 % k] = 0.0
+    flags = rng.random((k, n)) < dens[:, None]
+    nnz = flags.sum(axis=1)
+    values = np.zeros((k, max(int(nnz.max()), 1)), np.float32)
+    for r in range(k):
+        values[r, : nnz[r]] = rng.normal(size=nnz[r])
+    num0 = rng.normal(size=(k, n)).astype(np.float32)
+    den0 = rng.random((k, n)).astype(np.float32)
+    words = pack_bits_rows(torch.from_numpy(flags).to(device))
+    return (torch.from_numpy(num0).to(device), torch.from_numpy(den0).to(device),
+            words, torch.from_numpy(values).to(device),
+            torch.from_numpy(nnz.astype(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("k,n", [(4, 1000), (3, 3 * BLOCK_N + 5),
+                                 (4, 2_359_296)])
+@pytest.mark.parametrize("alpha", [1.0, 0.75])
+def test_fold_rows_kernel_equals_plain_on_card(cuda_device, k, n, alpha):
+    num, den, words, values, nnz = _rows_inputs(k, n, n + k, cuda_device)
+    launches = pa.LAUNCHES_ROWS
+    got = pa.packed_accum_rows(num.clone(), den.clone(), words, values, nnz,
+                               alpha)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES_ROWS == launches + 1
+    want = pa.packed_accum_rows_plain(num.clone(), den.clone(), words, values,
+                                      nnz, alpha)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("extra", [-1, 1])
+def test_fold_rows_kernel_refuses_wrong_nnz(cuda_device, extra):
+    num, den, words, values, nnz = _rows_inputs(4, 3 * BLOCK_N, 7,
+                                                cuda_device)
+    bad = nnz.clone()
+    bad[2] += extra
+    launches = pa.LAUNCHES_ROWS
+    with pytest.raises(ValueError, match="set bits"):
+        pa.packed_accum_rows(num, den, words, values, bad)
+    assert pa.LAUNCHES_ROWS == launches
+
+
+def _pr_inputs(k, n, seed, device, ties=False):
+    rng = np.random.default_rng(seed)
+    m = (rng.random((k, n)) < 0.5).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * m).astype(np.float32)
+    g = rng.normal(size=(k, n)).astype(np.float32)
+    if ties:                      # every |w| and |g| equal, signs mixed
+        w = np.sign(w) * m * 0.5
+        g = np.where(rng.random((k, n)) < 0.5, -0.25, 0.25)
+    g[k - 1] = 0.0                # one row of zero gradients
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                 .to(device) for a in (w, g, m))
+
+
+@pytest.mark.parametrize("k,n", [(1, 1000), (4, 4097), (4, 2_359_296)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_prune_regrow_kernel_equals_plain_on_card(cuda_device, k, n, ties):
+    w, g, m = _pr_inputs(k, n, n + k, cuda_device, ties)
+    th = torch.stack([torch.linspace(0.0, 1.5, k), torch.linspace(1.0, 0.0, k)],
+                     dim=1).to(cuda_device).contiguous()
+    th_sorted = pr.sort_thresholds(w, g, m, n // 4, n // 8)
+    for t in (th, th_sorted):
+        launches = pr.LAUNCHES
+        got = pr.prune_regrow_rows(w, g, m, t)
+        torch.cuda.synchronize()
+        assert pr.LAUNCHES == launches + 1
+        want = pr.prune_regrow_rows_plain(w, g, m, t)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+        assert float(got[0][k - 1][m[k - 1] == 0].sum()) == 0.0
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_prune_regrow_layer_on_card_equals_cpu(cuda_device, rate):
+    """The one-layer entry point: sort-picked thresholds on the card, then
+    the kernel, equal to the same call on the CPU (plain version)."""
+    w, g, m = _pr_inputs(1, 9 * 64 * 64, 11, "cpu")
+    want = pr.prune_regrow(w.reshape(9, 64, 64), g.reshape(9, 64, 64),
+                           m.reshape(9, 64, 64), rate)
+    got = pr.prune_regrow(*(t.reshape(9, 64, 64).to(cuda_device)
+                            for t in (w, g, m)), rate)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_ordered_scale_round_on_card_matches_cpu(cuda_device):
+    from repro_torch.data.loader import build_federated_image_task
+    from repro_torch.fl.base import FLConfig, make_cnn_task
+    from repro_torch.fl.engine import make_strategy
+    from repro_torch.kernels import gossip_avg as ga
+    from repro_torch.scale import ScaleEngine
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    clients, _ = build_federated_image_task(
+        0, n_clients=4, partition="pathological", n_train_per_class=12,
+        n_test_per_client=8, hw=8)
+    cfg = FLConfig(n_clients=4, rounds=1, local_epochs=1, batch_size=8,
+                   degree=2)
+    engines = [ScaleEngine(make_strategy("dispfl"),
+                           make_cnn_task("smallcnn", 10, 8, width=4,
+                                         device=dev), clients, cfg,
+                           reduction="ordered")
+               for dev in (cuda_device, "cpu")]
+    gpu, cpu = engines
+    cpu.state = tree_map(lambda x: x.detach().cpu().clone(), gpu.state)
+    launches = ga.LAUNCHES
+    gpu.run(), cpu.run()
+    assert ga.LAUNCHES > launches
+    n = mismatched = 0
+    for a, b in zip(tree_leaves(gpu.state["masks"]),
+                    tree_leaves(cpu.state["masks"])):
+        n += a.numel()
+        mismatched += int((a.cpu() != b).sum())
+    assert mismatched / n <= 1e-3
+    for a, b in zip(tree_leaves(gpu.state["params"]),
+                    tree_leaves(cpu.state["params"])):
+        same = (a.cpu() != 0) == (b != 0)
+        torch.testing.assert_close(a.cpu()[same], b[same], rtol=0, atol=1e-3)
