@@ -16,11 +16,16 @@ line):
    matmul over the reference's kernel-test sweep (its U=1 form timed at
    (128, 256, 128), density 0.2, against ``torch.mm``), at the serving
    shapes (U = cache size, M = rows, the MLP's three layers) and on a mask
-   with whole empty 128x128 tiles, each within 1e-5 of its plain version,
+   with whole empty 128x128 tiles (timed beside the same operands with
+   every tile live), each within 1e-5 of its plain version,
    and a user's rows in a mixed batch bit-equal to the same user served
    alone; the stacked fold and the prune/regrow apply at K=4 rows of the
    largest leaf and of the whole flattened tree, bit-equal to their plain
    versions, with the ``torch.sort`` time of the prune/regrow thresholds;
+   for the folds and the masked matmul also the wrapper's host
+   microseconds per call (``time.perf_counter`` over many calls with no
+   synchronise), and for the masked matmul its library call's
+   (``torch.bmm``, ``torch.mm``) device time beside that call's time;
 4. the training path through its CLI entry functions: ``simulate
    --model resnet18 --hw 32 --clients 4 --rounds 2`` on the default device
    (cuda), with launch counters zeroed just before and read just after —
@@ -115,6 +120,21 @@ def device_ms(fn, iters=20):
     return total_us / 1e3 / iters
 
 
+def host_us(fn, n=1000):
+    """Host microseconds per call: ``time.perf_counter`` over ``n`` calls
+    with no synchronise between them (a wrapper that reads back, as the
+    folds do, waits for the card inside each call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
 def device_rows(prof):
     """(self device microseconds, count, name) per event of a finished
     torch.profiler run; None, with the reason printed, where this torch
@@ -183,10 +203,11 @@ def check_fold(torch, pa, pack_bits, dev, n, alpha, gen):
     ms_k = cuda_ms(lambda: pa.packed_accum(num, den, words, values, alpha))
     dev_k = device_ms(lambda: pa.packed_accum(num, den, words, values, alpha))
     ms_p = cuda_ms(lambda: pa.packed_accum_plain(num, den, words, values, alpha))
+    host = host_us(lambda: pa.packed_accum(num, den, words, values, alpha), 300)
     # num, den read and written once, the bitmap and the nnz values read once
     b_ms, b_by = bound(16 * n + 4 * words.numel() + 4 * nnz, 3 * n)
     return {"N": n, "nnz": nnz, "alpha": alpha, "max_abs_err": err,
-            "ms": ms_k, "device_ms": dev_k, "plain_ms": ms_p,
+            "ms": ms_k, "device_ms": dev_k, "plain_ms": ms_p, "host_us": host,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -213,12 +234,13 @@ def check_fold_rows(torch, pa, dev, k, n, alpha, gen):
     ms_k = cuda_ms(lambda: pa.packed_accum_rows(num, den, *args))
     dev_k = device_ms(lambda: pa.packed_accum_rows(num, den, *args))
     ms_p = cuda_ms(lambda: pa.packed_accum_rows_plain(num, den, *args))
+    host = host_us(lambda: pa.packed_accum_rows(num, den, *args), 300)
     # num, den read and written once; the bitmaps and the held values read
-    # once (padding excluded); nnz and the per-block offsets are negligible
+    # once (padding excluded); nnz and the per-group offsets are negligible
     b_ms, b_by = bound(16 * k * n + 4 * sp.bitmap.numel() + 4 * nnz,
                        3 * k * n)
     return {"K": k, "N": n, "nnz": nnz, "alpha": alpha, "max_abs_err": err,
-            "ms": ms_k, "device_ms": dev_k, "plain_ms": ms_p,
+            "ms": ms_k, "device_ms": dev_k, "plain_ms": ms_p, "host_us": host,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -276,7 +298,9 @@ def check_mm_single(torch, mmk, dev, gen):
             "ms": cuda_ms(lambda: mmk.masked_matmul(x, w, mask)),
             "device_ms": device_ms(lambda: mmk.masked_matmul(x, w, mask)),
             "plain_ms": cuda_ms(lambda: mmk.masked_matmul_plain(x, w, mask)),
+            "host_us": host_us(lambda: mmk.masked_matmul(x, w, mask)),
             "library_ms": cuda_ms(lambda: torch.mm(x, wm)),
+            "library_device_ms": device_ms(lambda: torch.mm(x, wm)),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -317,7 +341,9 @@ def check_masked_matmul(torch, mmk, x, w, mask, timed=False):
             lambda: mmk.batched_masked_matmul(x, w, mask))
         row["plain_ms"] = cuda_ms(
             lambda: mmk.batched_masked_matmul_plain(x, w, mask))
+        row["host_us"] = host_us(lambda: mmk.batched_masked_matmul(x, w, mask))
         row["library_ms"] = cuda_ms(lambda: torch.bmm(x, wm))
+        row["library_device_ms"] = device_ms(lambda: torch.bmm(x, wm))
         row["bound_ms"], row["bound_by"] = bound(
             4 * (u * m * k + (1 + occ) * u * k * n + u * m * n),
             2 * u * m * k * n * occ)
@@ -338,11 +364,20 @@ def check_mixed_vs_alone(torch, mmk, x, w, mask, users):
     return len(users)
 
 
+def _ms(v):
+    return "not measured" if v is None else f"{v} ms"
+
+
 def _times(r):
-    dev = "not measured" if r["device_ms"] is None else f"{r['device_ms']} ms"
-    return (f"per call {r['ms']} ms, device {dev}, plain {r['plain_ms']} ms, "
-            f"bound {r['bound_ms']} ms ({r['bound_by']}), "
-            f"max abs err {r['max_abs_err']}")
+    host = f", host {r['host_us']} us per call" if "host_us" in r else ""
+    return (f"per call {r['ms']} ms, device {_ms(r['device_ms'])}, plain "
+            f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']})"
+            f"{host}, max abs err {r['max_abs_err']}")
+
+
+def _library(r, call):
+    return (f", {call} per call {r['library_ms']} ms, device "
+            f"{_ms(r['library_device_ms'])}")
 
 
 class BudgetCheck:
@@ -450,7 +485,7 @@ def main() -> int:
     mm1 = check_mm_single(torch, mmk, dev, gen)
     log(f"masked_matmul U=1 M={mm1['M']} K={mm1['K']} N={mm1['N']} density "
         f"0.2 occupancy {mm1['occupancy']:.4f}: " + _times(mm1)
-        + f", torch.mm {mm1['library_ms']} ms")
+        + _library(mm1, "torch.mm"))
 
     # 4. the training path through the CLI's entry functions
     args = train.build_parser().parse_args([
@@ -536,8 +571,10 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
          "ms": fold_rows[0]["ms"], "device_ms": fold_rows[0]["device_ms"],
          "plain_ms": fold_rows[0]["plain_ms"],
+         "host_us": fold_rows[0]["host_us"],
          "bound_ms": fold_rows[0]["bound_ms"],
-         "bound_by": fold_rows[0]["bound_by"], "library_ms": None},
+         "bound_by": fold_rows[0]["bound_by"], "library_ms": None,
+         "library_device_ms": None},
         {"name": "packed_accum_rows", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/packed_accum.cu",
          "replaces": "src/repro/kernels/packed_accum.py:105",
@@ -546,8 +583,10 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in rows_rows),
          "ms": rows_rows[0]["ms"], "device_ms": rows_rows[0]["device_ms"],
          "plain_ms": rows_rows[0]["plain_ms"],
+         "host_us": rows_rows[0]["host_us"],
          "bound_ms": rows_rows[0]["bound_ms"],
-         "bound_by": rows_rows[0]["bound_by"], "library_ms": None},
+         "bound_by": rows_rows[0]["bound_by"], "library_ms": None,
+         "library_device_ms": None},
         {"name": "prune_regrow", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/prune_regrow.cu",
          "replaces": "src/repro/kernels/prune_regrow.py:44",
@@ -567,8 +606,10 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for rows in mm_rows.values()
                             for r in rows),
          "ms": mm["ms"], "device_ms": mm["device_ms"],
-         "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
-         "bound_by": mm["bound_by"], "library_ms": mm["library_ms"]},
+         "plain_ms": mm["plain_ms"], "host_us": mm["host_us"],
+         "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
+         "library_ms": mm["library_ms"],
+         "library_device_ms": mm["library_device_ms"]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -716,12 +757,14 @@ def mm_checks(torch, mmk, dev, gen):
         x, w, mask = mm_inputs(torch, dev, u, m, k, n, 0.5, gen)
         rows["serve"].append(
             check_masked_matmul(torch, mmk, x, w, mask, timed=True))
-    # whole 128x128 tiles empty for about three users in four
-    x, w, mask = mm_inputs(torch, dev, 64, 4, 512, 512, 0.5, gen)
+    # whole 128x128 tiles empty for about three users in four, then the
+    # same operands with every tile live: the skip shows as the difference
+    x, w, dense = mm_inputs(torch, dev, 64, 4, 512, 512, 0.5, gen)
     live = (torch.rand((64, 4, 4), generator=gen, device=dev) < 0.25).float()
-    mask *= live.repeat_interleave(128, 1).repeat_interleave(128, 2)
-    rows["blocks"].append(check_masked_matmul(torch, mmk, x, w, mask,
-                                              timed=True))
+    mask = dense * live.repeat_interleave(128, 1).repeat_interleave(128, 2)
+    for m_ in (mask, dense):
+        rows["blocks"].append(check_masked_matmul(torch, mmk, x, w, m_,
+                                                  timed=True))
     x, w, mask = mm_inputs(torch, dev, u, m, 128, 128, 0.5, gen)
     n_alone = check_mixed_vs_alone(torch, mmk, x, w, mask, (0, 1, u // 2, u - 1))
     log(f"masked_matmul sweep: {len(rows['sweep'])} shapes within 1e-5 of "
@@ -730,7 +773,7 @@ def mm_checks(torch, mmk, dev, gen):
     for r in rows["serve"] + rows["blocks"]:
         log(f"masked_matmul U={r['U']} M={r['M']} K={r['K']} N={r['N']} "
             f"occupancy {r['occupancy']:.4f}: " + _times(r)
-            + f", torch.bmm {r['library_ms']} ms")
+            + _library(r, "torch.bmm"))
     return rows
 
 

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -104,3 +106,17 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def launch(fn: ctypes._CFuncPtr, t: torch.Tensor, *args) -> int:
+    """Call the C entry ``fn`` with ``args`` followed by the current stream
+    of ``t``'s card; returns its ``cudaError_t``.  That card is made the
+    current device for the call only when it is not already (the device
+    guard costs a few microseconds a call; so does ``torch.cuda.
+    current_stream``, hence the raw getter that PyTorch's own generated
+    kernels use)."""
+    index = t.get_device()
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

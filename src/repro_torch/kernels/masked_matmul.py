@@ -29,10 +29,13 @@ LAUNCHES = 0
 # tile whose empty mask the kernel skips
 TILE_M, TILE_N, TILE_K = 16, 32, 32
 MAX_GRID_YZ = 65535
-# (x, w, m, y, U, M, K, N, stream)
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p)
+# (x, w, m, y, U, M, K, wU, wK, wN, mU, mK, mN, stream): the C entry checks
+# the dimensions itself (int64, so none is truncated on the way)
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 9 + (ctypes.c_void_p,)
+# what the C entry returns for shapes it refuses (cudaErrorInvalidValue,
+# cudaErrorInvalidConfiguration)
+_REFUSED = (1, 9)
+_F32 = torch.float32
 
 
 def batched_masked_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -72,26 +75,32 @@ def _check(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> None:
 def batched_masked_matmul(x: torch.Tensor, w: torch.Tensor,
                           m: torch.Tensor) -> torch.Tensor:
     """``y[u] = x[u] @ (w[u] * m[u])`` for every user, one launch; returns
-    a new (U, M, N) tensor."""
+    a new (U, M, N) tensor.
+
+    On the card only what the C entry cannot see is checked here (types,
+    layout, device); it checks the shapes itself, and a refusal is turned
+    into ``_check``'s message."""
     global LAUNCHES
-    _check(x, w, m)
-    if x.device.type == "cpu":
-        return batched_masked_matmul_plain(x, w, m)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    if not (x.is_cuda and x.dtype is _F32 and w.dtype is _F32
+            and m.dtype is _F32 and x.is_contiguous() and w.is_contiguous()
+            and m.is_contiguous() and x.dim() == w.dim() == m.dim() == 3
+            and x.get_device() == w.get_device() == m.get_device()):
+        _check(x, w, m)
+        if x.device.type == "cpu":
+            return batched_masked_matmul_plain(x, w, m)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
     u, rows, k = x.shape
-    n = w.shape[2]
-    y = torch.empty((u, rows, n), dtype=torch.float32, device=x.device)
-    if y.numel() == 0:
-        return y
+    y = x.new_empty((u, rows, w.shape[2]))
     fn = build.function("masked_matmul", "batched_masked_matmul_f32",
                         _ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), m.data_ptr(), y.data_ptr(),
-                 u, rows, k, n, stream)
+    err = build.launch(fn, x, x.data_ptr(), w.data_ptr(), m.data_ptr(),
+                       y.data_ptr(), u, rows, k, *w.shape, *m.shape)
+    if err in _REFUSED:
+        _check(x, w, m)
     build.check(err, "batched_masked_matmul")
-    LAUNCHES += 1
+    if y.numel():
+        LAUNCHES += 1
     return y
 
 

@@ -11,14 +11,15 @@ bitmap (int32 words holding the reference's little-endian uint32 bits) and
     num += alpha * scatter(values at the set bits)
     den += bits
 
-The block offsets (exclusive prefix of per-1024-block popcounts) are made
-on the device: a popcount kernel, then ``torch.cumsum`` (along each row
-for the stacked fold).  Both wrappers run their plain version for CPU
+The rank offsets (exclusive prefix of the per-128-coordinate popcounts
+along each row) are made on the device by one scan launch, which also
+totals each row's set bits.  Both wrappers run their plain version for CPU
 tensors and launch ``csrc/packed_accum.cu`` for CUDA tensors (or raise) —
 no fallback.  Both raise ``ValueError`` when a bitmap's set bits are not
 exactly its value count (``values.numel()``, or ``nnz[k]`` for row k); on
-the card that check reads one flag back to the host (one synchronisation
-per fold).
+the card that check reads the scan's totals back to the host (one
+synchronisation per fold) before the fold launches, so a refused fold
+leaves ``num``, ``den`` and the launch counts untouched.
 """
 from __future__ import annotations
 
@@ -34,22 +35,52 @@ LAUNCHES = 0
 #: stacked (row) fold-kernel launches since the last reset
 LAUNCHES_ROWS = 0
 
-BLOCK_N = 1024                  # coordinates per block, as in csrc/packed_accum.cu
+BLOCK_N = 1024                  # coordinates per fold block, as in csrc/packed_accum.cu
+GROUP_N = 128                   # coordinates per rank offset, as there
+SCAN_N = 256 * GROUP_N          # coordinates per scan block, as there
 _ENTRY = {torch.float32: "packed_accum_f32", torch.float16: "packed_accum_f16"}
-# (words, counts, n_words, n_blocks, stream)
-_POP_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p)
+# (words, offsets, res, scratch, scratch_len, nnz, expect, vstride, k, n,
+#  n_words, epoch, stream)
+_SCAN_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int64, ctypes.c_void_p) + (
+    ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 # (num, den, words, values, offsets, alpha, n, n_words, nnz, stream)
 _FOLD_ARGTYPES = (ctypes.c_void_p,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-# (words, counts, k, n_words, n_blocks, stream)
-_POP_ROWS_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 # (num, den, words, values, offsets, alpha, k, n, n_words, vstride, stream)
 _ROWS_ARGTYPES = (ctypes.c_void_p,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p)
 MAX_ROWS = 65535                # MAX_ROWS in csrc/packed_accum.cu
+_EPOCH_MAX = 2 ** 31 - 1
+# per (card, CUDA stream): [int64 scan status words (the first is the
+# ticket), the epoch of the last scan]; launches on one stream are ordered,
+# so they can share them (every card's default stream has the handle 0)
+_SCAN_SCRATCH: dict[tuple[int, int], list] = {}
+
+
+def _scan(words: torch.Tensor, k: int, n: int, nnz, expect: int,
+          vstride: int) -> tuple[torch.Tensor, list[int]]:
+    """One scan launch over K bitmap rows of n coordinates: returns the
+    (K, ceil(n / GROUP_N)) rank offsets on the device and, read back to the
+    host, each row's set bits followed by each row's disagreement flag."""
+    card = words.get_device()
+    key = (card, torch._C._cuda_getCurrentRawStream(card))
+    need = 1 + k * -(-n // SCAN_N)
+    scratch = _SCAN_SCRATCH.get(key)
+    if scratch is None or scratch[0].numel() < need or scratch[1] >= _EPOCH_MAX:
+        size = max(need, 2 * scratch[0].numel() if scratch else 0)
+        scratch = [torch.zeros(size, dtype=torch.int64, device=words.device), 0]
+        _SCAN_SCRATCH[key] = scratch
+    scratch[1] += 1
+    n_off = k * -(-n // GROUP_N)
+    out = torch.empty(n_off + 2 * k, dtype=torch.int32, device=words.device)
+    scan = build.function("packed_accum", "packed_scan_rows", _SCAN_ARGTYPES)
+    build.check(build.launch(
+        scan, words, words.data_ptr(), out.data_ptr(),
+        out.data_ptr() + 4 * n_off, scratch[0].data_ptr(), scratch[0].numel(),
+        None if nnz is None else nnz.data_ptr(), expect, vstride, k, n,
+        words.shape[-1], scratch[1]), "packed_scan_rows")
+    return out, out[n_off:].tolist()
 
 
 def packed_accum_plain(num: torch.Tensor, den: torch.Tensor,
@@ -105,20 +136,14 @@ def packed_accum(num: torch.Tensor, den: torch.Tensor, words: torch.Tensor,
     n = num.numel()
     if n == 0:
         return num, den
-    stream = torch.cuda.current_stream(num.device).cuda_stream
-    n_blocks = (n + BLOCK_N - 1) // BLOCK_N
-    counts = torch.empty(n_blocks, dtype=torch.int32, device=num.device)
-    pop = build.function("packed_accum", "block_popcount", _POP_ARGTYPES)
     fold = build.function("packed_accum", _ENTRY[values.dtype], _FOLD_ARGTYPES)
-    with torch.cuda.device(num.device):
-        build.check(pop(words.data_ptr(), counts.data_ptr(), words.numel(),
-                        n_blocks, stream), "block_popcount")
-        _check_nnz(int(counts.sum()), values)
-        offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-        build.check(fold(num.data_ptr(), den.data_ptr(), words.data_ptr(),
-                         values.data_ptr(), offsets.data_ptr(), float(alpha),
-                         n, words.numel(), values.numel(), stream),
-                    "packed_accum")
+    offsets, (set_bits, _) = _scan(words, 1, n, None, values.numel(),
+                                   values.numel())
+    _check_nnz(set_bits, values)
+    build.check(build.launch(
+        fold, num, num.data_ptr(), den.data_ptr(), words.data_ptr(),
+        values.data_ptr(), offsets.data_ptr(), float(alpha), n,
+        words.numel(), values.numel()), "packed_accum")
     LAUNCHES += 1
     return num, den
 
@@ -175,14 +200,17 @@ def _check_rows(num, den, words, values, nnz) -> None:
         raise ValueError("a row exceeds int32 indexing")
 
 
+def _rows_nnz_error(set_bits: list, nnz: list, width: int) -> ValueError:
+    return ValueError(f"the bitmaps hold {set_bits} set bits per row but nnz "
+                      f"is {nnz} (values width {width})")
+
+
 def _check_rows_nnz(set_bits: torch.Tensor, nnz: torch.Tensor,
                     width: int) -> None:
     """One read-back: every row's set bits equal its nnz, within width."""
     nnz = nnz.to(torch.int64)
     if bool(((set_bits != nnz) | (nnz > width)).any()):
-        raise ValueError(f"the bitmaps hold {set_bits.tolist()} set bits per "
-                         f"row but nnz is {nnz.tolist()} (values width "
-                         f"{width})")
+        raise _rows_nnz_error(set_bits.tolist(), nnz.tolist(), width)
 
 
 def packed_accum_rows(num: torch.Tensor, den: torch.Tensor,
@@ -200,21 +228,14 @@ def packed_accum_rows(num: torch.Tensor, den: torch.Tensor,
     k, n = num.shape
     if n == 0 or k == 0:
         return num, den
-    stream = torch.cuda.current_stream(num.device).cuda_stream
-    n_blocks = (n + BLOCK_N - 1) // BLOCK_N
-    counts = torch.empty((k, n_blocks), dtype=torch.int32, device=num.device)
-    pop = build.function("packed_accum", "block_popcount_rows",
-                         _POP_ROWS_ARGTYPES)
     fold = build.function("packed_accum", "packed_accum_rows_f32",
                           _ROWS_ARGTYPES)
-    with torch.cuda.device(num.device):
-        build.check(pop(words.data_ptr(), counts.data_ptr(), k, words.shape[1],
-                        n_blocks, stream), "block_popcount_rows")
-        _check_rows_nnz(counts.sum(dim=1), nnz, values.shape[1])
-        offsets = torch.cumsum(counts, 1, dtype=torch.int32) - counts
-        build.check(fold(num.data_ptr(), den.data_ptr(), words.data_ptr(),
-                         values.data_ptr(), offsets.data_ptr(), float(alpha),
-                         k, n, words.shape[1], values.shape[1], stream),
-                    "packed_accum_rows")
+    offsets, res = _scan(words, k, n, nnz, 0, values.shape[1])
+    if any(res[k:]):
+        raise _rows_nnz_error(res[:k], nnz.tolist(), values.shape[1])
+    build.check(build.launch(
+        fold, num, num.data_ptr(), den.data_ptr(), words.data_ptr(),
+        values.data_ptr(), offsets.data_ptr(), float(alpha), k, n,
+        words.shape[1], values.shape[1]), "packed_accum_rows")
     LAUNCHES_ROWS += 1
     return num, den

@@ -93,8 +93,51 @@ def test_fold_kernel_refuses_wrong_value_count(cuda_device, extra):
     words = pack_bits(torch.from_numpy(flags).to(cuda_device))
     vals = torch.zeros(values.size + extra, device=cuda_device)
     num, den = (torch.from_numpy(x).to(cuda_device) for x in (num0, den0))
+    launches = pa.LAUNCHES
     with pytest.raises(ValueError, match="set bits"):
         packed_accum(num, den, words, vals)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == launches
+    assert torch.equal(num.cpu(), torch.from_numpy(num0))
+    assert torch.equal(den.cpu(), torch.from_numpy(den0))
+
+
+@pytest.mark.parametrize("n,density", [(2 ** 23 + 17, 0.5), (5, 0.5),
+                                       (31, 0.9), (3 * BLOCK_N + 5, 0.0),
+                                       (130, 1.0)])
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.float16])
+def test_fold_kernel_scan_edges_on_card(cuda_device, n, density, vdtype):
+    """A long leaf (2^23 + 17 coordinates: the scan looks back over 257
+    blocks, several 32-block windows, and the fold has 8193 blocks), leaves
+    under one word, an empty payload and a full one, and the unaligned
+    tail: bit-equal to the plain version, one launch each."""
+    flags, values, num0, den0 = _fold_inputs(n, density, n + 1)
+    words = pack_bits(torch.from_numpy(flags).to(cuda_device))
+    vals = torch.from_numpy(values).to(cuda_device, vdtype)
+    num, den = (torch.from_numpy(x).to(cuda_device) for x in (num0, den0))
+    launches = pa.LAUNCHES
+    got = packed_accum(num.clone(), den.clone(), words, vals, 0.75)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == launches + 1
+    want = packed_accum_plain(num.clone(), den.clone(), words, vals, 0.75)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def test_fold_kernel_unaligned_views_on_card(cuda_device):
+    """Accumulators that start off a 16-byte boundary take the scalar path
+    and still equal the plain version."""
+    n = 5000
+    flags, values, num0, den0 = _fold_inputs(n + 1, 0.5, 3)
+    flags = flags[:n]
+    words = pack_bits(torch.from_numpy(flags).to(cuda_device))
+    vals = torch.from_numpy(values[: int(flags.sum())]).to(cuda_device)
+    num, den = (torch.from_numpy(x).to(cuda_device) for x in (num0, den0))
+    got = packed_accum(num.clone()[1:], den.clone()[1:], words, vals)
+    torch.cuda.synchronize()
+    want = packed_accum_plain(num.clone()[1:], den.clone()[1:], words, vals)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
 
 
 def _mm_inputs(u, m, k, n, density, seed, device):
@@ -163,6 +206,60 @@ def test_batched_kernel_mixed_batch_equals_alone(cuda_device):
             assert torch.equal(alone[slot], mixed[i]), (i, slot)
 
 
+@pytest.mark.parametrize("shape", [(4, 512, 128), (7, 1000, 96),
+                                   (128, 300, 64), (13, 256, 90),
+                                   (3, 129, 17), (16, 70, 130)])
+@pytest.mark.parametrize("density", [0.2, 1.0])
+def test_batched_kernel_staging_shapes_on_card(cuda_device, shape, density):
+    """K over several staged chunks (512, 1000), M=128 rows, and N that is
+    not a multiple of 4 (90, 17, 130: the 4-byte copies), against the plain
+    version, one launch each."""
+    m, k, n = shape
+    x, w, mask = _mm_inputs(3, m, k, n, density, m + k + n, cuda_device)
+    launches = mmk.LAUNCHES
+    got = mmk.batched_masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    assert mmk.LAUNCHES == launches + 1
+    torch.testing.assert_close(
+        got, mmk.batched_masked_matmul_plain(x, w, mask), **MM_TOL)
+
+
+@pytest.mark.parametrize("k,n", [(256, 256), (1000, 130)])
+def test_batched_kernel_checkerboard_of_empty_tiles(cuda_device, k, n):
+    """Every other (32, 32) tile of each user's mask empty, in a
+    checkerboard (other users' phases differ): equal to the plain version,
+    and a user's rows do not change when its dead tiles' weights do."""
+    x, w, mask = _mm_inputs(4, 9, k, n, 0.5, k + n, cuda_device)
+    kt = torch.arange(k, device=cuda_device)[:, None] // 32
+    nt = torch.arange(n, device=cuda_device)[None, :] // 32
+    for u in range(4):
+        mask[u] *= ((kt + nt + u) % 2 == 0).float()
+    assert mmk.block_occupancy(mask, 32, 32) < 0.6
+    got = mmk.batched_masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, mmk.batched_masked_matmul_plain(x, w, mask), **MM_TOL)
+    w2 = torch.where(mask == 0, torch.full_like(w, 1e30), w)
+    assert torch.equal(mmk.batched_masked_matmul(x, w2, mask), got)
+
+
+@pytest.mark.parametrize("u,m,k,n", [(256, 4, 128, 128), (9, 3, 1000, 130),
+                                     (5, 20, 300, 64)])
+def test_batched_kernel_mixed_equals_alone_at_staging_shapes(cuda_device, u,
+                                                             m, k, n):
+    x, w, mask = _mm_inputs(u, m, k, n, 0.5, u + k, cuda_device)
+    mixed = mmk.batched_masked_matmul(x, w, mask)
+    for i in (0, u // 2, u - 1):
+        xs, ws, ms = (torch.zeros_like(t) for t in (x, w, mask))
+        xs[i], ws[i], ms[i] = x[i], w[i], mask[i]
+        alone = mmk.batched_masked_matmul(xs, ws, ms)
+        assert torch.equal(alone[i], mixed[i]), i
+        solo = mmk.batched_masked_matmul(x[i:i + 1].contiguous(),
+                                         w[i:i + 1].contiguous(),
+                                         mask[i:i + 1].contiguous())
+        assert torch.equal(solo[0], mixed[i]), i
+
+
 def test_batched_kernel_refuses_bad_dtype_and_shapes(cuda_device):
     x, w, mask = _mm_inputs(2, 3, 8, 5, 0.5, 3, cuda_device)
     launches = mmk.LAUNCHES
@@ -213,16 +310,51 @@ def test_fold_rows_kernel_equals_plain_on_card(cuda_device, k, n, alpha):
     assert torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("n", [1000 + 3, 3 * BLOCK_N + 5, 17])
+def test_fold_rows_kernel_ragged_rows_on_card(cuda_device, n):
+    """K=8 rows of ragged density (one empty) whose length is not a
+    multiple of 4 (so no row is 16-byte aligned): bit-equal to the plain
+    version, one launch."""
+    num, den, words, values, nnz = _rows_inputs(8, n, n + 8, cuda_device)
+    launches = pa.LAUNCHES_ROWS
+    got = pa.packed_accum_rows(num.clone(), den.clone(), words, values, nnz,
+                               0.75)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES_ROWS == launches + 1
+    want = pa.packed_accum_rows_plain(num.clone(), den.clone(), words, values,
+                                      nnz, 0.75)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def test_fold_rows_kernel_scan_beyond_resident_blocks(cuda_device):
+    """K=8 rows of 2^23 + 17 coordinates: 2056 scan blocks, more than the
+    card holds at once (8 of 256 threads on each of 132 SMs), so blocks
+    must take their tickets in order for the look-back to finish."""
+    n = 2 ** 23 + 17
+    num, den, words, values, nnz = _rows_inputs(8, n, 5, cuda_device)
+    got = pa.packed_accum_rows(num.clone(), den.clone(), words, values, nnz,
+                               0.75)
+    torch.cuda.synchronize()
+    want = pa.packed_accum_rows_plain(num.clone(), den.clone(), words, values,
+                                      nnz, 0.75)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("extra", [-1, 1])
 def test_fold_rows_kernel_refuses_wrong_nnz(cuda_device, extra):
     num, den, words, values, nnz = _rows_inputs(4, 3 * BLOCK_N, 7,
                                                 cuda_device)
     bad = nnz.clone()
     bad[2] += extra
+    num0, den0 = num.clone(), den.clone()
     launches = pa.LAUNCHES_ROWS
     with pytest.raises(ValueError, match="set bits"):
         pa.packed_accum_rows(num, den, words, values, bad)
+    torch.cuda.synchronize()
     assert pa.LAUNCHES_ROWS == launches
+    assert torch.equal(num, num0) and torch.equal(den, den0)
 
 
 def _pr_inputs(k, n, seed, device, ties=False):
