@@ -55,8 +55,34 @@ line):
    untraced and in the order kernel, vmap, vmap, kernel; then a traced
    kernel run for the split of service time by span, and one under
    torch.profiler for the device's busy share;
-8. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+8. the vmap local phase: one local phase of ``simulate --model resnet18
+   --hw 32 --clients 4`` from one state with ``--exec vmap`` and with
+   ``--exec loop`` (each run twice, the second timed), their largest
+   parameter difference held to ``VMAP_PARAM_ATOL`` (the CPU test's bound),
+   and what the CLI's ``--exec auto`` resolves to;
+9. the synchronous simulator through the CLI's entry functions:
+   ``simulate --sim --exec loop`` at the same configuration (2 rounds),
+   counters zeroed just before and read just after — the gossip and fold
+   kernels must launch, masks, parameters, comm rows and accuracy history
+   must be bit-equal to a ``RoundEngine`` run of the same arguments, and
+   every transfer must carry the codec frame (``encoded_nbytes``) of what
+   its sender held when the round started, ``up_wire`` their sum;
+10. the asynchronous simulator through the CLI's entry functions:
+    ``simulate --sim --async --staleness 2 --compute-hetero
+    --bandwidth-skew 10 --loss-prob 0.1 --uplink-mode fifo --topology random
+    --degree 2 --round-s 30``, counters zeroed just before and read just after — the fold
+    kernel must launch exactly once per payload leaf folded
+    (``sparse.ops.COUNTERS["accum_calls"]``, > 0), every mask must hold its
+    ERK budget after each evolve, accuracy must be finite, the observed
+    spread and mix lag must stay within the staleness bound and some
+    messages must be mixed; its report row, the host wall per emitted round
+    and, from a profiled one-round run, the device's busy share;
+11. async checkpoint on the card: the same run saved after round 0 by
+    ``--sim-checkpoint``, resumed by ``--resume`` in a fresh engine, must
+    give the uninterrupted run's transfers, ``LinkStats``, clock and state
+    bit for bit;
+12. a ``{"kernels": [...]}`` line, then the last line
+    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA GPU or without the
 repo's ``src/`` beside this file.
@@ -74,6 +100,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 BF16_REL_TOL = 2.0 ** -8        # one bf16 ulp, relative (expected: exact)
 MM_TOL = dict(atol=1e-5, rtol=1e-5)   # masked matmul vs torch.matmul (fp32 order)
+VMAP_PARAM_ATOL = 1e-3          # vmap vs loop local phase (tests/test_torch_sim.py)
 SERVE_ARGS = ["--users", "1024", "--cache-size", "256", "--max-batch", "256",
               "--requests", "4096", "--rows", "4", "--density", "0.5"]
 
@@ -551,12 +578,21 @@ def main() -> int:
     profile_serve(torch)
     mm = mm_rows["serve"][1]          # the (128, 128) layer at serve shapes
 
+    # 8.-11. the vmap local phase and the simulator, sync and async
+    vmap_vs_loop(torch, train)
+    sync_launches = sim_sync_path(torch, train, counters)
+    async_launches, async_engine = sim_async_path(torch, train, counters)
+    profile_async_round(torch, train)
+    sim_checkpoint_path(torch, train, async_engine)
+
     kernels = [
         {"name": "gossip_avg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gossip_avg.cu",
          "replaces": "src/repro/kernels/gossip_avg.py:37",
          "launches": launches["gossip_avg"],
          "launches_scale_ordered": scale_runs["ordered"][2]["gossip_avg"],
+         "launches_sim_sync": sync_launches["gossip_avg"],
+         "launches_sim_async": async_launches["gossip_avg"],
          "shape": f"J=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in gossip_rows),
          "ms": gossip_rows[0]["ms"], "device_ms": gossip_rows[0]["device_ms"],
@@ -567,6 +603,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/packed_accum.cu",
          "replaces": "src/repro/kernels/packed_accum.py:63",
          "launches": launches["packed_accum"],
+         "launches_sim_sync": sync_launches["packed_accum"],
+         "launches_sim_async": async_launches["packed_accum"],
          "shape": f"N={n_leaf} density 0.5 alpha 1",
          "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
          "ms": fold_rows[0]["ms"], "device_ms": fold_rows[0]["device_ms"],
@@ -701,7 +739,8 @@ def scale_state_kernels(torch, engine):
                              f"for {len(leaves)} leaves")
     # the last round's evolve batch: its draws follow the batch schedule's
     ctx = engine._make_ctx(engine.cfg.rounds - 1)
-    engine._batch_schedule(ctx)
+    engine._stacked_batches(ctx, range(len(engine.clients)),
+                            engine.cfg.local_epochs)
     grads = stacked_grads(engine.task.apply_fn, params,
                           *engine._evolve_batches(ctx))
     density = engine.cfg.density
@@ -736,6 +775,275 @@ def scale_state_kernels(torch, engine):
         f"{len(drift)}, prune "
         f"rate {ctx.prune_rate}")
     return {"packed_accum_rows": fold_launches, "prune_regrow": pr_launches}
+
+
+RESNET_ARGS = ["simulate", "--model", "resnet18", "--hw", "32", "--clients",
+               "4", "--rounds", "2", "--local-epochs", "1",
+               "--samples-per-class", "20"]
+# a full-speed client's round takes 30 virtual seconds: a ResNet18-GN
+# payload (~24 MB) needs ~2 s on a 100 Mb/s link and ~19 s on a 10 Mb/s one,
+# so at the default 1 s nothing arrives in time to be mixed within 2 rounds
+ASYNC_ARGS = ["--sim", "--async", "--staleness", "2", "--compute-hetero",
+              "--bandwidth-skew", "10", "--loss-prob", "0.1", "--uplink-mode",
+              "fifo", "--topology", "random", "--degree", "2", "--round-s",
+              "30"]
+
+
+def _launches(counters):
+    return {c.__name__.rsplit(".", 1)[-1]: c.LAUNCHES for c in counters}
+
+
+def _max_param_diff(a_state, b_state):
+    from repro_torch.utils.tree import tree_leaves
+    return max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(a_state["params"]),
+                   tree_leaves(b_state["params"])))
+
+
+def _bit_equal(torch, a, b):
+    from repro_torch.utils.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def vmap_vs_loop(torch, train):
+    """Phase 8: one local phase from one state through ``run_local_phase``
+    with ``--exec vmap`` and ``--exec loop``; each mode runs twice from the
+    state (the first call warms), the second is timed and compared.  The
+    same loop phase on the CPU gives the scale of fp32 rounding between two
+    right answers at this size."""
+    from repro_torch.utils.tree import tree_map
+    auto = train.build_engine(train.parse_args(RESNET_ARGS))
+    active = list(range(len(auto.clients)))
+    resolved = "vmap" if auto._use_vmap(auto._make_ctx(0), active) else "loop"
+    start = tree_map(torch.clone, auto.state)
+    got, secs = {}, {}
+    for mode, device, reps in (("vmap", "cuda", 2), ("loop", "cuda", 2),
+                               ("loop", "cpu", 1)):
+        eng = train.build_engine(train.parse_args(
+            RESNET_ARGS + ["--exec", mode, "--device", device]))
+        for _ in range(reps):
+            eng.state = tree_map(lambda x: x.to(eng.device, copy=True),
+                                 start)
+            ctx = eng._make_ctx(0)          # fresh generators: same draws
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run_local_phase(ctx, active)
+            torch.cuda.synchronize()
+            secs.setdefault(f"{mode} {device}", []).append(
+                time.perf_counter() - t0)
+        got[(mode, device)] = tree_map(lambda x: x.cpu(), eng.state)
+    diff = _max_param_diff(got[("vmap", "cuda")], got[("loop", "cuda")])
+    gap = _max_param_diff(got[("loop", "cpu")], got[("loop", "cuda")])
+    log(f"vmap vs loop local phase (resnet18, K={len(active)}): max abs "
+        f"param diff {diff} (tolerance {VMAP_PARAM_ATOL}); the loop on the "
+        f"CPU vs the loop on the card: {gap}; seconds {secs} (first, warm); "
+        f"--exec auto resolves to {resolved}")
+    if not diff <= VMAP_PARAM_ATOL:
+        raise AssertionError(f"vmap and loop local phases differ by {diff}")
+    if resolved != "vmap":
+        raise AssertionError("--exec auto did not resolve to vmap for dispfl")
+
+
+def sim_sync_path(torch, train, counters):
+    """Phase 9: ``simulate --sim --exec loop`` against ``RoundEngine`` on
+    the same arguments, both through the CLI's entry functions; returns the
+    sim run's launches."""
+    from repro_torch.sparse.codec import encoded_nbytes
+    args = train.parse_args(RESNET_ARGS + ["--sim", "--exec", "loop"])
+    sim = train.build_engine(args)
+    sent = []           # per round: the adjacency and what each client held
+    pre_round = sim._pre_round
+
+    def record(ctx):
+        # references only (the round replaces these tensors, never writes
+        # them), so the check costs the timed round nothing
+        sent.append((ctx.adjacency.copy(), {k: list(v) for k, v in
+                                            sim.state.items()}))
+        pre_round(ctx)
+
+    sim._pre_round = record
+    for c in counters:
+        c.LAUNCHES = 0
+    out = train.run_engine(args, sim)
+    launches = _launches(counters)
+    log(f"sim sync launches: {launches}")
+    if min(launches["gossip_avg"], launches["packed_accum"]) < 1:
+        raise AssertionError(f"a kernel of the sync sim never ran: {launches}")
+    loop_args = train.parse_args(RESNET_ARGS + ["--exec", "loop"])
+    loop = train.build_engine(loop_args)
+    loop_out = train.run_engine(loop_args, loop)
+    for key in ("comm", "flops", "acc_history", "final_acc"):
+        if out[key] != loop_out[key]:
+            raise AssertionError(f"sync sim {key} {out[key]} != RoundEngine "
+                                 f"{loop_out[key]}")
+    if not _bit_equal(torch, sim.state, loop.state):
+        raise AssertionError("sync sim state != RoundEngine state on the card")
+    n = len(sim.clients)
+    want = []
+    for a, held in sent:
+        frames = [encoded_nbytes(sim.strategy.snapshot_message(held, k)
+                                 ["packed"]) for k in range(n)]
+        want += [(src, dst, float(frames[src])) for src in range(n)
+                 for dst in range(n) if a[dst, src] > 0 and dst != src]
+    got = [(t.src, t.dst, t.bytes_wire) for t in sim.stats.transfers]
+    if got != want or float(sim.stats.up_wire.sum()) != sum(w for *_, w in want):
+        raise AssertionError("sync transfers do not carry the senders' codec "
+                             "frames")
+    log(f"sim sync: state, masks, comm rows, acc history bit-equal to "
+        f"RoundEngine; {len(got)} transfers each = encoded_nbytes of the "
+        f"sender's payload, up_wire {sim.stats.up_wire.sum()}; report "
+        f"{out['sim']}; round walls sim {out['round_wall_s']} loop "
+        f"{loop_out['round_wall_s']}")
+    return launches
+
+
+class EvolveBudgetCheck:
+    """Wraps a strategy's ``evolve``: after each call the evolved client's
+    mask holds exactly its ERK budget (one read-back per evolve)."""
+
+    def __init__(self, strategy):
+        self.strategy, self.calls = strategy, 0
+        self._evolve = strategy.evolve
+        strategy.evolve = self
+
+    def __call__(self, state, k, ctx):
+        import torch
+        from repro_torch.utils.tree import tree_leaves_with_path
+        self._evolve(state, k, ctx)
+        budgets = self.strategy.budgets_at(ctx.t, k)
+        leaves = [(p, x) for p, x in tree_leaves_with_path(state["masks"][k])
+                  if p in budgets]
+        nnz = torch.stack([(x != 0).sum() for _, x in leaves]).tolist()
+        bad = {p: (n, budgets[p]) for (p, _), n in zip(leaves, nnz)
+               if n != budgets[p]}
+        if bad or len(leaves) != len(budgets):
+            raise AssertionError(f"round {ctx.t} client {k}: mask nnz != ERK "
+                                 f"budget: {bad}")
+        self.calls += 1
+
+
+class EmitClock:
+    """Engine callback: host seconds at each emitted round."""
+
+    def __init__(self):
+        self.t = []
+
+    def on_round_end(self, engine, metrics):
+        self.t.append(time.perf_counter())
+
+    def on_run_end(self, engine):
+        pass
+
+
+def sim_async_path(torch, train, counters):
+    """Phase 10: ``simulate --sim --async ...`` through the CLI's entry
+    functions; returns its launches and the engine (the uninterrupted run
+    phase 11 compares with)."""
+    from repro_torch.sparse import ops as sparse_ops
+    args = train.parse_args(RESNET_ARGS + ASYNC_ARGS)
+    engine = train.build_engine(args)
+    check = EvolveBudgetCheck(engine.strategy)
+    clock = EmitClock()
+    engine.callbacks.append(clock)
+    for c in counters:
+        c.LAUNCHES = 0
+    sparse_ops.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train.run_engine(args, engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(counters)
+    folds = sparse_ops.COUNTERS["accum_calls"]
+    log(f"sim async launches: {launches}; sparse.ops folds {folds}")
+    if not launches["packed_accum"] == folds > 0:
+        raise AssertionError(f"fold launches {launches['packed_accum']} != "
+                             f"folds {folds} (or none)")
+    accs = out["acc_history"] + [out["final_acc"]]
+    if not all(a == a and 0.0 <= a <= 1.0 for a in accs):
+        raise AssertionError(f"async accuracy not finite: {accs}")
+    if not (engine.observed_spread <= args.staleness
+            and engine.observed_mix_lag <= args.staleness
+            and engine.mixed_messages > 0 and check.calls > 0):
+        raise AssertionError(
+            f"async invariants: spread {engine.observed_spread}, mix lag "
+            f"{engine.observed_mix_lag}, mixed {engine.mixed_messages}, "
+            f"evolves checked {check.calls}")
+    rep = engine.report()
+    gaps = [b - a for a, b in zip([t0] + clock.t, clock.t)]
+    log(f"sim async: {check.calls} evolves within budget; spread "
+        f"{engine.observed_spread}, mix lag {engine.observed_mix_lag}, "
+        f"mixed {engine.mixed_messages}; virtual time {rep.sim_wall_s} s, "
+        f"busiest node {rep.busiest_node_mb} MB, retransmit overhead "
+        f"{rep.retrans_mb} MB in {rep.n_retransmits} retransmits, lost "
+        f"{rep.lost_messages}; host wall {wall:.4f} s for "
+        f"{len(clock.t)} emitted rounds ({wall / max(1, len(clock.t)):.4f} s "
+        f"per round; gaps {gaps}); accs {accs}; report {out['sim']}")
+    return launches, engine
+
+
+def profile_async_round(torch, train):
+    """One async run of one round under torch.profiler: the device's busy
+    share of its wall time and the kernels that took the most device time
+    (the path packs one payload per push, reading back per leaf)."""
+    from torch.profiler import ProfilerActivity, profile
+    args = train.parse_args(RESNET_ARGS + ASYNC_ARGS)
+    args.rounds = 1
+    engine = train.build_engine(args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    if rows is None:
+        return
+    busy_s = sum(r[0] for r in rows) / 1e6
+    log(f"profiled async round: wall {wall:.4f} s, device busy {busy_s:.4f} s "
+        f"({100 * busy_s / wall:.1f}%), {len(engine.stats.transfers)} "
+        f"transfers")
+    for us, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"  {us / 1e3:.3f} ms in {count} launches: {key[:90]}")
+
+
+def sim_checkpoint_path(torch, train, full):
+    """Phase 11: the async run saved after round 0 by ``--sim-checkpoint``,
+    abandoned, resumed by ``--resume`` in a fresh engine; the result must
+    equal ``full`` (the uninterrupted run of phase 10) bit for bit."""
+    import tempfile
+
+    import numpy as np
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sim.npz")
+        first = train.build_engine(train.parse_args(
+            RESNET_ARGS + ASYNC_ARGS + ["--sim-checkpoint", path]))
+        for m in first.rounds():
+            if m.round == 0:
+                break
+        args = train.parse_args(RESNET_ARGS + ASYNC_ARGS + ["--resume", path])
+        resumed = train.build_engine(args)
+        n_before = len(resumed.stats.transfers)
+        out = train.run_engine(args, resumed)
+    a, b = resumed.stats, full.stats
+    same = (a.transfers == b.transfers and a.n_retransmits == b.n_retransmits
+            and a.n_lost == b.n_lost and all(
+                np.array_equal(getattr(a, k), getattr(b, k)) for k in
+                ("up", "down", "up_wire", "down_wire", "retrans_up",
+                 "edge_bytes", "edge_busy_s")))
+    if not same or resumed.clock.now != full.clock.now:
+        raise AssertionError("resumed async run: transfers, LinkStats or "
+                             "clock differ from the uninterrupted run")
+    if not _bit_equal(torch, resumed.state, full.state):
+        raise AssertionError("resumed async state != uninterrupted state")
+    if resumed._acc_history != full._acc_history:
+        raise AssertionError("resumed async accuracy history differs")
+    log(f"sim async checkpoint: resumed after round 0 ({n_before} transfers "
+        f"in the archive, {len(a.transfers) - n_before} after), transfers, "
+        f"LinkStats, clock {resumed.clock.now} and state bit-equal to the "
+        f"uninterrupted run; acc {out['acc_history']}")
 
 
 def _serve_arg(flag):

@@ -13,6 +13,7 @@ import numpy as np
 # SeedSequence sub-stream tags, disjoint from the engine's rng streams so a
 # draw here never perturbs training randomness.
 AVAIL_STREAM = 104729   # per-round client up/down draws (shared failure model)
+GOSSIP_STREAM = 7919    # per-(round, client) directed neighbor sampling
 
 
 def bernoulli_alive(
@@ -82,6 +83,43 @@ def time_varying_random(
         a = apply_availability(
             a, bernoulli_alive(n_clients, round_idx, drop_prob, seed))
     return a
+
+
+def directed_out_neighbors(
+    n_clients: int,
+    k: int,
+    round_idx: int,
+    degree: int,
+    seed: int = 0,
+) -> np.ndarray:
+    """Receivers of client k's push-gossip message at its local round
+    ``round_idx`` — the asynchronous counterpart of the time-varying
+    topology.  Sampled without replacement from a per-(seed, round, client)
+    derived generator, so the draw is independent of event ordering and one
+    client's schedule never perturbs another's."""
+    if degree >= n_clients - 1:
+        return np.array([j for j in range(n_clients) if j != k])
+    rng = np.random.default_rng(
+        np.random.SeedSequence([seed, round_idx, k, GOSSIP_STREAM]))
+    others = np.array([j for j in range(n_clients) if j != k])
+    return np.sort(rng.choice(others, size=degree, replace=False))
+
+
+def busiest_node_degree(a: np.ndarray) -> int:
+    """Max #models any single node must *upload* (out-degree excl. self).
+
+    The paper's busiest-node communication metric counts the heaviest
+    uploader/downloader; with symmetric random sampling the upload side
+    (column sums) is the binding one.
+    """
+    out_deg = a.sum(axis=0) - np.diag(a)
+    in_deg = a.sum(axis=1) - np.diag(a)
+    return int(max(out_deg.max(), in_deg.max()))
+
+
+def mixing_matrix(a: np.ndarray) -> np.ndarray:
+    """Row-normalized adjacency (plain gossip average, used by D-PSGD)."""
+    return a / a.sum(axis=1, keepdims=True)
 
 
 def make_adjacency(

@@ -13,7 +13,10 @@ payload is decoded once by folding it into zero accumulators with the
 packed-fold kernel, and each receiver's ``gossip_average_one`` runs the
 gossip kernel over its rows, self first, then neighbours in ascending
 order.  ``packed=False`` runs the same gossip kernel on the dense state.
-Both equal the reference's mix bit for bit.
+Both equal the reference's mix bit for bit.  The async simulator's
+per-activation ``mix_one`` folds each arrived payload straight into the
+receiver's accumulators with the packed-fold kernel and finalizes them
+with the gossip kernel.
 """
 from __future__ import annotations
 
@@ -49,6 +52,9 @@ class DisPFLStrategy(StrategyBase):
 
     ``payload_dtype="fp16"`` casts each held value to fp16 at the message
     boundary (masks unchanged); receivers mix the cast values in fp32."""
+
+    vmap_capable = True
+    decentralized = True
 
     def __init__(self, packed: bool = True, payload_dtype: str = "fp32"):
         if payload_dtype not in ("fp32", "fp16"):
@@ -125,6 +131,9 @@ class DisPFLStrategy(StrategyBase):
             self.task, state["params"][k], c.train_x, c.train_y,
             ctx.cfg.local_epochs, ctx.cfg.batch_size, ctx.lr, self.opt,
             ctx.client_rng(k), mask=state["masks"][k])
+
+    def local_mask(self, state: dict, k: int):
+        return state["masks"][k]
 
     def budgets_at(self, t: int, k: int) -> dict[str, int]:
         return self.budgets[k]

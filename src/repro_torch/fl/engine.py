@@ -17,7 +17,17 @@ Archives are the reference's (``save``/``restore``, lists stored under
 archives load into the reference.
 
 Per-phase wall times (mix, local, evolve, eval), each ended by a device
-synchronise, are kept in ``engine.phase_s``, one dict per round.
+synchronise, are kept in ``engine.phase_s``, one dict per round; the
+phases are also ``round.*`` spans on the ``engine`` track, and
+``engine.series`` samples the reference's ``fl.engine`` series once per
+round.
+
+Fast path: ``local_exec="vmap"`` (or ``"auto"`` where it applies) runs the
+local phase of all active clients at once through
+``scale.stacked.stacked_local_phase`` (``torch.func.vmap`` of ``grad``),
+with batch orders drawn from the same per-client generators, ragged step
+counts padded with exact no-op steps and momentum as stacked per-client
+state, so the schedule and the update rule are the loop's.
 """
 from __future__ import annotations
 
@@ -39,11 +49,20 @@ from repro_torch.fl.base import (
     FLConfig,
     FLResult,
     Task,
+    _pad_order,
     evaluate_clients,
     rounds_to_targets,
 )
+from repro_torch.obs import SeriesSet, span
 from repro_torch.optim.sgd import SGDConfig
-from repro_torch.utils.tree import tree_map
+from repro_torch.sparse.packed import pack_tree, unpack_mask_tree, unpack_tree
+from repro_torch.utils.tree import (
+    tree_map,
+    tree_nnz,
+    tree_size,
+    tree_stack,
+    tree_unstack,
+)
 
 PyTree = Any
 
@@ -89,6 +108,11 @@ class StrategyBase:
     by ``init_state`` on resume."""
 
     name: str = "strategy"
+    #: the engine may run the local phase as vmap-over-clients when True
+    vmap_capable: bool = False
+    #: True iff ``mix`` communicates peer-to-peer over ``ctx.adjacency`` —
+    #: the contract the network simulator (``repro_torch.sim``) measures
+    decentralized: bool = False
 
     def init_state(self, task: Task, clients, cfg: FLConfig) -> dict:
         self.task, self.clients, self.cfg = task, clients, cfg
@@ -123,6 +147,101 @@ class StrategyBase:
 
     def round_flops(self, state: dict, ctx: RoundCtx) -> FlopsReport:
         raise NotImplementedError
+
+    # -- density telemetry: measured vs scheduled sparsity ------------------
+    def measured_density(self, state: dict) -> Optional[float]:
+        """Fleet-mean *measured* mask density (nnz / size over every
+        client's mask, one read-back), or None for strategies without
+        masks."""
+        masks = state.get("masks") if isinstance(state, dict) else None
+        if not masks or (isinstance(masks, list) and masks[0] is None):
+            return None
+        size = tree_size(masks)
+        return float(tree_nnz(masks)) / float(size) if size else None
+
+    def target_density(self, t: int) -> Optional[float]:
+        """Fleet-mean *scheduled* density at round ``t``: the anneal
+        schedule when the strategy has one (``density_at``), the static
+        per-client config densities otherwise."""
+        cfg = getattr(self, "cfg", None)
+        if cfg is None:
+            return None
+        if hasattr(self, "density_at"):
+            return float(np.mean([self.density_at(t, k)
+                                  for k in range(cfg.n_clients)]))
+        return float(np.mean([cfg.client_density(k)
+                              for k in range(cfg.n_clients)]))
+
+    # -- vmap fast-path adapters -------------------------------------------
+    def local_epochs(self, state: dict, ctx: RoundCtx) -> int:
+        return ctx.cfg.local_epochs
+
+    def local_params(self, state: dict, k: int) -> PyTree:
+        return state["params"][k]
+
+    def local_mask(self, state: dict, k: int) -> Optional[PyTree]:
+        return None
+
+    def set_local(self, state: dict, k: int, params: PyTree) -> None:
+        state["params"][k] = params
+
+    def set_local_mask(self, state: dict, k: int, mask: PyTree) -> None:
+        if mask is not None and "masks" in state:
+            state["masks"][k] = mask
+
+    # -- per-message payload (the simulator's bytes-on-wire) ----------------
+    def message_nnz(self, state: dict, k: int) -> int:
+        """Values client k puts on the wire: its mask's nnz, or the full
+        coordinate count for dense strategies."""
+        mask = self.local_mask(state, k)
+        if mask is not None:
+            return tree_nnz(mask)
+        return tree_size(self.local_params(state, k))
+
+    def message_coords(self, state: dict, k: int) -> int:
+        return tree_size(self.local_params(state, k))
+
+    def snapshot_message(self, state: dict, k: int) -> dict:
+        """What k transmits right now: a packed tree (bitmap + nnz values),
+        never the dense tree; dense strategies pack against an all-ones
+        bitmap (``sim.links.measure_payload`` sizes it by the codec)."""
+        return {"packed": pack_tree(self.local_params(state, k),
+                                    self.local_mask(state, k))}
+
+    def install_message(self, state: dict, k: int, msg: dict) -> None:
+        """Write a received message into slot k (the simulator swaps these
+        in so ``mix`` sees arrived, possibly stale, models)."""
+        if "packed" in msg:
+            self.set_local(state, k, unpack_tree(msg["packed"]))
+            self.set_local_mask(state, k, unpack_mask_tree(msg["packed"]))
+        else:
+            self.set_local(state, k, msg["params"])
+            self.set_local_mask(state, k, msg["mask"])
+
+    def mix_one(self, state: dict, k: int, senders: dict[int, dict],
+                ctx: RoundCtx) -> None:
+        """Mix client k against the payloads that have *arrived* (the async
+        simulator's per-activation hook).
+
+        Generic fallback: swap the payloads into their slots, run the full
+        ``mix`` on an adjacency whose only non-identity row is k's, keep
+        only k's mixed model — right for any strategy, but O(K) tree work
+        per activation; ``DisPFLStrategy`` overrides it with O(degree)
+        packed folds."""
+        if not senders:
+            # gossip self-mix is the identity (re-masking a masked model)
+            return
+        saved_params = list(state["params"])
+        saved_masks = list(state["masks"]) if "masks" in state else None
+        for j, payload in senders.items():
+            self.install_message(state, j, payload)
+        self.mix(state, ctx)
+        mixed_k = state["params"][k]
+        state["params"] = saved_params
+        state["params"][k] = mixed_k
+        if saved_masks is not None:
+            saved_masks[k] = state["masks"][k]
+            state["masks"] = saved_masks
 
 
 _REGISTRY: dict[str, tuple[type, dict]] = {}
@@ -248,9 +367,14 @@ def _unpack(tree):
 class RoundEngine:
     """Owns the round loop for any strategy, on ``task.device``.
 
-    ``local_exec``: ``"loop"`` runs the per-client loop (the reference
-    semantics); ``"auto"`` resolves to it until the stacked vmap local phase
-    is ported; ``"vmap"`` raises ``NotImplementedError``.
+    ``local_exec``:
+
+    * ``"loop"`` — per-client loop (the reference semantics),
+    * ``"vmap"`` — force the stacked local phase (``ValueError`` if the
+      strategy or config cannot take it),
+    * ``"auto"`` — vmap when the strategy is vmap-capable, densities are
+      homogeneous and all active clients agree on an effective batch size;
+      loop otherwise.
     """
 
     def __init__(self, strategy: StrategyBase, task: Task, clients,
@@ -258,16 +382,13 @@ class RoundEngine:
                  local_exec: str = "auto"):
         if local_exec not in ("auto", "loop", "vmap"):
             raise ValueError(f"local_exec must be auto|loop|vmap, got {local_exec}")
-        if local_exec == "vmap":
-            raise NotImplementedError(
-                "local_exec='vmap' (the stacked local phase) is not ported "
-                "yet: ROADMAP item A6; use 'loop' or 'auto'")
         self.device = setup_device(task.device)
         self.strategy = strategy
         self.task = task
         self.clients = clients
         self.cfg = cfg
         self.callbacks = list(callbacks)
+        self.local_exec = local_exec
         self.state = strategy.init_state(task, clients, cfg)
         self._next_round = 0
         self._stop = False
@@ -282,6 +403,10 @@ class RoundEngine:
             "fwd_flops_per_sample": []}
         #: per round: seconds in each phase, each ended by a device sync
         self.phase_s: list[dict[str, float]] = []
+        # per-round wall-clock series (not checkpointed: a resumed run
+        # restarts its series)
+        self.series = SeriesSet("fl.engine")
+        self._series_epoch = time.perf_counter()
 
     def request_stop(self) -> None:
         self._stop = True
@@ -326,14 +451,53 @@ class RoundEngine:
             _unpack(payload["state"]))
 
     # -- the round loop ----------------------------------------------------
-    def _make_ctx(self, t: int) -> RoundCtx:
+    def _make_ctx(self, t: int, alive: Optional[np.ndarray] = None) -> RoundCtx:
         cfg = self.cfg
         return RoundCtx(
             t=t, cfg=cfg, task=self.task, clients=self.clients,
             lr=cfg.lr_at(t),
             prune_rate=cosine_prune_rate(cfg.alpha0, t, cfg.rounds),
             adjacency=make_adjacency(cfg.topology, len(self.clients), t,
-                                     cfg.degree, cfg.seed, cfg.drop_prob))
+                                     cfg.degree, cfg.seed, cfg.drop_prob,
+                                     alive=alive))
+
+    # hooks for subclasses (the event simulator times each round without
+    # perturbing the round's semantics)
+    def _pre_round(self, ctx: RoundCtx) -> None:
+        """Called after the ctx is built, before any hook runs."""
+
+    def _finish_metrics(self, ctx: RoundCtx,
+                        metrics: RoundMetrics) -> RoundMetrics:
+        """Last chance to decorate the round's metrics before callbacks."""
+        return metrics
+
+    def _sample_series(self, metrics: RoundMetrics) -> None:
+        """Sample the wall-clock engine series after one round.  Counter-kind
+        series record the *cumulative* accumulators."""
+        tw = time.perf_counter() - self._series_epoch
+        ss = self.series
+        ss.series("round_wall_s").observe(tw, metrics.wall_s)
+        ss.series("comm_total_mb", kind="counter").observe(
+            tw, float(np.sum(self._comm["total_mb"])))
+        ss.series("cum_flops", kind="counter").observe(tw, metrics.cum_flops)
+        if metrics.acc_mean is not None:
+            ss.series("acc_mean").observe(tw, metrics.acc_mean)
+        dm = self.strategy.measured_density(self.state)
+        if dm is not None:
+            ss.series("density_measured").observe(tw, dm)
+            dt_ = self.strategy.target_density(metrics.round)
+            if dt_ is not None:
+                ss.series("density_target").observe(tw, dt_)
+
+    def run_local_phase(self, ctx: RoundCtx, active: Sequence[int]) -> None:
+        """The local phase for ``active`` clients — the unit the simulator
+        runs per client (``active=[k]``) or per round."""
+        active = list(active)
+        if self._use_vmap(ctx, active):
+            self._vmap_local_phase(ctx, active)
+        else:
+            for k in active:
+                self.strategy.local_update(self.state, k, ctx)
 
     def _timed(self, phases: dict, name: str, t0: float) -> float:
         synchronize(self.device)
@@ -345,15 +509,18 @@ class RoundEngine:
         """mix -> local -> evolve through the strategy's hooks, each phase
         timed into ``phases``; returns the clock after the last."""
         strat = self.strategy
-        strat.mix(self.state, ctx)
+        with span("round.mix", track="engine", round=ctx.t):
+            strat.mix(self.state, ctx)
         tp = self._timed(phases, "mix", tp)
         active = list(strat.active_clients(self.state, ctx))
-        for k in active:
-            strat.local_update(self.state, k, ctx)
+        with span("round.local", track="engine", round=ctx.t,
+                  active=len(active)):
+            self.run_local_phase(ctx, active)
         tp = self._timed(phases, "local", tp)
-        for k in active:
-            strat.evolve(self.state, k, ctx)
-        strat.post_round(self.state, ctx)
+        with span("round.evolve", track="engine", round=ctx.t):
+            for k in active:
+                strat.evolve(self.state, k, ctx)
+            strat.post_round(self.state, ctx)
         return self._timed(phases, "evolve", tp)
 
     def _round_accounting(self, ctx: RoundCtx):
@@ -372,6 +539,7 @@ class RoundEngine:
         synchronize(self.device)
         t0 = tp = time.perf_counter()
         ctx = self._make_ctx(t)
+        self._pre_round(ctx)
         tp = self._round_phases(ctx, phases, tp)
 
         comm, flops = self._round_accounting(ctx)
@@ -382,7 +550,8 @@ class RoundEngine:
 
         acc_mean = acc_std = None
         if (t + 1) % cfg.eval_every == 0 or t == cfg.rounds - 1:
-            accs = self._eval_accs(ctx)
+            with span("round.eval", track="engine", round=t):
+                accs = self._eval_accs(ctx)
             acc_mean = float(np.mean(accs))
             acc_std = float(np.std(accs))
             self._acc_history.append(acc_mean)
@@ -392,12 +561,15 @@ class RoundEngine:
         self.phase_s.append(phases)
 
         self._next_round = t + 1
-        return RoundMetrics(
+        metrics = RoundMetrics(
             round=t, lr=ctx.lr, prune_rate=ctx.prune_rate,
             comm_busiest_mb=comm.busiest_mb, comm_rows=comm.row(),
             flops_round=flops.per_round_flops,
             cum_flops=float(np.sum(self._flops["per_round_flops"])),
             acc_mean=acc_mean, acc_std=acc_std, wall_s=tp - t0)
+        metrics = self._finish_metrics(ctx, metrics)
+        self._sample_series(metrics)
+        return metrics
 
     def rounds(self) -> Iterator[RoundMetrics]:
         for t in range(self._next_round, self.cfg.rounds):
@@ -437,3 +609,68 @@ class RoundEngine:
             pass
         return self.result(targets)
 
+    # -- vmap fast path ----------------------------------------------------
+    def _use_vmap(self, ctx: RoundCtx, active: list[int]) -> bool:
+        if self.local_exec == "loop" or not active:
+            return False
+        ok, why = self._vmap_supported(ctx, active)
+        if self.local_exec == "vmap" and not ok:
+            raise ValueError(f"local_exec='vmap' requested but {why}")
+        return ok
+
+    def _vmap_supported(self, ctx: RoundCtx, active: list[int]):
+        cfg = self.cfg
+        if not self.strategy.vmap_capable:
+            return False, f"strategy '{self.strategy.name}' is not vmap-capable"
+        if cfg.capacities is not None:
+            return False, "heterogeneous capacities use the per-client loop"
+        ns = [self.clients[k].n_train for k in active]
+        bss = {min(cfg.batch_size, n) for n in ns}
+        if len(bss) != 1:
+            return False, "clients disagree on effective batch size"
+        # ragged step counts are fine: the stacked phase pads every client to
+        # the max step count and masks the padded updates (no-op steps)
+        return True, ""
+
+    def _stacked_batches(self, ctx: RoundCtx, active: Sequence[int],
+                         epochs: int):
+        """(bx, by, live) of the stacked local phase of ``active`` on the
+        device: one permutation per epoch from each client's ``(seed,
+        round, k)`` generator — the loop's draws — padded to the longest
+        schedule with recycled batches, ``live`` marking the real steps
+        (padded steps are exact no-ops)."""
+        bs = min(self.cfg.batch_size,
+                 min(self.clients[k].n_train for k in active))
+        orders = []
+        for k in active:
+            rng = ctx.client_rng(k)
+            orders.append(np.concatenate(
+                [_pad_order(self.clients[k].n_train, bs, rng)
+                 for _ in range(epochs)]))
+        s_max = max(len(o) // bs for o in orders)
+        xb, yb, live = [], [], []
+        for k, order in zip(active, orders):
+            steps = len(order) // bs
+            c = self.clients[k]
+            padded = np.resize(order, s_max * bs)
+            xb.append(c.train_x[padded].reshape(
+                (s_max, bs) + c.train_x.shape[1:]))
+            yb.append(c.train_y[padded].reshape(s_max, bs))
+            live.append(np.arange(s_max) < steps)
+        return tuple(self.task.as_tensor(np.stack(a)) for a in (xb, yb, live))
+
+    def _vmap_local_phase(self, ctx: RoundCtx, active: list[int]) -> None:
+        # imported here: repro_torch.scale imports this module
+        from repro_torch.scale.stacked import stacked_local_phase
+
+        strat = self.strategy
+        state = self.state
+        bx, by, live = self._stacked_batches(
+            ctx, active, strat.local_epochs(state, ctx))
+        new = stacked_local_phase(
+            self.task.apply_fn, strat.opt,
+            tree_stack([strat.local_params(state, k) for k in active]),
+            tree_stack([strat.local_mask(state, k) for k in active]),
+            bx, by, live, ctx.lr)
+        for k, params in zip(active, tree_unstack(new, len(active))):
+            strat.set_local(state, k, params)

@@ -1,16 +1,18 @@
-"""Training launcher: the paper's experiment on the port's loop engine or,
-with ``--scale``, its stacked engine (reference ``repro.launch.train
-simulate``).
+"""Training launcher: the paper's experiment on the port's loop engine,
+its stacked engine (``--scale``) or its network simulator (``--sim``)
+(reference ``repro.launch.train simulate``).
 
     PYTHONPATH=src python -m repro_torch.launch.train simulate \
         --strategy dispfl --clients 16 --rounds 30 --partition dirichlet
     PYTHONPATH=src python -m repro_torch.launch.train simulate --scale \
         --scale-reduction ordered --strategy dispfl
+    PYTHONPATH=src python -m repro_torch.launch.train simulate --sim \
+        --async --staleness 2 --compute-hetero --bandwidth-skew 10
 
 Runs on CUDA unless ``--device cpu`` is given.  Prints one line per
 evaluated round, then a JSON object with the run's results, per-round wall
 times and per-phase times (mix, local, evolve, eval; ``--scale`` adds the
-host inputs phase).
+host inputs phase); ``--sim`` adds the simulator's ``"sim"`` report row.
 """
 from __future__ import annotations
 
@@ -65,6 +67,42 @@ def build_engine(args):
         engine = ScaleEngine(make_strategy(args.strategy), task, clients, cfg,
                              callbacks=callbacks,
                              reduction=args.scale_reduction)
+    elif args.sim:
+        from repro_torch.sim import (
+            AlwaysUp,
+            BandwidthTrace,
+            BernoulliAvailability,
+            LinkModel,
+            LossModel,
+            SimEngine,
+            hetero_speeds,
+        )
+        trace = (BandwidthTrace.from_json(args.bandwidth_trace)
+                 if args.bandwidth_trace else None)
+        links = (LinkModel.skewed(args.clients, args.bandwidth_mbps,
+                                  args.bandwidth_skew,
+                                  latency_ms=args.latency_ms, seed=args.seed,
+                                  trace=trace)
+                 if args.bandwidth_skew > 1.0 else
+                 LinkModel.uniform(args.clients, args.bandwidth_mbps,
+                                   args.latency_ms, trace=trace))
+        avail = (BernoulliAvailability(args.clients, args.drop_prob, args.seed)
+                 if args.drop_prob > 0 else AlwaysUp(args.clients))
+        speeds = (hetero_speeds(args.clients, seed=args.seed)
+                  if args.compute_hetero else None)
+        loss = (LossModel(args.loss_prob, args.retransmit_timeout,
+                          seed=args.seed)
+                if args.loss_prob > 0 else None)
+        if args.sim_checkpoint:
+            callbacks.append(Checkpointer(args.sim_checkpoint,
+                                          every=args.checkpoint_every))
+        engine = SimEngine(
+            make_strategy(args.strategy), task, clients, cfg,
+            callbacks=callbacks, local_exec=args.local_exec,
+            mode="async" if args.sim_async else "sync",
+            staleness=args.staleness, links=links, availability=avail,
+            round_s=args.round_s, compute_speeds=speeds,
+            uplink=args.uplink_mode, loss=loss)
     else:
         engine = RoundEngine(make_strategy(args.strategy), task, clients,
                              cfg, callbacks=callbacks,
@@ -85,10 +123,12 @@ def run_engine(args, engine) -> dict:
     for m in engine.rounds():
         walls.append(m.wall_s)
         if m.acc_mean is not None:
+            sim_note = (f" t_sim={m.sim_time_s:.1f}s"
+                        if hasattr(m, "sim_time_s") else "")
             print(f"[round {m.round + 1}/{cfg.rounds}] "
                   f"acc={m.acc_mean:.3f}±{m.acc_std:.3f} "
                   f"comm={m.comm_busiest_mb:.2f}MB lr={m.lr:.4f} "
-                  f"({m.wall_s:.1f}s)")
+                  f"({m.wall_s:.1f}s){sim_note}")
     res = engine.result()
     out = {
         "strategy": args.strategy, "partition": args.partition,
@@ -98,6 +138,9 @@ def run_engine(args, engine) -> dict:
         "wall_s": round(time.time() - t0, 1),
         "round_wall_s": walls, "phase_s": engine.phase_s,
     }
+    if args.sim:
+        targets = (args.target,) if args.target > 0 else ()
+        out["sim"] = engine.report(targets=targets).row()
     print(json.dumps(out, indent=2))
     if args.save:
         save_clients(args.save, [{"final_acc": np.asarray(a)}
@@ -143,7 +186,7 @@ def build_parser() -> argparse.ArgumentParser:
     sim.add_argument("--save", default="")
     sim.add_argument("--exec", default="auto", dest="local_exec",
                      choices=["auto", "loop", "vmap"],
-                     help="local-phase execution (vmap: not ported yet)")
+                     help="local-phase execution: vmap = stacked fast path")
     sim.add_argument("--log-jsonl", default="", dest="log_jsonl",
                      help="stream per-round RoundMetrics to this JSONL file")
     sim.add_argument("--checkpoint", default="",
@@ -165,20 +208,105 @@ def build_parser() -> argparse.ArgumentParser:
                      dest="scale_reduction", choices=["einsum", "ordered"],
                      help="gossip fold: einsum = matmul (default), ordered = "
                           "the loop's accumulation order (gossip kernel)")
+    # event-driven network simulation (repro_torch.sim)
+    sim.add_argument("--sim", action="store_true",
+                     help="run through the event-driven network simulator")
+    sim.add_argument("--async", dest="sim_async", action="store_true",
+                     help="asynchronous staleness-bounded gossip (default: "
+                          "synchronous barrier, bit-identical to the engine)")
+    sim.add_argument("--staleness", type=int, default=None,
+                     help="max rounds any client may run ahead "
+                          "(-1: unbounded; default 2)")
+    sim.add_argument("--bandwidth-mbps", type=float, default=None,
+                     dest="bandwidth_mbps", help="default 100")
+    sim.add_argument("--bandwidth-skew", type=float, default=None,
+                     dest="bandwidth_skew",
+                     help=">1: half the clients sit behind skew-x slower links")
+    sim.add_argument("--latency-ms", type=float, default=None,
+                     dest="latency_ms", help="default 10")
+    sim.add_argument("--compute-hetero", action="store_true",
+                     dest="compute_hetero",
+                     help="0.2x..1.0x per-client compute speed multipliers")
+    sim.add_argument("--round-s", type=float, default=None, dest="round_s",
+                     help="virtual seconds a full-speed client spends per "
+                          "round (default 1.0)")
+    sim.add_argument("--loss-prob", type=float, default=None,
+                     dest="loss_prob",
+                     help="per-link Bernoulli message drop probability "
+                          "(retransmitted after --retransmit-timeout; every "
+                          "attempt's bytes are counted on the wire)")
+    sim.add_argument("--retransmit-timeout", type=float, default=None,
+                     dest="retransmit_timeout",
+                     help="virtual seconds the sender waits before resending "
+                          "a dropped message (default 0.5)")
+    sim.add_argument("--uplink-mode", default=None, dest="uplink_mode",
+                     choices=["parallel", "fifo", "fair"],
+                     help="shared-uplink discipline: parallel = idealized "
+                          "per-edge links (default), fifo/fair serialize a "
+                          "sender's concurrent transfers on one uplink")
+    sim.add_argument("--bandwidth-trace", default=None,
+                     dest="bandwidth_trace",
+                     help='JSON file {"times": [...], "scale": [...]} of '
+                          "time-varying bandwidth multipliers (scale rows "
+                          "scalar or per-client)")
+    sim.add_argument("--sim-checkpoint", default="", dest="sim_checkpoint",
+                     help="save the full simulator state (virtual clock, "
+                          "event queue, link stats) to this .npz every "
+                          "--checkpoint-every rounds; resume with --resume")
     return ap
 
 
 def check_args(ap: argparse.ArgumentParser, args) -> None:
-    """The reference's refusals of flag combinations (``ap.error`` exits)."""
+    """The reference's refusals of flag combinations (``ap.error`` exits),
+    then the simulator's defaults, resolved after the guards with ``is
+    None`` so an explicit 0 reaches the models' own validation."""
+    if args.scale and args.sim:
+        ap.error("--scale and --sim are mutually exclusive engines")
     if not args.scale and args.scale_reduction != "einsum":
         ap.error("--scale-reduction require(s) --scale")
+    if not args.sim:
+        sim_only = {"--async": args.sim_async,
+                    "--staleness": args.staleness is not None,
+                    "--bandwidth-mbps": args.bandwidth_mbps is not None,
+                    "--bandwidth-skew": args.bandwidth_skew is not None,
+                    "--latency-ms": args.latency_ms is not None,
+                    "--compute-hetero": args.compute_hetero,
+                    "--round-s": args.round_s is not None,
+                    "--loss-prob": args.loss_prob is not None,
+                    "--retransmit-timeout":
+                        args.retransmit_timeout is not None,
+                    "--uplink-mode": args.uplink_mode is not None,
+                    "--bandwidth-trace": args.bandwidth_trace is not None,
+                    "--sim-checkpoint": bool(args.sim_checkpoint)}
+        used = [f for f, on in sim_only.items() if on]
+        if used:
+            ap.error(f"{', '.join(used)} require(s) --sim")
+    args.staleness = 2 if args.staleness is None else args.staleness
+    args.bandwidth_mbps = (100.0 if args.bandwidth_mbps is None
+                           else args.bandwidth_mbps)
+    args.bandwidth_skew = (1.0 if args.bandwidth_skew is None
+                           else args.bandwidth_skew)
+    args.latency_ms = 10.0 if args.latency_ms is None else args.latency_ms
+    args.round_s = 1.0 if args.round_s is None else args.round_s
+    args.loss_prob = 0.0 if args.loss_prob is None else args.loss_prob
+    args.retransmit_timeout = (0.5 if args.retransmit_timeout is None
+                               else args.retransmit_timeout)
+    args.uplink_mode = ("parallel" if args.uplink_mode is None
+                        else args.uplink_mode)
+    if args.sim and args.bandwidth_skew < 1.0:
+        ap.error("--bandwidth-skew must be >= 1 (1 = uniform links)")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
+def parse_args(argv: Optional[Sequence[str]] = None):
+    """Parsed and checked arguments, the simulator's defaults resolved."""
     ap = build_parser()
     args = ap.parse_args(argv)
     check_args(ap, args)
-    return run_simulate(args)
+    return args
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    return run_simulate(parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -39,7 +39,6 @@ import numpy as np
 
 from repro_torch.fl.base import (
     Task,
-    _pad_order,
     evaluate_clients_stacked,
     stack_eval_arrays,
 )
@@ -114,31 +113,6 @@ class ScaleEngine(RoundEngine):
     # ------------------------------------------------------------------
     # host-side per-round inputs (the reference's draws, in its order)
     # ------------------------------------------------------------------
-    def _batch_schedule(self, ctx: RoundCtx):
-        """Stacked padded batch schedule — one permutation per epoch from
-        each client's ``(seed, round, k)`` generator, padded to the longest
-        schedule with recycled batches, ``live`` marking the real steps."""
-        cfg = self.cfg
-        epochs = cfg.local_epochs
-        bs = min(cfg.batch_size, min(c.n_train for c in self.clients))
-        orders = []
-        for k in range(len(self.clients)):
-            rng = ctx.client_rng(k)
-            orders.append(np.concatenate(
-                [_pad_order(self.clients[k].n_train, bs, rng)
-                 for _ in range(epochs)]))
-        s_max = max(len(o) // bs for o in orders)
-        xb, yb, live = [], [], []
-        for k, order in enumerate(orders):
-            steps = len(order) // bs
-            c = self.clients[k]
-            padded = np.resize(order, s_max * bs)
-            xb.append(c.train_x[padded].reshape(
-                (s_max, bs) + c.train_x.shape[1:]))
-            yb.append(c.train_y[padded].reshape(s_max, bs))
-            live.append(np.arange(s_max) < steps)
-        return tuple(self.task.as_tensor(np.stack(a)) for a in (xb, yb, live))
-
     def _evolve_batches(self, ctx: RoundCtx):
         """The mask-search batches, drawn from each client's stream right
         after its local-phase orders — the loop's ``evolve`` draw order."""
@@ -155,7 +129,8 @@ class ScaleEngine(RoundEngine):
         """The host inputs, then mix -> local phase -> evolve on the stacked
         state inside the ``scale.step`` span, with the step counters."""
         adapter = self.adapter
-        bx, by, live = self._batch_schedule(ctx)
+        bx, by, live = self._stacked_batches(
+            ctx, range(len(self.clients)), self.cfg.local_epochs)
         ev = self._evolve_batches(ctx) if adapter.evolves else None
         counts = adapter.evolve_counts(ctx)
         tp = self._timed(phases, "inputs", tp)

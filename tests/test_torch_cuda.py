@@ -434,3 +434,122 @@ def test_ordered_scale_round_on_card_matches_cpu(cuda_device):
                     tree_leaves(cpu.state["params"])):
         same = (a.cpu() != 0) == (b != 0)
         torch.testing.assert_close(a.cpu()[same], b[same], rtol=0, atol=1e-3)
+
+
+def _sim_world(device, **kw):
+    """A K=4 smallcnn simulator on ``device`` (the CPU copy of the tests'
+    world: pathological data, 3 rounds of 1 epoch)."""
+    from repro_torch.data.loader import build_federated_image_task
+    from repro_torch.fl.base import FLConfig, make_cnn_task
+    from repro_torch.fl.engine import make_strategy
+    from repro_torch.sim import SimEngine
+
+    clients, _ = build_federated_image_task(
+        0, n_clients=4, partition="pathological", n_train_per_class=24,
+        n_test_per_client=16, hw=8)
+    cfg = FLConfig(n_clients=4, rounds=3, local_epochs=1, batch_size=16,
+                   degree=2)
+    return SimEngine(make_strategy("dispfl"),
+                     make_cnn_task("smallcnn", 10, 8, width=4, device=device),
+                     clients, cfg, **kw)
+
+
+def test_async_fold_over_device_payloads(cuda_device):
+    """The async path on the card: every arrived payload leaf is folded by
+    the fold kernel (launches == folds counted by ``sparse.ops``), and one
+    activation's ``mix_one`` over device payloads equals the same call on
+    CPU copies bit for bit."""
+    from repro_torch.sim import LossModel, hetero_speeds
+    from repro_torch.sparse import ops as sparse_ops
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    eng = _sim_world(cuda_device, mode="async", staleness=2, round_s=1.0,
+                     uplink="fifo", compute_speeds=hetero_speeds(4, seed=2),
+                     loss=LossModel(0.25, timeout_s=0.3))
+    sparse_ops.reset_counters()
+    pa.LAUNCHES = 0
+    res = eng.run()
+    assert pa.LAUNCHES == sparse_ops.COUNTERS["accum_calls"] > 0
+    assert eng.mixed_messages > 0 and len(res.acc_history) == 3
+    assert eng.observed_spread <= 2 and eng.observed_mix_lag <= 2
+    strat, state = eng.strategy, eng.state
+    senders = {j: strat.snapshot_message(state, j) for j in (0, 2)}
+    cpu = lambda t: tree_map(lambda x: x.detach().cpu(), t)  # noqa: E731
+    cpu_senders = {j: {"packed": tree_map(
+        lambda p: type(p)(p.bitmap.cpu(), p.values.cpu(), p.shape),
+        m["packed"], is_leaf=lambda p: hasattr(p, "bitmap"))}
+        for j, m in senders.items()}
+    on_card = {k: list(v) for k, v in state.items()}
+    on_cpu = {k: [cpu(x) for x in v] for k, v in state.items()}
+    launches = pa.LAUNCHES
+    strat.mix_one(on_card, 1, senders, None)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES - launches == 2 * len(tree_leaves(state["params"][1]))
+    strat.mix_one(on_cpu, 1, cpu_senders, None)
+    for a, b in zip(tree_leaves(on_card["params"][1]),
+                    tree_leaves(on_cpu["params"][1])):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_packed_archive_of_device_payloads(cuda_device, tmp_path):
+    """Encoding copies device payloads to numpy; decoding onto the card
+    gives back the bitmap and values bit for bit, through the archive."""
+    from repro_torch.checkpoint.npz import load_pytree, save_pytree
+    from repro_torch.checkpoint.packed import decode_packed, encode_packed
+    from repro_torch.sparse.packed import pack_tree
+    from repro_torch.utils.tree import tree_leaves
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    shapes = {"a": (3, 3, 16, 32), "b": (1000,), "c": (17, 10)}
+    w = {k: torch.randn(s, generator=gen, device=cuda_device)
+         for k, s in shapes.items()}
+    m = {k: (torch.rand(s, generator=gen, device=cuda_device) < 0.4).float()
+         for k, s in shapes.items()}
+    for dtype in (None, torch.float16):
+        msg = {"packed": pack_tree(w, m, dtype=dtype)}
+        path = str(tmp_path / "payload.npz")
+        save_pytree(path, encode_packed(msg))
+        back = decode_packed(load_pytree(path), cuda_device)
+        is_p = lambda p: hasattr(p, "bitmap")  # noqa: E731
+        for a, b in zip(tree_leaves(msg, is_leaf=is_p),
+                        tree_leaves(back, is_leaf=is_p)):
+            assert b.bitmap.device.type == b.values.device.type == "cuda"
+            assert torch.equal(a.bitmap, b.bitmap) and a.shape == b.shape
+            assert a.values.dtype == b.values.dtype
+            assert torch.equal(a.values, b.values)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_sim_resume_on_card_bit_identical(cuda_device, mode, tmp_path):
+    """Runs on the card from one state give the same bits (cuDNN is held
+    deterministic), so a run resumed mid-way equals the uninterrupted one,
+    transfers included, and a sync run equals ``RoundEngine``."""
+    from repro_torch.fl.engine import RoundEngine, make_strategy
+    from repro_torch.sim import hetero_speeds
+    from repro_torch.utils.tree import tree_leaves
+
+    kw = (dict(mode="async", staleness=1, round_s=1.0,
+               compute_speeds=hetero_speeds(4, seed=2)) if mode == "async"
+          else dict(mode="sync", local_exec="loop"))
+    full = _sim_world(cuda_device, **kw)       # every engine: the seed's init
+    full.run()
+    first = _sim_world(cuda_device, **kw)
+    mid = str(tmp_path / "mid.npz")
+    for m in first.rounds():
+        if m.round == 1:
+            first.save(mid)
+            break
+    resumed = _sim_world(cuda_device, **kw).restore(mid)
+    resumed.run()
+    assert resumed.stats.transfers == full.stats.transfers
+    assert resumed.clock.now == full.clock.now
+    assert resumed._acc_history == full._acc_history
+    for a, b in zip(tree_leaves(resumed.state), tree_leaves(full.state)):
+        assert torch.equal(a, b)
+    if mode == "sync":
+        eng = RoundEngine(make_strategy("dispfl"), full.task, full.clients,
+                          full.cfg, local_exec="loop")
+        eng.run()
+        assert eng._acc_history == full._acc_history
+        for a, b in zip(tree_leaves(eng.state), tree_leaves(full.state)):
+            assert torch.equal(a, b)

@@ -611,7 +611,7 @@ def test_cli_scale_on_cpu(reduction, tmp_path):
 
 
 def test_cli_scale_refusals(monkeypatch):
-    for extra in (["--scale-reduction", "ordered"], ["--sim"]):
+    for extra in (["--scale-reduction", "ordered"], ["--sim", "--scale"]):
         with pytest.raises(SystemExit):
             port_train.main(ARGV + extra + ["--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,0 +1,827 @@
+"""The port's network simulator (``repro_torch.sim``), the engine's vmap
+local phase and the ``--sim`` CLI against the reference, on the CPU.
+
+World of the reference's own ``tests/test_sim.py``: K=4, smallcnn width 4,
+hw 8, pathological 2 classes per client, 24 train per class, 3 rounds, 2
+local epochs, batch 16, degree 2.  Initial params and masks come from
+``jax.random``, which torch cannot replay, so the port starts from one
+reference archive written by the reference ``SimEngine.save`` before round
+0 (async engines take its state through the base engine's restore; an
+async archive only exists once the event loop has run).
+
+Tolerances:
+- exact: events, links, loss draws, uplink schedules, availability,
+  out-neighbours, packed archives (bitmaps and values bit for bit), masks,
+  comm rows, FLOPs, accuracies, the transfer list, ``LinkStats``, the
+  virtual clock and the async invariants;
+- the port's sync ``SimEngine`` against the port's ``RoundEngine``: every
+  leaf bit-equal;
+- parameters against the reference within 1e-5 (measured after 3 rounds:
+  3.0e-8 sync, 8.9e-8 async, 3.0e-8 for the vmap phase against the
+  reference's vmap; fp32 rounding of the convolutions);
+- port vmap against port loop: the reference's ``test_engine.py`` criterion
+  (accuracies within 5e-2) and, tighter, masks equal and parameters within
+  ``VMAP_PARAM_ATOL`` = 1e-3.  Here the gap measures 0; ``chip_smoke.py``
+  holds the card to the same bound at ResNet18-GN width, where two right
+  fp32 answers already differ by about 4e-4 after one local epoch (the
+  loop phase on the card against the same phase on the CPU, H100).
+"""
+import dataclasses
+import json
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import decode_packed as ref_decode_packed
+from repro.checkpoint import encode_packed as ref_encode_packed
+from repro.checkpoint import load_pytree as ref_load_pytree
+from repro.checkpoint import save_pytree as ref_save_pytree
+from repro.core import accounting as ref_accounting
+from repro.core import topology as ref_topology
+from repro.data import build_federated_image_task as ref_build
+from repro.fl import Checkpointer as RefCheckpointer
+from repro.fl import FLConfig as RefFLConfig
+from repro.fl import RoundEngine as RefRoundEngine
+from repro.fl import make_cnn_task as ref_make_task
+from repro.fl import make_strategy as ref_make_strategy
+from repro.launch import train as ref_train
+from repro.sim import SimEngine as RefSimEngine
+from repro.sim import availability as ref_avail
+from repro.sim import events as ref_events
+from repro.sim import links as ref_links
+from repro.sparse import pack_tree as ref_pack_tree
+from repro.utils.tree import tree_leaves_with_path as ref_leaves
+from repro_torch.checkpoint.npz import load_pytree, save_pytree
+from repro_torch.checkpoint.packed import decode_packed, encode_packed
+from repro_torch.core import accounting, topology
+from repro_torch.data.loader import build_federated_image_task
+from repro_torch.fl.base import FLConfig, make_cnn_task
+from repro_torch.fl.engine import (
+    Checkpointer,
+    RoundEngine,
+    StrategyBase,
+    make_strategy,
+)
+from repro_torch.launch import train as port_train
+from repro_torch.sim import (
+    BandwidthTrace,
+    BernoulliAvailability,
+    ComputeModel,
+    EventQueue,
+    LinkModel,
+    LossModel,
+    SimEngine,
+    TraceAvailability,
+    UplinkScheduler,
+    VirtualClock,
+    dropping_trace,
+    hetero_speeds,
+    measure_payload,
+)
+from repro_torch.sim import events as port_events
+from repro_torch.sparse import codec
+from repro_torch.sparse import ops as sparse_ops
+from repro_torch.sparse.packed import pack_tree, words_to_numpy
+from repro_torch.utils.tree import tree_leaves_with_path, tree_map
+
+pytestmark = pytest.mark.tier1
+
+PARAM_ATOL = 1e-5
+VMAP_PARAM_ATOL = 1e-3
+DATA = dict(n_clients=4, partition="pathological", classes_per_client=2,
+            n_train_per_class=24, n_test_per_client=16, hw=8, noise=0.7)
+CFG = dict(n_clients=4, rounds=3, local_epochs=2, batch_size=16, degree=2,
+           eval_every=1)
+ASYNC_KW = dict(mode="async", staleness=2, round_s=1.0, uplink="fifo")
+
+
+def _async_kw(seed=0):
+    return dict(ASYNC_KW, compute_speeds=hetero_speeds(4, seed=2),
+                loss=LossModel(0.25, timeout_s=0.3, seed=seed))
+
+
+def _ref_async_kw():
+    return dict(ASYNC_KW, compute_speeds=ref_events.hetero_speeds(4, seed=2),
+                loss=ref_links.LossModel(0.25, timeout_s=0.3, seed=0))
+
+
+def _ref_np(tree):
+    return {p: np.asarray(x) for p, x in ref_leaves(tree)}
+
+
+def _port_np(tree):
+    return {p: x.detach().cpu().numpy() for p, x in tree_leaves_with_path(tree)}
+
+
+def _assert_state(ref_state, port_state, atol=PARAM_ATOL, what=""):
+    """Masks exact, parameters within ``atol``; returns the largest
+    parameter difference."""
+    a, b = _ref_np(ref_state), _port_np(port_state)
+    assert list(a) == list(b), what
+    err = 0.0
+    for k in a:
+        if k.startswith("masks"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{what} {k}")
+        else:
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=atol,
+                                       err_msg=f"{what} {k}")
+            err = max(err, float(np.abs(a[k] - b[k]).max()))
+    return err
+
+
+def _assert_bit_equal(a_state, b_state):
+    a, b = _port_np(a_state), _port_np(b_state)
+    assert list(a) == list(b)
+    for k in a:
+        assert a[k].tobytes() == b[k].tobytes(), k
+
+
+def _transfers(stats):
+    return [dataclasses.astuple(t) for t in stats.transfers]
+
+
+def _assert_stats(ref_stats, port_stats):
+    assert _transfers(ref_stats) == _transfers(port_stats)
+    for name in ("up", "down", "up_wire", "down_wire", "retrans_up",
+                 "retrans_up_wire", "edge_bytes", "edge_busy_s"):
+        np.testing.assert_array_equal(getattr(ref_stats, name),
+                                      getattr(port_stats, name), err_msg=name)
+    assert ref_stats.n_retransmits == port_stats.n_retransmits
+    assert ref_stats.n_lost == port_stats.n_lost
+
+
+def _metrics(m):
+    d = m.to_dict()
+    d.pop("wall_s")
+    return d
+
+
+def _port_task():
+    return make_cnn_task("smallcnn", 10, 8, width=4, device="cpu")
+
+
+def _port_clients():
+    return build_federated_image_task(0, **DATA)[0]
+
+
+def _port_sim(name="dispfl", cfg=None, **kw):
+    kw.setdefault("local_exec", "loop")
+    return SimEngine(make_strategy(name), _port_task(), _port_clients(),
+                     cfg or FLConfig(**CFG), **kw)
+
+
+def _take_state(engine, path):
+    """Start ``engine`` (any mode) from the round-0 state of an engine
+    archive: the base engine's restore, which reads only the state."""
+    RoundEngine._restore_payload(engine, load_pytree(path))
+    return engine
+
+
+class _SaveAt(Checkpointer):
+    """Save once, after round ``at`` (0-based)."""
+
+    def __init__(self, path, at):
+        super().__init__(path)
+        self.at = at
+
+    def on_round_end(self, engine, metrics):
+        if metrics.round == self.at:
+            engine.save(self.path)
+
+    def on_run_end(self, engine):
+        pass
+
+
+class _RefSaveAt(RefCheckpointer):
+    def __init__(self, path, at):
+        super().__init__(path)
+        self.at = at
+
+    def on_round_end(self, engine, metrics):
+        if metrics.round == self.at:
+            engine.save(self.path)
+
+    def on_run_end(self, engine):
+        pass
+
+
+# ---------------------------------------------------------------------------
+# reference runs, each built once
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ref_runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ref_sim")
+    clients = ref_build(0, **DATA)[0]
+    task = ref_make_task("smallcnn", 10, 8, width=4)
+    cfg = RefFLConfig(**CFG)
+    cache = {}
+
+    def archive(name):
+        key = ("archive", name)
+        if key not in cache:
+            path = str(d / f"{name}-r0.npz")
+            RefSimEngine(ref_make_strategy(name), task, clients, cfg,
+                         mode="sync").save(path)
+            cache[key] = path
+        return cache[key]
+
+    def run(key):
+        if key in cache:
+            return cache[key]
+        name, mode = key
+        mid = str(d / f"{name}-{mode}-mid.npz")
+        kw = (dict(_ref_async_kw(), local_exec="loop") if mode == "async"
+              else dict(mode="sync", local_exec="loop"))
+        eng = RefSimEngine(ref_make_strategy(name), task, clients, cfg,
+                           callbacks=[_RefSaveAt(mid, 1)], **kw)
+        metrics = [_metrics(m) for m in eng.rounds()]
+        cache[key] = dict(engine=eng, metrics=metrics, mid=mid,
+                          result=eng.result())
+        return cache[key]
+
+    def vmap():
+        if "vmap" not in cache:
+            eng = RefRoundEngine(ref_make_strategy("dispfl"), task, clients,
+                                 cfg, local_exec="vmap")
+            eng.run()
+            cache["vmap"] = eng
+        return cache["vmap"]
+
+    return dict(archive=archive, run=run, vmap=vmap, task=task,
+                clients=clients, cfg=cfg)
+
+
+# ---------------------------------------------------------------------------
+# substrate: topology, events, links, loss, uplinks, availability
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k,t,degree,seed", [
+    (10, 3, 5, 4, 1), (4, 0, 0, 2, 0), (4, 2, 7, 3, 0), (16, 15, 2, 10, 9)])
+def test_directed_out_neighbors_match_reference(n, k, t, degree, seed):
+    got = topology.directed_out_neighbors(n, k, t, degree, seed)
+    want = ref_topology.directed_out_neighbors(n, k, t, degree, seed)
+    np.testing.assert_array_equal(got, want)
+    assert topology.GOSSIP_STREAM == ref_topology.GOSSIP_STREAM
+    a = topology.make_adjacency("random", n, t, min(degree, n - 1), seed)
+    assert topology.busiest_node_degree(a) == ref_topology.busiest_node_degree(a)
+    np.testing.assert_array_equal(topology.mixing_matrix(a),
+                                  ref_topology.mixing_matrix(a))
+
+
+def test_events_and_compute_match_reference():
+    pushes = [(2.0, "wake", 0), (1.0, "wake", 1), (1.0, "arrival", 2),
+              (0.5, "done", 3), (1.0, "done", 4)]
+    got, want = EventQueue(), ref_events.EventQueue()
+    for t, kind, k in pushes:
+        got.push(t, kind, k=k)
+        want.push(t, kind, k=k)
+    assert ([(e.time, e.seq, e.kind, e.data) for e in got.pending()]
+            == [(e.time, e.seq, e.kind, e.data) for e in want.pending()])
+    restored = EventQueue()
+    restored.restore(got.pending()[1:])
+    restored.push(1.0, "wake", k=9)          # after every restored seq
+    order = [(e.time, e.data["k"]) for e in restored.drain()]
+    assert order == [(1.0, 1), (1.0, 2), (1.0, 4), (1.0, 9), (2.0, 0)]
+    clock = VirtualClock()
+    clock.advance_to(3.0)
+    with pytest.raises(ValueError, match="backwards"):
+        clock.advance_to(2.0)
+    for seed in (0, 3):
+        np.testing.assert_array_equal(hetero_speeds(10, seed=seed),
+                                      ref_events.hetero_speeds(10, seed=seed))
+    cms = (ComputeModel.paced(5, 1e9, 2.0, speeds=hetero_speeds(5)),
+           ref_events.ComputeModel.paced(5, 1e9, 2.0,
+                                         speeds=ref_events.hetero_speeds(5)))
+    for k in range(5):
+        assert cms[0].local_time(k, 3e8) == cms[1].local_time(k, 3e8)
+    assert cms[0].mean_round_s(7e8) == cms[1].mean_round_s(7e8)
+    assert (ComputeModel.heterogeneous(6, seed=4).speeds.tolist()
+            == ref_events.ComputeModel.heterogeneous(6, seed=4).speeds.tolist())
+    assert port_events.WAKE == ref_events.WAKE
+
+
+def test_links_and_bandwidth_trace_match_reference(tmp_path):
+    p = tmp_path / "trace.json"
+    p.write_text(json.dumps({"times": [0.0, 2.0],
+                             "scale": [[1.0, 0.5, 2.0, 1.0], [0.25] * 4]}))
+    got = LinkModel.skewed(4, mbps=50, skew=10, latency_ms=5, seed=3,
+                           trace=BandwidthTrace.from_json(str(p)))
+    want = ref_links.LinkModel.skewed(
+        4, mbps=50, skew=10, latency_ms=5, seed=3,
+        trace=ref_links.BandwidthTrace.from_json(str(p)))
+    np.testing.assert_array_equal(got.bw_mbps, want.bw_mbps)
+    for src, dst, t in ((0, 1, 0.0), (1, 2, 1.5), (3, 0, 2.0), (2, 3, 9.0)):
+        assert (got.transfer_time(123456.0, src, dst, t)
+                == want.transfer_time(123456.0, src, dst, t))
+    u = LinkModel.uniform(4, mbps=100, latency_ms=10)
+    assert u.transfer_time(1e6, 0, 1) == ref_links.LinkModel.uniform(
+        4, mbps=100, latency_ms=10).transfer_time(1e6, 0, 1)
+    with pytest.raises(ValueError, match="positive"):
+        BandwidthTrace([0.0], np.array([0.0]))
+
+
+@pytest.mark.parametrize("mode", ["parallel", "fifo", "fair"])
+def test_uplink_disciplines_match_reference(mode):
+    lm = LinkModel.skewed(4, mbps=100, skew=4, seed=1)
+    ref_lm = ref_links.LinkModel.skewed(4, mbps=100, skew=4, seed=1)
+    got, want = UplinkScheduler(4, mode), ref_links.UplinkScheduler(4, mode)
+    batches = [(0, [(1, 1e6), (2, 3e5), (3, 7e5)], 1.0),
+               (0, [(2, 5e5)], 1.01), (2, [(0, 2e6), (1, 2e6)], 0.0),
+               (0, [(3, 1e4)], 9.0)]
+    for src, jobs, t in batches:
+        assert got.schedule(lm, src, jobs, t) == want.schedule(
+            ref_lm, src, jobs, t)
+    np.testing.assert_array_equal(got.state_dict()["free_at"],
+                                  want.state_dict()["free_at"])
+    with pytest.raises(ValueError, match="uplink mode"):
+        UplinkScheduler(4, "warp")
+
+
+def test_loss_model_matches_reference():
+    got = LossModel(0.5, timeout_s=0.2, max_retries=3, seed=1)
+    want = ref_links.LossModel(0.5, timeout_s=0.2, max_retries=3, seed=1)
+    draws = [(s, d, t) for s in range(3) for d in range(3) for t in range(20)]
+    assert ([got.attempts(*x) for x in draws]
+            == [want.attempts(*x) for x in draws])
+    assert any(a > 1 for a, _ in (got.attempts(*x) for x in draws))
+    assert LossModel(0.0).attempts(3, 2, 7) == (1, True)
+    for bad in (dict(loss_prob=1.0), dict(loss_prob=0.1, timeout_s=0.0)):
+        with pytest.raises(ValueError):
+            LossModel(**bad)
+
+
+def test_availability_matches_reference():
+    av = BernoulliAvailability(12, 0.4, seed=7)
+    ref = ref_avail.BernoulliAvailability(12, 0.4, seed=7)
+    tr = dropping_trace(12, 5, 0.4, seed=7)
+    for t in range(7):
+        np.testing.assert_array_equal(av.alive(t), ref.alive(t))
+        np.testing.assert_array_equal(tr.alive(t), ref.alive(t % 5))
+        assert [av.up(k, t) for k in range(12)] == [ref.up(k, t)
+                                                    for k in range(12)]
+        np.testing.assert_array_equal(
+            topology.make_adjacency("fc", 12, t, seed=7, alive=av.alive(t)),
+            ref_topology.make_adjacency("fc", 12, t, seed=7, drop_prob=0.4))
+    assert not av.always_up and TraceAvailability(np.ones((1, 3))).alive(4).all()
+    with pytest.raises(ValueError, match="trace"):
+        TraceAvailability(np.zeros((0, 3)))
+
+
+def test_measured_comm_matches_reference():
+    a = ref_topology.make_adjacency("random", 6, 2, 3, 0)
+    vals = [1000.0, 2000.0, 0.0, 50.0, 7.0, 300.0]
+    wire = [1100, 2100, 8, 60, 20, 400]
+    got = accounting.measured_comm(a, vals, wire)
+    want = ref_accounting.measured_comm(a, vals, wire)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+# ---------------------------------------------------------------------------
+# packed payloads: archives and bytes on the wire
+# ---------------------------------------------------------------------------
+
+
+def _payload_world(seed=3):
+    rng = np.random.default_rng(seed)
+    shapes = {"conv": {"w": (3, 3, 2, 4)}, "fc": {"w": (17, 10), "b": (10,)}}
+    m = {k: {n: (rng.random(s) < 0.4).astype(np.float32)
+             for n, s in v.items()} for k, v in shapes.items()}
+    w = {k: {n: rng.normal(size=a.shape).astype(np.float32) * a
+             for n, a in v.items()} for k, v in m.items()}
+    return w, m
+
+
+def _torch_tree(tree):
+    return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def _leaf_pairs(ref_tree, port_tree):
+    ra = jax.tree.leaves(ref_tree, is_leaf=lambda t: hasattr(t, "bitmap"))
+    pa_ = [p for _, p in tree_leaves_with_path(
+        port_tree, is_leaf=lambda t: hasattr(t, "bitmap"))]
+    assert len(ra) == len(pa_)
+    return zip(ra, pa_)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "fp16"])
+def test_packed_archives_interchange_with_reference(dtype, tmp_path):
+    """A payload tree encoded by either package decodes in the other, with
+    bitmap and values verbatim, through the .npz archive."""
+    w, m = _payload_world()
+    ref_dtype = np.float16 if dtype == "fp16" else None
+    port_dtype = torch.float16 if dtype == "fp16" else None
+    ref_msg = {"packed": ref_pack_tree(jax.tree.map(jax.numpy.asarray, w),
+                                       jax.tree.map(jax.numpy.asarray, m),
+                                       dtype=ref_dtype)}
+    port_msg = {"packed": pack_tree(_torch_tree(w), _torch_tree(m),
+                                    dtype=port_dtype)}
+    a, b = str(tmp_path / "ref.npz"), str(tmp_path / "port.npz")
+    ref_save_pytree(a, ref_encode_packed(ref_msg))
+    save_pytree(b, encode_packed(port_msg))
+    from_ref = decode_packed(load_pytree(a))
+    from_port = ref_decode_packed(ref_load_pytree(b, as_jnp=False))
+    for x, y in _leaf_pairs(ref_msg, from_ref):
+        np.testing.assert_array_equal(np.asarray(x.bitmap),
+                                      words_to_numpy(y.bitmap))
+        assert np.asarray(x.values).tobytes() == y.values.numpy().tobytes()
+        assert tuple(x.shape) == y.shape
+    for x, y in _leaf_pairs(from_port, port_msg):
+        np.testing.assert_array_equal(np.asarray(x.bitmap),
+                                      words_to_numpy(y.bitmap))
+        assert np.asarray(x.values).tobytes() == y.values.numpy().tobytes()
+    again = decode_packed(encode_packed(port_msg))
+    for x, y in _leaf_pairs(from_port, again):
+        assert np.asarray(x.values).tobytes() == y.values.numpy().tobytes()
+    # sizes: value bytes by the values' own itemsize, wire bytes by the codec
+    vb, wb = measure_payload(port_msg)
+    assert (vb, wb) == ref_links.measure_payload(ref_msg)
+    assert wb == codec.encoded_nbytes(port_msg["packed"])
+
+
+def test_measure_payload_dense_fallback_matches_reference():
+    w, m = _payload_world(5)
+    got = measure_payload({"params": _torch_tree(w), "mask": _torch_tree(m)})
+    want = ref_links.measure_payload({"params": w, "mask": m})
+    assert got == want
+    assert measure_payload({"params": _torch_tree(w), "mask": None}) == \
+        ref_links.measure_payload({"params": w, "mask": None})
+
+
+# ---------------------------------------------------------------------------
+# sync mode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["dispfl", "dispfl_anneal"])
+def test_sync_sim_matches_reference(ref_runs, name):
+    ref = ref_runs["run"]((name, "sync"))
+    port = _port_sim(name, mode="sync").restore(ref_runs["archive"](name))
+    got = [_metrics(m) for m in port.rounds()]
+    assert got == ref["metrics"]          # comm rows, FLOPs, acc, timeline
+    _assert_stats(ref["engine"].stats, port.stats)
+    assert port.clock.now == ref["engine"].clock.now
+    assert port.acc_trace == ref["engine"].acc_trace
+    _assert_state(ref["engine"].state, port.state)
+    assert (port.report((0.0,)).to_dict()
+            == ref["engine"].report((0.0,)).to_dict())
+
+
+@pytest.mark.parametrize("name", ["dispfl", "dispfl_anneal"])
+def test_sync_sim_bit_equal_to_port_round_engine(ref_runs, name):
+    path = ref_runs["archive"](name)
+    sim = _port_sim(name, mode="sync").restore(path)
+    eng = RoundEngine(make_strategy(name), _port_task(), _port_clients(),
+                      FLConfig(**CFG), local_exec="loop").restore(path)
+    for a, b in zip(sim.rounds(), eng.rounds()):
+        da, db = _metrics(a), _metrics(b)
+        assert {k: da[k] for k in db} == db
+    assert sim._comm == eng._comm and sim._flops == eng._flops
+    _assert_bit_equal(sim.state, eng.state)
+    assert sim.sim_time > 0 and len(sim.stats.transfers) > 0
+    # every transfer carries the codec frame of what its sender held at the
+    # round's start: replay the rounds and size the payloads
+    replay = RoundEngine(make_strategy(name), _port_task(), _port_clients(),
+                         FLConfig(**CFG), local_exec="loop").restore(path)
+    sizes = []
+    for t in range(CFG["rounds"]):
+        ctx = replay._make_ctx(t)
+        wire = [measure_payload(replay.strategy.snapshot_message(
+            replay.state, k))[1] for k in range(4)]
+        sizes += [wire[j] for j in range(4) for i in range(4)
+                  if ctx.adjacency[i, j] > 0 and i != j]
+        replay._run_one_round(t)
+    assert sorted(sizes) == sorted(t.bytes_wire for t in sim.stats.transfers)
+    assert sim.stats.up_wire.sum() == sum(sizes)
+
+
+def test_sync_availability_matches_drop_prob(ref_runs):
+    path = ref_runs["archive"]("dispfl")
+    sim = _port_sim(mode="sync",
+                    availability=BernoulliAvailability(4, 0.4, seed=0))
+    sim.restore(path)
+    eng = RoundEngine(make_strategy("dispfl"), _port_task(), _port_clients(),
+                      FLConfig(**dict(CFG, drop_prob=0.4)),
+                      local_exec="loop").restore(path)
+    res_sim, res_eng = sim.run(), eng.run()
+    assert res_sim.acc_history == res_eng.acc_history
+    _assert_bit_equal(sim.state, eng.state)
+
+
+# ---------------------------------------------------------------------------
+# async mode
+# ---------------------------------------------------------------------------
+
+
+def _assert_async_matches(ref_eng, port):
+    _assert_stats(ref_eng.stats, port.stats)
+    assert port.clock.now == ref_eng.clock.now
+    assert [t for t, _ in port.acc_trace] == [t for t, _ in ref_eng.acc_trace]
+    assert port.acc_trace == ref_eng.acc_trace
+    assert (port.observed_spread, port.observed_mix_lag,
+            port.mixed_messages) == (ref_eng.observed_spread,
+                                     ref_eng.observed_mix_lag,
+                                     ref_eng.mixed_messages)
+    assert port._comm == ref_eng._comm and port._flops == ref_eng._flops
+    np.testing.assert_array_equal(port.uplink.free_at, ref_eng.uplink.free_at)
+    return _assert_state(ref_eng.state, port.state)
+
+
+def test_async_sim_matches_reference(ref_runs):
+    """Loss with retransmits, a FIFO uplink and heterogeneous compute."""
+    ref = ref_runs["run"](("dispfl", "async"))
+    port = _take_state(_port_sim(**_async_kw()), ref_runs["archive"]("dispfl"))
+    sparse_ops.reset_counters()
+    got = [_metrics(m) for m in port.rounds()]
+    assert got == ref["metrics"]
+    _assert_async_matches(ref["engine"], port)
+    eng = ref["engine"]
+    assert eng.stats.n_retransmits > 0 and eng.mixed_messages > 0
+    assert port.observed_spread <= 2 and port.observed_mix_lag <= 2
+    # one fold per arrived payload leaf (the packed mix_one)
+    n_leaves = len(tree_leaves_with_path(port.state["params"][0]))
+    assert sparse_ops.COUNTERS["accum_calls"] == port.mixed_messages * n_leaves
+    assert (port.report((0.0,)).to_dict()
+            == eng.report((0.0,)).to_dict())
+
+
+def test_async_archive_resumes_from_reference_in_port(ref_runs):
+    ref = ref_runs["run"](("dispfl", "async"))
+    port = _port_sim(**_async_kw()).restore(ref["mid"])
+    assert port._next_round == 2
+    got = [_metrics(m) for m in port.rounds()]
+    assert got == ref["metrics"][2:]
+    _assert_async_matches(ref["engine"], port)
+
+
+def test_async_archive_resumes_from_port_in_reference(ref_runs, tmp_path):
+    mid = str(tmp_path / "port-mid.npz")
+    port = _take_state(_port_sim(**_async_kw(), callbacks=[_SaveAt(mid, 1)]),
+                       ref_runs["archive"]("dispfl"))
+    for _ in port.rounds():
+        pass
+    ref = RefSimEngine(ref_make_strategy("dispfl"), ref_runs["task"],
+                       ref_runs["clients"], ref_runs["cfg"],
+                       local_exec="loop", **_ref_async_kw()).restore(mid)
+    assert ref._next_round == 2
+    for _ in ref.rounds():
+        pass
+    _assert_async_matches(ref, port)
+    _assert_stats(ref_runs["run"](("dispfl", "async"))["engine"].stats,
+                  ref.stats)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_port_checkpoint_resume_bit_identical(ref_runs, mode, tmp_path):
+    kw = _async_kw() if mode == "async" else dict(mode="sync")
+    start = ref_runs["archive"]("dispfl")
+
+    def build(**extra):
+        eng = _port_sim(**kw, **extra)
+        return _take_state(eng, start) if mode == "async" else eng.restore(
+            start)
+
+    full = build()
+    want = [_metrics(m) for m in full.rounds()]
+    path = str(tmp_path / "ck.npz")
+    first = build()
+    got = []
+    for m in first.rounds():
+        got.append(_metrics(m))
+        if m.round == 1:
+            first.save(path)
+            break
+    resumed = _port_sim(**kw).restore(path)
+    got += [_metrics(m) for m in resumed.rounds()]
+    assert got == want
+    _assert_bit_equal(resumed.state, full.state)
+    assert resumed.clock.now == full.clock.now
+    assert resumed.acc_trace == full.acc_trace
+    assert _transfers(resumed.stats) == _transfers(full.stats)
+    assert resumed.report((0.0,)).to_dict() == full.report((0.0,)).to_dict()
+
+
+def test_sim_refusals(ref_runs, tmp_path):
+    path = str(tmp_path / "eng.npz")
+    RoundEngine(make_strategy("dispfl"), _port_task(), _port_clients(),
+                FLConfig(**CFG)).save(path)
+    with pytest.raises(ValueError, match="SimEngine checkpoint"):
+        _port_sim(mode="sync").restore(path)
+    with pytest.raises(ValueError, match="mode"):
+        _port_sim(**_async_kw()).restore(ref_runs["archive"]("dispfl"))
+    with pytest.raises(ValueError, match="mode must be"):
+        _port_sim(mode="gossip")
+
+    class Server(StrategyBase):
+        def init_state(self, task, clients, cfg):
+            super().init_state(task, clients, cfg)
+            return {"params": []}
+
+        def round_flops(self, state, ctx):
+            return accounting.FlopsReport(1.0, 1.0, 1.0)
+
+    sim = SimEngine(Server(), _port_task(), _port_clients(), FLConfig(**CFG),
+                    mode="async")
+    with pytest.raises(ValueError, match="decentralized"):
+        list(sim.rounds())
+
+
+def test_generic_mix_one_equals_packed_override(ref_runs):
+    """``StrategyBase.mix_one`` (install the payloads, run the full mix,
+    keep k) gives DisPFL's packed O(degree) fold bit for bit."""
+    eng = RoundEngine(make_strategy("dispfl"), _port_task(), _port_clients(),
+                      FLConfig(**CFG), local_exec="loop")
+    eng.restore(ref_runs["archive"]("dispfl"))
+    eng._run_one_round(0)            # trained, evolved masks
+    strat, state = eng.strategy, eng.state
+    senders = {j: strat.snapshot_message(state, j) for j in (0, 2, 3)}
+    ctx = eng._make_ctx(1)
+    a = np.eye(4)
+    a[1, list(senders)] = 1.0
+    ctx = dataclasses.replace(ctx, adjacency=a)
+    fast = {k: list(v) for k, v in state.items()}
+    slow = {k: list(v) for k, v in state.items()}
+    strat.mix_one(fast, 1, senders, ctx)
+    StrategyBase.mix_one(strat, slow, 1, senders, ctx)
+    for k in range(4):
+        _assert_bit_equal(fast["params"][k], slow["params"][k])
+        _assert_bit_equal(fast["masks"][k], slow["masks"][k])
+    assert not all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        tree_leaves_with_path(fast["params"][1]),
+        tree_leaves_with_path(state["params"][1])))
+    before = {k: list(v) for k, v in state.items()}
+    strat.mix_one(state, 1, {}, ctx)
+    StrategyBase.mix_one(strat, state, 1, {}, ctx)
+    assert all(x is y for x, y in zip(before["params"], state["params"]))
+
+
+# ---------------------------------------------------------------------------
+# the vmap local phase
+# ---------------------------------------------------------------------------
+
+
+def _vmap_pair(clients, cfg, name="dispfl", start=None):
+    """The same run with ``local_exec`` loop and vmap, from ``start`` (an
+    archive) or from the seed's own init."""
+    runs = {}
+    for mode in ("loop", "vmap"):
+        eng = RoundEngine(make_strategy(name), _port_task(), clients, cfg,
+                          local_exec=mode)
+        if start is not None:
+            eng.restore(start)
+        runs[mode] = (eng, eng.run())
+    return runs
+
+
+def _assert_vmap_loop(runs):
+    (loop, res_l), (vmap, res_v) = runs["loop"], runs["vmap"]
+    np.testing.assert_allclose(res_v.final_accs, res_l.final_accs, atol=5e-2)
+    np.testing.assert_allclose(res_v.acc_history, res_l.acc_history,
+                               atol=5e-2)
+    for k in range(len(loop.clients)):
+        for key, atol in (("masks", 0.0), ("params", VMAP_PARAM_ATOL)):
+            for (p, a), (_, b) in zip(
+                    tree_leaves_with_path(vmap.state[key][k]),
+                    tree_leaves_with_path(loop.state[key][k])):
+                torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=p)
+
+
+def test_vmap_matches_loop(ref_runs):
+    runs = _vmap_pair(_port_clients(), FLConfig(**CFG),
+                      start=ref_runs["archive"]("dispfl"))
+    _assert_vmap_loop(runs)
+
+
+@pytest.mark.parametrize("name", ["dispfl", "dispfl_anneal"])
+def test_vmap_ragged_schedules_and_momentum_match_loop(name):
+    """Client 0 trimmed so step counts disagree (padded no-op steps), and
+    momentum 0.9 (stacked optimizer state, zeroed each local phase)."""
+    clients = _port_clients()
+    c0 = clients[0]
+    ragged = [dataclasses.replace(c0, train_x=c0.train_x[:-16],
+                                  train_y=c0.train_y[:-16])] + clients[1:]
+    assert len({-(-c.n_train // 16) for c in ragged}) > 1
+    cfg = FLConfig(**dict(CFG, rounds=2, momentum=0.9))
+    _assert_vmap_loop(_vmap_pair(ragged, cfg, name))
+
+
+def test_vmap_matches_reference_vmap(ref_runs):
+    ref = ref_runs["vmap"]()
+    port = RoundEngine(make_strategy("dispfl"), _port_task(), _port_clients(),
+                       FLConfig(**CFG), local_exec="vmap")
+    port.restore(ref_runs["archive"]("dispfl")).run()
+    assert port._acc_history == ref._acc_history
+    assert port._comm == ref._comm
+    _assert_state(ref.state, port.state)
+
+
+def test_auto_resolves_as_the_reference():
+    clients, cfg = _port_clients(), FLConfig(**CFG)
+    eng = RoundEngine(make_strategy("dispfl"), _port_task(), clients, cfg)
+    ctx = eng._make_ctx(0)
+    assert eng.local_exec == "auto" and eng._use_vmap(ctx, [0, 1, 2, 3])
+    hetero = dataclasses.replace(cfg, capacities=[0.2, 0.4, 0.6, 0.8])
+    eng = RoundEngine(make_strategy("dispfl"), _port_task(), clients, hetero)
+    assert not eng._use_vmap(eng._make_ctx(0), [0, 1, 2, 3])
+    res = eng.run()                      # auto -> loop, no raise
+    assert len(res.final_accs) == 4
+    forced = RoundEngine(make_strategy("dispfl"), _port_task(), clients,
+                         hetero, local_exec="vmap")
+    with pytest.raises(ValueError, match="heterogeneous capacities"):
+        forced.run()
+    short = [dataclasses.replace(clients[0], train_x=clients[0].train_x[:8],
+                                 train_y=clients[0].train_y[:8])] + clients[1:]
+    forced = RoundEngine(make_strategy("dispfl"), _port_task(), short, cfg,
+                         local_exec="vmap")
+    with pytest.raises(ValueError, match="effective batch size"):
+        forced.run()
+    assert not RoundEngine(make_strategy("dispfl"), _port_task(), short,
+                           cfg)._use_vmap(ctx, [0, 1, 2, 3])
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+
+
+CLI = ["simulate", "--clients", "4", "--local-epochs", "1",
+       "--samples-per-class", "8", "--hw", "8", "--width", "4",
+       "--degree", "2", "--partition", "pathological", "--exec", "loop",
+       "--sim"]
+CLI_ASYNC = ["--async", "--staleness", "1", "--compute-hetero",
+             "--bandwidth-skew", "10", "--loss-prob", "0.2",
+             "--uplink-mode", "fifo", "--target", "0.1"]
+
+
+def _ref_cli(monkeypatch, capsys, argv):
+    monkeypatch.setattr(sys, "argv", ["train.py"] + argv)
+    capsys.readouterr()
+    ref_train.main()
+    out = capsys.readouterr().out
+    return json.loads(out[out.index("{\n"):])
+
+
+@pytest.mark.parametrize("extra", [[], CLI_ASYNC], ids=["sync", "async"])
+def test_cli_sim_matches_reference(extra, monkeypatch, capsys, tmp_path):
+    """Both CLIs resume one reference archive (written by the reference
+    CLI after round 1; async resumes a finished run with more rounds) and
+    print the same summary, ``"sim"`` row included."""
+    ck = str(tmp_path / "ck.npz")
+    _ref_cli(monkeypatch, capsys, CLI + extra + ["--rounds", "1",
+                                                 "--sim-checkpoint", ck])
+    argv = CLI + extra + ["--rounds", "2", "--resume", ck]
+    want = _ref_cli(monkeypatch, capsys, argv)
+    got = port_train.main(argv + ["--device", "cpu"])
+    for d in (want, got):
+        d.pop("wall_s")
+    assert got.pop("device") == "cpu"
+    got.pop("round_wall_s"), got.pop("phase_s")
+    assert got == want
+    assert got["sim"]["mode"] == ("async" if extra else "sync")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--sim", "--scale"], ["--async"], ["--staleness", "1", "--loss-prob",
+                                        "0.1"],
+    ["--uplink-mode", "fifo", "--sim-checkpoint", "x.npz"],
+    ["--sim", "--bandwidth-skew", "0.5"], ["--scale-reduction", "ordered"]])
+def test_cli_flag_errors_match_reference(extra, monkeypatch, capsys):
+    argv = ["simulate", "--rounds", "1"] + extra
+    monkeypatch.setattr(sys, "argv", ["train.py"] + argv)
+    with pytest.raises(SystemExit) as ref_exit:
+        ref_train.main()
+    ref_err = capsys.readouterr().err.strip().splitlines()[-1]
+    with pytest.raises(SystemExit) as port_exit:
+        port_train.main(argv + ["--device", "cpu"])
+    port_err = capsys.readouterr().err.strip().splitlines()[-1]
+    assert ref_exit.value.code == port_exit.value.code == 2
+    assert (port_err.split("error: ", 1)[1]
+            == ref_err.split("error: ", 1)[1])
+
+
+def test_cli_sim_refuses_missing_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--async"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_train.main(CLI + extra + ["--rounds", "1"])
+
+
+def test_port_sim_archive_loads_in_reference_round_engine(ref_runs, tmp_path):
+    """The superset direction: the reference's RoundEngine reads a port
+    sync SimEngine archive's state and histories."""
+    sim = _port_sim(mode="sync").restore(ref_runs["archive"]("dispfl"))
+    sim.run()
+    path = str(tmp_path / "sim.npz")
+    sim.save(path)
+    ref = RefRoundEngine(ref_make_strategy("dispfl"), ref_runs["task"],
+                         ref_runs["clients"], ref_runs["cfg"]).restore(path)
+    assert ref._acc_history == sim._acc_history
+    assert ref._comm == sim._comm
+    state = _ref_np(ref.state)
+    for p, x in _port_np(sim.state).items():
+        assert state[p].tobytes() == x.tobytes(), p

@@ -114,11 +114,6 @@ def test_entry_points_refuse_missing_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_make_task("smallcnn", 10, 8, width=4)
-    with pytest.raises(NotImplementedError, match="A6"):
-        PortEngine(port_make_strategy("dispfl"),
-                   port_make_task("smallcnn", 10, 8, width=4, device="cpu"),
-                   port_build(0, **DATA)[0], PortFLConfig(**CFG),
-                   local_exec="vmap")
 
 
 def test_port_imports_neither_jax_nor_reference():
