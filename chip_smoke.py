@@ -22,9 +22,10 @@ line):
    alone; the stacked fold and the prune/regrow apply at K=4 rows of the
    largest leaf and of the whole flattened tree, bit-equal to their plain
    versions, with the ``torch.sort`` time of the prune/regrow thresholds;
-   for the folds and the masked matmul also the wrapper's host
-   microseconds per call (``time.perf_counter`` over many calls with no
-   synchronise), and for the masked matmul its library call's
+   for the gossip (J=4 rows of the smallest leaf), the folds and the
+   masked matmul also the wrapper's host microseconds per call
+   (``time.perf_counter`` over many calls with no synchronise), and for the
+   masked matmul its library call's
    (``torch.bmm``, ``torch.mm``) device time beside that call's time;
 4. the training path through its CLI entry functions: ``simulate
    --model resnet18 --hw 32 --clients 4 --rounds 2`` on the default device
@@ -45,7 +46,7 @@ line):
    prune/regrow kernel once per sparsifiable leaf and equal the same call on
    the CPU; a profiled stacked round;
 6. a small smallcnn round on the card against the same round on the CPU
-   (the plain versions), from one state;
+   (the plain versions), from one state, comm and FLOP rows equal;
 7. the serving path through its CLI entry functions (``launch/serve.py``:
    1024 users of the 64-128-128-32 MLP, a 256-slot pool, 4096 requests),
    counters zeroed just before and read just after: ``--backend kernel``
@@ -58,8 +59,8 @@ line):
 8. the vmap local phase: one local phase of ``simulate --model resnet18
    --hw 32 --clients 4`` from one state with ``--exec vmap`` and with
    ``--exec loop`` (each run twice, the second timed), their largest
-   parameter difference held to ``VMAP_PARAM_ATOL`` (the CPU test's bound),
-   and what the CLI's ``--exec auto`` resolves to;
+   parameter difference held to ``VMAP_PARAM_ATOL``, and what the CLI's
+   ``--exec auto`` resolves to;
 9. the synchronous simulator through the CLI's entry functions:
    ``simulate --sim --exec loop`` at the same configuration (2 rounds),
    counters zeroed just before and read just after — the gossip and fold
@@ -81,7 +82,29 @@ line):
     ``--sim-checkpoint``, resumed by ``--resume`` in a fresh engine, must
     give the uninterrupted run's transfers, ``LinkStats``, clock and state
     bit for bit;
-12. a ``{"kernels": [...]}`` line, then the last line
+12. the strategies the port added in slice 6, through the CLI's entry
+    functions at the same ResNet18-GN configuration, counters zeroed just
+    before each run and read just after: ``simulate --strategy NAME`` for
+    dpsgd, dpsgd_ft, local, fedavg, fedavg_ft, ditto, fomo, subfedavg,
+    dfedalt and dfedsam (accuracy finite, comm and FLOP rows positive —
+    Local's comm zero —, subfedavg launching the gossip kernel rounds x
+    selected x 62 times and no other run any kernel, the stacked fold
+    included; the warm round's wall
+    and phases, and a profiled round's device busy share for dpsgd, fedavg
+    and subfedavg); subfedavg's mix from its final state bit-equal to the
+    CPU; dpsgd under the async arguments of phase 10 (fold launches =
+    mixed messages x 62 > 0, no gossip; one ``mix_one`` bit-equal to the
+    CPU); ``--scale --strategy dpsgd`` per reduction (no kernel; rows equal
+    to the loop engine's; params against the vmap ``RoundEngine`` run,
+    whose local phase is the same: ``ordered`` bit-equal, ``einsum``
+    within ``SCALE_EINSUM_ATOL``; against an ``--exec loop`` run within
+    ``LOOP_GAP_FACTOR`` times that loop run's card-vs-CPU gap);
+    the vmap local phase against the loop for dpsgd, local and fedavg; and
+    phase 6's smallcnn cross-check, rows included, for every one of the
+    ten;
+13. a ``{"kernels": [...]}`` line (``launches_strategies``: every kernel's
+    launches summed over phase 12's ten runs, its async run and its two
+    stacked runs), then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA GPU or without the
@@ -100,7 +123,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 BF16_REL_TOL = 2.0 ** -8        # one bf16 ulp, relative (expected: exact)
 MM_TOL = dict(atol=1e-5, rtol=1e-5)   # masked matmul vs torch.matmul (fp32 order)
-VMAP_PARAM_ATOL = 1e-3          # vmap vs loop local phase (tests/test_torch_sim.py)
+# vmap vs loop local phase on the card at ResNet18-GN width, where the loop
+# on the card and on the CPU already differ by ~4.2e-4 (the CPU tests
+# measure no gap at their width and hold vmap to the loop's bits)
+VMAP_PARAM_ATOL = 1e-3
+# Stacked dpsgd at ResNet18-GN, 2 rounds (H100 80GB HBM3, 700 W): the einsum
+# mix against the vmap RoundEngine measured 1.12e-4; the stacked run against
+# the card's loop 3.61e-3, 1.16 times the 3.11e-3 between the same loop run
+# on the card and on the CPU.
+SCALE_EINSUM_ATOL = 3e-4
+LOOP_GAP_FACTOR = 2.0
 SERVE_ARGS = ["--users", "1024", "--cache-size", "256", "--max-batch", "256",
               "--requests", "4096", "--rows", "4", "--density", "0.5"]
 
@@ -210,6 +242,16 @@ def check_gossip(torch, ga, dev, j, n, dtype, gen):
     return {"J": j, "N": n, "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "ms": ms_k, "device_ms": dev_k,
             "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def gossip_host(torch, ga, dev, j, n, gen):
+    """Host microseconds per gossip call on J rows of a small leaf (where
+    the device's share of a call is negligible, as on most of the main
+    path's 62 leaves): the best of two timings."""
+    m = (torch.rand((j, n), generator=gen, device=dev) < 0.5).float()
+    ws, ms = list(torch.randn((j, n), generator=gen, device=dev) * m), list(m)
+    runs = [host_us(lambda: ga.gossip_avg(ws, ms, ms[0])) for _ in range(2)]
+    return {"J": j, "N": n, "host_us": min(runs), "runs": runs}
 
 
 def check_fold(torch, pa, pack_bits, dev, n, alpha, gen):
@@ -495,6 +537,9 @@ def main() -> int:
                  for n in (n_leaf, n_tree) for alpha in (1.0, 0.75)]
     for r in gossip_rows:
         log(f"gossip_avg J={r['J']} N={r['N']} {r['dtype']}: " + _times(r))
+    g_host = gossip_host(torch, ga, dev, 4, min(sizes), gen)
+    log(f"gossip_avg host per call, J=4 N={g_host['N']} fp32: "
+        f"{g_host['host_us']} us (runs {g_host['runs']})")
     for r in fold_rows:
         log(f"packed_accum N={r['N']} nnz={r['nnz']} alpha={r['alpha']}: "
             + _times(r))
@@ -585,6 +630,26 @@ def main() -> int:
     profile_async_round(torch, train)
     sim_checkpoint_path(torch, train, async_engine)
 
+    # 12. the strategies this slice added: each at ResNet18-GN, dpsgd async
+    # and stacked, vmap against loop, and a small round cuda against cpu
+    t_strat = time.perf_counter()
+    strat_runs = strategy_path(torch, train, counters, len(sizes))
+    strat_async = strategy_async_dpsgd(torch, train, counters, len(sizes))
+    strat_scale = strategy_scale_dpsgd(torch, train, counters,
+                                       strat_runs["dpsgd"])
+    for name in ("dpsgd", "local", "fedavg"):
+        vmap_vs_loop(torch, train, name, cpu_gap=False)
+    for name in NEW_STRATEGIES:
+        cross = cross_check(torch, train, ["--exec", "loop", "--strategy",
+                                           name])
+        log(f"cuda vs cpu smallcnn round {name}: {cross}")
+    strat_launches = {k: sum(r[2][k] for r in strat_runs.values())
+                      + strat_async[k]
+                      + sum(r[k] for r in strat_scale.values())
+                      for k in strat_async}
+    log(f"strategy phase: {time.perf_counter() - t_strat:.1f} s; launches "
+        f"{strat_launches}")
+
     kernels = [
         {"name": "gossip_avg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gossip_avg.cu",
@@ -593,11 +658,13 @@ def main() -> int:
          "launches_scale_ordered": scale_runs["ordered"][2]["gossip_avg"],
          "launches_sim_sync": sync_launches["gossip_avg"],
          "launches_sim_async": async_launches["gossip_avg"],
+         "launches_strategies": strat_launches["gossip_avg"],
          "shape": f"J=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in gossip_rows),
          "ms": gossip_rows[0]["ms"], "device_ms": gossip_rows[0]["device_ms"],
          "plain_ms": gossip_rows[0]["plain_ms"],
          "bound_ms": gossip_rows[0]["bound_ms"],
+         "host_us": g_host["host_us"],
          "bound_by": gossip_rows[0]["bound_by"], "library_ms": None},
         {"name": "packed_accum", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/packed_accum.cu",
@@ -605,6 +672,7 @@ def main() -> int:
          "launches": launches["packed_accum"],
          "launches_sim_sync": sync_launches["packed_accum"],
          "launches_sim_async": async_launches["packed_accum"],
+         "launches_strategies": strat_launches["packed_accum"],
          "shape": f"N={n_leaf} density 0.5 alpha 1",
          "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
          "ms": fold_rows[0]["ms"], "device_ms": fold_rows[0]["device_ms"],
@@ -617,6 +685,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/packed_accum.cu",
          "replaces": "src/repro/kernels/packed_accum.py:105",
          "launches": scale_launches["packed_accum_rows"],
+         "launches_strategies": strat_launches["packed_accum_rows"],
          "shape": f"K=4 N={n_leaf} density 0.5 alpha 1",
          "max_abs_err": max(r["max_abs_err"] for r in rows_rows),
          "ms": rows_rows[0]["ms"], "device_ms": rows_rows[0]["device_ms"],
@@ -629,6 +698,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/prune_regrow.cu",
          "replaces": "src/repro/kernels/prune_regrow.py:44",
          "launches": scale_launches["prune_regrow"],
+         "launches_strategies": strat_launches["prune_regrow"],
          "shape": f"K=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in pr_rows),
          "ms": pr_rows[0]["ms"], "device_ms": pr_rows[0]["device_ms"],
@@ -639,6 +709,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul.py:131",
          "launches": serve_launches,
+         "launches_strategies": strat_launches["masked_matmul"],
          "shape": f"U={mm['U']} M={mm['M']} K={mm['K']} N={mm['N']} "
                   f"density 0.5 float32",
          "max_abs_err": max(r["max_abs_err"] for rows in mm_rows.values()
@@ -789,61 +860,98 @@ ASYNC_ARGS = ["--sim", "--async", "--staleness", "2", "--compute-hetero",
               "30"]
 
 
+def _zero(counters):
+    """Every launch count to 0, the stacked fold's ``LAUNCHES_ROWS`` too."""
+    for c in counters:
+        c.LAUNCHES = 0
+        if hasattr(c, "LAUNCHES_ROWS"):
+            c.LAUNCHES_ROWS = 0
+
+
 def _launches(counters):
-    return {c.__name__.rsplit(".", 1)[-1]: c.LAUNCHES for c in counters}
+    """Each kernel's launches since ``_zero``, the stacked fold's
+    (``packed_accum_rows``) apart from the flat fold's."""
+    out = {c.__name__.rsplit(".", 1)[-1]: c.LAUNCHES for c in counters}
+    out.update({c.__name__.rsplit(".", 1)[-1] + "_rows": c.LAUNCHES_ROWS
+                for c in counters if hasattr(c, "LAUNCHES_ROWS")})
+    return out
 
 
-def _max_param_diff(a_state, b_state):
+def _tensors(torch, tree):
+    """The tensor leaves of a state (a round's selection lists hold ints)."""
     from repro_torch.utils.tree import tree_leaves
-    return max(float((a - b).abs().max()) for a, b in
-               zip(tree_leaves(a_state["params"]),
-                   tree_leaves(b_state["params"])))
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _to(torch, tree, device):
+    """A copy of a state on ``device``; non-tensor leaves pass through."""
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda x: x.to(device, copy=True)
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _max_state_diff(torch, a_state, b_state):
+    la, lb = _tensors(torch, a_state), _tensors(torch, b_state)
+    if len(la) != len(lb):
+        raise AssertionError(f"states differ in structure: {len(la)} vs "
+                             f"{len(lb)} tensors")
+    return max(float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(la, lb))
 
 
 def _bit_equal(torch, a, b):
-    from repro_torch.utils.tree import tree_leaves
-    la, lb = tree_leaves(a), tree_leaves(b)
+    la, lb = _tensors(torch, a), _tensors(torch, b)
     return len(la) == len(lb) and all(torch.equal(x, y)
                                       for x, y in zip(la, lb))
 
 
-def vmap_vs_loop(torch, train):
-    """Phase 8: one local phase from one state through ``run_local_phase``
-    with ``--exec vmap`` and ``--exec loop``; each mode runs twice from the
-    state (the first call warms), the second is timed and compared.  The
+def vmap_vs_loop(torch, train, name="dispfl", cpu_gap=True):
+    """Phase 8 (and, in phase 12, for dpsgd, local and fedavg): one local
+    phase through ``run_local_phase`` from one state with ``--exec vmap``
+    and ``--exec loop``; each mode runs twice from the state (the first
+    call warms), the second is timed and compared.  With ``cpu_gap`` the
     same loop phase on the CPU gives the scale of fp32 rounding between two
     right answers at this size."""
     from repro_torch.utils.tree import tree_map
-    auto = train.build_engine(train.parse_args(RESNET_ARGS))
-    active = list(range(len(auto.clients)))
-    resolved = "vmap" if auto._use_vmap(auto._make_ctx(0), active) else "loop"
+    base = RESNET_ARGS + ["--strategy", name]
+    auto = train.build_engine(train.parse_args(base))
+    n = len(auto.clients)
+    resolved = ("vmap" if auto._use_vmap(auto._make_ctx(0), list(range(n)))
+                else "loop")
     start = tree_map(torch.clone, auto.state)
     got, secs = {}, {}
-    for mode, device, reps in (("vmap", "cuda", 2), ("loop", "cuda", 2),
-                               ("loop", "cpu", 1)):
+    modes = [("vmap", "cuda", 2), ("loop", "cuda", 2)]
+    for mode, device, reps in modes + ([("loop", "cpu", 1)] if cpu_gap
+                                       else []):
         eng = train.build_engine(train.parse_args(
-            RESNET_ARGS + ["--exec", mode, "--device", device]))
+            base + ["--exec", mode, "--device", device]))
         for _ in range(reps):
-            eng.state = tree_map(lambda x: x.to(eng.device, copy=True),
-                                 start)
+            eng.state = _to(torch, start, eng.device)
             ctx = eng._make_ctx(0)          # fresh generators: same draws
+            if "params" not in eng.state:
+                # FedAvg: its mix draws the round's selection (and moves no
+                # parameter); the local phase trains the selected clients
+                eng.strategy.mix(eng.state, ctx)
+            active = list(eng.strategy.active_clients(eng.state, ctx))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             eng.run_local_phase(ctx, active)
             torch.cuda.synchronize()
             secs.setdefault(f"{mode} {device}", []).append(
                 time.perf_counter() - t0)
-        got[(mode, device)] = tree_map(lambda x: x.cpu(), eng.state)
-    diff = _max_param_diff(got[("vmap", "cuda")], got[("loop", "cuda")])
-    gap = _max_param_diff(got[("loop", "cpu")], got[("loop", "cuda")])
-    log(f"vmap vs loop local phase (resnet18, K={len(active)}): max abs "
-        f"param diff {diff} (tolerance {VMAP_PARAM_ATOL}); the loop on the "
-        f"CPU vs the loop on the card: {gap}; seconds {secs} (first, warm); "
-        f"--exec auto resolves to {resolved}")
+        got[(mode, device)] = _to(torch, eng.state, "cpu")
+    diff = _max_state_diff(torch, got[("vmap", "cuda")], got[("loop", "cuda")])
+    gap = (f"; the loop on the CPU vs the loop on the card: "
+           f"{_max_state_diff(torch, got[('loop', 'cpu')], got[('loop', 'cuda')])}"
+           if cpu_gap else "")
+    log(f"{name} vmap vs loop local phase (resnet18, K={n}): max abs diff "
+        f"{diff} (tolerance {VMAP_PARAM_ATOL}){gap}; seconds {secs} (first, "
+        f"warm); --exec auto resolves to {resolved}")
     if not diff <= VMAP_PARAM_ATOL:
-        raise AssertionError(f"vmap and loop local phases differ by {diff}")
+        raise AssertionError(f"{name}: vmap and loop local phases differ by "
+                             f"{diff}")
     if resolved != "vmap":
-        raise AssertionError("--exec auto did not resolve to vmap for dispfl")
+        raise AssertionError(f"--exec auto did not resolve to vmap for {name}")
+    return diff
 
 
 def sim_sync_path(torch, train, counters):
@@ -864,8 +972,7 @@ def sim_sync_path(torch, train, counters):
         pre_round(ctx)
 
     sim._pre_round = record
-    for c in counters:
-        c.LAUNCHES = 0
+    _zero(counters)
     out = train.run_engine(args, sim)
     launches = _launches(counters)
     log(f"sim sync launches: {launches}")
@@ -947,8 +1054,7 @@ def sim_async_path(torch, train, counters):
     check = EvolveBudgetCheck(engine.strategy)
     clock = EmitClock()
     engine.callbacks.append(clock)
-    for c in counters:
-        c.LAUNCHES = 0
+    _zero(counters)
     sparse_ops.reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1044,6 +1150,159 @@ def sim_checkpoint_path(torch, train, full):
         f"in the archive, {len(a.transfers) - n_before} after), transfers, "
         f"LinkStats, clock {resumed.clock.now} and state bit-equal to the "
         f"uninterrupted run; acc {out['acc_history']}")
+
+
+NEW_STRATEGIES = ("dpsgd", "dpsgd_ft", "local", "fedavg", "fedavg_ft", "ditto",
+                  "fomo", "subfedavg", "dfedalt", "dfedsam")
+
+
+def strategy_path(torch, train, counters, n_leaves):
+    """Phase 12 (a): ``simulate --strategy NAME`` at ``RESNET_ARGS`` through
+    the CLI's entry functions for each strategy this slice added, counters
+    zeroed just before each run and read just after.  SubFedAvg's server
+    mix must launch the gossip kernel once per leaf and selected client
+    each round, and no other run may launch a kernel; then its mix from
+    the run's final state on the card must equal the same mix on the CPU
+    bit for bit.  Returns each run's launches and summary."""
+    runs = {}
+    for name in NEW_STRATEGIES:
+        args = train.parse_args(RESNET_ARGS + ["--strategy", name])
+        engine = train.build_engine(args)
+        _zero(counters)
+        out = train.run_engine(args, engine)
+        launches = _launches(counters)
+        sel = getattr(engine.strategy, "n_sel", 0)
+        want = {k: 0 for k in launches}
+        if name == "subfedavg":
+            want["gossip_avg"] = args.rounds * sel * n_leaves
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        accs = out["acc_history"] + [out["final_acc"]]
+        if not all(a == a and 0.0 <= a <= 1.0 for a in accs):
+            raise AssertionError(f"{name}: accuracy not finite: {accs}")
+        # per round, unrounded; Local never communicates: zero by definition
+        comm = engine._comm["busiest_mb"]
+        flops = engine._flops["per_round_flops"]
+        if not (min(flops) > 0 and all(c == 0 if name == "local" else c > 0
+                                       for c in comm)):
+            raise AssertionError(f"{name}: busiest MB {comm}, FLOPs {flops}")
+        log(f"strategy {name} ({engine.local_exec}): launches {launches}; "
+            f"warm round wall {out['round_wall_s'][-1]:.4f} s, phases "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in out["phase_s"][-1].items())
+            + f"; accs {accs}; comm {out['comm']}; flops {out['flops']}")
+        runs[name] = (engine, out, launches)
+        if name in ("dpsgd", "fedavg", "subfedavg"):
+            profile_round(torch, train, args)
+
+    engine = runs["subfedavg"][0]
+    cpu_state = _to(torch, engine.state, "cpu")
+    ctxs = [engine._make_ctx(engine.cfg.rounds) for _ in range(2)]
+    engine.strategy.mix(engine.state, ctxs[0])
+    engine.strategy.mix(cpu_state, ctxs[1])
+    if engine.state["_sel"] != cpu_state["_sel"] or not _bit_equal(
+            torch, _to(torch, engine.state, "cpu"), cpu_state):
+        raise AssertionError("subfedavg's mix on the card != on the CPU")
+    log(f"subfedavg mix from the run's final state: bit-equal to the CPU "
+        f"(selected {cpu_state['_sel']})")
+    return runs
+
+
+def strategy_async_dpsgd(torch, train, counters, n_leaves):
+    """Phase 12 (b): ``simulate --strategy dpsgd`` under ``ASYNC_ARGS``:
+    the fold kernel must launch once per leaf of every mixed message (each
+    at its Metropolis weight), the gossip kernel never; then one
+    ``mix_one`` from the run's final state on the card must equal the same
+    call on the CPU bit for bit.  Returns the run's launches."""
+    from repro_torch.sparse import ops as sparse_ops
+    args = train.parse_args(RESNET_ARGS + ASYNC_ARGS + ["--strategy", "dpsgd"])
+    engine = train.build_engine(args)
+    _zero(counters)
+    sparse_ops.reset_counters()
+    out = train.run_engine(args, engine)
+    launches = _launches(counters)
+    folds = sparse_ops.COUNTERS["accum_calls"]
+    mixed = engine.mixed_messages
+    want = {**{k: 0 for k in launches}, "packed_accum": mixed * n_leaves}
+    if not (launches == want and folds == mixed * n_leaves > 0):
+        raise AssertionError(f"async dpsgd: launches {launches}, folds "
+                             f"{folds}, mixed messages {mixed}")
+    accs = out["acc_history"] + [out["final_acc"]]
+    if not all(a == a and 0.0 <= a <= 1.0 for a in accs):
+        raise AssertionError(f"async dpsgd: accuracy not finite: {accs}")
+    strat, ctx = engine.strategy, engine._make_ctx(0)
+    states = [engine.state, {"params": _to(torch, engine.state["params"],
+                                            "cpu")}]
+    for st in states:
+        senders = {j: strat.snapshot_message(st, j) for j in (1, 2)}
+        strat.mix_one(st, 0, senders, ctx)
+    if not _bit_equal(torch, _to(torch, states[0]["params"][0], "cpu"),
+                      states[1]["params"][0]):
+        raise AssertionError("dpsgd mix_one on the card != on the CPU")
+    log(f"strategy dpsgd async: launches {launches} = {mixed} mixed messages "
+        f"x {n_leaves} leaves; mix_one from the final state bit-equal to the "
+        f"CPU; accs {accs}; report {out['sim']}")
+    return launches
+
+
+def strategy_scale_dpsgd(torch, train, counters, vmap_run):
+    """Phase 12 (c): ``simulate --scale --strategy dpsgd`` once per
+    reduction: no kernel may launch (the Metropolis mix is a matmul or an
+    ordered sum), the comm and FLOP rows must equal the loop engine's, and
+    the parameters are held against the ``RoundEngine`` run whose local
+    phase is the same stacked one (``--exec auto``, vmap: ``vmap_run``):
+    ``ordered`` adds the loop's terms in the loop's order, so it must be
+    bit-equal; ``einsum`` sums in another order, a gap the two local
+    phases amplify, so within ``SCALE_EINSUM_ATOL``.  Against an ``--exec
+    loop`` run on the card the gap is the vmap-vs-loop gap compounded over
+    two local phases: held within ``LOOP_GAP_FACTOR`` times what the same
+    loop run differs by between the card and the CPU from one initial
+    state.  Returns each reduction's launches."""
+    loop_args = train.parse_args(RESNET_ARGS + ["--strategy", "dpsgd",
+                                                "--exec", "loop"])
+    loop = train.build_engine(loop_args)
+    cpu_args = train.parse_args(RESNET_ARGS + ["--strategy", "dpsgd",
+                                               "--exec", "loop", "--device",
+                                               "cpu"])
+    cpu = train.build_engine(cpu_args)
+    cpu.state = _to(torch, loop.state, "cpu")
+    loop_out = train.run_engine(loop_args, loop)
+    train.run_engine(cpu_args, cpu)
+    d_dev = _max_state_diff(torch, cpu.state, loop.state)
+    vmap_engine, vmap_out, _ = vmap_run
+    runs = {}
+    for reduction in ("einsum", "ordered"):
+        args = train.parse_args(SCALE_ARGS + ["--strategy", "dpsgd",
+                                              "--scale-reduction", reduction])
+        engine = train.build_engine(args)
+        _zero(counters)
+        out = train.run_engine(args, engine)
+        launches = _launches(counters)
+        params = engine.adapter.unstack_state(engine.state)
+        d_vmap = _max_state_diff(torch, params, vmap_engine.state)
+        d_loop = _max_state_diff(torch, params, loop.state)
+        log(f"scale dpsgd {reduction}: launches {launches}; params vs the "
+            f"vmap RoundEngine {d_vmap}, vs the loop {d_loop} (the loop on "
+            f"the CPU vs on the card {d_dev}); accs "
+            f"{out['acc_history']} (vmap {vmap_out['acc_history']}, loop "
+            f"{loop_out['acc_history']}); warm round wall "
+            f"{out['round_wall_s'][-1]:.4f} s")
+        if any(launches.values()):
+            raise AssertionError(f"scale dpsgd launched kernels: {launches}")
+        if (out["comm"], out["flops"]) != (loop_out["comm"],
+                                           loop_out["flops"]):
+            raise AssertionError("scale dpsgd rows != the loop engine's")
+        if not d_vmap <= (0.0 if reduction == "ordered"
+                          else SCALE_EINSUM_ATOL):
+            raise AssertionError(f"scale dpsgd {reduction}: params differ "
+                                 f"from the vmap RoundEngine's by {d_vmap}")
+        if not d_loop <= LOOP_GAP_FACTOR * d_dev:
+            raise AssertionError(f"scale dpsgd {reduction}: params differ "
+                                 f"from the loop's by {d_loop}, over "
+                                 f"{LOOP_GAP_FACTOR} x the card-vs-CPU gap "
+                                 f"{d_dev}")
+        runs[reduction] = launches
+    return runs
 
 
 def _serve_arg(flag):
@@ -1220,7 +1479,7 @@ def profile_round(torch, train, args):
         return
     busy_s = sum(r[0] for r in rows) / 1e6
     what = (f"scale {args.scale_reduction} round" if args.scale
-            else "loop round")
+            else f"{args.strategy} round ({engine.local_exec})")
     log(f"profiled {what}: wall {wall:.4f} s, device busy {busy_s:.4f} s "
         f"({100 * busy_s / wall:.1f}%), phases {engine.phase_s[0]}")
     for us, count, key in sorted(rows, reverse=True)[:10]:
@@ -1229,12 +1488,13 @@ def profile_round(torch, train, args):
 
 def cross_check(torch, train, engine_args):
     """One smallcnn round from one state on cuda (kernels) and on cpu
-    (plain versions), on the engine ``engine_args`` selects (the data
-    gives every client one batch size, as ScaleEngine needs): the mix is
-    exact on both; convolutions differ by fp32 rounding, so masks must agree
-    on all but a 1e-3 share of coordinates and parameters to 1e-3 where they
-    agree."""
-    from repro_torch.utils.tree import tree_leaves, tree_map
+    (plain versions), on the engine and strategy ``engine_args`` select
+    (the data gives every client one batch size, as ScaleEngine needs):
+    the mix is exact on both; convolutions differ by fp32 rounding, so
+    masks must agree on all but a 1e-3 share of coordinates and every other
+    state leaf to 1e-3 where the masks agree; the comm and FLOP rows, which
+    no device may change, must be equal."""
+    from repro_torch.utils.tree import tree_leaves_with_path, tree_map
     argv = ["simulate", "--rounds", "1", "--clients", "4", "--hw", "8",
             "--width", "4", "--samples-per-class", "12", "--degree", "2",
             "--partition", "pathological", "--batch-size", "8",
@@ -1246,19 +1506,23 @@ def cross_check(torch, train, engine_args):
     gpu.run(), cpu.run()
     n = mismatched = 0
     max_err = 0.0
-    for key in ("masks", "params"):
-        for a, b in zip(tree_leaves(gpu.state[key]), tree_leaves(cpu.state[key])):
-            a = a.cpu()
-            if key == "masks":
-                n += a.numel()
-                mismatched += int((a != b).sum())
-            else:
-                same = (a != 0) == (b != 0)
-                max_err = max(max_err, float((a - b)[same].abs().max()))
-    share = mismatched / n
+    leaves = zip(tree_leaves_with_path(gpu.state),
+                 tree_leaves_with_path(cpu.state), strict=True)
+    for (path, a), (_, b) in leaves:
+        a = a.cpu()
+        if path.startswith("masks"):
+            n += a.numel()
+            mismatched += int((a != b).sum())
+        else:
+            same = (a != 0) == (b != 0)
+            max_err = max(max_err, float((a - b)[same].abs().max()))
+    share = mismatched / n if n else 0.0
     if share > 1e-3 or max_err > 1e-3:
         raise AssertionError(f"cuda and cpu rounds disagree: mask share "
                              f"{share}, param err {max_err}")
+    if gpu._comm != cpu._comm or gpu._flops != cpu._flops:
+        raise AssertionError(f"comm or FLOP rows differ: {gpu._comm} "
+                             f"{gpu._flops} vs {cpu._comm} {cpu._flops}")
     return {"mask_mismatch_share": share, "param_max_abs_err": max_err,
             "acc_cuda": gpu._acc_history, "acc_cpu": cpu._acc_history}
 

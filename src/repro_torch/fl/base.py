@@ -2,10 +2,11 @@
 
 A ``Task`` bundles a CNN backbone with its loss/grad/accuracy functions, the
 per-layer analytic FLOPs map and the device everything runs on.
-``local_sgd`` is the paper's local phase: E epochs of minibatch masked SGD
-with batches padded to whole size, driven by a per-client, per-round numpy
-generator (``fl.engine.derive_rng``) so batch orders replay the reference's
-exactly.
+``local_sgd`` is the paper's local phase: E epochs of minibatch SGD (masked
+when a mask is given) with batches padded to whole size, driven by a
+per-client, per-round numpy generator (``fl.engine.derive_rng``) so batch
+orders replay the reference's exactly; ``finetune_clients`` runs it from
+each client's params for the -FT eval variants.
 """
 from __future__ import annotations
 
@@ -18,10 +19,19 @@ import torch
 from repro_torch.device import setup_device
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models.common import softmax_xent
-from repro_torch.optim.sgd import SGDConfig, init_sgd, masked_sgd_step
+from repro_torch.optim.sgd import SGDConfig, init_sgd, masked_sgd_step, sgd_step
 from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
 
 PyTree = Any
+
+
+def init_generator(*words: int) -> torch.Generator:
+    """A CPU generator seeded from a SeedSequence over ``words``: the
+    strategies' initial draws (params, masks).  They cannot replay the
+    reference's ``jax.random`` draws; a run that must match the reference
+    restores a reference archive instead."""
+    seed = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed))
 
 
 @dataclasses.dataclass
@@ -114,6 +124,9 @@ class FLConfig:
     # dispfl_anneal: end-of-run density of the cosine sparse-to-sparser
     # schedule (None -> density / 4)
     density_final: Optional[float] = None
+    # Ditto / FOMO / fine-tuning
+    prox_lambda: float = 0.75
+    ft_epochs: int = 2
     eval_every: int = 1
 
     def lr_at(self, r: int) -> float:
@@ -150,9 +163,11 @@ def _pad_order(n: int, bs: int, rng: np.random.Generator) -> np.ndarray:
 
 def local_sgd(task: Task, params: PyTree, x: np.ndarray, y: np.ndarray,
               epochs: int, batch_size: int, lr: float, opt: SGDConfig,
-              rng: np.random.Generator, mask: PyTree) -> PyTree:
-    """The paper's local phase (Alg. 1 lines 9-13), masked.  The client's
-    data moves to the device once; batches are gathered there."""
+              rng: np.random.Generator, mask: Optional[PyTree] = None
+              ) -> PyTree:
+    """The paper's local phase (Alg. 1 lines 9-13): masked SGD with a mask,
+    plain SGD without.  The client's data moves to the device once; batches
+    are gathered there."""
     state = init_sgd(params, opt)
     bs = min(batch_size, len(y))
     xt, yt = task.as_tensor(x), task.as_tensor(y)
@@ -161,8 +176,27 @@ def local_sgd(task: Task, params: PyTree, x: np.ndarray, y: np.ndarray,
         for i in range(0, len(order), bs):
             sel = task.as_tensor(order[i: i + bs])
             _, grads = task.value_and_grad(params, xt[sel], yt[sel])
-            params, state = masked_sgd_step(params, grads, mask, state, opt, lr)
+            if mask is not None:
+                params, state = masked_sgd_step(params, grads, mask, state,
+                                                opt, lr)
+            else:
+                params, state = sgd_step(params, grads, state, opt, lr)
     return params
+
+
+def finetune_clients(task: Task, params: list[PyTree], clients, epochs: int,
+                     batch_size: int, lr: float, opt: SGDConfig,
+                     rng_for: Callable[[int], np.random.Generator],
+                     mask=None) -> list[PyTree]:
+    """Fine-tune every client from ``params[k]`` (the -FT eval variants).
+    ``rng_for(k)`` supplies client k's generator; ``mask`` is one shared
+    mask tree, a per-client list, or None."""
+    out = []
+    for k, c in enumerate(clients):
+        m = mask[k] if isinstance(mask, list) else mask
+        out.append(local_sgd(task, params[k], c.train_x, c.train_y, epochs,
+                             batch_size, lr, opt, rng_for(k), mask=m))
+    return out
 
 
 def evaluate_clients(task: Task, client_params: list[PyTree],

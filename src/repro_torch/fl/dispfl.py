@@ -32,17 +32,11 @@ from repro_torch.core.masks import (
     erk_densities_for_params,
     init_mask,
 )
-from repro_torch.fl.base import FLConfig, Task, local_sgd
-from repro_torch.fl.engine import RoundCtx, StrategyBase, register
+from repro_torch.fl.base import FLConfig, FLResult, Task, init_generator, local_sgd
+from repro_torch.fl.engine import RoundCtx, StrategyBase, register, run_strategy
 from repro_torch.sparse.ops import decode_tree, packed_gossip_one
 from repro_torch.sparse.packed import pack_tree
 from repro_torch.utils.tree import tree_nnz, tree_size
-
-
-def _generator(*words: int) -> torch.Generator:
-    """A CPU generator seeded from a SeedSequence over ``words``."""
-    seed = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
-    return torch.Generator().manual_seed(int(seed))
 
 
 @register("dispfl")
@@ -73,12 +67,12 @@ class DisPFLStrategy(StrategyBase):
         match the reference restores a reference archive instead)."""
         super().init_state(task, clients, cfg)
         k_clients = len(clients)
-        params = [task.init_fn(_generator(cfg.seed, k, 0))
+        params = [task.init_fn(init_generator(cfg.seed, k, 0))
                   for k in range(k_clients)]
         self.densities = [
             erk_densities_for_params(params[k], cfg.client_density(k))
             for k in range(k_clients)]
-        masks = [init_mask(_generator(cfg.seed, k, 1), params[k],
+        masks = [init_mask(init_generator(cfg.seed, k, 1), params[k],
                            cfg.client_density(k))
                  for k in range(k_clients)]
         self.budgets = [layer_nnz_budgets(params[k], self.densities[k])
@@ -208,3 +202,10 @@ class DisPFLAnnealStrategy(DisPFLStrategy):
             self.task.fwd_flops, self._flops_density_cache[ctx.t],
             self.n_samples, ctx.cfg.local_epochs,
             mask_search_batches=1, batch_size=ctx.cfg.batch_size)
+
+
+def run_dispfl(task: Task, clients, cfg: FLConfig, targets=(0.5,),
+               **engine_kw) -> FLResult:
+    """Engine run -> FLResult."""
+    return run_strategy("dispfl", task, clients, cfg, targets=targets,
+                        **engine_kw)

@@ -25,9 +25,10 @@ round.
 Fast path: ``local_exec="vmap"`` (or ``"auto"`` where it applies) runs the
 local phase of all active clients at once through
 ``scale.stacked.stacked_local_phase`` (``torch.func.vmap`` of ``grad``),
-with batch orders drawn from the same per-client generators, ragged step
-counts padded with exact no-op steps and momentum as stacked per-client
-state, so the schedule and the update rule are the loop's.
+masked when the strategy's ``local_mask`` is a tree and plain when it is
+None, with batch orders drawn from the same per-client generators, ragged
+step counts padded with exact no-op steps and momentum as stacked
+per-client state, so the schedule and the update rule are the loop's.
 """
 from __future__ import annotations
 
@@ -66,8 +67,11 @@ from repro_torch.utils.tree import (
 
 PyTree = Any
 
-# rng sub-stream (the last SeedSequence word), as in the reference
+# rng sub-streams (the last SeedSequence word), as in the reference; disjoint
+# per use so adding a draw to one phase never perturbs another
 STREAM_CLIENT = 0       # per-(round, client) training randomness
+STREAM_ROUND = 1        # per-round strategy randomness (client selection)
+STREAM_EVAL = 2         # per-(round, client) eval-time fine-tuning
 
 
 def derive_rng(seed: int, round_idx: int, k: int = 0,
@@ -81,7 +85,7 @@ def derive_rng(seed: int, round_idx: int, k: int = 0,
 class RoundCtx:
     """Everything a hook may need about the current round.  Generators are
     cached per round, so successive hook calls for one client continue one
-    stream (local-phase draws, then evolve draws)."""
+    stream (mix draws, then local-phase draws, then evolve draws)."""
     t: int
     cfg: FLConfig
     task: Task
@@ -99,6 +103,12 @@ class RoundCtx:
 
     def client_rng(self, k: int) -> np.random.Generator:
         return self._rng(k, STREAM_CLIENT)
+
+    def round_rng(self) -> np.random.Generator:
+        return self._rng(0, STREAM_ROUND)
+
+    def eval_rng(self, k: int) -> np.random.Generator:
+        return self._rng(k, STREAM_EVAL)
 
 
 class StrategyBase:
@@ -258,7 +268,11 @@ def register(name: str, **defaults):
 
 
 def _ensure_zoo() -> None:
+    """Import the built-in strategy modules so their @register calls run."""
+    import repro_torch.fl.centralized  # noqa: F401
+    import repro_torch.fl.decentralized  # noqa: F401
     import repro_torch.fl.dispfl  # noqa: F401
+    import repro_torch.fl.partial  # noqa: F401
 
 
 def strategy_names() -> list[str]:
@@ -667,10 +681,22 @@ class RoundEngine:
         state = self.state
         bx, by, live = self._stacked_batches(
             ctx, active, strat.local_epochs(state, ctx))
+        masks = [strat.local_mask(state, k) for k in active]
         new = stacked_local_phase(
             self.task.apply_fn, strat.opt,
             tree_stack([strat.local_params(state, k) for k in active]),
-            tree_stack([strat.local_mask(state, k) for k in active]),
+            None if masks[0] is None else tree_stack(masks),
             bx, by, live, ctx.lr)
         for k, params in zip(active, tree_unstack(new, len(active))):
             strat.set_local(state, k, params)
+
+
+def run_strategy(name: str, task: Task, clients, cfg: FLConfig,
+                 targets: Sequence[float] = (0.5,),
+                 callbacks: Sequence[Callback] = (),
+                 local_exec: str = "auto", **strategy_kw) -> FLResult:
+    """Build the named strategy, run it through the engine, return the
+    ``FLResult``."""
+    engine = RoundEngine(make_strategy(name, **strategy_kw), task, clients,
+                         cfg, callbacks=callbacks, local_exec=local_exec)
+    return engine.run(targets)

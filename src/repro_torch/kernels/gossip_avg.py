@@ -85,13 +85,13 @@ def gossip_avg(ws: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
         return out
     fn = build.function("gossip_avg", _ENTRY[own.dtype], _ARGTYPES)
     j = len(ws)
+    # host arrays of device pointers; the C entry copies them into the
+    # launch's parameters before it returns
     w_ptrs = (ctypes.c_void_p * j)(*[t.data_ptr() for t in ws])
     m_ptrs = (ctypes.c_void_p * j)(*[t.data_ptr() for t in ms])
-    stream = torch.cuda.current_stream(own.device).cuda_stream
-    with torch.cuda.device(own.device):
-        err = fn(ctypes.cast(w_ptrs, ctypes.c_void_p),
-                 ctypes.cast(m_ptrs, ctypes.c_void_p), j, own.data_ptr(),
-                 out.data_ptr(), n, stream)
-    build.check(err, "gossip_avg")
+    build.check(build.launch(
+        fn, own, ctypes.cast(w_ptrs, ctypes.c_void_p),
+        ctypes.cast(m_ptrs, ctypes.c_void_p), j, own.data_ptr(),
+        out.data_ptr(), n), "gossip_avg")
     LAUNCHES += 1
     return out

@@ -158,7 +158,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="mode", required=True)
     sim = sub.add_parser("simulate")
     sim.add_argument("--strategy", default="dispfl",
-                     choices=["dispfl", "dispfl_anneal"])
+                     help="a registered strategy (repro_torch.fl.engine."
+                          "strategy_names(); an unknown name raises KeyError)")
     sim.add_argument("--clients", type=int, default=16)
     sim.add_argument("--rounds", type=int, default=30)
     sim.add_argument("--local-epochs", type=int, default=5, dest="local_epochs")
@@ -202,8 +203,8 @@ def build_parser() -> argparse.ArgumentParser:
                      help="cuda (default; raises without a GPU) or cpu")
     sim.add_argument("--scale", action="store_true",
                      help="run through ScaleEngine: every phase of the round "
-                          "once over client-stacked state (dispfl / "
-                          "dispfl_anneal)")
+                          "once over client-stacked state (dispfl, "
+                          "dispfl_anneal, dpsgd)")
     sim.add_argument("--scale-reduction", default="einsum",
                      dest="scale_reduction", choices=["einsum", "ordered"],
                      help="gossip fold: einsum = matmul (default), ordered = "

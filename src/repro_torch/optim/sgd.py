@@ -1,6 +1,7 @@
-"""Masked SGD with momentum + weight decay, the update DisPFL uses
+"""SGD with momentum + weight decay, and the masked variant DisPFL uses
 (reference ``repro.optim.sgd``).
 
+``sgd_step`` is the plain update of the dense baselines.
 ``masked_sgd_step`` is Alg. 1 line 12, ``w <- w - eta * m ⊙ g``, with the
 mask applied to the new weights and to the momentum, so dormant coordinates
 stay exactly 0 and carry no stale state.  The arithmetic follows the
@@ -38,6 +39,23 @@ def _momentum_update(g, mu, cfg: SGDConfig):
     new_mu = cfg.momentum * mu + g
     upd = g + cfg.momentum * new_mu if cfg.nesterov else new_mu
     return upd, new_mu
+
+
+def sgd_step(params: PyTree, grads: PyTree, state: PyTree, cfg: SGDConfig,
+             lr: Optional[float] = None):
+    """w <- w - eta * (g + wd*w), with momentum when configured; returns
+    (new_params, new_state)."""
+    lr = cfg.lr if lr is None else lr
+    if cfg.momentum == 0.0:
+        return tree_map(lambda w, g: w - lr * (g + cfg.weight_decay * w),
+                        params, grads), state
+
+    def upd(w, g, mu):
+        u, new_mu = _momentum_update(g + cfg.weight_decay * w, mu, cfg)
+        return w - lr * u, new_mu
+
+    new_params, new_mu = tree_unzip(tree_map(upd, params, grads, state["mu"]))
+    return new_params, {"mu": new_mu}
 
 
 def masked_sgd_step(params: PyTree, grads: PyTree, mask: PyTree,

@@ -5,7 +5,8 @@ Where ``RoundEngine`` walks clients in Python, ``ScaleEngine`` runs each
 phase of the round — gossip mix, local SGD, mask evolution, eval — once
 over client-stacked state (every leaf with a leading K dim).  A strategy
 joins by registering a ``StackedStrategyBase`` adapter over its ordinary
-hooks; ``dispfl`` and ``dispfl_anneal`` have one.
+hooks; ``dispfl``, ``dispfl_anneal`` and ``dpsgd`` have one (``dpsgd_ft``
+maps to the dpsgd adapter, which refuses it, as the reference does).
 
 On the card, ``reduction="ordered"`` runs the gossip kernel once per
 receiver and leaf.  The stacked packed fold (``fold_stacked``) and the

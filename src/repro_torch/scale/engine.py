@@ -28,7 +28,7 @@ trace), so ``step_compiles`` — rounds whose step triggered a
 
 Constraints, checked at construction: homogeneous client densities, one
 effective batch size for all clients (ragged step counts are padded), and a
-strategy with a stacked adapter (``dispfl``, ``dispfl_anneal``).
+strategy with a stacked adapter (``dispfl``, ``dispfl_anneal``, ``dpsgd``).
 """
 from __future__ import annotations
 

@@ -49,7 +49,7 @@ from repro_torch.kernels.gossip_avg import gossip_avg
 from repro_torch.kernels.packed_accum import packed_accum_rows
 from repro_torch.kernels.prune_regrow import prune_regrow_rows, sort_thresholds
 from repro_torch.models.common import softmax_xent
-from repro_torch.optim.sgd import SGDConfig, masked_sgd_step
+from repro_torch.optim.sgd import SGDConfig, masked_sgd_step, sgd_step
 from repro_torch.sparse.packed import (
     PackedSparse,
     is_packed,
@@ -179,26 +179,30 @@ def stacked_local_phase(apply_fn: Callable, opt: SGDConfig, params: PyTree,
                         by: torch.Tensor, live: torch.Tensor,
                         lr: float) -> PyTree:
     """The local phase for all K clients: for each of the S padded steps,
-    one vmapped masked-SGD step on batches ``bx[:, s]``, ``by[:, s]``.
+    one vmapped SGD step on batches ``bx[:, s]``, ``by[:, s]`` — masked
+    with stacked ``masks``, plain with ``masks=None``.
 
-    The update rule is the loop's (``optim.sgd.masked_sgd_step``); a step
-    with ``live[k, s]`` False is an exact no-op for client k
-    (``torch.where``), so ragged schedules pad with recycled batches;
-    momentum starts at zero, stacked per client, as the loop's
+    The update rule is the loop's (``optim.sgd.masked_sgd_step`` or
+    ``sgd_step``); a step with ``live[k, s]`` False is an exact no-op for
+    client k (``torch.where``), so ragged schedules pad with recycled
+    batches; momentum starts at zero, stacked per client, as the loop's
     ``init_sgd``.  Conv weights stay HWIO: the model permutes inside the
     vmapped function, per client."""
-    if masks is None:
-        raise NotImplementedError(
-            "unmasked stacked SGD (the dpsgd local phase) is not ported "
-            "yet: ROADMAP A10")
     grad = _grad_fn(apply_fn)
 
+    def update(w, st, m, x, y):
+        if m is None:
+            return sgd_step(w, grad(w, x, y), st, opt, lr)
+        return masked_sgd_step(w, grad(w, x, y), m, st, opt, lr)
+
     def step(w, st, m, x, y, alive):
-        w2, st2 = masked_sgd_step(w, grad(w, x, y), m, st, opt, lr)
+        w2, st2 = update(w, st, m, x, y)
         keep = lambda o, n: torch.where(alive, n, o)  # noqa: E731
         return tree_map(keep, w, w2), tree_map(keep, st, st2)
 
-    vstep = torch.func.vmap(step)
+    # an unmasked phase passes no mask tree: vmap maps none of it
+    vstep = torch.func.vmap(step, in_dims=(0, 0, None if masks is None else 0,
+                                           0, 0, 0))
     st = ({"mu": tree_map(torch.zeros_like, params)}
           if opt.momentum != 0.0 else {})
     for s in range(bx.shape[1]):

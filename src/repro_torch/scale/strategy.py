@@ -23,11 +23,13 @@ from typing import Any, Optional
 import numpy as np
 
 from repro_torch.core.accounting import decentralized_comm
+from repro_torch.fl.decentralized import metropolis_weights
 from repro_torch.fl.engine import RoundCtx, StrategyBase
 from repro_torch.scale.stacked import (
     check_reduction,
     evolve_counts_for,
     masked_gossip_stacked,
+    plain_mix_stacked,
     stacked_evolve_exact,
     stacked_nnz_per_client,
 )
@@ -181,3 +183,34 @@ class StackedDisPFL(StackedStrategyBase):
         nnz = stacked_nnz_per_client(state["masks"])
         return decentralized_comm(ctx.adjacency, nnz, self.base.n_coords)
 
+
+@register_stacked("dpsgd", "dpsgd_ft")
+class StackedDPSGD(StackedStrategyBase):
+    """D-PSGD in stacked form: Metropolis mixing as the row-stochastic fold
+    over K, unmasked local SGD, no mask search.  (``dpsgd_ft`` maps here so
+    it fails with the precise unsupported-variant error, not a registry
+    miss.)"""
+
+    def validate(self, cfg) -> None:
+        super().validate(cfg)
+        if getattr(self.base, "param_fraction", 1.0) < 1.0:
+            raise ValueError(
+                "stacked dpsgd supports param_fraction=1.0 only (the shared "
+                "static-mask baseline stays on RoundEngine)")
+        if getattr(self.base, "finetune", False):
+            raise ValueError(
+                "stacked dpsgd does not implement the -FT eval variant; "
+                "use RoundEngine for dpsgd_ft")
+
+    def mix_matrix(self, ctx: RoundCtx) -> np.ndarray:
+        return metropolis_weights(ctx.adjacency).astype(np.float32)
+
+    def stacked_mix(self, state: dict, mix) -> dict:
+        return {**state,
+                "params": plain_mix_stacked(state["params"], mix,
+                                            reduction=self.reduction)}
+
+    def round_comm(self, state: dict, ctx: RoundCtx):
+        n = len(self.base.clients)
+        return decentralized_comm(ctx.adjacency, [self.base.n_coords] * n,
+                                  self.base.n_coords)

@@ -11,7 +11,10 @@ flat payload values, fp32 stacked payload values, any alpha, per-row thresholds,
 masked matmul sums in another order than cuBLAS, so it agrees with its
 plain version to atol 1e-5 and rtol 1e-5 on inputs scaled as the served
 MLP's (x ~ N(0, 1), w ~ N(0, 1/K)); a user's rows in a mixed batch are
-bit-equal to the same user served alone.  An ``ordered`` stacked round on
+bit-equal to the same user served alone.  SubFedAvg's server mix (the
+gossip kernel) and dpsgd's async ``mix_one`` (the fold kernel at Metropolis
+weights) equal the same calls on the CPU bit for bit.  An ``ordered``
+stacked round on
 the card agrees with the same round on the CPU up to the convolutions' fp32
 rounding: masks on all but a 1e-3 share of coordinates, parameters within
 1e-3 where the masks agree.
@@ -434,6 +437,74 @@ def test_ordered_scale_round_on_card_matches_cpu(cuda_device):
                     tree_leaves(cpu.state["params"])):
         same = (a.cpu() != 0) == (b != 0)
         torch.testing.assert_close(a.cpu()[same], b[same], rtol=0, atol=1e-3)
+
+
+def _trained_pair(name, cuda_device):
+    """A K=4 smallcnn loop engine on the CPU after one round (trained
+    params; subfedavg's masks pruned) and one on the card holding a copy
+    of its state."""
+    from repro_torch.data.loader import build_federated_image_task
+    from repro_torch.fl.base import FLConfig, make_cnn_task
+    from repro_torch.fl.engine import RoundEngine, make_strategy
+    from repro_torch.utils.tree import tree_map
+
+    clients, _ = build_federated_image_task(
+        0, n_clients=4, partition="pathological", n_train_per_class=24,
+        n_test_per_client=16, hw=8)
+    cfg = FLConfig(n_clients=4, rounds=2, local_epochs=1, batch_size=16,
+                   degree=3)
+    cpu, gpu = (RoundEngine(make_strategy(name),
+                            make_cnn_task("smallcnn", 10, 8, width=4,
+                                          device=dev), clients, cfg,
+                            local_exec="loop")
+                for dev in ("cpu", cuda_device))
+    cpu._run_one_round(0)
+    gpu.state = tree_map(lambda x: x.to(cuda_device, copy=True), cpu.state)
+    return cpu, gpu
+
+
+def _assert_tree_bits(gpu_tree, cpu_tree):
+    from repro_torch.utils.tree import tree_leaves
+    for a, b in zip(tree_leaves(gpu_tree), tree_leaves(cpu_tree), strict=True):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_subfedavg_mix_on_card_equals_cpu(cuda_device):
+    """SubFedAvg's server mix: one gossip launch per leaf and selected
+    client, bit-equal to the plain version's mix on the CPU."""
+    from repro_torch.kernels import gossip_avg as ga
+    from repro_torch.utils.tree import tree_leaves
+
+    cpu, gpu = _trained_pair("subfedavg", cuda_device)
+    assert any(bool((m == 0).any()) for m in tree_leaves(cpu.state["masks"]))
+    ga.LAUNCHES = 0
+    gpu.strategy.mix(gpu.state, gpu._make_ctx(1))
+    torch.cuda.synchronize()
+    launches = ga.LAUNCHES
+    cpu.strategy.mix(cpu.state, cpu._make_ctx(1))
+    assert gpu.state["_sel"] == cpu.state["_sel"]
+    n_leaves = len(tree_leaves(cpu.state["params"][0]))
+    assert launches == len(cpu.state["_sel"]) * n_leaves
+    _assert_tree_bits(gpu.state["params"], cpu.state["params"])
+
+
+def test_dpsgd_mix_one_on_card_equals_cpu(cuda_device):
+    """dpsgd's async mix: each arrived dense payload folded at its
+    Metropolis weight by the fold kernel, bit-equal to the CPU."""
+    from repro_torch.kernels import packed_accum as pa
+    from repro_torch.utils.tree import tree_leaves
+
+    cpu, gpu = _trained_pair("dpsgd", cuda_device)
+    ctx_c, ctx_g = cpu._make_ctx(1), gpu._make_ctx(1)
+    senders = [{j: e.strategy.snapshot_message(e.state, j) for j in (0, 2, 3)}
+               for e in (cpu, gpu)]
+    pa.LAUNCHES = 0
+    gpu.strategy.mix_one(gpu.state, 1, senders[1], ctx_g)
+    torch.cuda.synchronize()
+    launches = pa.LAUNCHES
+    cpu.strategy.mix_one(cpu.state, 1, senders[0], ctx_c)
+    assert launches == 3 * len(tree_leaves(cpu.state["params"][1]))
+    _assert_tree_bits(gpu.state["params"], cpu.state["params"])
 
 
 def _sim_world(device, **kw):

@@ -379,7 +379,9 @@ def _port_engine(name="dispfl", **kw):
 
 
 def test_registry_and_dense_mix_equals_packed_mix():
-    assert strategy_names() == ["dispfl", "dispfl_anneal"]
+    assert strategy_names() == [
+        "dfedalt", "dfedsam", "dispfl", "dispfl_anneal", "ditto", "dpsgd",
+        "dpsgd_ft", "fedavg", "fedavg_ft", "fomo", "local", "subfedavg"]
     a, b = _port_engine(packed=True), _port_engine(packed=False)
     b.state = tree_map(torch.clone, a.state)
     for ra, rb in zip(a.rounds(), b.rounds()):

@@ -572,7 +572,8 @@ def test_scale_engine_refusals():
     cfg = FLConfig(**CFG)
     with pytest.raises(KeyError, match="no stacked adapter"):
         make_stacked(_Named("fedavg"))
-    assert stacked_strategy_names() == ["dispfl", "dispfl_anneal"]
+    assert stacked_strategy_names() == ["dispfl", "dispfl_anneal", "dpsgd",
+                                        "dpsgd_ft"]
     with pytest.raises(ValueError, match="reduction"):
         make_stacked(make_strategy("dispfl"), reduction="tree")
     with pytest.raises(ValueError, match="homogeneous"):

@@ -19,12 +19,11 @@ Tolerances:
 - parameters against the reference within 1e-5 (measured after 3 rounds:
   3.0e-8 sync, 8.9e-8 async, 3.0e-8 for the vmap phase against the
   reference's vmap; fp32 rounding of the convolutions);
-- port vmap against port loop: the reference's ``test_engine.py`` criterion
-  (accuracies within 5e-2) and, tighter, masks equal and parameters within
-  ``VMAP_PARAM_ATOL`` = 1e-3.  Here the gap measures 0; ``chip_smoke.py``
-  holds the card to the same bound at ResNet18-GN width, where two right
-  fp32 answers already differ by about 4e-4 after one local epoch (the
-  loop phase on the card against the same phase on the CPU, H100).
+- port vmap against port loop: bit for bit (accuracies, masks and
+  parameters), what the CPU measures.  ``chip_smoke.py`` holds the card to
+  1e-3 at ResNet18-GN width, where two right fp32 answers already differ by
+  about 4e-4 after one local epoch (the loop phase on the card against the
+  same phase on the CPU, H100).
 """
 import dataclasses
 import json
@@ -90,7 +89,6 @@ from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 pytestmark = pytest.mark.tier1
 
 PARAM_ATOL = 1e-5
-VMAP_PARAM_ATOL = 1e-3
 DATA = dict(n_clients=4, partition="pathological", classes_per_client=2,
             n_train_per_class=24, n_test_per_client=16, hw=8, noise=0.7)
 CFG = dict(n_clients=4, rounds=3, local_epochs=2, batch_size=16, degree=2,
@@ -680,15 +678,9 @@ def _vmap_pair(clients, cfg, name="dispfl", start=None):
 
 def _assert_vmap_loop(runs):
     (loop, res_l), (vmap, res_v) = runs["loop"], runs["vmap"]
-    np.testing.assert_allclose(res_v.final_accs, res_l.final_accs, atol=5e-2)
-    np.testing.assert_allclose(res_v.acc_history, res_l.acc_history,
-                               atol=5e-2)
-    for k in range(len(loop.clients)):
-        for key, atol in (("masks", 0.0), ("params", VMAP_PARAM_ATOL)):
-            for (p, a), (_, b) in zip(
-                    tree_leaves_with_path(vmap.state[key][k]),
-                    tree_leaves_with_path(loop.state[key][k])):
-                torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=p)
+    assert res_v.final_accs == res_l.final_accs
+    assert res_v.acc_history == res_l.acc_history
+    _assert_bit_equal(vmap.state, loop.state)
 
 
 def test_vmap_matches_loop(ref_runs):
