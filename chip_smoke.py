@@ -102,9 +102,28 @@ line):
     the vmap local phase against the loop for dpsgd, local and fedavg; and
     phase 6's smallcnn cross-check, rows included, for every one of the
     ten;
-13. a ``{"kernels": [...]}`` line (``launches_strategies``: every kernel's
+13. ``serve_models``, the serving CLI's other families: (a) through the
+    CLI's entry functions, ``--model smallcnn`` and each of the ten smoke
+    archs (``SERVE_MODEL_ARGS``: 4 users at density 0.5, a 2-slot pool, max
+    batch 4, 16 requests, 1 row; the LMs prefill 8 tokens), counters zeroed
+    just before and read just after (every kernel 0: these families serve
+    through ``torch.func.vmap`` only, as in the reference) — each request
+    bit-equal to the same request served alone through a launch of the
+    same width on the card, and within ``SERVE_CPU_TOL`` (max abs) of the
+    same store served on the CPU; its service time, p50/p99 latency and
+    ``bytes_at_rest``; (b) full published width: ``ArchModel(ARCHS[...],
+    prompt_len=2048)`` for gemma3-1b and then mamba2-1.3b through
+    ``ServeEngine`` (2 users drawn on a CUDA generator at density 0.5, 2
+    slots, max batch 2, 8 requests, each model freed before the next) — the
+    mixed batch bit-equal to each request served alone and finite; its
+    parameter count, prefill ms per request and prompt tokens/s (CUDA
+    events over the pool-wide forward), peak memory, ``bytes_at_rest``
+    (equal to the frames' analytic size), and a profiled serving run's
+    device busy share with its top three device kernels;
+14. a ``{"kernels": [...]}`` line (``launches_strategies``: every kernel's
     launches summed over phase 12's ten runs, its async run and its two
-    stacked runs), then the last line
+    stacked runs; ``launches_serve_models``: over phase 13), then the last
+    line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA GPU or without the
@@ -135,6 +154,14 @@ SCALE_EINSUM_ATOL = 3e-4
 LOOP_GAP_FACTOR = 2.0
 SERVE_ARGS = ["--users", "1024", "--cache-size", "256", "--max-batch", "256",
               "--requests", "4096", "--rows", "4", "--density", "0.5"]
+SERVE_MODEL_ARGS = ["--users", "4", "--density", "0.5", "--cache-size", "2",
+                    "--max-batch", "4", "--requests", "16", "--rows", "1"]
+# served outputs on the card against the same store served on the CPU, max
+# abs difference (the tied-embedding logits reach ~190 at smoke width;
+# H100 80GB HBM3, 700 W: 4.58e-5 at most)
+SERVE_CPU_TOL = 1e-4
+FULL_WIDTH_ARCHS = ("gemma3-1b", "mamba2-1.3b")
+FULL_WIDTH_PROMPT = 2048
 
 
 def log(*a):
@@ -650,6 +677,13 @@ def main() -> int:
     log(f"strategy phase: {time.perf_counter() - t_strat:.1f} s; launches "
         f"{strat_launches}")
 
+    # 13. the serving CLI's other families: smallcnn and the smoke archs,
+    # then two archs at their published widths
+    t_models = time.perf_counter()
+    models_launches = serve_models_path(torch, counters)
+    log(f"serve_models phase: {time.perf_counter() - t_models:.1f} s; "
+        f"launches {models_launches}")
+
     kernels = [
         {"name": "gossip_avg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gossip_avg.cu",
@@ -659,6 +693,7 @@ def main() -> int:
          "launches_sim_sync": sync_launches["gossip_avg"],
          "launches_sim_async": async_launches["gossip_avg"],
          "launches_strategies": strat_launches["gossip_avg"],
+         "launches_serve_models": models_launches["gossip_avg"],
          "shape": f"J=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in gossip_rows),
          "ms": gossip_rows[0]["ms"], "device_ms": gossip_rows[0]["device_ms"],
@@ -673,6 +708,7 @@ def main() -> int:
          "launches_sim_sync": sync_launches["packed_accum"],
          "launches_sim_async": async_launches["packed_accum"],
          "launches_strategies": strat_launches["packed_accum"],
+         "launches_serve_models": models_launches["packed_accum"],
          "shape": f"N={n_leaf} density 0.5 alpha 1",
          "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
          "ms": fold_rows[0]["ms"], "device_ms": fold_rows[0]["device_ms"],
@@ -686,6 +722,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/packed_accum.py:105",
          "launches": scale_launches["packed_accum_rows"],
          "launches_strategies": strat_launches["packed_accum_rows"],
+         "launches_serve_models": models_launches["packed_accum_rows"],
          "shape": f"K=4 N={n_leaf} density 0.5 alpha 1",
          "max_abs_err": max(r["max_abs_err"] for r in rows_rows),
          "ms": rows_rows[0]["ms"], "device_ms": rows_rows[0]["device_ms"],
@@ -699,6 +736,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/prune_regrow.py:44",
          "launches": scale_launches["prune_regrow"],
          "launches_strategies": strat_launches["prune_regrow"],
+         "launches_serve_models": models_launches["prune_regrow"],
          "shape": f"K=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in pr_rows),
          "ms": pr_rows[0]["ms"], "device_ms": pr_rows[0]["device_ms"],
@@ -708,8 +746,9 @@ def main() -> int:
         {"name": "masked_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul.py:131",
-         "launches": serve_launches,
+         "launches": serve_launches["masked_matmul"],
          "launches_strategies": strat_launches["masked_matmul"],
+         "launches_serve_models": models_launches["masked_matmul"],
          "shape": f"U={mm['U']} M={mm['M']} K={mm['K']} N={mm['N']} "
                   f"density 0.5 float32",
          "max_abs_err": max(r["max_abs_err"] for rows in mm_rows.values()
@@ -719,6 +758,20 @@ def main() -> int:
          "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
          "library_ms": mm["library_ms"],
          "library_device_ms": mm["library_device_ms"]},
+        {"name": "masked_matmul_u1", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
+         "replaces": "src/repro/kernels/masked_matmul.py:64",
+         "launches": serve_launches["masked_matmul_u1"],
+         "launches_strategies": strat_launches["masked_matmul_u1"],
+         "launches_serve_models": models_launches["masked_matmul_u1"],
+         "shape": f"M={mm1['M']} K={mm1['K']} N={mm1['N']} density 0.2 "
+                  f"float32",
+         "max_abs_err": mm1["max_abs_err"],
+         "ms": mm1["ms"], "device_ms": mm1["device_ms"],
+         "plain_ms": mm1["plain_ms"], "host_us": mm1["host_us"],
+         "bound_ms": mm1["bound_ms"], "bound_by": mm1["bound_by"],
+         "library_ms": mm1["library_ms"],
+         "library_device_ms": mm1["library_device_ms"]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -861,11 +914,13 @@ ASYNC_ARGS = ["--sim", "--async", "--staleness", "2", "--compute-hetero",
 
 
 def _zero(counters):
-    """Every launch count to 0, the stacked fold's ``LAUNCHES_ROWS`` too."""
+    """Every launch count to 0, the stacked fold's ``LAUNCHES_ROWS`` and the
+    U=1 masked matmul's ``LAUNCHES_U1`` too."""
     for c in counters:
         c.LAUNCHES = 0
-        if hasattr(c, "LAUNCHES_ROWS"):
-            c.LAUNCHES_ROWS = 0
+        for extra in ("LAUNCHES_ROWS", "LAUNCHES_U1"):
+            if hasattr(c, extra):
+                setattr(c, extra, 0)
 
 
 def _launches(counters):
@@ -874,6 +929,8 @@ def _launches(counters):
     out = {c.__name__.rsplit(".", 1)[-1]: c.LAUNCHES for c in counters}
     out.update({c.__name__.rsplit(".", 1)[-1] + "_rows": c.LAUNCHES_ROWS
                 for c in counters if hasattr(c, "LAUNCHES_ROWS")})
+    out.update({c.__name__.rsplit(".", 1)[-1] + "_u1": c.LAUNCHES_U1
+                for c in counters if hasattr(c, "LAUNCHES_U1")})
     return out
 
 
@@ -1361,10 +1418,9 @@ def serve_run(torch, counters, backend, trace=False):
     if trace:
         tracer.clear()
         tracer.enable(mode="full")
-    for c in counters:
-        c.LAUNCHES = 0
+    _zero(counters)
     res = cli.run_serve(args, model, store)
-    launches = {c.__name__.rsplit(".", 1)[-1]: c.LAUNCHES for c in counters}
+    launches = _launches(counters)
     if trace:
         tracer.disable()
     s = res.summary
@@ -1435,7 +1491,162 @@ def serve_path(torch, counters):
         f"{k} {v:.4f} ({100 * v / t_svc:.1f}%)" for k, v in sorted(split.items()))
         + f"; its service_s {t_svc} against the untraced kernel mean "
         f"{mean['kernel']}")
-    return launches["masked_matmul"]
+    return launches
+
+
+def serve_smoke_model(torch, counters, name):
+    """Phase 13 (a) for one family: the CLI's entry functions on the card,
+    every request against the same request served alone (same width) and
+    against the same store served on the CPU.  Returns the launches."""
+    from repro_torch.device import setup_device
+    from repro_torch.launch import serve as cli
+    from repro_torch.serve import RequestStream, ServeEngine
+
+    args = cli.build_parser().parse_args(SERVE_MODEL_ARGS + ["--model", name])
+    model = cli.build_model(args.model, args.rows)
+    dev = setup_device(args.device)
+    store = cli.build_store(args, model, dev)
+    _zero(counters)
+    res = cli.run_serve(args, model, store)
+    launches = _launches(counters)
+    if any(launches.values()):
+        raise AssertionError(f"{name}: a kernel launched while serving "
+                             f"through vmap: {launches}")
+    alone = ServeEngine(cli.build_store(args, model, dev), model,
+                        backend="vmap", max_batch=args.max_batch)
+    alone.warmup()
+    reqs = RequestStream(n_users=args.users, n_requests=args.requests,
+                         seed=args.seed, rate=args.rate).requests()
+    # in the order the batched run served them, so the LRU gives each
+    # request's user the same pool slot: a vmapped convolution's rounding
+    # depends on the slot (1 ulp on the CPU), not on the other slots
+    by_rid = {r.rid: r for r in reqs}
+    for r in (by_rid[rid] for rid in res.outputs):
+        y = res.outputs[r.rid]
+        if not bool(torch.isfinite(torch.from_numpy(y)).all()):
+            raise AssertionError(f"{name}: request {r.rid} not finite")
+        if not (alone.serve([r], warmup=False).outputs[r.rid] == y).all():
+            raise AssertionError(f"{name}: request {r.rid} served in a mixed "
+                                 "batch differs from the same request alone")
+    cpu = cli.run_serve(args, model, cli.build_store(
+        args, model, setup_device("cpu")))
+    err = max(float(abs(res.outputs[rid] - y).max())
+              for rid, y in cpu.outputs.items())
+    scale = max(float(abs(y).max()) for y in cpu.outputs.values())
+    if err > SERVE_CPU_TOL:
+        raise AssertionError(f"{name}: cuda vs cpu max abs err {err} over "
+                             f"{SERVE_CPU_TOL}")
+    s = res.summary
+    log(f"serve --model {name}: service_s {s['service_s']}, p50 "
+        f"{s['p50_ms']} ms, p99 {s['p99_ms']} ms, {s['requests']} requests "
+        f"in {s['batches']} batches (mean {s['mean_batch']}), bytes_at_rest "
+        f"{s['store_bytes_at_rest']}; {len(reqs)} bit-equal alone; cuda vs "
+        f"cpu max abs err {err} (largest |output| {scale})")
+    return launches
+
+
+def serve_full_width(torch, counters, cfg):
+    """Phase 13 (b) for one full config: build the store on the card, serve,
+    hold each request bit-equal to it served alone, time the pool-wide
+    prefill with CUDA events, profile one serving run.  Frees its memory.
+    Returns the launches of the first serving run."""
+    import gc
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.accounting import HEADER_NBYTES, bitmap_nbytes
+    from repro_torch.core.masks import apply_mask, init_mask
+    from repro_torch.serve import ArchModel, ModelStore, RequestStream
+    from repro_torch.serve import ServeEngine
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()       # by earlier phases
+    t0 = time.perf_counter()
+    model = ArchModel(cfg, prompt_len=FULL_WIDTH_PROMPT)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    store = ModelStore(model.init(gen), cache_size=2)
+    n_params = sum(x.numel() for x in tree_leaves(store.base))
+    for u in range(2):
+        p = model.init(gen)
+        m = init_mask(gen, p, 0.5)
+        store.put(u, apply_mask(p, m), m)
+        del p, m
+    build_s = time.perf_counter() - t0
+    at_rest = sum(HEADER_NBYTES + bitmap_nbytes(n_params) + 4 * store.nnz(u)
+                  for u in store.users())
+    if at_rest != store.total_bytes_at_rest():
+        raise AssertionError(f"{cfg.name}: bytes_at_rest "
+                             f"{store.total_bytes_at_rest()} != {at_rest}")
+    # seed 2: three of the five batches hold both users
+    reqs = RequestStream(n_users=2, n_requests=8, seed=2).requests()
+    _zero(counters)
+    res = ServeEngine(store, model, backend="vmap", max_batch=2).serve(reqs)
+    launches = _launches(counters)
+    if any(launches.values()):
+        raise AssertionError(f"{cfg.name}: a kernel launched: {launches}")
+    alone = ServeEngine(store, model, backend="vmap", max_batch=2)
+    for r in reqs:
+        y = res.outputs[r.rid]
+        if y.shape != (1, cfg.vocab) or not bool(
+                torch.isfinite(torch.from_numpy(y)).all()):
+            raise AssertionError(f"{cfg.name}: request {r.rid} output "
+                                 f"{y.shape} not finite")
+        if not (alone.serve([r], warmup=False).outputs[r.rid] == y).all():
+            raise AssertionError(f"{cfg.name}: request {r.rid} served in a "
+                                 "mixed batch differs from it alone")
+    xs = torch.from_numpy(np.stack([model.make_input(i)
+                                    for i in range(2)])).cuda()
+    ms = cuda_ms(lambda: model.batched_forward(store.pool_params,
+                                               store.pool_masks, xs),
+                 iters=3, warmup=1)
+    profiled = ServeEngine(store, model, backend="vmap", max_batch=2)
+    profiled.warmup()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pres = profiled.serve(reqs, warmup=False)
+    peak = torch.cuda.max_memory_allocated()
+    miss = store.series.histogram("miss_decode_s")
+    s = res.summary
+    log(f"full width {cfg.name}: {n_params} parameters, store built in "
+        f"{build_s:.2f} s, bytes_at_rest {store.total_bytes_at_rest()}; "
+        f"service_s {s['service_s']}, p50 {s['p50_ms']} ms, p99 "
+        f"{s['p99_ms']} ms, {s['requests']} requests in {s['batches']} "
+        f"batches, hit rate {s['cache_hit_rate']} ({miss.count} misses, "
+        f"decode and slot write {miss.mean:.3f} s each); {len(reqs)} "
+        f"bit-equal "
+        f"alone; pool-wide prefill of 2 x {FULL_WIDTH_PROMPT} tokens "
+        f"{ms:.3f} ms: {ms / 2:.3f} ms per request, "
+        f"{2 * FULL_WIDTH_PROMPT / (ms / 1e3):.1f} prompt tokens/s; peak "
+        f"memory {peak} bytes ({peak / 2 ** 30:.2f} GiB; "
+        f"{(peak - held) / 2 ** 30:.2f} GiB above the {held} bytes held "
+        f"before the model)")
+    rows = device_rows(prof)
+    if rows is not None:
+        busy_s = sum(r[0] for r in rows) / 1e6
+        svc = pres.summary["service_s"]
+        log(f"  profiled serving run: service_s {svc} (profiler on), device "
+            f"busy {busy_s:.4f} s ({100 * busy_s / svc:.1f}%)")
+        for us, count, key in sorted(rows, reverse=True)[:3]:
+            log(f"  {us / 1e3:.3f} ms in {count} launches: {key[:90]}")
+    del res, pres, alone, profiled, store, model, xs, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_models_path(torch, counters):
+    """Phase 13: smallcnn and the ten smoke archs through the serving CLI,
+    then two archs at full published width.  Returns every kernel's
+    launches summed over the phase's counted runs (all must be 0)."""
+    from repro_torch.configs import ARCHS, SMOKE_ARCHS
+
+    runs = [serve_smoke_model(torch, counters, name)
+            for name in ["smallcnn"] + sorted(SMOKE_ARCHS)]
+    runs += [serve_full_width(torch, counters, ARCHS[name])
+             for name in FULL_WIDTH_ARCHS]
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
 def profile_serve(torch):

@@ -100,12 +100,13 @@ def init_mask(
 ) -> PyTree:
     """Random ERK mask for one client: Bernoulli(density_l) per layer,
     float32 on the params' device.  Non-sparsifiable leaves get all-ones.
-    The draws are made on the generator's device (the CPU) in leaf order."""
+    The draws are made on the generator's device in leaf order."""
     densities = erk_densities_for_params(params, density, sparsifiable)
 
     def one(path, x):
         if path in densities:
-            u = torch.rand(x.shape, generator=gen, dtype=torch.float32)
+            u = torch.rand(x.shape, generator=gen, dtype=torch.float32,
+                           device=gen.device)
             return (u < densities[path]).to(torch.float32).to(x.device)
         return torch.ones(x.shape, dtype=torch.float32, device=x.device)
 

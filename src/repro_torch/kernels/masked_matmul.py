@@ -24,6 +24,8 @@ from repro_torch.kernels import build
 
 #: kernel launches since the last reset (the plain version counts nothing)
 LAUNCHES = 0
+#: of those, the launches made through the U=1 wrapper ``masked_matmul``
+LAUNCHES_U1 = 0
 
 # MMK_BM, MMK_BN, MMK_BK in csrc/masked_matmul.cu: the CUDA tile, and the
 # tile whose empty mask the kernel skips
@@ -108,10 +110,14 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor,
                   m: torch.Tensor) -> torch.Tensor:
     """``y = x @ (w * m)`` for x (M, K), w and m (K, N): the batched kernel
     at U=1."""
+    global LAUNCHES_U1
     if x.dim() != 2 or w.dim() != 2 or m.dim() != 2:
         raise ValueError(f"need x (M, K), w and m (K, N); got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}, {tuple(m.shape)}")
-    return batched_masked_matmul(x[None], w[None], m[None])[0]
+    launches = LAUNCHES
+    y = batched_masked_matmul(x[None], w[None], m[None])[0]
+    LAUNCHES_U1 += LAUNCHES - launches
+    return y
 
 
 def block_occupancy(mask: torch.Tensor, bk: int = 128, bn: int = 128) -> float:

@@ -9,9 +9,12 @@ requests/s and cache counters as JSON lines.
         --users 64 --cache-size 16 --max-batch 8 --requests 256 \
         --backend kernel --metrics-jsonl serve_metrics.jsonl
 
-Runs on CUDA unless ``--device cpu`` is given.  ``--model mlp`` (the
-64→128→128→32 masked-matmul pipeline) is the one ported model; its
-``kernel`` backend is the reference's ``pallas``.
+Runs on CUDA unless ``--device cpu`` is given.  ``--model`` picks the
+served family, as in the reference: ``mlp`` (the 64→128→128→32
+masked-matmul pipeline; backends vmap, ref and kernel — the reference's
+``pallas``), ``smallcnn`` (the FL task model at 16x16 inputs, vmap only)
+or any registered smoke arch name (one-step scorer over an 8-token prompt,
+vmap only).
 """
 from __future__ import annotations
 
@@ -20,14 +23,23 @@ from typing import Optional, Sequence
 
 
 def build_model(name: str, rows: int):
-    from repro_torch.serve.model import MLPModel
+    from repro_torch.serve.model import ArchModel, MLPModel, TaskModel
 
     if name == "mlp":
         return MLPModel(d_in=64, widths=(128, 128), n_out=32, rows=rows)
+    if name == "smallcnn":
+        from repro_torch.fl.base import make_cnn_task
+
+        # the task's init draws on the CPU generator ``build_store`` hands
+        # it; the store moves the users to the serving device
+        return TaskModel(make_cnn_task("smallcnn", device="cpu"), hw=16,
+                         rows=rows)
+    from repro_torch.configs import SMOKE_ARCHS
+    if name in SMOKE_ARCHS:
+        return ArchModel(SMOKE_ARCHS[name], rows=rows)
     raise SystemExit(
-        f"--model {name!r} is not ported yet: only 'mlp' is; the reference's "
-        "'smallcnn' (TaskModel) and smoke arch models (ArchModel) come with "
-        "later slices of the port")
+        f"unknown --model {name!r}: expected mlp, smallcnn, or one of "
+        f"{sorted(SMOKE_ARCHS)}")
 
 
 def build_store(args, model, device):
@@ -82,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="vmap",
                     choices=("vmap", "ref", "kernel"))
     ap.add_argument("--model", default="mlp",
-                    help="mlp (the only model ported so far)")
+                    help="mlp | smallcnn | <smoke arch name>")
     ap.add_argument("--rows", type=int, default=4,
                     help="input rows per request (matmul M)")
     ap.add_argument("--density", type=float, default=0.5)

@@ -1,1 +1,3 @@
-"""CNN backbones with HWIO weights over NHWC activations."""
+"""Model families: CNN backbones (HWIO weights over NHWC activations) and
+the LM families behind ``registry.bind``."""
+from repro_torch.models.registry import ModelAPI, bind  # noqa: F401

@@ -1,0 +1,142 @@
+"""GQA/MQA attention with RoPE, optional qk-norm, sliding windows and the
+prefill KV cache (reference ``repro.models.attention``).
+
+Covers every assigned attention variant: GQA grouping, MQA (n_kv = 1),
+qk_norm, sliding-window local layers, bidirectional encoder attention and
+cross-attention into encoder outputs.  ``_sdpa`` is written as the
+reference writes it (GQA as ``(b, sq, hkv, g, dh)``, so head
+``h = kv * g + gi``; fp32 softmax; masking by ``where(mask, s, -1e30)``) —
+its rounding is the parity target, so no fused attention replaces it.
+
+Shapes: x (B, S, d).  Cache: {'k': (B, S_max, Hkv, Dh), 'v': same}.  The
+prefill returns a new cache built functionally (a concatenation), never
+written in place, so the forward runs under ``torch.func.vmap``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.common import (
+    apply_rope,
+    dense,
+    dense_init,
+    rmsnorm,
+    rmsnorm_init,
+)
+
+NEG_INF = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg) -> dict:
+    dh = cfg.resolved_head_dim
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * dh, cfg.use_bias),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, cfg.use_bias),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, cfg.use_bias),
+        "wo": dense_init(gen, cfg.n_heads * dh, cfg.d_model, cfg.use_bias),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(dh, gen.device)
+        p["k_norm"] = rmsnorm_init(dh, gen.device)
+    return p
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    dh = cfg.resolved_head_dim
+    shape = (batch, max_len, cfg.n_kv_heads, dh)
+    return {"k": torch.zeros(shape, device=device),
+            "v": torch.zeros(shape, device=device)}
+
+
+def _qkv(params, x, cfg, positions):
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    q = dense(params["wq"], x).reshape(b, s, cfg.n_heads, dh)
+    k = dense(params["wk"], x).reshape(b, s, cfg.n_kv_heads, dh)
+    v = dense(params["wv"], x).reshape(b, s, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, cfg, mask):
+    """q: (B,Sq,H,Dh); k,v: (B,Sk,Hkv,Dh); mask: (B,Sq,Sk) or (Sq,Sk) bool."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    q = q.reshape(b, sq, hkv, g, dh)
+    scale = dh ** -0.5
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
+    if mask.ndim == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, None, :, :], scores,
+                         torch.tensor(NEG_INF, dtype=scores.dtype,
+                                      device=scores.device))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, h, dh)
+
+
+def causal_mask(sq: int, sk: int, offset: int = 0, window: int = 0,
+                device=None) -> torch.Tensor:
+    """(sq, sk) bool; query i (global position offset+i) may see key j iff
+    j <= offset+i and (window==0 or j > offset+i-window)."""
+    qpos = offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m = m & (kpos > qpos - window)
+    return m
+
+
+def attention(params, x: torch.Tensor, positions: torch.Tensor, cfg,
+              window: int = 0, cache: Optional[dict] = None,
+              cross_kv: Optional[tuple] = None):
+    """Returns (y, new_cache).
+
+    * prefill: ``cache`` given -> k/v fill its first S slots (the rest of
+      the cache is kept), causal (windowed) attention over the prompt.
+    * bidirectional/cross-attention: ``cross_kv = (k, v)`` precomputed from
+      the encoder; the cache and positions are bypassed.
+
+    The full-sequence training pass (``cache=None``, with the banded
+    ``_local_attention``) and the one-token decode come with the ``lm``
+    training slice (ROADMAP A12b).
+    """
+    b, s, _ = x.shape
+    if cross_kv is not None:
+        dh = cfg.resolved_head_dim
+        q = dense(params["wq"], x).reshape(b, s, cfg.n_heads, dh)
+        if cfg.qk_norm:
+            q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k, v = cross_kv
+        mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, cfg, mask)
+        return dense(params["wo"], out.reshape(b, s, -1)), cache
+    if cache is None:
+        raise NotImplementedError(
+            "attention without a cache is the training pass, which comes "
+            "with the lm training slice (ROADMAP A12b)")
+
+    q, k, v = _qkv(params, x, cfg, positions)
+    cache = {"k": torch.cat([k.to(cache["k"].dtype), cache["k"][:, s:]], 1),
+             "v": torch.cat([v.to(cache["v"].dtype), cache["v"][:, s:]], 1)}
+    out = _sdpa(q, k, v, cfg, causal_mask(s, s, 0, window, x.device))
+    y = dense(params["wo"], out.reshape(b, s, -1))
+    return y, cache
+
+
+def cross_kv_from_encoder(params, enc_out: torch.Tensor, cfg):
+    """Precompute cross-attention K/V from encoder outputs (no RoPE)."""
+    b, s, _ = enc_out.shape
+    dh = cfg.resolved_head_dim
+    k = dense(params["wk"], enc_out).reshape(b, s, cfg.n_kv_heads, dh)
+    v = dense(params["wv"], enc_out).reshape(b, s, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    return k, v

@@ -1,18 +1,59 @@
-"""Shared model pieces: init, GroupNorm, cross-entropy (reference
-``repro.models.common``).  Activations are NHWC tensors."""
+"""Shared model pieces: init, norms, RoPE, activations, dense and embedding
+layers, GroupNorm, cross-entropy (reference ``repro.models.common``).
+
+Params are nested dicts of float32 tensors; every initializer draws from an
+explicit ``torch.Generator`` on the generator's own device (a CUDA
+generator draws a billion weights in milliseconds).  Draws cannot replay
+the reference's ``jax.random``: a run that must match it carries the
+reference's params across as numpy arrays.  Activations of the CNNs are
+NHWC tensors; those of the LMs are ``(B, S, d)``.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def normal_init(gen: torch.Generator, shape, stddev, device=None
+                ) -> torch.Tensor:
+    """N(0, stddev²) float32, drawn on the generator's device, then moved
+    to ``device`` (default: left there)."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * stddev
+    return x if device is None else x.to(device)
 
 
 def lecun_init(gen: torch.Generator, shape, fan_in=None,
-               device="cpu") -> torch.Tensor:
-    """N(0, 1/fan_in) float32, drawn on the generator's device (the CPU)."""
+               device=None) -> torch.Tensor:
+    """N(0, 1/fan_in) float32; ``fan_in`` defaults to ``shape[0]``."""
     fan_in = fan_in if fan_in is not None else shape[0]
-    std = 1.0 / np.sqrt(max(fan_in, 1))
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            * std).to(device)
+    return normal_init(gen, shape, 1.0 / np.sqrt(max(fan_in, 1)), device)
+
+
+def embed_init(gen: torch.Generator, shape) -> torch.Tensor:
+    return normal_init(gen, shape, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, device) -> dict:
+    return {"scale": torch.zeros(d, device=device)}  # (1+scale) form
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32 with the ``(1 + scale)`` parameterization."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].float())).to(x.dtype)
 
 
 def groupnorm_init(c: int, device="cpu") -> dict:
@@ -33,6 +74,75 @@ def groupnorm(params: dict, x: torch.Tensor, groups: int = 32,
     var = xf.var(dim=(1, 2, 4), keepdim=True, unbiased=False)
     xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
     return (xf * params["scale"].float() + params["bias"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).  Rotates the
+    two split halves of D (not interleaved pairs), angles in fp32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (D/2,)
+    ang = positions.float()[..., None] * freqs                # (..., S, D/2)
+    ang = ang[..., None, :]                                   # over heads
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def activation(name: str):
+    """``gelu`` is the tanh approximation, as the reference's
+    ``jax.nn.gelu(approximate=True)``."""
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+    }[name]
+
+
+# ---------------------------------------------------------------------------
+# Dense / embedding layers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               use_bias: bool = False) -> dict:
+    p = {"w": lecun_init(gen, (d_in, d_out))}
+    if use_bias:
+        p["b"] = torch.zeros(d_out, device=gen.device)
+    return p
+
+
+def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["w"]
+    if "b" in params:
+        y = y + params["b"]
+    return y
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids.long()]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

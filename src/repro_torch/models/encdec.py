@@ -1,0 +1,145 @@
+"""Encoder-decoder transformer (seamless-m4t backbone) (reference
+``repro.models.encdec``).
+
+The encoder consumes *precomputed frame embeddings* (B, S_enc, d) — the
+audio frontend (mel + conformer conv) is the allowed stub — and runs
+bidirectional self-attention layers.  The decoder is a causal LM stack with
+cross-attention into the encoder outputs.  Both stacks are stored with a
+leading layer axis (``encoder``, ``decoder``), as the reference's, and run
+as loops over it in order.
+
+``prefill`` computes the cross-attention K/V once and returns them in the
+cache beside the self-attention KV cache.  Teacher-forced training
+(``decode_train``) and the one-token ``decode_step`` come with the ``lm``
+training slice (ROADMAP A12b).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import (
+    dense,
+    embed_init,
+    embed_lookup,
+    rmsnorm,
+    rmsnorm_init,
+)
+from repro_torch.models.lm import _head, _mlp_apply, _mlp_init
+from repro_torch.utils.tree import tree_index, tree_stack
+
+PyTree = Any
+
+
+def _enc_layer_init(gen, cfg):
+    dev = gen.device
+    return {
+        "norm1": rmsnorm_init(cfg.d_model, dev),
+        "attn": attn_mod.attn_init(gen, cfg),
+        "norm2": rmsnorm_init(cfg.d_model, dev),
+        "mlp": _mlp_init(gen, cfg, cfg.d_ff),
+    }
+
+
+def _dec_layer_init(gen, cfg):
+    dev = gen.device
+    return {
+        "norm1": rmsnorm_init(cfg.d_model, dev),
+        "self_attn": attn_mod.attn_init(gen, cfg),
+        "norm_x": rmsnorm_init(cfg.d_model, dev),
+        "cross_attn": attn_mod.attn_init(gen, cfg),
+        "norm2": rmsnorm_init(cfg.d_model, dev),
+        "mlp": _mlp_init(gen, cfg, cfg.d_ff),
+    }
+
+
+def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
+    """Float32 params on the generator's device."""
+    enc = [_enc_layer_init(gen, cfg) for _ in range(cfg.enc_layers)]
+    dec = [_dec_layer_init(gen, cfg) for _ in range(cfg.n_layers)]
+    return {
+        "embed": {"table": embed_init(gen, (cfg.vocab, cfg.d_model))},
+        "encoder": tree_stack(enc),
+        "enc_norm": rmsnorm_init(cfg.d_model, gen.device),
+        "decoder": tree_stack(dec),
+        "final_norm": rmsnorm_init(cfg.d_model, gen.device),
+    }
+
+
+def _sinusoidal_pos(s: int, d: int, device=None) -> torch.Tensor:
+    """Length-agnostic sinusoidal encoder positions, (s, d) float32, sines
+    in the even columns and cosines in the odd ones."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    log_base = torch.log(torch.tensor(10000.0, device=device))
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-log_base / d))
+    pe = torch.zeros((s, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div[: (d + 1) // 2])
+    return pe
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, S_enc, d) stub embeddings -> (B, S_enc, d)."""
+    b, s, _ = frames.shape
+    dev = frames.device
+    x = frames + _sinusoidal_pos(s, cfg.d_model, dev).to(frames.dtype)[None]
+    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    mask = torch.ones((s, s), dtype=torch.bool, device=dev)  # bidirectional
+    for i in range(cfg.enc_layers):
+        p = tree_index(params["encoder"], i)
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        q, k, v = attn_mod._qkv(p["attn"], h, cfg, positions)
+        y = attn_mod._sdpa(q, k, v, cfg, mask)
+        x = x + dense(p["attn"]["wo"], y.reshape(b, s, -1))
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + _mlp_apply(p["mlp"], h, cfg)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _dec_layer(p, x, cfg, positions, cross_kv, cache):
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    y, cache = attn_mod.attention(p["self_attn"], h, positions, cfg,
+                                  cache=cache)
+    x = x + y
+    h = rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    y, _ = attn_mod.attention(p["cross_attn"], h, positions, cfg,
+                              cross_kv=cross_kv)
+    x = x + y
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    x = x + _mlp_apply(p["mlp"], h, cfg)
+    return x, cache
+
+
+def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      enc_len: int, device=None) -> PyTree:
+    dh = cfg.resolved_head_dim
+    n = cfg.n_layers
+    cross = (n, batch, enc_len, cfg.n_kv_heads, dh)
+    return {"self": tree_stack([attn_mod.init_kv_cache(cfg, batch, max_len,
+                                                       device)
+                                for _ in range(n)]),
+            "cross": {"k": torch.zeros(cross, device=device),
+                      "v": torch.zeros(cross, device=device)}}
+
+
+def prefill(params, frames, tokens, cfg: ModelConfig, cache):
+    """Encode + teacher-forced decoder prefill; fills self+cross caches.
+    Returns (last-position logits (B, 1, V), cache)."""
+    enc_out = encode(params, frames, cfg)
+    x = embed_lookup(params["embed"]["table"], tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    self_c, cross_c = [], []
+    for i in range(cfg.n_layers):
+        p = tree_index(params["decoder"], i)
+        kv = attn_mod.cross_kv_from_encoder(p["cross_attn"], enc_out, cfg)
+        x, c = _dec_layer(p, x, cfg, positions, kv,
+                          tree_index(cache["self"], i))
+        self_c.append(c)
+        cross_c.append({"k": kv[0], "v": kv[1]})
+    logits = _head(params, x[:, -1:, :], cfg)
+    return logits, {"self": tree_stack(self_c), "cross": tree_stack(cross_c)}

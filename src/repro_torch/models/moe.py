@@ -1,0 +1,154 @@
+"""Mixture-of-Experts FFN: token-choice top-k routing with capacity dispatch
+(reference ``repro.models.moe``).
+
+Two execution paths over the same parameters:
+
+* ``moe_dense_ref`` — every expert sees every token, weighted by gates.
+  O(E) compute; exact; the test oracle.
+* ``moe_apply`` — sorted capacity dispatch: tokens are stably sorted by
+  expert id, packed into (E, C) buffers (static capacity C, a multiple of
+  8; overflow dropped), the expert FFNs run batched, and each token sums
+  its k gated expert outputs.
+
+The reference scatters into the buffers (``buf.at[slot].set``) and
+scatter-adds the combine (``y.at[tt_s].add``).  Here both are gathers, so
+the function has no in-place write and runs under ``torch.func.vmap``:
+buffer slot ``(e, c)`` reads sorted entry ``offsets[e] + c`` when
+``c < counts[e]`` (the same entry the reference's scatter puts there), and
+the combine inverts the sort to ``(N, k, d)`` and sums over k in order — a
+deterministic sum (``index_add_`` on CUDA is atomic), so a user's output
+does not depend on who shares the launch.  Top-k breaks ties toward the
+lower expert index, as ``lax.top_k`` does: a stable descending sort.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.common import activation, lecun_init
+
+
+def moe_init(gen: torch.Generator, d_model: int, spec) -> dict:
+    e, de = spec.n_experts, spec.d_expert
+    p = {
+        "router": lecun_init(gen, (d_model, e)),
+        "w_gate": lecun_init(gen, (e, d_model, de)),
+        "w_up": lecun_init(gen, (e, d_model, de)),
+        "w_down": lecun_init(gen, (e, de, d_model), fan_in=de),
+    }
+    if spec.n_shared > 0:
+        ds = spec.d_expert * spec.n_shared
+        p["shared"] = {
+            "w_gate": lecun_init(gen, (d_model, ds)),
+            "w_up": lecun_init(gen, (d_model, ds)),
+            "w_down": lecun_init(gen, (ds, d_model), fan_in=ds),
+        }
+    return p
+
+
+def _expert_ffn(p, xb, act):
+    """xb: (E, C, d) -> (E, C, d), batched gated FFN over experts."""
+    h = act(torch.einsum("ecd,edf->ecf", xb, p["w_gate"]))
+    h = h * torch.einsum("ecd,edf->ecf", xb, p["w_up"])
+    return torch.einsum("ecf,efd->ecd", h, p["w_down"])
+
+
+def _shared_ffn(p, x, act):
+    h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+def _route(params, xf, spec):
+    """xf: (N, d) -> gates (N, k), expert ids (N, k), probs (N, E) [f32]."""
+    logits = xf.float() @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eids = vals[:, :spec.top_k], idx[:, :spec.top_k]
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return gates, eids, probs
+
+
+def _expert_counts(eids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """How many of ``eids`` (any shape) pick each expert, (E,) int64."""
+    experts = torch.arange(n_experts, device=eids.device)
+    return (eids.reshape(-1, 1) == experts).sum(0)
+
+
+def aux_load_balance_loss(probs: torch.Tensor, eids: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style load-balance loss: E * sum_e f_e * P_e."""
+    n, k = eids.shape
+    f = _expert_counts(eids, n_experts).float() / (n * k)
+    p = probs.mean(dim=0)
+    return n_experts * torch.sum(f * p)
+
+
+def capacity_for(n_tokens: int, spec) -> int:
+    c = int(math.ceil(n_tokens * spec.top_k / spec.n_experts
+                      * spec.capacity_factor))
+    return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
+
+
+def moe_apply(params, x: torch.Tensor, spec, act_name: str = "silu"):
+    """Sorted capacity dispatch.  x: (B, S, d) -> (y, aux_loss)."""
+    act = activation(act_name)
+    b, s, d = x.shape
+    n = b * s
+    xf = x.reshape(n, d)
+    gates, eids, probs = _route(params, xf, spec)
+    k = spec.top_k
+    cap = capacity_for(n, spec)
+    e = spec.n_experts
+
+    ee = eids.reshape(n * k)
+    tt = torch.arange(n, device=x.device).repeat_interleave(k)
+    order = torch.argsort(ee, stable=True)
+    ee_s, tt_s = ee[order], tt[order]
+    counts = _expert_counts(ee_s, e)
+    offsets = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(n * k, device=x.device) - offsets[ee_s]
+    keep = pos_in_e < cap
+
+    # dispatch: slot (e, c) holds sorted entry offsets[e] + c if c < counts[e]
+    c_idx = torch.arange(cap, device=x.device)
+    filled = c_idx[None, :] < counts[:, None]                     # (E, C)
+    src = torch.clamp_max(offsets[:, None] + c_idx[None, :], n * k - 1)
+    xb = torch.where(filled[..., None], xf[tt_s[src]],
+                     torch.zeros((), dtype=x.dtype, device=x.device))
+    yb = _expert_ffn(params, xb, act).reshape(e * cap, d)
+
+    # combine: sorted entry i reads its slot; kept entries only
+    slot = ee_s * cap + torch.clamp_max(pos_in_e, cap - 1)
+    contrib_s = torch.where(keep[:, None], yb[slot],
+                            torch.zeros((), dtype=x.dtype, device=x.device))
+    contrib = contrib_s[torch.argsort(order)].reshape(n, k, d)
+    g = gates.to(x.dtype)
+    y = contrib[:, 0] * g[:, 0, None]
+    for j in range(1, k):
+        y = y + contrib[:, j] * g[:, j, None]
+
+    if spec.n_shared > 0:
+        y = y + _shared_ffn(params["shared"], xf, act)
+    aux = aux_load_balance_loss(probs, eids, e) * spec.router_aux_coef
+    return y.reshape(b, s, d), aux
+
+
+def moe_dense_ref(params, x: torch.Tensor, spec, act_name: str = "silu"):
+    """Oracle: every expert computes every token; exact top-k combine."""
+    act = activation(act_name)
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    gates, eids, probs = _route(params, xf, spec)
+    h = act(torch.einsum("nd,edf->enf", xf, params["w_gate"]))
+    h = h * torch.einsum("nd,edf->enf", xf, params["w_up"])
+    ye = torch.einsum("enf,efd->end", h, params["w_down"])
+    onehot = (eids[..., None] == torch.arange(spec.n_experts,
+                                              device=x.device)).to(x.dtype)
+    w = (onehot * gates[..., None].to(x.dtype)).sum(1)           # (N, E)
+    y = torch.einsum("ne,end->nd", w, ye)
+    if spec.n_shared > 0:
+        y = y + _shared_ffn(params["shared"], xf, act)
+    aux = (aux_load_balance_loss(probs, eids, spec.n_experts)
+           * spec.router_aux_coef)
+    return y.reshape(b, s, d), aux

@@ -1,0 +1,191 @@
+"""Mamba-2 blocks via the SSD (state-space duality) chunked algorithm
+(reference ``repro.models.ssm``).
+
+The full Mamba-2 mixer (arXiv:2405.21060): fused in-projection (z, x, B,
+C, dt), depthwise causal conv over (x, B, C), softplus dt with bias,
+scalar-per-head A, chunked SSD scan, D skip, gated RMSNorm, output
+projection.  Single dispatch group (G=1), heads H = d_inner / head_dim.
+
+``ssm_apply`` is the full-sequence block (prefill, with the final SSD state
+and conv tail as its cache); the one-token ``ssm_decode_step`` comes with
+the ``lm`` training slice (ROADMAP A12b).  The inter-chunk recurrence is a
+loop in chunk order that keeps the state *before* each chunk, as the
+reference's ``lax.scan`` emits it.  Softplus is the reference's
+``logaddexp(x, 0)`` (``F.softplus`` turns into the identity above its
+threshold).  The three-operand einsums are contracted pairwise, each in
+the order stated at its line.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import lecun_init, rmsnorm_init
+
+
+def _dims(cfg):
+    spec = cfg.ssm
+    d_inner = spec.expand * cfg.d_model
+    n_heads = d_inner // spec.head_dim
+    conv_dim = d_inner + 2 * spec.d_state
+    return spec, d_inner, n_heads, conv_dim
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def ssm_init(gen: torch.Generator, cfg) -> dict:
+    spec, d_inner, n_heads, conv_dim = _dims(cfg)
+    d_in_proj = 2 * d_inner + 2 * spec.d_state + n_heads
+    dev = gen.device
+    in_proj = lecun_init(gen, (cfg.d_model, d_in_proj))
+    conv_w = torch.randn((spec.conv_width, conv_dim), generator=gen,
+                         dtype=torch.float32, device=dev)
+    conv_w = conv_w * spec.conv_width ** -0.5
+    # dt bias init so softplus(dt_bias) spans [1e-3, 1e-1] (mamba2 default)
+    u = torch.rand(n_heads, generator=gen, dtype=torch.float32, device=dev)
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt = torch.exp(u * (hi - lo) + lo)
+    dt_bias = dt + torch.log(-torch.expm1(-dt))  # inverse softplus
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros(conv_dim, device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, n_heads, device=dev)),
+        "D": torch.ones(n_heads, device=dev),
+        "dt_bias": dt_bias,
+        "norm": rmsnorm_init(d_inner, dev),
+        "out_proj": lecun_init(gen, (d_inner, cfg.d_model), fan_in=d_inner),
+    }
+
+
+def init_ssm_cache(cfg, batch: int, device=None) -> dict:
+    spec, d_inner, n_heads, conv_dim = _dims(cfg)
+    return {
+        "ssm_state": torch.zeros((batch, n_heads, spec.head_dim, spec.d_state),
+                                 device=device),
+        "conv_state": torch.zeros((batch, spec.conv_width - 1, conv_dim),
+                                  device=device),
+    }
+
+
+def _gated_norm(norm_params, y, z, eps):
+    yf = y.float() * F.silu(z.float())
+    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    out = yf * torch.rsqrt(var + eps)
+    return out * (1.0 + norm_params["scale"].float())
+
+
+def _split_proj(cfg, zxbcdt):
+    spec, d_inner, n_heads, _ = _dims(cfg)
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner: 2 * d_inner + 2 * spec.d_state]
+    dt = zxbcdt[..., -n_heads:]
+    return z, xbc, dt
+
+
+def _conv_full(params, xbc):
+    """Depthwise causal conv over (B, L, C_conv)."""
+    w = params["conv_w"].float()  # (W, C)
+    width = w.shape[0]
+    xf = xbc.float()
+    pad = F.pad(xf, (0, 0, width - 1, 0))
+    out = torch.zeros_like(xf)
+    for i in range(width):
+        out = out + pad[:, i: i + xf.shape[1], :] * w[i]
+    out = out + params["conv_b"].float()
+    return F.silu(out).to(xbc.dtype)
+
+
+def _segsum(dA):
+    """dA: (..., Q) log-decays -> (..., Q, Q) lower-tri cumulative sums,
+    -inf above the diagonal (so exp gives exact zeros there)."""
+    q = dA.shape[-1]
+    cs = torch.cumsum(dA, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dA.device))
+    return torch.where(mask, seg, torch.tensor(-math.inf, device=dA.device))
+
+
+def _ssd_chunked(xh, dt, a, Bm, Cm, chunk):
+    """SSD over chunks.
+
+    xh: (B, L, H, P)   inputs per head
+    dt: (B, L, H)      softplus'd step sizes
+    a:  (H,)           -exp(A_log), negative
+    Bm, Cm: (B, L, N)  shared across heads (G=1)
+    Returns y: (B, L, H, P) and final state (B, H, P, N).
+    """
+    b, l, h, p = xh.shape
+    n = Bm.shape[-1]
+    q = min(chunk, l)
+    nc = l // q
+    if l % q:
+        raise ValueError(f"seq {l} not divisible by chunk {q}")
+
+    xh = (xh * dt[..., None]).reshape(b, nc, q, h, p).float()
+    dA = (dt * a).reshape(b, nc, q, h)          # (B,C,Q,H) log decay
+    dA = torch.movedim(dA, -1, 2)               # (B,C,H,Q)
+    Bc = Bm.reshape(b, nc, q, n).float()
+    Cc = Cm.reshape(b, nc, q, n).float()
+
+    # -- intra-chunk (diagonal blocks): (scores ⊙ L) first, then with xh
+    L = torch.exp(_segsum(dA))                  # (B,C,H,Q,Q)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (B,C,Q,Q)
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", scores[:, :, None] * L, xh)
+
+    # -- chunk states (right factors): (decay ⊙ xh) first, then with B
+    cum = torch.cumsum(dA, dim=-1)              # (B,C,H,Q)
+    decay_to_end = torch.exp(cum[..., -1:] - cum)  # (B,C,H,Q)
+    x_dec = xh * torch.movedim(decay_to_end, 2, 3)[..., None]  # (B,C,Q,H,P)
+    states = torch.einsum("bcjn,bcjhp->bchpn", Bc, x_dec)
+
+    # -- inter-chunk recurrence, state BEFORE each chunk kept
+    chunk_decay = torch.exp(cum[..., -1])       # (B,C,H)
+    carry = torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, 1)          # (B,C,H,P,N)
+
+    # -- contribution of carried-in states: (C with state) first, then decay
+    decay_in = torch.exp(cum)                   # (B,C,H,Q)
+    y_off = (torch.einsum("bcin,bchpn->bcihp", Cc, prev_states)
+             * torch.movedim(decay_in, 2, 3)[..., None])
+
+    y = (y_diag + y_off).reshape(b, l, h, p)
+    return y, carry
+
+
+def ssm_apply(params, x: torch.Tensor, cfg, cache=None):
+    """Full-sequence Mamba-2 block.  Returns (y, new_cache).
+
+    With ``cache`` (prefill), the new cache holds the final SSD state and
+    the last ``conv_width - 1`` pre-conv inputs, for later decode steps.
+    """
+    spec, d_inner, n_heads, conv_dim = _dims(cfg)
+    b, l, _ = x.shape
+    zxbcdt = x @ params["in_proj"]
+    z, xbc, dt = _split_proj(cfg, zxbcdt)
+    xbc_conv = _conv_full(params, xbc)
+    xs = xbc_conv[..., :d_inner]
+    Bm = xbc_conv[..., d_inner: d_inner + spec.d_state]
+    Cm = xbc_conv[..., d_inner + spec.d_state:]
+    dtv = softplus(dt.float() + params["dt_bias"])
+    a = -torch.exp(params["A_log"])
+    xh = xs.reshape(b, l, n_heads, spec.head_dim)
+    y, final_state = _ssd_chunked(xh.float(), dtv, a, Bm, Cm, spec.chunk)
+    y = y + params["D"][None, None, :, None] * xh.float()
+    y = y.reshape(b, l, d_inner)
+    y = _gated_norm(params["norm"], y, z, cfg.norm_eps)
+    out = y.to(x.dtype) @ params["out_proj"]
+    if cache is not None:
+        tail = xbc[:, -(spec.conv_width - 1):, :]
+        cache = {"ssm_state": final_state,
+                 "conv_state": tail.to(cache["conv_state"].dtype)}
+    return out, cache

@@ -8,7 +8,8 @@
   arrivals and deterministic micro-batches (numpy, as the reference's).
 * ``engine.ServeEngine`` — one pool-wide batched forward per batch; for
   ``MLPModel`` the ``kernel`` backend runs the CUDA block-sparse masked
-  matmul once per layer.
+  matmul once per layer; ``TaskModel`` (CNNs) and ``ArchModel`` (the LM
+  families) serve through ``torch.func.vmap`` only.
 
 CLI: ``python -m repro_torch.launch.serve --users 64 --cache-size 16
 --max-batch 8 --requests 256 --backend kernel`` (CUDA; ``--device cpu``
@@ -16,10 +17,11 @@ runs the plain versions on the CPU).
 """
 from repro_torch.serve.batcher import Batch, MicroBatcher, Request, RequestStream
 from repro_torch.serve.engine import ServeEngine, ServeResult
-from repro_torch.serve.model import MLPModel
+from repro_torch.serve.model import ArchModel, MLPModel, TaskModel
 from repro_torch.serve.store import ModelStore
 
 __all__ = [
+    "ArchModel",
     "Batch",
     "MLPModel",
     "MicroBatcher",
@@ -28,4 +30,5 @@ __all__ = [
     "RequestStream",
     "ServeEngine",
     "ServeResult",
+    "TaskModel",
 ]

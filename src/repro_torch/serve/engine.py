@@ -130,8 +130,11 @@ class ServeEngine:
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------------
-    def serve(self, requests: Sequence[Request] | RequestStream) -> ServeResult:
-        warm_s = self.warmup()
+    def serve(self, requests: Sequence[Request] | RequestStream,
+              warmup: bool = True) -> ServeResult:
+        """Serve ``requests``; ``warmup=False`` skips the throwaway launch
+        (a warm engine serving one request at a time)."""
+        warm_s = self.warmup() if warmup else 0.0
 
         batcher = MicroBatcher(requests, max_batch=self.max_batch,
                                max_wait=self.max_wait,

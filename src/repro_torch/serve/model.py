@@ -1,17 +1,27 @@
 """Model adapters the serving engine is generic over (reference
 ``repro.serve.model``).
 
-The engine needs three things from a model: a base ``init``, a per-request
-input builder (seed-derived, so runs are reproducible), and a *batched*
-forward that scores U user models against U inputs in one launch per
-layer.  Only ``MLPModel`` is ported; the reference's ``TaskModel`` (conv
-CNNs) and ``ArchModel`` (smoke LM archs) are not yet.
+The engine needs three things from a model: a base ``init`` (from a
+``torch.Generator``), a per-request input builder (seed-derived, so runs
+are reproducible; the reference's numpy draws exactly), and a *batched*
+forward that scores U user models against U inputs in one pool-wide call.
+Three adapters cover the repo's model families, as in the reference:
 
-Params are plain nested dicts of tensors, ``{"layer<i>": {"w": (d_i,
-d_{i+1})}}``, keyed as the reference's.  A reference tree (numpy leaves,
-``np.asarray`` of its jax arrays) becomes a port tree through
-``repro_torch.checkpoint.npz.tree_from_numpy``, bit for bit — that is how
-the tests serve the same models from both packages.
+* ``MLPModel`` — the masked-matmul pipeline, three backends (below).
+* ``TaskModel`` — an FL ``Task``'s CNN (the backbones training archives
+  come from); request = one image batch, response = class logits.
+* ``ArchModel`` — a registered LM config (``configs.SMOKE_ARCHS`` from the
+  CLI, or a full ``configs.ARCHS`` entry) as a one-step scorer: prefill a
+  prompt, return the last position's logits.
+
+``TaskModel`` and ``ArchModel`` have no masked-matmul pipeline: only the
+``vmap`` backend (``torch.func.vmap`` of the per-user forward) applies, and
+any other raises ``ValueError``.
+
+Params are plain nested dicts of tensors keyed as the reference's.  A
+reference tree (numpy leaves, ``np.asarray`` of its jax arrays) becomes a
+port tree through ``repro_torch.checkpoint.npz.tree_from_numpy``, bit for
+bit — that is how the tests serve the same models from both packages.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ from repro_torch.kernels.masked_matmul import (
     batched_masked_matmul,
     batched_masked_matmul_plain,
 )
+from repro_torch.models import bind
 
 PyTree = Any
 
@@ -100,3 +111,94 @@ class MLPModel:
 
     def backends(self) -> tuple[str, ...]:
         return BACKENDS
+
+
+def _vmap_only(name: str, backend: str) -> None:
+    if backend != "vmap":
+        raise ValueError(
+            f"{name} has no masked-matmul pipeline; only the vmap backend "
+            f"applies, got {backend}")
+
+
+class TaskModel:
+    """Serve an FL ``Task``'s model family (conv CNNs): request = one image
+    batch ``(rows, hw, hw, in_ch)``, response = class logits.  vmap
+    backend only."""
+
+    def __init__(self, task, hw: int = 16, in_ch: int = 3, rows: int = 1):
+        self.task = task
+        self.hw = int(hw)
+        self.in_ch = int(in_ch)
+        self.rows = int(rows)
+
+    def init(self, gen: torch.Generator) -> PyTree:
+        """The task's init (params on the task's device)."""
+        return self.task.init_fn(gen)
+
+    def make_input(self, seed: int) -> np.ndarray:
+        rng = np.random.default_rng(np.random.SeedSequence([int(seed), 0x2]))
+        return rng.standard_normal(
+            (self.rows, self.hw, self.hw, self.in_ch)).astype(np.float32)
+
+    def forward(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+        return self.task.apply_fn(params, x)
+
+    def batched_forward(self, params_stack: PyTree, masks_stack: PyTree,
+                        xs: torch.Tensor, backend: str = "vmap"
+                        ) -> torch.Tensor:
+        del masks_stack  # params are already w ⊙ m
+        _vmap_only(f"TaskModel ({self.task.name})", backend)
+        return torch.func.vmap(self.forward)(params_stack, xs)
+
+    def backends(self) -> tuple[str, ...]:
+        return ("vmap",)
+
+
+class ArchModel:
+    """Serve a registered LM config as a one-step scorer: prefill
+    ``prompt_len`` tokens (``rows`` prompts per request), return the last
+    position's logits ``(rows, vocab)``.  VLMs get a zero patch prefix of
+    ``prefix_len``, enc-dec models zero frames of length 8, as in the
+    reference.  vmap backend only."""
+
+    def __init__(self, cfg, prompt_len: int = 8, rows: int = 1):
+        self.cfg = cfg
+        self.api = bind(cfg)
+        self.prompt_len = int(prompt_len)
+        self.rows = int(rows)
+
+    def init(self, gen: torch.Generator) -> PyTree:
+        """Float32 params on the generator's device."""
+        return self.api.init(gen)
+
+    def make_input(self, seed: int) -> np.ndarray:
+        rng = np.random.default_rng(np.random.SeedSequence([int(seed), 0x3]))
+        return rng.integers(0, self.cfg.vocab,
+                            size=(self.rows, self.prompt_len),
+                            dtype=np.int32)
+
+    def forward(self, params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
+        b, s = tokens.shape
+        dev = tokens.device
+        batch = {"tokens": tokens}
+        kw = {}
+        max_len = s + self.cfg.prefix_len    # prefix rides in the kv cache
+        if self.cfg.prefix_len:
+            batch["prefix"] = torch.zeros(
+                (b, self.cfg.prefix_len, self.cfg.d_model), device=dev)
+        if self.cfg.enc_layers:
+            batch["frames"] = torch.zeros((b, 8, self.cfg.d_model), device=dev)
+            kw["enc_len"] = 8
+        cache = self.api.init_cache(b, max_len, device=dev, **kw)
+        logits, _ = self.api.prefill(params, batch, cache)
+        return logits[:, -1, :]
+
+    def batched_forward(self, params_stack: PyTree, masks_stack: PyTree,
+                        xs: torch.Tensor, backend: str = "vmap"
+                        ) -> torch.Tensor:
+        del masks_stack  # params are already w ⊙ m
+        _vmap_only(f"ArchModel ({self.cfg.name})", backend)
+        return torch.func.vmap(self.forward)(params_stack, xs)
+
+    def backends(self) -> tuple[str, ...]:
+        return ("vmap",)

@@ -18,10 +18,11 @@ The LRU cache is a *slot pool*: one preallocated ``(cache_size, ...)``
 tensor per leaf on the store's device, holding the unpacked dense-masked
 models of the ``cache_size`` most recently served users.  The pool IS the
 batched launch operand, so a hit moves zero parameter bytes.  A miss
-decodes the user's frame on the host (``codec.decode_dense``) and writes
-its slot in place (``pool[slot].copy_``); the pool is never rebuilt.  The
-LRU order and the ``hits`` / ``misses`` / ``evictions`` counters follow the
-reference's step for step.
+decodes the user's frame on the pool's device (``codec.decode_dense``: the
+frame's bytes cross to the device once) and writes its slot in place
+(``pool[slot].copy_``); the pool is never rebuilt.  The LRU order and the
+``hits`` / ``misses`` / ``evictions`` counters follow the reference's step
+for step.
 """
 from __future__ import annotations
 
@@ -151,8 +152,9 @@ class ModelStore:
                 entry = {"params": self.base,
                          "masks": tree_ones_like(self.base)}
             else:
-                # single-pass host decode: the serving hot path
-                params, masks = decode_dense(frame, self.spec)
+                # one decode on the pool's device: the serving hot path
+                params, masks = decode_dense(frame, self.spec,
+                                             device=self.device)
                 entry = {"params": params, "masks": masks}
                 sp.attrs["nbytes"] = len(frame)
             if self._free:

@@ -21,7 +21,10 @@ the same number analytically —
         nnz, n_coords, with_bitmap=True, value_nbytes=itemsize)
 
 Frames are host bytes, so encoding reads each leaf's bitmap and values back
-to the host once; the bit work is numpy, as in the reference.
+to the host once and joins the leaf bitmaps word by word (a shift per
+leaf, never a pass per bit).  ``decode_dense`` unpacks on the device it
+decodes to, so a serving miss moves the frame's bytes once and scatters
+there.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.sparse.packed import (
     PackedSparse,
     is_packed,
     n_words,
+    unpack_bits,
     words_from_numpy,
     words_to_numpy,
 )
@@ -80,6 +84,30 @@ def _unpack_bits(words: np.ndarray, n_coords: int) -> np.ndarray:
     shifts = np.arange(BITS_PER_WORD, dtype=np.uint32)
     bits = (words[:, None] >> shifts) & np.uint32(1)
     return bits.reshape(-1)[:n_coords].astype(bool)
+
+
+def _concat_bitmaps(parts) -> np.ndarray:
+    """Join per-leaf bitmaps ``[(uint32 words, n_coords), ...]`` into one
+    little-endian bit stream with no padding between leaves: leaf bits
+    start at the running coordinate offset, so a leaf at an offset that is
+    not a multiple of 32 is shifted into place word by word."""
+    total = sum(n for _, n in parts)
+    out = np.zeros(n_words(total), dtype=np.uint32)
+    off = 0
+    for words, n in parts:
+        w = np.array(words[:n_words(n)], dtype=np.uint32)
+        if n % BITS_PER_WORD:          # clear any bits past the leaf's end
+            w[-1] &= np.uint32((1 << (n % BITS_PER_WORD)) - 1)
+        q, r = divmod(off, BITS_PER_WORD)
+        if r == 0:
+            out[q:q + w.size] |= w
+        else:
+            out[q:q + w.size] |= w << np.uint32(r)
+            hi = w >> np.uint32(BITS_PER_WORD - r)
+            end = min(q + 1 + w.size, out.size)
+            out[q + 1:end] |= hi[:end - q - 1]
+        off += n
+    return out
 
 
 def _np_values(p: PackedSparse) -> np.ndarray:
@@ -151,12 +179,9 @@ def encode(packed: PyTree) -> bytes:
         if any(v.dtype != dtype for v in host_values):
             raise ValueError(
                 "all leaves of one message must share a value dtype")
-        # concatenate leaf bit-streams with no inter-leaf padding, repack
-        flags = np.concatenate(
-            [_unpack_bits(words_to_numpy(p.bitmap), p.n_coords)
-             for p in leaves]
-        ) if leaves else np.zeros(0, dtype=bool)
-        words = _pack_bits(flags)
+        # concatenate leaf bit-streams with no inter-leaf padding
+        words = _concat_bitmaps([(words_to_numpy(p.bitmap), p.n_coords)
+                                 for p in leaves])
         values = (np.concatenate(host_values) if leaves
                   else np.zeros(0, dtype))
         nnz = int(values.size)
@@ -172,9 +197,9 @@ def encode(packed: PyTree) -> bytes:
     return out
 
 
-def _frame_arrays(data: bytes, spec: TreeSpec):
-    """Parse one frame's header and pull out (flags, values, nnz) as host
-    arrays — the shared prelude of ``decode`` / ``decode_dense``."""
+def _frame_words(data: bytes, spec: TreeSpec):
+    """Parse one frame's header and pull out (bitmap words, values, nnz) as
+    host arrays — the shared prelude of ``decode`` / ``decode_dense``."""
     magic, version, code, nnz = _HEADER.unpack_from(data, 0)
     if magic != MAGIC:
         raise ValueError(f"bad magic 0x{magic:04x}")
@@ -188,8 +213,7 @@ def _frame_arrays(data: bytes, spec: TreeSpec):
                           offset=off).astype(np.uint32)
     values = np.frombuffer(data, dtype=np.dtype(dtype).newbyteorder("<"),
                            count=nnz, offset=off + nb_bitmap).astype(dtype)
-    flags = _unpack_bits(words, n_coords)
-    return flags, values, nnz
+    return words, values, nnz
 
 
 def decode(data: bytes, spec: TreeSpec) -> PyTree:
@@ -198,7 +222,8 @@ def decode(data: bytes, spec: TreeSpec) -> PyTree:
     with span("codec.decode", track="codec", nbytes=len(data)):
         _C_DECODES.inc()
         _C_BYTES_IN.inc(len(data))
-        flags, values, nnz = _frame_arrays(data, spec)
+        words, values, nnz = _frame_words(data, spec)
+        flags = _unpack_bits(words, spec.n_coords)
         leaves, pos, vpos = [], 0, 0
         for shape in spec.shapes:
             n = int(np.prod(shape))
@@ -222,23 +247,28 @@ def decode_dense(data: bytes, spec: TreeSpec, mask_dtype=torch.float32,
     of tensors on ``device``, bit-exact vs ``unpack_tree(decode(...))``.
 
     This is the serving hot path (a cache miss stands between a request
-    and its launch): one bit-unpack pass over the whole frame on the host,
-    one scatter per leaf, and no intermediate ``PackedSparse``.
+    and its launch): the frame's words and values go to ``device`` once,
+    and each leaf is unpacked from the words that hold its bits and
+    scattered there — no intermediate ``PackedSparse``, no host pass per
+    bit.
     """
     with span("codec.decode_dense", track="codec", nbytes=len(data)):
         _C_DENSE_DECODES.inc()
         _C_BYTES_IN.inc(len(data))
-        flags, values, nnz = _frame_arrays(data, spec)
+        words, values, nnz = _frame_words(data, spec)
+        words = words_from_numpy(words, device)
+        values = torch.from_numpy(values).to(device)
         params, masks, pos, vpos = [], [], 0, 0
         for shape in spec.shapes:
             n = int(np.prod(shape))
-            leaf_flags = flags[pos:pos + n]
-            k = int(leaf_flags.sum())
-            dense = np.zeros(n, dtype=values.dtype)
-            dense[leaf_flags] = values[vpos:vpos + k]
-            params.append(torch.from_numpy(dense.reshape(shape)).to(device))
-            masks.append(torch.from_numpy(leaf_flags.reshape(shape)).to(
-                device=device, dtype=mask_dtype))
+            w0, w1 = pos // BITS_PER_WORD, n_words(pos + n)
+            lo = pos - w0 * BITS_PER_WORD
+            flags = unpack_bits(words[w0:w1], lo + n)[lo:]
+            k = int(flags.sum())
+            dense = torch.zeros(n, dtype=values.dtype, device=device)
+            dense[flags] = values[vpos:vpos + k]
+            params.append(dense.reshape(shape))
+            masks.append(flags.reshape(shape).to(mask_dtype))
             pos += n
             vpos += k
         if vpos != nnz:

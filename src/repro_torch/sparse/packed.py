@@ -49,26 +49,30 @@ class PackedSparse:
         return int(self.values.shape[0])
 
 
-def _shifts(device) -> torch.Tensor:
-    return torch.arange(BITS_PER_WORD, dtype=torch.int64, device=device)
-
-
 def pack_bits_rows(flags: torch.Tensor) -> torch.Tensor:
     """Bool (K, n) -> int32 words (K, n_words(n)), each row packed
-    little-endian on its own (rows padded with zeros to whole words)."""
+    little-endian on its own (rows padded with zeros to whole words).
+
+    Bits are packed into bytes (bit j of byte b is coordinate 8b + j) and
+    four bytes are read as one little-endian word, so the transient is two
+    bytes per coordinate."""
     k, n = flags.shape
     pad = (-n) % BITS_PER_WORD
     if pad:
         flags = torch.cat([flags, flags.new_zeros((k, pad))], dim=1)
-    bits = flags.reshape(k, -1, BITS_PER_WORD).to(torch.int64)
-    words = (bits << _shifts(flags.device)).sum(dim=2)      # in [0, 2**32)
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    shifts = torch.arange(8, dtype=torch.uint8, device=flags.device)
+    bits = flags.reshape(k, -1, 8).to(torch.uint8) << shifts
+    packed = bits.sum(dim=2, dtype=torch.uint8)              # distinct bits
+    return packed.view(torch.int32)
 
 
 def unpack_bits_rows(words: torch.Tensor, n_coords: int) -> torch.Tensor:
     """Int32 words (K, n_words) -> bool (K, n_coords), inverse of
-    ``pack_bits_rows``."""
-    bits = (words.to(torch.int64)[:, :, None] >> _shifts(words.device)) & 1
+    ``pack_bits_rows``.  The shift is arithmetic on int32, which leaves bit
+    ``j`` of the word in bit 0 of ``word >> j`` for every j < 32."""
+    shifts = torch.arange(BITS_PER_WORD, dtype=torch.int32,
+                          device=words.device)
+    bits = (words.to(torch.int32)[:, :, None] >> shifts) & 1
     return bits.reshape(words.shape[0], -1)[:, :n_coords].bool()
 
 

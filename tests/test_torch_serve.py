@@ -128,6 +128,25 @@ def test_codec_frames_byte_identical(density, wire):
         assert encode(back) == frame
 
 
+def test_codec_frames_byte_identical_at_unaligned_leaf_offsets():
+    """Leaves whose sizes are not multiples of 32 start the next leaf's
+    bits mid-word; the frame still equals the reference's."""
+    rng = np.random.default_rng(11)
+    shapes = [(1,), (31,), (3, 11), (64,), (7,), (5, 20), (33,), (2,)]
+    p = {f"l{i}": rng.standard_normal(s).astype(np.float32)
+         for i, s in enumerate(shapes)}
+    m = {k: (rng.random(v.shape) < 0.5).astype(np.float32)
+         for k, v in p.items()}
+    ref_packed = ref_pack_tree(jax.tree.map(jnp.asarray, p),
+                               jax.tree.map(jnp.asarray, m))
+    frame = encode(pack_tree(tree_from_numpy(p), tree_from_numpy(m)))
+    assert frame == ref_encode(ref_packed)
+    dp, dm = decode_dense(frame, TreeSpec.from_tree(tree_from_numpy(p)))
+    rp, rm = ref_decode_dense(frame, RefSpec.from_tree(p))
+    _assert_same_tree(rp, dp)
+    _assert_same_tree(rm, dm)
+
+
 def test_store_sizes_frames_and_roundtrip_match_reference():
     ref, port = _stores(n_users=5, density=0.3)
     assert port.users() == ref.users()
@@ -409,9 +428,18 @@ def test_serve_cli_on_cpu(tmp_path, capsys):
 
 
 def test_serve_cli_refuses_missing_gpu_and_unported_models(monkeypatch):
+    """Without a GPU the CLI refuses to start unless the CPU is asked for;
+    a model name the reference does not register is refused with its
+    message; the families once refused here (``smallcnn``, a smoke arch)
+    now serve on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_cli.main(["--users", "2", "--requests", "2"])
+    with pytest.raises(SystemExit, match="unknown --model 'nope': expected "
+                                         "mlp, smallcnn, or one of"):
+        port_cli.main(["--device", "cpu", "--model", "nope"])
     for name in ("smallcnn", "qwen3-8b"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            port_cli.main(["--device", "cpu", "--model", name])
+        out = port_cli.main(["--device", "cpu", "--model", name, "--users",
+                             "2", "--cache-size", "2", "--requests", "2",
+                             "--rows", "1", "--metrics-jsonl", "-"])
+        assert set(out) == SUMMARY_KEYS and out["requests"] == 2
