@@ -120,10 +120,33 @@ line):
     events over the pool-wide forward), peak memory, ``bytes_at_rest``
     (equal to the frames' analytic size), and a profiled serving run's
     device busy share with its top three device kernels;
-14. a ``{"kernels": [...]}`` line (``launches_strategies``: every kernel's
+14. ``lm``, LM training: (a) through the CLI's entry functions (``train
+    lm``'s ``lm_loop`` from ``init_lm_clients``' state), every decoder
+    smoke arch at ``LM_ARGS`` (2 clients, 2 rounds, 4 steps, 64-token
+    sequences: gemma3's 16-token window runs the banded attention),
+    counters zeroed just before and read just after (every kernel 0, as in
+    the reference) — losses finite and within ``LM_CPU_RTOL`` of the same
+    loop on the CPU from the same state, every mask leaf's held count equal
+    to the CPU's, the share of mask coordinates that differ reported;
+    (b) full published width, ``ARCHS["gemma3-1b"]`` at K=2 clients, one
+    row of 1024 tokens each (params and int8 masks at density 0.5 drawn on
+    a CUDA generator), counters zeroed just before and read just after:
+    one ``make_train_step`` (einsum gossip; loss finite, every parameter 0
+    outside its mask), one ``make_mask_update_step`` at prune rate 0.25
+    (one prune/regrow launch per sparsifiable leaf, each bit-equal to
+    ``prune_regrow_rows_plain`` on the same leaf and thresholds; each row's
+    held count against its ``n_active``), a ``make_prefill_step`` of a
+    1024-token prompt into a 1040-slot cache and 16 greedy
+    ``make_decode_step`` steps, whose logits must match a ``forward_train``
+    teacher-forcing pass within ``LM_DECODE_TOL`` x the logits' scale; then
+    the train step's time and tokens/s, the mask update's time and its
+    sorts' share, prefill and per-token decode times, peak memory (and
+    what each stage leaves allocated), and profiled train and decode
+    steps' busy shares and top three kernels;
+15. a ``{"kernels": [...]}`` line (``launches_strategies``: every kernel's
     launches summed over phase 12's ten runs, its async run and its two
-    stacked runs; ``launches_serve_models``: over phase 13), then the last
-    line
+    stacked runs; ``launches_serve_models``: over phase 13;
+    ``launches_lm``: over phase 14 (a) and (b)), then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA GPU or without the
@@ -162,6 +185,15 @@ SERVE_MODEL_ARGS = ["--users", "4", "--density", "0.5", "--cache-size", "2",
 SERVE_CPU_TOL = 1e-4
 FULL_WIDTH_ARCHS = ("gemma3-1b", "mamba2-1.3b")
 FULL_WIDTH_PROMPT = 2048
+LM_ARGS = ["lm", "--clients", "2", "--rounds", "2", "--steps", "4", "--seq",
+           "64", "--batch-size", "2", "--tokens-per-client", "4096"]
+# the lm loop on the card against the same loop on the CPU from one state:
+# relative loss difference (cuBLAS and MKL round each product differently)
+LM_CPU_RTOL = 1e-4
+LM_FULL_ARCH = "gemma3-1b"
+LM_FULL_CLIENTS, LM_FULL_SEQ, LM_FULL_DECODE = 2, 1024, 16
+# decoded logits against a teacher-forcing forward, relative to their scale
+LM_DECODE_TOL = 1e-4
 
 
 def log(*a):
@@ -279,6 +311,19 @@ def gossip_host(torch, ga, dev, j, n, gen):
     ws, ms = list(torch.randn((j, n), generator=gen, device=dev) * m), list(m)
     runs = [host_us(lambda: ga.gossip_avg(ws, ms, ms[0])) for _ in range(2)]
     return {"J": j, "N": n, "host_us": min(runs), "runs": runs}
+
+
+def prune_regrow_host(torch, pr, dev, k, n, gen):
+    """Host microseconds per prune/regrow call on K rows of a small leaf
+    (the device's share negligible, as on most of the LM mask update's
+    leaves): the best of two timings."""
+    m = (torch.rand((k, n), generator=gen, device=dev) < 0.5).float()
+    w = torch.randn((k, n), generator=gen, device=dev) * m
+    g = torch.randn((k, n), generator=gen, device=dev)
+    th = pr.sort_thresholds(w, g, m, n // 4, n // 8)
+    runs = [host_us(lambda: pr.prune_regrow_rows(w, g, m, th))
+            for _ in range(2)]
+    return {"K": k, "N": n, "host_us": min(runs), "runs": runs}
 
 
 def check_fold(torch, pa, pack_bits, dev, n, alpha, gen):
@@ -580,6 +625,9 @@ def main() -> int:
     for r in pr_rows:
         log(f"prune_regrow K={r['K']} N={r['N']}: " + _times(r)
             + f", torch.sort of the two thresholds {r['sort_ms']} ms")
+    pr_host = prune_regrow_host(torch, pr, dev, 4, 4096, gen)
+    log(f"prune_regrow host per call, K=4 N={pr_host['N']}: "
+        f"{pr_host['host_us']} us (runs {pr_host['runs']})")
     mm_rows = mm_checks(torch, mmk, dev, gen)
     mm1 = check_mm_single(torch, mmk, dev, gen)
     log(f"masked_matmul U=1 M={mm1['M']} K={mm1['K']} N={mm1['N']} density "
@@ -684,6 +732,13 @@ def main() -> int:
     log(f"serve_models phase: {time.perf_counter() - t_models:.1f} s; "
         f"launches {models_launches}")
 
+    # 14. LM training: the lm CLI on every decoder smoke arch, then the
+    # step builders at gemma3-1b's published width
+    t_lm = time.perf_counter()
+    lm_launches = lm_path(torch, counters)
+    log(f"lm phase: {time.perf_counter() - t_lm:.1f} s; launches "
+        f"{lm_launches}")
+
     kernels = [
         {"name": "gossip_avg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gossip_avg.cu",
@@ -694,6 +749,7 @@ def main() -> int:
          "launches_sim_async": async_launches["gossip_avg"],
          "launches_strategies": strat_launches["gossip_avg"],
          "launches_serve_models": models_launches["gossip_avg"],
+         "launches_lm": lm_launches["gossip_avg"],
          "shape": f"J=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in gossip_rows),
          "ms": gossip_rows[0]["ms"], "device_ms": gossip_rows[0]["device_ms"],
@@ -709,6 +765,7 @@ def main() -> int:
          "launches_sim_async": async_launches["packed_accum"],
          "launches_strategies": strat_launches["packed_accum"],
          "launches_serve_models": models_launches["packed_accum"],
+         "launches_lm": lm_launches["packed_accum"],
          "shape": f"N={n_leaf} density 0.5 alpha 1",
          "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
          "ms": fold_rows[0]["ms"], "device_ms": fold_rows[0]["device_ms"],
@@ -723,6 +780,7 @@ def main() -> int:
          "launches": scale_launches["packed_accum_rows"],
          "launches_strategies": strat_launches["packed_accum_rows"],
          "launches_serve_models": models_launches["packed_accum_rows"],
+         "launches_lm": lm_launches["packed_accum_rows"],
          "shape": f"K=4 N={n_leaf} density 0.5 alpha 1",
          "max_abs_err": max(r["max_abs_err"] for r in rows_rows),
          "ms": rows_rows[0]["ms"], "device_ms": rows_rows[0]["device_ms"],
@@ -737,10 +795,12 @@ def main() -> int:
          "launches": scale_launches["prune_regrow"],
          "launches_strategies": strat_launches["prune_regrow"],
          "launches_serve_models": models_launches["prune_regrow"],
+         "launches_lm": lm_launches["prune_regrow"],
          "shape": f"K=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in pr_rows),
          "ms": pr_rows[0]["ms"], "device_ms": pr_rows[0]["device_ms"],
          "plain_ms": pr_rows[0]["plain_ms"], "sort_ms": pr_rows[0]["sort_ms"],
+         "host_us": pr_host["host_us"],
          "bound_ms": pr_rows[0]["bound_ms"],
          "bound_by": pr_rows[0]["bound_by"], "library_ms": None},
         {"name": "masked_matmul", "route": "cuda",
@@ -749,6 +809,7 @@ def main() -> int:
          "launches": serve_launches["masked_matmul"],
          "launches_strategies": strat_launches["masked_matmul"],
          "launches_serve_models": models_launches["masked_matmul"],
+         "launches_lm": lm_launches["masked_matmul"],
          "shape": f"U={mm['U']} M={mm['M']} K={mm['K']} N={mm['N']} "
                   f"density 0.5 float32",
          "max_abs_err": max(r["max_abs_err"] for rows in mm_rows.values()
@@ -764,6 +825,7 @@ def main() -> int:
          "launches": serve_launches["masked_matmul_u1"],
          "launches_strategies": strat_launches["masked_matmul_u1"],
          "launches_serve_models": models_launches["masked_matmul_u1"],
+         "launches_lm": lm_launches["masked_matmul_u1"],
          "shape": f"M={mm1['M']} K={mm1['K']} N={mm1['N']} density 0.2 "
                   f"float32",
          "max_abs_err": mm1["max_abs_err"],
@@ -1736,6 +1798,347 @@ def cross_check(torch, train, engine_args):
                              f"{gpu._flops} vs {cpu._comm} {cpu._flops}")
     return {"mask_mismatch_share": share, "param_max_abs_err": max_err,
             "acc_cuda": gpu._acc_history, "acc_cpu": cpu._acc_history}
+
+
+def lm_smoke_run(torch, counters, name):
+    """Phase 14 (a) for one arch: ``train lm`` through its entry functions
+    on the card (``lm_loop`` from ``init_lm_clients``' state, drawn on the
+    card), then the same loop on the CPU from a copy of that state.
+    Returns the card run's launches."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_leaves_with_path, tree_map
+
+    args = train.parse_args(LM_ARGS + ["--arch", name])
+    cfg = train.lm_config(args)
+    dev = torch.device(args.device)
+    params, masks = train.init_lm_clients(args, cfg, dev)
+    to_cpu = lambda t: t.to("cpu", copy=True)  # noqa: E731
+    cpu_state = ([tree_map(to_cpu, p) for p in params],
+                 [tree_map(to_cpu, m) for m in masks])
+    torch.cuda.synchronize()
+    _zero(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out, state = train.lm_loop(args, cfg, params, masks, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(counters)
+    if any(launches.values()):
+        raise AssertionError(f"lm {name}: a kernel launched: {launches}")
+    hist = out["loss_history"]
+    if len(hist) != 2 or not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"lm {name}: loss history {hist}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_out, cpu = train.lm_loop(args, cfg, *cpu_state,
+                                     torch.device("cpu"))
+    cpu_wall = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(hist, cpu_out["loss_history"]))
+    if rel > LM_CPU_RTOL:
+        raise AssertionError(f"lm {name}: card {hist} vs cpu "
+                             f"{cpu_out['loss_history']}: {rel} relative")
+    n = differ = 0
+    for (path, a), (_, b) in zip(tree_leaves_with_path(state["masks"]),
+                                 tree_leaves_with_path(cpu["masks"]),
+                                 strict=True):
+        a = a.cpu()
+        held = (a != 0).reshape(a.shape[0], -1).sum(1)
+        if not torch.equal(held, (b != 0).reshape(b.shape[0], -1).sum(1)):
+            raise AssertionError(f"lm {name}: {path} holds {held.tolist()} "
+                                 "on the card, otherwise on the CPU")
+        n += a.numel()
+        differ += int((a != b).sum())
+    log(f"lm --arch {name}: loss {hist} (cpu {cpu_out['loss_history']}, "
+        f"max rel diff {rel:.3e}), improved {out['improved']}; mask "
+        f"coordinates differing from the cpu run {differ} of {n} "
+        f"({differ / n:.3e}), held counts equal; wall {wall:.2f} s (cpu "
+        f"{cpu_wall:.2f} s)")
+    return launches
+
+
+def _lm_full_state(torch, api, plan, gen):
+    """K clients' params drawn on the card, stacked, and int8 masks: each
+    coordinate of a sparsifiable leaf held with probability 0.5 (the
+    reference's step tests), the other leaves dense; params masked."""
+    from repro_torch.scale.stacked import default_threshold_sparsifiable
+    from repro_torch.utils.tree import tree_map
+
+    clients = [api.init(gen) for _ in range(plan.n_clients)]
+    params = tree_map(lambda *xs: torch.stack(xs), *clients)
+    del clients
+
+    def mask(w):
+        if not default_threshold_sparsifiable(w):
+            return torch.ones(w.shape, dtype=torch.int8, device=w.device)
+        m = (torch.rand(w.shape, generator=gen, device=w.device) < 0.5)
+        w.mul_(m)
+        return m.to(torch.int8)
+
+    return params, tree_map(mask, params)
+
+
+def _events_ms(pairs):
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def lm_full_width(torch, counters, pr):
+    """Phase 14 (b): the step builders at gemma3-1b's published width, K=2
+    clients of one 1024-token row.  Returns the launches of the counted
+    run (train step, mask update, prefill, 16 decode steps)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.scale.stacked as stacked
+    from repro_torch.configs import ARCHS, InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models import bind
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = ARCHS[LM_FULL_ARCH]
+    k, s, n_dec = LM_FULL_CLIENTS, LM_FULL_SEQ, LM_FULL_DECODE
+    api = bind(cfg)
+    plan = steps.ScalePlan(cfg, InputShape("lm_full", s, k, "train"), k, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()       # by earlier phases
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params, masks = _lm_full_state(torch, api, plan, gen)
+    n_params = sum(x[0].numel() for x in tree_leaves(params))
+    toks = torch.randint(0, cfg.vocab, (k, 1, s + n_dec + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[..., :s].contiguous(),
+             "labels": toks[..., 1:s + 1].contiguous()}
+    adj = torch.ones((k, k), device="cuda")
+    sparse = sum(1 for x in tree_leaves(params)
+                 if stacked.default_threshold_sparsifiable(x))
+    torch.cuda.synchronize()
+    log(f"lm full width {cfg.name}: {n_params} parameters a client, K={k}, "
+        f"{sparse} sparsifiable leaves, state built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    train_step = steps.make_train_step(api, plan, "einsum")
+    mask_update = steps.make_mask_update_step(api, plan, density=0.5)
+    prefill = steps.make_prefill_step(api, plan)
+    decode = steps.make_decode_step(api, plan)
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    # the counted run: train step, mask update, prefill, decode; the peak
+    # memory of each stage
+    peaks = {}
+
+    def stage_peak(name):
+        """The stage's peak, and what it leaves allocated after it."""
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated(),
+                       torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    stage_peak("state")
+    _zero(counters)
+    a, b = ev(), ev()
+    a.record()
+    params, losses = train_step(params, masks, batch, adj, 0.01)
+    b.record()
+    torch.cuda.synchronize()
+    train_ms_cold = a.elapsed_time(b)
+    stage_peak("train step")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"lm full width: losses {losses.tolist()}")
+    for w, m in zip(tree_leaves(params), tree_leaves(masks)):
+        if bool(((w != 0) & (m == 0)).any()):
+            raise AssertionError("lm full width: a parameter is non-zero "
+                                 "outside its mask after the train step")
+
+    checks = []
+    orig = stacked.prune_regrow_rows
+
+    def checked(w, g, m, th):
+        new_m, new_w = orig(w, g, m, th)
+        torch.cuda.synchronize()
+        want_m, want_w = pr.prune_regrow_rows_plain(w, g, m, th)
+        n_active = max(1, int(round(0.5 * w.shape[1])))
+        checks.append((tuple(w.shape), torch.equal(new_m, want_m)
+                       and torch.equal(new_w.view(torch.int32),
+                                       want_w.view(torch.int32)),
+                       int((new_m.sum(1) - n_active).abs().max())))
+        del want_m, want_w
+        return new_m, new_w
+
+    stacked.prune_regrow_rows = checked
+    try:
+        params, masks = mask_update(params, masks, batch, 0.25)
+    finally:
+        stacked.prune_regrow_rows = orig
+    bad = [c for c in checks if not c[1]]
+    if bad or len(checks) != sparse:
+        raise AssertionError(f"lm full width: prune_regrow {len(checks)} "
+                             f"launches for {sparse} sparsifiable leaves; "
+                             f"not bit-equal to plain: {bad}")
+    excess = max(c[2] for c in checks)
+    stage_peak("mask update (with the plain checks)")
+
+    fresh_cache = lambda: tree_map(  # noqa: E731
+        lambda t: torch.stack([t] * k),
+        api.init_cache(1, s + n_dec, device="cuda"))
+    cache = fresh_cache()
+    a, b = ev(), ev()
+    a.record()
+    logits, cache = prefill(params, {"tokens": batch["tokens"]}, cache)
+    b.record()
+    tok = torch.argmax(logits[:, :, -1], -1)[..., None].to(torch.int32)
+    gen_toks, times = [tok], []
+    for i in range(n_dec):
+        a2, b2 = ev(), ev()
+        pos = torch.full((k,), s + i, dtype=torch.int32, device="cuda")
+        a2.record()
+        nxt, cache = decode(params, {"tokens": tok, "pos": pos}, cache)
+        b2.record()
+        tok = nxt[..., None]
+        times.append((a2, b2))
+        gen_toks.append(tok)
+    torch.cuda.synchronize()
+    prefill_ms = a.elapsed_time(b)
+    decode_ms = _events_ms(times) / n_dec
+    stage_peak("prefill and decode")
+    launches = _launches(counters)
+    if launches["prune_regrow"] != sparse or any(
+            v for key, v in launches.items() if key != "prune_regrow"):
+        raise AssertionError(f"lm full width launches {launches}, "
+                             f"{sparse} sparsifiable leaves")
+
+    # the decode's logits (what make_decode_step takes the argmax of), from
+    # the same prefill: the same tokens, and each position's logits against
+    # a teacher-forcing forward over the prompt and the generated tokens
+    del cache
+    logits, cache = prefill(params, {"tokens": batch["tokens"]},
+                            fresh_cache())
+    dec_logits = [logits[:, :, -1]]
+    for i in range(n_dec):
+        pos = torch.full((k,), s + i, dtype=torch.int32, device="cuda")
+        logits, cache = torch.func.vmap(api.decode)(params, gen_toks[i], pos,
+                                                    cache)
+        if not torch.equal(torch.argmax(logits[..., -1, :], -1).to(
+                torch.int32)[..., None], gen_toks[i + 1]):
+            raise AssertionError(f"lm full width: decode token {i} differs "
+                                 "from make_decode_step's")
+        dec_logits.append(logits[:, :, -1])
+    del cache, logits
+    # teacher forcing: prompt + the generated tokens in one forward
+    seq = torch.cat([batch["tokens"], torch.cat(gen_toks[:-1], -1)], -1)
+    with torch.no_grad():
+        full = torch.func.vmap(
+            lambda p, t: lm_mod.forward_train(p, t, cfg)[0])(params, seq)
+    want = full[:, :, s - 1:]
+    got = torch.stack(dec_logits, 2)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    del full, want, got
+    if err > LM_DECODE_TOL * scale:
+        raise AssertionError(f"lm full width: decoded logits differ from "
+                             f"teacher forcing by {err} (scale {scale})")
+    stage_peak("teacher forcing")
+
+    # measurements (not counted): a warm train step, a timed mask update
+    # with its sorts, a profiled train step
+    a, b = ev(), ev()
+    a.record()
+    params, losses = train_step(params, masks, batch, adj, 0.01)
+    b.record()
+    torch.cuda.synchronize()
+    train_ms = a.elapsed_time(b)
+    stage_peak("warm train step")
+    sorts = []
+    orig_sort = stacked.sort_thresholds
+
+    def timed_sort(*args):
+        a3, b3 = ev(), ev()
+        a3.record()
+        out = orig_sort(*args)
+        b3.record()
+        sorts.append((a3, b3))
+        return out
+
+    stacked.sort_thresholds = timed_sort
+    try:
+        a, b = ev(), ev()
+        a.record()
+        params, masks = mask_update(params, masks, batch, 0.25)
+        b.record()
+        torch.cuda.synchronize()
+    finally:
+        stacked.sort_thresholds = orig_sort
+    update_ms, sort_ms = a.elapsed_time(b), _events_ms(sorts)
+    stage_peak("timed mask update")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new_params, losses = train_step(params, masks, batch, adj, 0.01)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del new_params
+    stage_peak("profiled train step")
+    peak = max(v[0] for v in peaks.values())
+    # one decode step under the profiler
+    cache = fresh_cache()
+    _, cache = prefill(params, {"tokens": batch["tokens"]}, cache)
+    pos = torch.full((k,), s, dtype=torch.int32, device="cuda")
+    decode(params, {"tokens": gen_toks[0], "pos": pos}, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as dprof:
+        t0 = time.perf_counter()
+        decode(params, {"tokens": gen_toks[0], "pos": pos}, cache)
+        torch.cuda.synchronize()
+        dwall = time.perf_counter() - t0
+    del cache
+    tokens = k * s
+    log(f"lm full width {cfg.name}: train step {train_ms:.3f} ms warm "
+        f"({train_ms_cold:.3f} ms first), {tokens / (train_ms / 1e3):.1f} "
+        f"tokens/s, losses {losses.tolist()}; mask update {update_ms:.3f} "
+        f"ms, of which the torch.sort thresholds {sort_ms:.3f} ms "
+        f"({100 * sort_ms / update_ms:.1f}%); {len(checks)} prune_regrow "
+        f"launches bit-equal to plain, largest |held - n_active| of a row "
+        f"{excess}; prefill of {k} x {s} tokens {prefill_ms:.3f} ms, decode "
+        f"{decode_ms:.3f} ms per token (K={k} rows), {n_dec} decoded "
+        f"positions within {err:.3e} of teacher forcing (scale {scale:.2f}); "
+        f"peak memory {peak} bytes ({peak / 2 ** 30:.2f} GiB; "
+        f"{(peak - held) / 2 ** 30:.2f} GiB above the {held} bytes held "
+        f"before); by stage, peak (held after): " + ", ".join(
+            f"{name} {v[0] / 2 ** 30:.2f} ({v[1] / 2 ** 30:.2f}) GiB"
+            for name, v in peaks.items()))
+    for what, p, w in (("train step", prof, wall),
+                       ("decode step", dprof, dwall)):
+        rows = device_rows(p)
+        if rows is None:
+            continue
+        busy_s = sum(r[0] for r in rows) / 1e6
+        log(f"  profiled {what}: wall {w:.4f} s (profiler on), device busy "
+            f"{busy_s:.4f} s ({100 * busy_s / w:.1f}%), "
+            f"{sum(r[1] for r in rows)} device events")
+        for us, count, key in sorted(rows, reverse=True)[:3]:
+            log(f"  {us / 1e3:.3f} ms in {count} launches: {key[:90]}")
+    del params, masks, batch, prof, dprof, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_path(torch, counters):
+    """Phase 14: ``train lm`` on every decoder smoke arch, then the step
+    builders at full width.  Returns every kernel's launches summed over
+    the counted runs."""
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.kernels import prune_regrow as pr
+
+    runs = [lm_smoke_run(torch, counters, name)
+            for name in sorted(SMOKE_ARCHS)
+            if SMOKE_ARCHS[name].enc_layers == 0]
+    runs.append(lm_full_width(torch, counters, pr))
+    return {key: sum(r[key] for r in runs) for key in runs[0]}
 
 
 if __name__ == "__main__":

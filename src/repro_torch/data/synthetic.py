@@ -8,7 +8,9 @@ exactly as in the paper because each client sees a narrow label slice.
 
 ``make_image_classification`` draws one smooth random template per class and
 adds i.i.d. Gaussian pixel noise; difficulty is controlled by the
-noise/template ratio.
+noise/template ratio.  ``make_lm_corpus`` builds an order-1 Markov token
+stream per latent "domain" for the LM training loop (a line-for-line copy
+of the reference's, so the streams are equal bit for bit).
 """
 from __future__ import annotations
 
@@ -61,3 +63,27 @@ def make_image_classification(
         return Dataset(np.concatenate(xs), np.concatenate(ys), n_classes)
 
     return draw(n_train_per_class), draw(n_test_per_class)
+
+
+def make_lm_corpus(
+    seed: int,
+    vocab: int = 256,
+    n_domains: int = 4,
+    tokens_per_domain: int = 65536,
+    temperature: float = 1.5,
+) -> list[np.ndarray]:
+    """One Markov-chain token stream per domain (per-client domains make the
+    LM task non-IID)."""
+    rng = np.random.default_rng(seed)
+    streams = []
+    for _ in range(n_domains):
+        logits = rng.normal(size=(vocab, vocab)) * temperature
+        probs = np.exp(logits - logits.max(1, keepdims=True))
+        probs /= probs.sum(1, keepdims=True)
+        toks = np.empty((tokens_per_domain,), np.int32)
+        t = rng.integers(vocab)
+        for i in range(tokens_per_domain):
+            t = rng.choice(vocab, p=probs[t])
+            toks[i] = t
+        streams.append(toks)
+    return streams

@@ -83,12 +83,10 @@ def prune_regrow_rows(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if k == 0 or n == 0:
         return new_m, new_w
     fn = build.function("prune_regrow", "prune_regrow_rows_f32", _ARGTYPES)
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    with torch.cuda.device(w.device):
-        err = fn(w.data_ptr(), g.data_ptr(), m.data_ptr(),
-                 thresholds.data_ptr(), new_m.data_ptr(), new_w.data_ptr(),
-                 k, n, stream)
-    build.check(err, "prune_regrow")
+    build.check(build.launch(
+        fn, w, w.data_ptr(), g.data_ptr(), m.data_ptr(),
+        thresholds.data_ptr(), new_m.data_ptr(), new_w.data_ptr(), k, n),
+        "prune_regrow")
     LAUNCHES += 1
     return new_m, new_w
 

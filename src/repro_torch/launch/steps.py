@@ -1,0 +1,169 @@
+"""Step builders for stacked-client DisPFL training and personalized serving
+of the LM families (reference ``repro.launch.steps``).
+
+The whole decentralized system is one program over client-stacked state:
+client models carry a leading K dim, the intersection gossip is an
+adjacency einsum over that dim (``scale.stacked.masked_gossip_stacked``),
+and the local masked-SGD step, the mask search's dense gradient, the
+prefill and the decode are ``torch.func.vmap`` over clients.
+
+``make_mask_update_step`` picks thresholds with ``torch.sort`` and applies
+them with the prune/regrow kernel (``kernels.prune_regrow``), one launch
+per sparsifiable leaf on the GPU.  The reference's ``ppermute`` gossip is
+a ``shard_map`` collective over a device mesh, and its ``plan_for``,
+``lower_*`` and ``state_shardings`` lower these steps onto a TPU mesh:
+they are the JAX-only tooling of ROADMAP A13 and have no counterpart here.
+A ``ScalePlan`` therefore carries no mesh.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.models.registry import ModelAPI, meta_spec
+from repro_torch.scale.stacked import (
+    masked_gossip_stacked,
+    stacked_prune_regrow_threshold,
+)
+from repro_torch.utils.tree import tree_map
+
+PyTree = Any
+
+WEIGHT_DECAY = 5e-4
+GOSSIP_MODES = ("einsum", "einsum_bf16", "einsum_noopt", "ppermute", "none")
+
+
+@dataclasses.dataclass
+class ScalePlan:
+    """K clients of ``arch`` on one card, each taking ``per_client_batch``
+    rows of ``shape``.  ``dtype`` types the float inputs (prefix, frames);
+    the port's params are float32."""
+    arch: ModelConfig
+    shape: InputShape
+    n_clients: int
+    per_client_batch: int
+    dtype: torch.dtype = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Abstract state: tensors on the ``meta`` device (shapes and dtypes only)
+# ---------------------------------------------------------------------------
+
+
+def _stack_specs(tree: PyTree, k: int) -> PyTree:
+    return tree_map(lambda s: meta_spec((k,) + tuple(s.shape), s.dtype), tree)
+
+
+def abstract_masks(params_spec: PyTree) -> PyTree:
+    """Masks stored as int8 (w ⊙ m casts at use sites)."""
+    return tree_map(lambda s: meta_spec(s.shape, torch.int8), params_spec)
+
+
+def input_specs(api: ModelAPI, plan: ScalePlan) -> PyTree:
+    """Stacked (K, ...) batch specs for the plan's shape."""
+    per = api.input_specs(plan.shape, plan.dtype, batch=plan.per_client_batch)
+    stacked = _stack_specs(per, plan.n_clients)
+    if plan.shape.mode == "decode":
+        stacked["pos"] = meta_spec((plan.n_clients,), torch.int32)
+    return stacked
+
+
+# ---------------------------------------------------------------------------
+# Step functions
+# ---------------------------------------------------------------------------
+
+
+def stacked_loss_grads(api: ModelAPI) -> Callable:
+    """``(params, batch) -> (grads, losses)``: each client's ``train_loss``
+    on its own batch (vmapped), and the gradient of their sum — per client,
+    the gradient of its own loss."""
+
+    def total_loss(params, batch):
+        losses = torch.func.vmap(lambda p, b: api.train_loss(p, b)[0])(
+            params, batch)
+        return torch.sum(losses), losses
+
+    return torch.func.grad(total_loss, has_aux=True)
+
+
+def make_train_step(api: ModelAPI, plan: ScalePlan, gossip: str = "einsum"):
+    """One DisPFL round step: intersection gossip + one masked-SGD step
+    with weight decay, ``w <- (w - lr (g + wd w) m) m``.
+
+    gossip: ``'einsum'`` (adjacency einsums over the client dim, fp32),
+    ``'einsum_bf16'`` (the same, accumulated in bfloat16), ``'einsum_noopt'``
+    (``'einsum'`` without its K=1 skip, where the 1x1 identity mix is a
+    no-op), ``'none'`` (no gossip).  ``'ppermute'`` is JAX mesh tooling
+    and raises.
+    """
+    if gossip not in GOSSIP_MODES:
+        raise ValueError(f"gossip must be one of {GOSSIP_MODES}, got "
+                         f"{gossip!r}")
+    if gossip == "ppermute":
+        raise NotImplementedError(
+            "gossip='ppermute' is a shard_map collective_permute over a "
+            "device mesh, JAX-only tooling with no counterpart on one card "
+            "(ROADMAP A13); use 'einsum'")
+    grads_fn = stacked_loss_grads(api)
+    wd = WEIGHT_DECAY
+
+    def train_step(params, masks, batch, adjacency, lr):
+        if gossip in ("einsum", "einsum_bf16") and plan.n_clients == 1:
+            pass    # the 1x1 identity mix returns w (already masked)
+        elif gossip != "none":
+            acc = torch.bfloat16 if gossip == "einsum_bf16" else torch.float32
+            params = masked_gossip_stacked(params, masks, adjacency,
+                                           reduction="einsum",
+                                           accum_dtype=acc)
+        grads, losses = grads_fn(params, batch)
+        lr_t = torch.as_tensor(lr, dtype=torch.float32, device=losses.device)
+
+        def upd(w, g, m):
+            mf, wf, gf = m.float(), w.float(), g.float()
+            return ((wf - lr_t * (gf + wd * wf) * mf) * mf).to(w.dtype)
+
+        return tree_map(upd, params, grads, masks), losses
+
+    return train_step
+
+
+def make_mask_update_step(api: ModelAPI, plan: ScalePlan,
+                          density: float = 0.5):
+    """Once-per-round mask search (Alg. 2) for every client at once: the
+    dense gradient on one batch, then ``stacked_prune_regrow_threshold``
+    (kth order statistics by sort, then the prune/regrow kernel once per
+    sparsifiable leaf).  Layer budgets are static (``density`` x numel).
+    Returns ``(params, masks)``."""
+    dense_grads = torch.func.vmap(
+        torch.func.grad(lambda p, b: api.train_loss(p, b)[0]))
+
+    def mask_update(params, masks, batch, prune_rate):
+        grads = dense_grads(params, batch)
+        new_masks, new_params = stacked_prune_regrow_threshold(
+            params, masks, grads, float(prune_rate), density)
+        return new_params, new_masks
+
+    return mask_update
+
+
+def make_prefill_step(api: ModelAPI, plan: ScalePlan):
+    def prefill_step(params, batch, cache):
+        return torch.func.vmap(api.prefill)(params, batch, cache)
+
+    return prefill_step
+
+
+def make_decode_step(api: ModelAPI, plan: ScalePlan):
+    """Greedy decode of one token per row: ``batch = {'tokens': (K, B, 1),
+    'pos': (K,)}`` -> (next tokens (K, B) int32, cache)."""
+
+    def decode_step(params, batch, cache):
+        logits, cache = torch.func.vmap(api.decode)(
+            params, batch["tokens"], batch["pos"], cache)
+        next_tok = torch.argmax(logits[..., -1, :], dim=-1).to(torch.int32)
+        return next_tok, cache
+
+    return decode_step

@@ -1,18 +1,31 @@
-"""Training launcher: the paper's experiment on the port's loop engine,
-its stacked engine (``--scale``) or its network simulator (``--sim``)
-(reference ``repro.launch.train simulate``).
+"""Training launcher (reference ``repro.launch.train``).  Two modes:
 
-    PYTHONPATH=src python -m repro_torch.launch.train simulate \
-        --strategy dispfl --clients 16 --rounds 30 --partition dirichlet
-    PYTHONPATH=src python -m repro_torch.launch.train simulate --scale \
-        --scale-reduction ordered --strategy dispfl
-    PYTHONPATH=src python -m repro_torch.launch.train simulate --sim \
-        --async --staleness 2 --compute-hetero --bandwidth-skew 10
+1. ``simulate`` — the paper's experiment on the port's loop engine, its
+   stacked engine (``--scale``) or its network simulator (``--sim``).
 
-Runs on CUDA unless ``--device cpu`` is given.  Prints one line per
-evaluated round, then a JSON object with the run's results, per-round wall
-times and per-phase times (mix, local, evolve, eval; ``--scale`` adds the
-host inputs phase); ``--sim`` adds the simulator's ``"sim"`` report row.
+       PYTHONPATH=src python -m repro_torch.launch.train simulate \
+           --strategy dispfl --clients 16 --rounds 30 --partition dirichlet
+       PYTHONPATH=src python -m repro_torch.launch.train simulate --scale \
+           --scale-reduction ordered --strategy dispfl
+       PYTHONPATH=src python -m repro_torch.launch.train simulate --sim \
+           --async --staleness 2 --compute-hetero --bandwidth-skew 10
+
+   Prints one line per evaluated round, then a JSON object with the run's
+   results, per-round wall times and per-phase times (mix, local, evolve,
+   eval; ``--scale`` adds the host inputs phase); ``--sim`` adds the
+   simulator's ``"sim"`` report row.
+
+2. ``lm`` — DisPFL on a reduced decoder LM (a smoke arch at ``--d-model``
+   width, vocab 256) over synthetic Markov domains, one per client:
+   stacked intersection gossip and masked SGD steps, then the exact Alg. 2
+   mask evolution per client once a round.
+
+       PYTHONPATH=src python -m repro_torch.launch.train lm \
+           --arch qwen3-8b --steps 100 --clients 4
+
+   Prints one line per round and a JSON object ``{"arch", "improved"}``.
+
+Both run on CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -153,6 +166,156 @@ def run_simulate(args) -> dict:
     return run_engine(args, build_engine(args))
 
 
+# ---------------------------------------------------------------------------
+# lm
+# ---------------------------------------------------------------------------
+
+
+def lm_config(args):
+    """The smoke arch ``--arch`` at ``--d-model`` width, at least
+    ``--layers`` layers, vocab 256.  An unknown name raises ``KeyError``, as
+    the reference's lookup does; the encoder-decoder is refused."""
+    from repro_torch.configs import SMOKE_ARCHS
+
+    base = SMOKE_ARCHS[args.arch]
+    if base.enc_layers > 0:
+        raise ValueError(
+            f"--arch {args.arch} is an encoder-decoder: its train_loss reads "
+            "batch['frames'], which the lm loop's token batches do not carry "
+            "(the reference's run_lm fails on it with a KeyError)")
+    return base.replace(d_model=args.d_model,
+                        n_layers=max(base.n_layers, args.layers), vocab=256)
+
+
+def init_lm_clients(args, cfg, device) -> tuple[list, list]:
+    """Each client's float32 params, then each client's ERK mask at
+    ``--density``, drawn from one ``torch.Generator`` seeded with
+    ``--seed`` on ``device``.  The params are not yet masked."""
+    import torch
+
+    from repro_torch.core.masks import init_mask
+    from repro_torch.models import bind
+
+    api = bind(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = [api.init(gen) for _ in range(args.clients)]
+    masks = [init_mask(gen, p, args.density) for p in params]
+    return params, masks
+
+
+def lm_loop(args, cfg, params: list, masks: list,
+            device) -> tuple[dict, dict]:
+    """The ``lm`` run after initialisation, from each client's unmasked
+    ``params`` and ``masks`` (trees on any device): ERK budgets from client
+    0, masks applied, then per round ``steps // rounds`` stacked steps
+    (gossip over the round's random topology, one masked SGD step at ``lr
+    * 0.998**round``) and one exact mask evolution per client at the cosine
+    prune rate.  Batches, topology and rates follow the reference's draws
+    in its order.  Returns ``({"arch", "loss_history", "improved"},
+    {"params", "masks"})``: the run's result and its final stacked
+    state."""
+    import torch
+
+    from repro_torch.core.evolve import (
+        cosine_prune_rate,
+        evolve_masks,
+        layer_nnz_budgets,
+    )
+    from repro_torch.core.gossip import gossip_average_stacked
+    from repro_torch.core.masks import apply_mask, erk_densities_for_params
+    from repro_torch.core.topology import make_adjacency
+    from repro_torch.data.synthetic import make_lm_corpus
+    from repro_torch.launch.steps import stacked_loss_grads
+    from repro_torch.models import bind
+    from repro_torch.utils.tree import (
+        tree_map,
+        tree_size,
+        tree_stack,
+        tree_unstack,
+    )
+
+    api = bind(cfg)
+    k_clients = args.clients
+    seq, bs = args.seq, args.batch_size
+    streams = make_lm_corpus(args.seed, vocab=256, n_domains=k_clients,
+                             tokens_per_domain=args.tokens_per_client)
+    to_dev = lambda t: t.to(device)  # noqa: E731
+    params = [tree_map(to_dev, p) for p in params]
+    masks = [tree_map(to_dev, m) for m in masks]
+    densities = erk_densities_for_params(params[0], args.density)
+    budgets = layer_nnz_budgets(params[0], densities)
+    params = [apply_mask(p, m) for p, m in zip(params, masks)]
+    print(f"[lm] arch={cfg.name} params/client="
+          f"{tree_size(params[0]) / 1e6:.2f}M density={args.density}")
+
+    rng = np.random.default_rng(args.seed)
+
+    def batch_for(k):
+        s = streams[k]
+        starts = rng.integers(0, len(s) - seq - 1, size=bs)
+        toks = np.stack([s[i: i + seq] for i in starts])
+        labs = np.stack([s[i + 1: i + seq + 1] for i in starts])
+        return {"tokens": torch.from_numpy(toks).to(device),
+                "labels": torch.from_numpy(labs).to(device)}
+
+    grads_fn = stacked_loss_grads(api)
+
+    def step(sp, sm, batch, adjacency, lr):
+        mixed = gossip_average_stacked(sp, sm, adjacency)
+        grads, losses = grads_fn(mixed, batch)
+
+        def upd(w, g, m):
+            mw = m.to(w.dtype)
+            return (w - lr * g * mw) * mw
+
+        return tree_map(upd, mixed, grads, sm), losses
+
+    def client_grad(p, batch):
+        return torch.func.grad(lambda q: api.train_loss(q, batch)[0])(p)
+
+    sp, sm = tree_stack(params), tree_stack(masks)
+    hist = []
+    steps_per_round = max(1, args.steps // args.rounds)
+    t0 = time.time()
+    it = 0
+    for r in range(args.rounds):
+        adj = make_adjacency("random", k_clients, r,
+                             degree=min(3, k_clients - 1), seed=args.seed)
+        lr = args.lr * (0.998 ** r)
+        lr_t = torch.tensor(lr, dtype=torch.float32, device=device)
+        for _ in range(steps_per_round):
+            batch = tree_stack([batch_for(k) for k in range(k_clients)])
+            sp, losses = step(sp, sm, batch, adj, lr_t)
+            it += 1
+        # mask evolution once per round
+        alpha = cosine_prune_rate(0.5, r, args.rounds)
+        ps, ms = tree_unstack(sp, k_clients), tree_unstack(sm, k_clients)
+        for k in range(k_clients):
+            g = client_grad(ps[k], batch_for(k))
+            ms[k], ps[k] = evolve_masks(ps[k], ms[k], g, alpha, budgets)
+        sp, sm = tree_stack(ps), tree_stack(ms)
+        mean_loss = float(torch.mean(losses))
+        hist.append(mean_loss)
+        print(f"[lm] round {r + 1}/{args.rounds} step {it} "
+              f"loss={mean_loss:.4f} lr={lr:.4f} ({time.time() - t0:.0f}s)")
+    out = {"arch": cfg.name, "loss_history": hist,
+           "improved": hist[-1] < hist[0]}
+    print(json.dumps({k: v for k, v in out.items() if k != "loss_history"}))
+    return out, {"params": sp, "masks": sm}
+
+
+def run_lm(args) -> dict:
+    """DisPFL over a reduced assigned-arch LM on synthetic non-IID corpora,
+    on ``--device``, from a ``torch.Generator`` initialisation.  Returns
+    ``{"arch", "loss_history", "improved"}``."""
+    from repro_torch.device import setup_device
+
+    cfg = lm_config(args)
+    device = setup_device(args.device)
+    params, masks = init_lm_clients(args, cfg, device)
+    return lm_loop(args, cfg, params, masks, device)[0]
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -254,13 +417,39 @@ def build_parser() -> argparse.ArgumentParser:
                      help="save the full simulator state (virtual clock, "
                           "event queue, link stats) to this .npz every "
                           "--checkpoint-every rounds; resume with --resume")
+
+    lm = sub.add_parser("lm")
+    lm.add_argument("--arch", default="qwen3-8b",
+                    help="a decoder smoke arch (repro_torch.configs."
+                         "SMOKE_ARCHS; an unknown name raises KeyError)")
+    lm.add_argument("--clients", type=int, default=4)
+    lm.add_argument("--steps", type=int, default=100)
+    lm.add_argument("--rounds", type=int, default=10)
+    lm.add_argument("--seq", type=int, default=128)
+    lm.add_argument("--batch-size", type=int, default=8, dest="batch_size")
+    lm.add_argument("--lr", type=float, default=0.05)
+    lm.add_argument("--density", type=float, default=0.5)
+    lm.add_argument("--d-model", type=int, default=256, dest="d_model")
+    lm.add_argument("--layers", type=int, default=2)
+    lm.add_argument("--tokens-per-client", type=int, default=32768,
+                    dest="tokens_per_client")
+    lm.add_argument("--seed", type=int, default=0)
+    lm.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (default; raises without a GPU) or cpu")
     return ap
 
 
 def check_args(ap: argparse.ArgumentParser, args) -> None:
     """The reference's refusals of flag combinations (``ap.error`` exits),
     then the simulator's defaults, resolved after the guards with ``is
-    None`` so an explicit 0 reaches the models' own validation."""
+    None`` so an explicit 0 reaches the models' own validation.  ``lm``
+    refuses the encoder-decoder arch."""
+    if args.mode == "lm":
+        try:
+            lm_config(args)
+        except ValueError as e:
+            ap.error(str(e))
+        return
     if args.scale and args.sim:
         ap.error("--scale and --sim are mutually exclusive engines")
     if not args.scale and args.scale_reduction != "einsum":
@@ -307,7 +496,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    return run_simulate(parse_args(argv))
+    args = parse_args(argv)
+    if args.mode == "lm":
+        return run_lm(args)
+    return run_simulate(args)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,20 @@
-"""GQA/MQA attention with RoPE, optional qk-norm, sliding windows and the
-prefill KV cache (reference ``repro.models.attention``).
+"""GQA/MQA attention with RoPE, optional qk-norm, sliding windows and a KV
+cache (reference ``repro.models.attention``).
 
 Covers every assigned attention variant: GQA grouping, MQA (n_kv = 1),
 qk_norm, sliding-window local layers, bidirectional encoder attention and
-cross-attention into encoder outputs.  ``_sdpa`` is written as the
-reference writes it (GQA as ``(b, sq, hkv, g, dh)``, so head
-``h = kv * g + gi``; fp32 softmax; masking by ``where(mask, s, -1e30)``) —
-its rounding is the parity target, so no fused attention replaces it.
+cross-attention into encoder outputs, in the full-sequence training pass,
+the prefill (writes the cache) and the one-token decode (reads the cache,
+writes position ``pos``).  ``_sdpa`` is written as the reference writes it
+(GQA as ``(b, sq, hkv, g, dh)``, so head ``h = kv * g + gi``; fp32
+softmax; masking by ``where(mask, s, -1e30)``) — its rounding is the
+parity target, so no fused attention replaces it.
 
 Shapes: x (B, S, d).  Cache: {'k': (B, S_max, Hkv, Dh), 'v': same}.  The
-prefill returns a new cache built functionally (a concatenation), never
-written in place, so the forward runs under ``torch.func.vmap``.
+prefill and the decode return a new cache built functionally (a
+concatenation; a ``torch.where`` over the write position), never written
+in place, so the forward runs under ``torch.func.vmap`` with a batched
+``pos``.
 """
 from __future__ import annotations
 
@@ -82,6 +86,45 @@ def _sdpa(q, k, v, cfg, mask):
     return out.reshape(b, sq, h, dh)
 
 
+def _local_attention(q, k, v, cfg, window: int):
+    """Banded sliding-window attention for full-sequence passes.
+
+    Queries in block i attend only to keys in blocks i-1 and i (window ==
+    the block width covers exactly that span), so score tensors are (B, nb,
+    W, 2W) instead of (B, S, S).  Equal to the masked full-attention path up
+    to the softmax's rounding over the shorter rows.
+    """
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    w = window
+    nb = s // w
+    g = h // hkv
+    scale = dh ** -0.5
+    qb = q.reshape(b, nb, w, hkv, g, dh)
+    kb = k.reshape(b, nb, w, hkv, dh)
+    vb = v.reshape(b, nb, w, hkv, dh)
+    # keys/values from the previous block and own block: (B, nb, 2W, Hkv, D)
+    prev_k = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], 1)
+    prev_v = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], 1)
+    k2 = torch.cat([prev_k, kb], 2)
+    v2 = torch.cat([prev_v, vb], 2)
+    scores = torch.einsum("bnqkgd,bnskd->bnkgqs", qb, k2).float() * scale
+    # positions within the 2W span: query i (local) = global w + i of span
+    dev = q.device
+    qpos = w + torch.arange(w, device=dev)[:, None]
+    kpos = torch.arange(2 * w, device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - w)
+    # first block has no previous block: mask out the padded keys
+    first = torch.arange(nb, device=dev)[:, None, None] == 0
+    valid = torch.where(first, mask[None] & (kpos >= w)[None], mask[None])
+    scores = torch.where(valid[:, None, None, :, :], scores,
+                         torch.tensor(NEG_INF, dtype=scores.dtype,
+                                      device=dev))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bnkgqs,bnskd->bnqkgd", probs, v2)
+    return out.reshape(b, s, h, dh)
+
+
 def causal_mask(sq: int, sk: int, offset: int = 0, window: int = 0,
                 device=None) -> torch.Tensor:
     """(sq, sk) bool; query i (global position offset+i) may see key j iff
@@ -96,17 +139,21 @@ def causal_mask(sq: int, sk: int, offset: int = 0, window: int = 0,
 
 def attention(params, x: torch.Tensor, positions: torch.Tensor, cfg,
               window: int = 0, cache: Optional[dict] = None,
+              pos: Optional[torch.Tensor] = None,
               cross_kv: Optional[tuple] = None):
     """Returns (y, new_cache).
 
-    * prefill: ``cache`` given -> k/v fill its first S slots (the rest of
-      the cache is kept), causal (windowed) attention over the prompt.
+    * full-sequence training pass: ``cache=None`` — the banded
+      ``_local_attention`` when the window tiles the sequence (``s %
+      window == 0 and s > window``), else causal (windowed) attention.
+    * prefill: ``cache`` given, ``pos=None`` -> k/v fill its first S slots
+      (the rest of the cache is kept), causal (windowed) attention.
+    * decode: S == 1 and ``pos`` (a 0-dim integer tensor) given -> k/v
+      written at ``pos`` (clamped into the cache, as
+      ``dynamic_update_slice`` clamps), attention to positions ``<= pos``
+      (within the window if any).
     * bidirectional/cross-attention: ``cross_kv = (k, v)`` precomputed from
       the encoder; the cache and positions are bypassed.
-
-    The full-sequence training pass (``cache=None``, with the banded
-    ``_local_attention``) and the one-token decode come with the ``lm``
-    training slice (ROADMAP A12b).
     """
     b, s, _ = x.shape
     if cross_kv is not None:
@@ -118,15 +165,29 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, cfg,
         mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
         out = _sdpa(q, k, v, cfg, mask)
         return dense(params["wo"], out.reshape(b, s, -1)), cache
-    if cache is None:
-        raise NotImplementedError(
-            "attention without a cache is the training pass, which comes "
-            "with the lm training slice (ROADMAP A12b)")
 
     q, k, v = _qkv(params, x, cfg, positions)
-    cache = {"k": torch.cat([k.to(cache["k"].dtype), cache["k"][:, s:]], 1),
-             "v": torch.cat([v.to(cache["v"].dtype), cache["v"][:, s:]], 1)}
-    out = _sdpa(q, k, v, cfg, causal_mask(s, s, 0, window, x.device))
+    if cache is None:
+        if window > 0 and s % window == 0 and s > window:
+            out = _local_attention(q, k, v, cfg, window)
+        else:
+            out = _sdpa(q, k, v, cfg, causal_mask(s, s, 0, window, x.device))
+    elif pos is None:
+        ck, cv = cache["k"], cache["v"]
+        cache = {"k": torch.cat([k.to(ck.dtype), ck[:, s:]], 1),
+                 "v": torch.cat([v.to(cv.dtype), cv[:, s:]], 1)}
+        out = _sdpa(q, k, v, cfg, causal_mask(s, s, 0, window, x.device))
+    else:
+        sk = cache["k"].shape[1]
+        kpos = torch.arange(sk, device=x.device)
+        at = (kpos == torch.clamp(pos, 0, sk - 1))[None, :, None, None]
+        ck = torch.where(at, k.to(cache["k"].dtype), cache["k"])
+        cv = torch.where(at, v.to(cache["v"].dtype), cache["v"])
+        cache = {"k": ck, "v": cv}
+        m = kpos <= pos
+        if window > 0:
+            m = m & (kpos > pos - window)
+        out = _sdpa(q, ck, cv, cfg, m.expand(b, 1, sk))
     y = dense(params["wo"], out.reshape(b, s, -1))
     return y, cache
 

@@ -1,5 +1,6 @@
 """Shared model pieces: init, norms, RoPE, activations, dense and embedding
-layers, GroupNorm, cross-entropy (reference ``repro.models.common``).
+layers, GroupNorm, cross-entropy and accuracy (reference
+``repro.models.common``).
 
 Params are nested dicts of float32 tensors; every initializer draws from an
 explicit ``torch.Generator`` on the generator's own device (a CUDA
@@ -152,3 +153,12 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     valid = (labels >= 0).float()
     return torch.sum((lse - ll) * valid) / torch.clamp_min(valid.sum(), 1.0)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Share of non-padding positions (labels >= 0) whose argmax is the
+    label."""
+    pred = torch.argmax(logits, dim=-1)
+    valid = labels >= 0
+    return (((pred == labels) & valid).sum()
+            / torch.clamp_min(valid.sum(), 1))

@@ -8,10 +8,10 @@ cross-attention into the encoder outputs.  Both stacks are stored with a
 leading layer axis (``encoder``, ``decoder``), as the reference's, and run
 as loops over it in order.
 
-``prefill`` computes the cross-attention K/V once and returns them in the
-cache beside the self-attention KV cache.  Teacher-forced training
-(``decode_train``) and the one-token ``decode_step`` come with the ``lm``
-training slice (ROADMAP A12b).
+``decode_train`` is the teacher-forced training pass.  ``prefill``
+computes the cross-attention K/V once and returns them in the cache beside
+the self-attention KV cache; ``decode_step`` reads both and writes one
+token's self-attention K/V at ``pos``.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from repro_torch.models.common import (
     rmsnorm_init,
 )
 from repro_torch.models.lm import _head, _mlp_apply, _mlp_init
-from repro_torch.utils.tree import tree_index, tree_stack
+from repro_torch.utils.tree import tree_index, tree_stack, tree_unstack
 
 PyTree = Any
 
@@ -89,8 +89,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = frames + _sinusoidal_pos(s, cfg.d_model, dev).to(frames.dtype)[None]
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     mask = torch.ones((s, s), dtype=torch.bool, device=dev)  # bidirectional
-    for i in range(cfg.enc_layers):
-        p = tree_index(params["encoder"], i)
+    for p in tree_unstack(params["encoder"], cfg.enc_layers):
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
         q, k, v = attn_mod._qkv(p["attn"], h, cfg, positions)
         y = attn_mod._sdpa(q, k, v, cfg, mask)
@@ -100,10 +99,10 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def _dec_layer(p, x, cfg, positions, cross_kv, cache):
+def _dec_layer(p, x, cfg, positions, cross_kv, cache=None, pos=None):
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     y, cache = attn_mod.attention(p["self_attn"], h, positions, cfg,
-                                  cache=cache)
+                                  cache=cache, pos=pos)
     x = x + y
     h = rmsnorm(p["norm_x"], x, cfg.norm_eps)
     y, _ = attn_mod.attention(p["cross_attn"], h, positions, cfg,
@@ -126,6 +125,19 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
                       "v": torch.zeros(cross, device=device)}}
 
 
+def decode_train(params, frames, tokens, cfg: ModelConfig):
+    """Teacher-forced training pass.  Returns (logits (B, S, V), aux=0)."""
+    enc_out = encode(params, frames, cfg)
+    x = embed_lookup(params["embed"]["table"], tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    for p in tree_unstack(params["decoder"], cfg.n_layers):
+        kv = attn_mod.cross_kv_from_encoder(p["cross_attn"], enc_out, cfg)
+        x, _ = _dec_layer(p, x, cfg, positions, kv)
+    return (_head(params, x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def prefill(params, frames, tokens, cfg: ModelConfig, cache):
     """Encode + teacher-forced decoder prefill; fills self+cross caches.
     Returns (last-position logits (B, 1, V), cache)."""
@@ -138,8 +150,27 @@ def prefill(params, frames, tokens, cfg: ModelConfig, cache):
         p = tree_index(params["decoder"], i)
         kv = attn_mod.cross_kv_from_encoder(p["cross_attn"], enc_out, cfg)
         x, c = _dec_layer(p, x, cfg, positions, kv,
-                          tree_index(cache["self"], i))
+                          cache=tree_index(cache["self"], i))
         self_c.append(c)
         cross_c.append({"k": kv[0], "v": kv[1]})
     logits = _head(params, x[:, -1:, :], cfg)
     return logits, {"self": tree_stack(self_c), "cross": tree_stack(cross_c)}
+
+
+def decode_step(params, tokens, pos, cfg: ModelConfig, cache):
+    """One-token decode using the cached self K/V and cross K/V.  tokens:
+    (B, 1); pos: 0-dim integer tensor.  Returns (logits (B, 1, V),
+    cache)."""
+    x = embed_lookup(params["embed"]["table"], tokens)
+    b = x.shape[0]
+    positions = pos.reshape(1, 1).expand(b, 1)
+    self_c = []
+    for i in range(cfg.n_layers):
+        p = tree_index(params["decoder"], i)
+        c_cross = tree_index(cache["cross"], i)
+        x, c = _dec_layer(p, x, cfg, positions,
+                          (c_cross["k"], c_cross["v"]),
+                          cache=tree_index(cache["self"], i), pos=pos)
+        self_c.append(c)
+    return (_head(params, x, cfg),
+            {"self": tree_stack(self_c), "cross": cache["cross"]})

@@ -10,9 +10,17 @@ non-divisible tail) are ``prelude/<i>`` and ``tail/<i>``, and the head is
 the tied ``embed/table`` or ``head/w``.  The reference's ``lax.scan`` over
 blocks is a loop over the leading axis, in order.
 
-``forward_prefill`` is the serving path: the full prompt writes the KV/SSM
-caches and the head runs on the last position only.  ``forward_train``
-and ``forward_decode`` come with the ``lm`` training slice (ROADMAP A12b).
+Modes:
+  * ``forward_train``   — full sequence, returns (logits, aux_loss)
+  * ``forward_prefill`` — full sequence, writes KV/SSM caches, head on the
+    last position only (the serving path)
+  * ``forward_decode``  — one token at position ``pos`` with caches
+
+``forward_train`` unbinds each stacked block leaf once (``tree_unstack``),
+so the backward stacks the per-block gradients into one tensor (indexing
+``leaf[i]`` per block would make a full-size zero gradient per block).
+The reference's ``jax.checkpoint`` (remat) trades memory for recompute
+with the same numbers; the port does not recompute.
 
 VLM variants accept ``prefix`` — precomputed patch embeddings (B, P, d)
 occupying the first P positions (the allowed frontend stub).
@@ -37,7 +45,7 @@ from repro_torch.models.common import (
     rmsnorm,
     rmsnorm_init,
 )
-from repro_torch.utils.tree import tree_index, tree_stack
+from repro_torch.utils.tree import tree_index, tree_stack, tree_unstack
 
 PyTree = Any
 
@@ -123,22 +131,27 @@ def layer_cache_init(cfg: ModelConfig, sub: SubLayer, batch: int,
     return ssm_mod.init_ssm_cache(cfg, batch, device)
 
 
-def layer_apply(p, x, sub: SubLayer, cfg: ModelConfig, positions, cache):
-    """Pre-norm residual layer (prefill).  Returns (x, cache_out, aux)."""
+def layer_apply(p, x, sub: SubLayer, cfg: ModelConfig, positions,
+                cache=None, pos=None, moe_dense: bool = False):
+    """Pre-norm residual layer.  Returns (x, cache_out, aux).  No cache:
+    training; a cache and no ``pos``: prefill; both: one-token decode."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if sub.kind == "attn":
         y, cache = attn_mod.attention(p["attn"], h, positions, cfg,
-                                      window=sub.window, cache=cache)
-    else:
+                                      window=sub.window, cache=cache, pos=pos)
+    elif pos is None:
         y, cache = ssm_mod.ssm_apply(p["ssm"], h, cfg, cache=cache)
+    else:
+        y, cache = ssm_mod.ssm_decode_step(p["ssm"], h, cfg, cache)
     x = x + y
     if sub.ffn == "mlp":
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + _mlp_apply(p["mlp"], h, cfg)
     elif sub.ffn == "moe":
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        y, a = moe_mod.moe_apply(p["moe"], h, cfg.moe, cfg.act)
+        moe_fn = moe_mod.moe_dense_ref if moe_dense else moe_mod.moe_apply
+        y, a = moe_fn(p["moe"], h, cfg.moe, cfg.act)
         x = x + y
         aux = aux + a
     return x, cache, aux
@@ -221,18 +234,53 @@ def _head(params, x, cfg):
     return logits
 
 
-def forward_prefill(params, tokens, cfg: ModelConfig, cache, prefix=None):
-    """Full-sequence forward writing caches.  tokens: (B, S_text); prefix:
-    optional (B, P, d).  Returns (last-position logits (B, 1, V), cache)."""
+def forward_train(params, tokens, cfg: ModelConfig, prefix=None,
+                  moe_dense: bool = False):
+    """tokens: (B, S_text); prefix: optional (B, P, d).  Returns
+    (logits (B, S_total, V), aux_loss scalar)."""
     prelude, period, n_blocks, tail, kinds = layer_plan(cfg)
     x = _embed(params, tokens, cfg, prefix)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    for i in prelude:
+        x, _, a = layer_apply(params["prelude"][str(i)], x, kinds[i], cfg,
+                              positions, moe_dense=moe_dense)
+        aux_total = aux_total + a
+
+    if n_blocks > 0:
+        start = len(prelude)
+        auxs = []
+        for block_params in tree_unstack(params["blocks"], n_blocks):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for j in range(period):
+                x, _, a = layer_apply(block_params[f"p{j}"], x,
+                                      kinds[start + j], cfg, positions,
+                                      moe_dense=moe_dense)
+                aux = aux + a
+            auxs.append(aux)
+        aux_total = aux_total + torch.sum(torch.stack(auxs))
+
+    for i in tail:
+        x, _, a = layer_apply(params["tail"][str(i)], x, kinds[i], cfg,
+                              positions, moe_dense=moe_dense)
+        aux_total = aux_total + a
+
+    return _head(params, x, cfg), aux_total
+
+
+def _run_cached(params, x, cfg: ModelConfig, cache, positions, pos=None,
+                moe_dense: bool = False):
+    """Every layer in order with its cache (prefill: ``pos=None``; decode:
+    ``pos`` given).  Returns (x, new cache)."""
+    prelude, period, n_blocks, tail, kinds = layer_plan(cfg)
     new_cache: dict = {k: {} for k in cache}
 
     for i in prelude:
         x, c, _ = layer_apply(params["prelude"][str(i)], x, kinds[i], cfg,
-                              positions, cache["prelude"][str(i)])
+                              positions, cache["prelude"][str(i)], pos,
+                              moe_dense)
         new_cache["prelude"][str(i)] = c
 
     if n_blocks > 0:
@@ -245,15 +293,39 @@ def forward_prefill(params, tokens, cfg: ModelConfig, cache, prefix=None):
             for j in range(period):
                 x, c, _ = layer_apply(block_params[f"p{j}"], x,
                                       kinds[start + j], cfg, positions,
-                                      block_cache[f"p{j}"])
+                                      block_cache[f"p{j}"], pos, moe_dense)
                 out[f"p{j}"] = c
             outs.append(out)
         new_cache["blocks"] = tree_stack(outs)
 
     for i in tail:
         x, c, _ = layer_apply(params["tail"][str(i)], x, kinds[i], cfg,
-                              positions, cache["tail"][str(i)])
+                              positions, cache["tail"][str(i)], pos,
+                              moe_dense)
         new_cache["tail"][str(i)] = c
+    return x, new_cache
 
-    logits = _head(params, x[:, -1:, :], cfg)
-    return logits, new_cache
+
+def forward_prefill(params, tokens, cfg: ModelConfig, cache, prefix=None,
+                    moe_dense: bool = False):
+    """Full-sequence forward writing caches.  tokens: (B, S_text); prefix:
+    optional (B, P, d).  Returns (last-position logits (B, 1, V), cache)."""
+    x = _embed(params, tokens, cfg, prefix)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    x, new_cache = _run_cached(params, x, cfg, cache, positions,
+                               moe_dense=moe_dense)
+    return _head(params, x[:, -1:, :], cfg), new_cache
+
+
+def forward_decode(params, tokens, pos, cfg: ModelConfig, cache,
+                   moe_dense: bool = False):
+    """One-token decode.  tokens: (B, 1); pos: 0-dim integer tensor (the
+    write position, == number of tokens already in the cache).  Returns
+    (logits (B, 1, V), cache)."""
+    x = embed_lookup(params["embed"]["table"], tokens)
+    b = x.shape[0]
+    positions = pos.reshape(1, 1).expand(b, 1)
+    x, new_cache = _run_cached(params, x, cfg, cache, positions, pos,
+                               moe_dense)
+    return _head(params, x, cfg), new_cache

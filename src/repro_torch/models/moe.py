@@ -15,10 +15,13 @@ scatter-adds the combine (``y.at[tt_s].add``).  Here both are gathers, so
 the function has no in-place write and runs under ``torch.func.vmap``:
 buffer slot ``(e, c)`` reads sorted entry ``offsets[e] + c`` when
 ``c < counts[e]`` (the same entry the reference's scatter puts there), and
-the combine inverts the sort to ``(N, k, d)`` and sums over k in order — a
-deterministic sum (``index_add_`` on CUDA is atomic), so a user's output
-does not depend on who shares the launch.  Top-k breaks ties toward the
-lower expert index, as ``lax.top_k`` does: a stable descending sort.
+the combine gathers each token's k gated outputs in sorted order —
+ascending expert id, the order the reference's scatter-add visits them —
+and adds them one by one to a zero row (``_combine``).  The sum is
+deterministic (``index_add_`` on CUDA is atomic), so a user's output does
+not depend on who shares the launch, and gradients flow through the
+gathers.  Top-k breaks ties toward the lower expert index, as
+``lax.top_k`` does: a stable descending sort.
 """
 from __future__ import annotations
 
@@ -90,6 +93,20 @@ def capacity_for(n_tokens: int, spec) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
+def _combine(contrib_s: torch.Tensor, order: torch.Tensor, n: int,
+             k: int) -> torch.Tensor:
+    """(N, d): each token's k terms of ``contrib_s`` (N*k, d, in the sorted
+    order ``order`` gave) added one by one to a zero row in sorted order —
+    ascending expert id, since a token's k experts are distinct — as the
+    reference's ``y.at[tt_s].add`` adds them."""
+    idx = torch.sort(torch.argsort(order).reshape(n, k), dim=1).values
+    terms = contrib_s[idx]                                        # (N, k, d)
+    y = torch.zeros_like(terms[:, 0])
+    for j in range(k):
+        y = y + terms[:, j]
+    return y
+
+
 def moe_apply(params, x: torch.Tensor, spec, act_name: str = "silu"):
     """Sorted capacity dispatch.  x: (B, S, d) -> (y, aux_loss)."""
     act = activation(act_name)
@@ -118,15 +135,12 @@ def moe_apply(params, x: torch.Tensor, spec, act_name: str = "silu"):
                      torch.zeros((), dtype=x.dtype, device=x.device))
     yb = _expert_ffn(params, xb, act).reshape(e * cap, d)
 
-    # combine: sorted entry i reads its slot; kept entries only
+    # combine: sorted entry i reads its slot, gated; kept entries only
     slot = ee_s * cap + torch.clamp_max(pos_in_e, cap - 1)
+    gg_s = gates.reshape(n * k).to(x.dtype)[order]
     contrib_s = torch.where(keep[:, None], yb[slot],
                             torch.zeros((), dtype=x.dtype, device=x.device))
-    contrib = contrib_s[torch.argsort(order)].reshape(n, k, d)
-    g = gates.to(x.dtype)
-    y = contrib[:, 0] * g[:, 0, None]
-    for j in range(1, k):
-        y = y + contrib[:, j] * g[:, j, None]
+    y = _combine(contrib_s * gg_s[:, None], order, n, k)
 
     if spec.n_shared > 0:
         y = y + _shared_ffn(params["shared"], xf, act)

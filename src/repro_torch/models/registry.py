@@ -4,25 +4,34 @@
 trees of tensors:
 
   init(gen)                              -> params (on the generator's device)
+  train_loss(params, batch)              -> (loss, aux_metrics)
   prefill(params, batch, cache)          -> (logits, cache)
+  decode(params, tokens, pos, cache)     -> (logits, cache)
   init_cache(batch_size, max_len, ...)   -> cache
+  input_specs(shape, dtype, batch)       -> batch tree of ``meta`` tensors
 
-Batch layout (per user, no user axis here — the serving engine vmaps):
-  prefill: {'tokens': (B,S_t) int, ['prefix' (B,P,d) | 'frames' (B,S_e,d)]}
+Batch layout (per client, no client axis here — the step builders vmap):
+  train  : {'tokens': (B,S_t) int, 'labels': (B,S) int,
+            ['prefix' (B,P,d) | 'frames' (B,S_e,d)]}
+  prefill: {'tokens': (B,S_t) int, ['prefix' | 'frames']}
+  decode : tokens (B,1) int + pos, a 0-dim integer tensor
 
-``train_loss``, ``decode`` and ``input_specs`` are the ``lm`` training
-slice's (ROADMAP A12b) and raise until it lands.
+``input_specs`` gives the shapes and dtypes of a batch as tensors on the
+``meta`` device (no storage), the port's form of ``jax.ShapeDtypeStruct``.
+The reference's ``remat``/``unroll`` options change how XLA lowers the same
+numbers and have no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
+from repro_torch.models.common import softmax_xent
 
 
 @dataclasses.dataclass
@@ -36,46 +45,98 @@ class ModelAPI:
     input_specs: Callable
 
 
-def _a12b(what: str) -> Callable:
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"ModelAPI.{what} is not ported yet: it comes with the lm "
-            "training slice (ROADMAP A12b)")
-    return missing
+def meta_spec(shape, dtype) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on the ``meta`` device: a shape
+    and dtype with no storage."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
-def bind(cfg: ModelConfig) -> ModelAPI:
+def _enc_dec_split(seq_len: int) -> tuple[int, int]:
+    """Audio enc-dec: half the token budget to frames, half to text."""
+    return seq_len // 2, seq_len - seq_len // 2
+
+
+def bind(cfg: ModelConfig, moe_dense: bool = False) -> ModelAPI:
     if cfg.enc_layers > 0:
         return _bind_encdec(cfg)
-    return _bind_lm(cfg)
+    return _bind_lm(cfg, moe_dense)
 
 
-def _bind_lm(cfg: ModelConfig) -> ModelAPI:
+def _bind_lm(cfg: ModelConfig, moe_dense: bool) -> ModelAPI:
     def init(gen: torch.Generator):
         return lm_mod.init_lm(gen, cfg)
 
+    def train_loss(params, batch):
+        logits, aux = lm_mod.forward_train(params, batch["tokens"], cfg,
+                                           prefix=batch.get("prefix"),
+                                           moe_dense=moe_dense)
+        loss = softmax_xent(logits, batch["labels"])
+        return loss + aux, {"xent": loss, "aux": aux}
+
     def prefill(params, batch, cache):
         return lm_mod.forward_prefill(params, batch["tokens"], cfg, cache,
-                                      prefix=batch.get("prefix"))
+                                      prefix=batch.get("prefix"),
+                                      moe_dense=moe_dense)
+
+    def decode(params, tokens, pos, cache):
+        return lm_mod.forward_decode(params, tokens, pos, cfg, cache,
+                                     moe_dense=moe_dense)
 
     def init_cache(batch_size, max_len, device=None):
         return lm_mod.init_cache(cfg, batch_size, max_len, device)
 
-    return ModelAPI(cfg, init, _a12b("train_loss"), prefill, _a12b("decode"),
-                    init_cache, _a12b("input_specs"))
+    def input_specs(shape: InputShape, dtype=torch.float32,
+                    batch: Optional[int] = None):
+        b = batch if batch is not None else shape.global_batch
+        s = shape.seq_len
+        i32 = torch.int32
+        if shape.mode in ("train", "prefill"):
+            spec = {"tokens": meta_spec((b, s - cfg.prefix_len), i32)}
+            if shape.mode == "train":
+                spec["labels"] = meta_spec((b, s), i32)
+            if cfg.prefix_len:
+                spec["prefix"] = meta_spec(
+                    (b, cfg.prefix_len, cfg.d_model), dtype)
+            return spec
+        return {"tokens": meta_spec((b, 1), i32), "pos": meta_spec((), i32)}
+
+    return ModelAPI(cfg, init, train_loss, prefill, decode, init_cache,
+                    input_specs)
 
 
 def _bind_encdec(cfg: ModelConfig) -> ModelAPI:
     def init(gen: torch.Generator):
         return encdec_mod.init_encdec(gen, cfg)
 
+    def train_loss(params, batch):
+        logits, aux = encdec_mod.decode_train(params, batch["frames"],
+                                              batch["tokens"], cfg)
+        loss = softmax_xent(logits, batch["labels"])
+        return loss + aux, {"xent": loss, "aux": aux}
+
     def prefill(params, batch, cache):
         return encdec_mod.prefill(params, batch["frames"], batch["tokens"],
                                   cfg, cache)
+
+    def decode(params, tokens, pos, cache):
+        return encdec_mod.decode_step(params, tokens, pos, cfg, cache)
 
     def init_cache(batch_size, max_len, device=None, enc_len: int = 1024):
         return encdec_mod.init_encdec_cache(cfg, batch_size, max_len,
                                             enc_len, device)
 
-    return ModelAPI(cfg, init, _a12b("train_loss"), prefill, _a12b("decode"),
-                    init_cache, _a12b("input_specs"))
+    def input_specs(shape: InputShape, dtype=torch.float32,
+                    batch: Optional[int] = None):
+        b = batch if batch is not None else shape.global_batch
+        i32 = torch.int32
+        if shape.mode in ("train", "prefill"):
+            enc_len, dec_len = _enc_dec_split(shape.seq_len)
+            spec = {"frames": meta_spec((b, enc_len, cfg.d_model), dtype),
+                    "tokens": meta_spec((b, dec_len), i32)}
+            if shape.mode == "train":
+                spec["labels"] = meta_spec((b, dec_len), i32)
+            return spec
+        return {"tokens": meta_spec((b, 1), i32), "pos": meta_spec((), i32)}
+
+    return ModelAPI(cfg, init, train_loss, prefill, decode, init_cache,
+                    input_specs)

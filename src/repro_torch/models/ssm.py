@@ -6,11 +6,11 @@ C, dt), depthwise causal conv over (x, B, C), softplus dt with bias,
 scalar-per-head A, chunked SSD scan, D skip, gated RMSNorm, output
 projection.  Single dispatch group (G=1), heads H = d_inner / head_dim.
 
-``ssm_apply`` is the full-sequence block (prefill, with the final SSD state
-and conv tail as its cache); the one-token ``ssm_decode_step`` comes with
-the ``lm`` training slice (ROADMAP A12b).  The inter-chunk recurrence is a
-loop in chunk order that keeps the state *before* each chunk, as the
-reference's ``lax.scan`` emits it.  Softplus is the reference's
+``ssm_apply`` is the full-sequence block (training, and prefill with the
+final SSD state and conv tail as its cache); ``ssm_decode_step`` is the
+O(1)-per-token recurrent update of those two states.  The inter-chunk
+recurrence is a loop in chunk order that keeps the state *before* each
+chunk, as the reference's ``lax.scan`` emits it.  Softplus is the reference's
 ``logaddexp(x, 0)`` (``F.softplus`` turns into the identity above its
 threshold).  The three-operand einsums are contracted pairwise, each in
 the order stated at its line.
@@ -189,3 +189,40 @@ def ssm_apply(params, x: torch.Tensor, cfg, cache=None):
         cache = {"ssm_state": final_state,
                  "conv_state": tail.to(cache["conv_state"].dtype)}
     return out, cache
+
+
+def ssm_decode_step(params, x: torch.Tensor, cfg, cache: dict):
+    """Single-token recurrent step.  x: (B, 1, d).  Returns (y (B, 1, d),
+    new cache)."""
+    spec, d_inner, n_heads, conv_dim = _dims(cfg)
+    b = x.shape[0]
+    zxbcdt = x[:, 0, :] @ params["in_proj"]      # (B, d_in_proj)
+    z, xbc, dt = _split_proj(cfg, zxbcdt)
+
+    # depthwise conv via the cached tail
+    conv_state = cache["conv_state"]             # (B, W-1, conv_dim)
+    window = torch.cat([conv_state.float(), xbc.float()[:, None, :]], 1)
+    w = params["conv_w"].float()                 # (W, conv_dim)
+    conv_out = (torch.einsum("bwc,wc->bc", window, w)
+                + params["conv_b"].float())
+    xbc_c = F.silu(conv_out)
+    new_conv_state = window[:, 1:, :].to(conv_state.dtype)
+
+    xs = xbc_c[..., :d_inner]
+    Bm = xbc_c[..., d_inner: d_inner + spec.d_state]
+    Cm = xbc_c[..., d_inner + spec.d_state:]
+    dtv = softplus(dt.float() + params["dt_bias"])   # (B, H)
+    a = -torch.exp(params["A_log"])              # (H,)
+    dA = torch.exp(dtv * a)                      # (B, H)
+    xh = xs.reshape(b, n_heads, spec.head_dim).float()
+
+    st = cache["ssm_state"]                      # (B, H, P, N)
+    # dt x B x x as an outer product: (dt ⊙ x) first, then with B
+    st = (st * dA[..., None, None]
+          + (dtv[..., None] * xh)[..., None] * Bm.float()[:, None, None, :])
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), st)
+    y = y + params["D"][None, :, None] * xh
+    y = y.reshape(b, d_inner)
+    y = _gated_norm(params["norm"], y, z, cfg.norm_eps)
+    out = y.to(x.dtype) @ params["out_proj"]
+    return out[:, None, :], {"ssm_state": st, "conv_state": new_conv_state}

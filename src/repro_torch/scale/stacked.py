@@ -103,22 +103,27 @@ def _in_neighbours(adjacency) -> list[list[int]]:
 
 
 def masked_gossip_stacked(params: PyTree, masks: PyTree, adjacency,
-                          reduction: str = "einsum") -> PyTree:
+                          reduction: str = "einsum",
+                          accum_dtype: torch.dtype = torch.float32) -> PyTree:
     """Intersection-weighted gossip over the stacked client dim.
 
     ``adjacency`` is the (K, K) receive matrix with unit diagonal (numpy or
     a tensor): client k mixes every j with ``A[k, j] > 0``, itself
     included.  The state must be masked (``w == w ⊙ m``), as DisPFL's
-    always is; the result is re-masked by each receiver's own mask."""
+    always is; the result is re-masked by each receiver's own mask.
+    ``accum_dtype`` is the einsum's operand and result type (bfloat16 halves
+    its bytes); the division and the re-mask are fp32.  The ``ordered``
+    reduction accumulates in the state's dtype."""
     check_reduction(reduction)
     if reduction == "einsum":
-        a = _on_device(adjacency, torch.float32, params)
+        a = _on_device(adjacency, accum_dtype, params)
 
         def one(w, m):
-            mf = m.to(torch.float32)
-            num = torch.einsum("kj,j...->k...", a, w.to(torch.float32) * mf)
+            mf = m.to(accum_dtype)
+            num = torch.einsum("kj,j...->k...", a, w.to(accum_dtype) * mf)
             den = torch.einsum("kj,j...->k...", a, mf)
-            return (num / torch.clamp_min(den, 1.0) * mf).to(w.dtype)
+            mix = num.float() / torch.clamp_min(den.float(), 1.0)
+            return (mix * mf.float()).to(w.dtype)
 
         return tree_map(one, params, masks)
 

@@ -19,27 +19,32 @@ def _join(prefix: str, key) -> str:
     return f"{prefix}/{key}" if prefix else str(key)
 
 
+def _map(fn, is_leaf, path, x, xs):
+    if is_leaf is not None and is_leaf(x):
+        return fn(path, x, *xs)
+    if isinstance(x, dict):
+        return {k: _map(fn, is_leaf, _join(path, k), x[k],
+                        [r[k] for r in xs])
+                for k in sorted(x)}
+    if isinstance(x, (list, tuple)):
+        out = [_map(fn, is_leaf, _join(path, i), v, [r[i] for r in xs])
+               for i, v in enumerate(x)]
+        return out if isinstance(x, list) else tuple(out)
+    if x is None:
+        return None
+    return fn(path, x, *xs)
+
+
 def tree_map_with_path(fn: Callable[..., Any], tree: PyTree, *rest: PyTree,
                        is_leaf: Optional[Callable[[Any], bool]] = None
                        ) -> PyTree:
     """Map ``fn(path, leaf, *rest_leaves)`` over ``tree``, keeping its
-    structure; ``rest`` trees must share it."""
-
-    def go(path, x, *xs):
-        if is_leaf is not None and is_leaf(x):
-            return fn(path, x, *xs)
-        if isinstance(x, dict):
-            return {k: go(_join(path, k), x[k], *(r[k] for r in xs))
-                    for k in sorted(x)}
-        if isinstance(x, (list, tuple)):
-            out = [go(_join(path, i), v, *(r[i] for r in xs))
-                   for i, v in enumerate(x)]
-            return out if isinstance(x, list) else tuple(out)
-        if x is None:
-            return None
-        return fn(path, x, *xs)
-
-    return go("", tree, *rest)
+    structure; ``rest`` trees must share it.  The recursion is a module
+    function, not a closure over itself: a self-referencing closure is a
+    reference cycle, which would keep ``fn`` — and whatever it holds, such
+    as the leaves ``tree_leaves`` collects — alive until Python's cyclic
+    collector runs (at full width, a whole stacked model)."""
+    return _map(fn, is_leaf, "", tree, rest)
 
 
 def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree,
@@ -103,6 +108,12 @@ def tree_stack(trees: list[PyTree]) -> PyTree:
 
 
 def tree_unstack(tree: PyTree, k: int) -> list[PyTree]:
-    """Inverse of ``tree_stack``: K trees of slot views (contiguous, sharing
-    the stacked tensors' storage)."""
-    return [tree_index(tree, i) for i in range(k)]
+    """Inverse of ``tree_stack``: the first K trees of slot views
+    (contiguous, sharing the stacked tensors' storage).  Each leaf is
+    unbound once, so under autograd the backward stacks the slots'
+    gradients into one tensor (indexing slot by slot makes a full-size zero
+    gradient per slot)."""
+    parts = tree_map(lambda x: x.unbind(0), tree)
+    is_parts = lambda t: isinstance(t, tuple)  # noqa: E731
+    return [tree_map(lambda t: t[i], parts, is_leaf=is_parts)
+            for i in range(k)]

@@ -11,7 +11,9 @@ flat payload values, fp32 stacked payload values, any alpha, per-row thresholds,
 masked matmul sums in another order than cuBLAS, so it agrees with its
 plain version to atol 1e-5 and rtol 1e-5 on inputs scaled as the served
 MLP's (x ~ N(0, 1), w ~ N(0, 1/K)); a user's rows in a mixed batch are
-bit-equal to the same user served alone.  SubFedAvg's server mix (the
+bit-equal to the same user served alone; the prune/regrow kernel also at
+the LM mask update's full-width leaf and once per sparsifiable leaf of
+``launch.steps.make_mask_update_step``.  SubFedAvg's server mix (the
 gossip kernel) and dpsgd's async ``mix_one`` (the fold kernel at Metropolis
 weights) equal the same calls on the CPU bit for bit.  An ``ordered``
 stacked round on
@@ -402,6 +404,72 @@ def test_prune_regrow_layer_on_card_equals_cpu(cuda_device, rate):
                             for t in (w, g, m)), rate)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def test_prune_regrow_full_width_leaf_equals_plain_on_card(cuda_device):
+    """The largest leaf the LM mask update hands the kernel: gemma3-1b's
+    tied embedding table for K=2 clients (2 x 262,144 x 1152 coordinates),
+    held density 0.5, prune rate 0.25, thresholds by ``sort_thresholds``."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS["gemma3-1b"]
+    k, n = 2, cfg.vocab * cfg.d_model
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    m = (torch.rand((k, n), generator=gen, device=cuda_device) < 0.5).float()
+    w = torch.randn((k, n), generator=gen, device=cuda_device) * m
+    g = torch.randn((k, n), generator=gen, device=cuda_device)
+    n_active = round(0.5 * n)
+    n_prune = int(np.ceil(np.float32(0.25) * np.float32(n_active)))
+    th = pr.sort_thresholds(w, g, m, n_active - n_prune, n_prune)
+    launches = pr.LAUNCHES
+    got = pr.prune_regrow_rows(w, g, m, th)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES == launches + 1
+    want = pr.prune_regrow_rows_plain(w, g, m, th)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+def test_lm_mask_update_step_launches_per_sparsifiable_leaf(cuda_device):
+    """``make_mask_update_step`` on the card: one prune/regrow launch per
+    sparsifiable leaf, int8 masks within the reference test's budget
+    bounds, every weight zero outside its new mask."""
+    from repro_torch.configs import INPUT_SHAPES, SMOKE_ARCHS
+    from repro_torch.core.masks import apply_mask, init_mask
+    from repro_torch.launch import steps
+    from repro_torch.models import bind
+    from repro_torch.scale.stacked import default_threshold_sparsifiable
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_stack
+
+    cfg = SMOKE_ARCHS["qwen3-moe-30b-a3b"]
+    api = bind(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ps = [api.init(gen) for _ in range(2)]
+    ms = [tree_map(lambda t: t.to(torch.int8), init_mask(gen, p, 0.5))
+          for p in ps]
+    params = tree_stack([apply_mask(p, m) for p, m in zip(ps, ms)])
+    masks = tree_stack(ms)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 2, 16), generator=gen,
+                                     device=cuda_device),
+             "labels": torch.randint(0, cfg.vocab, (2, 2, 16), generator=gen,
+                                     device=cuda_device)}
+    plan = steps.ScalePlan(cfg, INPUT_SHAPES["train_4k"], 2, 2)
+    launches = pr.LAUNCHES
+    new_params, new_masks = steps.make_mask_update_step(api, plan)(
+        params, masks, batch, 0.3)
+    torch.cuda.synchronize()
+    sparse = [x for x in tree_leaves(params)
+              if default_threshold_sparsifiable(x)]
+    assert sparse and pr.LAUNCHES - launches == len(sparse)
+    for w, m, m0 in zip(tree_leaves(new_params), tree_leaves(new_masks),
+                        tree_leaves(masks)):
+        assert m.dtype == torch.int8
+        assert bool(torch.all(w[m == 0] == 0))
+        if default_threshold_sparsifiable(m0):
+            n = m0[0].numel()
+            after = m.reshape(2, -1).sum(1).cpu().numpy()
+            assert np.all(after <= 0.5 * n + max(8, 0.02 * n))
+            assert np.all(after >= 0.5 * n * 0.7 - max(8, 0.02 * n))
 
 
 def test_ordered_scale_round_on_card_matches_cpu(cuda_device):

@@ -90,6 +90,30 @@ def test_tree_paths_and_order_match_reference():
         [p for p, _ in ref_leaves(tree)]
 
 
+def test_tree_helpers_free_their_trees_without_the_cyclic_collector():
+    """A tree walked by ``tree_leaves``/``tree_map`` is freed as soon as its
+    last reference goes: the helpers form no reference cycle that would
+    keep it (at full width, a whole model) alive until ``gc`` runs."""
+    import gc
+    import weakref
+
+    from repro_torch.utils.tree import tree_leaves, tree_unstack
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        tree = {"a": [torch.zeros((2, 3)), {"b": torch.ones((2, 1))}],
+                "c": torch.zeros((2, 2))}
+        refs = [weakref.ref(x) for x in tree_leaves(tree)]
+        tree_map(torch.neg, tree)
+        tree_unstack(tree, 2)
+        del tree
+        assert all(r() is None for r in refs)
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def test_archive_round_trip_reference_port_reference(tmp_path):
     task = make_cnn_task("smallcnn", 10, 8, width=4, device="cpu")
     clients, _ = build_federated_image_task(0, n_clients=3, hw=8,
