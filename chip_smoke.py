@@ -143,10 +143,31 @@ line):
     sorts' share, prefill and per-token decode times, peak memory (and
     what each stage leaves allocated), and profiled train and decode
     steps' busy shares and top three kernels;
-15. a ``{"kernels": [...]}`` line (``launches_strategies``: every kernel's
+15. the observability plane (run right after phase 3, while no engine of
+    the other phases is alive: a run archive's counters are the
+    process-wide snapshot, as in the reference CLI's one-run process):
+    ``make obs-smoke``'s arguments (``simulate --sim --strategy
+    dispfl_anneal --rounds 2 --clients 4 --local-epochs 1
+    --samples-per-class 20 --eval-every 2 --loss-prob 0.1 --uplink-mode
+    fair``) through the CLI's ``main`` on the card, at smallcnn untraced
+    then with ``--run-dir --trace-mode full``, and at ``--model resnet18
+    --hw 32`` untraced, ``ring``, ``full`` and untraced again, launch
+    counters zeroed just before each run and read just after — every
+    traced run must launch each kernel as often as the untraced one, and
+    ``repro_torch.launch.dash.main(["render", "--run-dir", D, "--check"])``
+    must return 0 on each archive; per phase the ``round.*`` span totals
+    against ``phase_s`` (ResNet18-GN's ``full`` run: local and evolve
+    within ``OBS_SPAN_RTOL``; the time of mix and eval outside their spans
+    printed), the warm round's wall per tracing mode, spans
+    per round and the archive's bytes; then ``serve --backend kernel``
+    (phase 7's arguments) untraced and with ``--run-dir --trace-mode
+    full``: masked-matmul launches equal, the archive checked, its store
+    rollup equal to its store counters;
+16. a ``{"kernels": [...]}`` line (``launches_strategies``: every kernel's
     launches summed over phase 12's ten runs, its async run and its two
     stacked runs; ``launches_serve_models``: over phase 13;
-    ``launches_lm``: over phase 14 (a) and (b)), then the last line
+    ``launches_lm``: over phase 14 (a) and (b); ``launches_obs``: over
+    phase 15's traced runs), then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA GPU or without the
@@ -194,6 +215,18 @@ LM_FULL_ARCH = "gemma3-1b"
 LM_FULL_CLIENTS, LM_FULL_SEQ, LM_FULL_DECODE = 2, 1024, 16
 # decoded logits against a teacher-forcing forward, relative to their scale
 LM_DECODE_TOL = 1e-4
+# make obs-smoke's simulate arguments (Makefile), and the local and evolve
+# spans' totals against phase_s: each span opens and closes within
+# microseconds of its phase's clock (after the synchronise), on phases of
+# 10-1000 ms.  The mix's phase_s also holds the round's set-up before its
+# span opens (the topology draw; in the simulator each client's message
+# nnz, read back per leaf) and eval's the comm/FLOP accounting: printed,
+# not held
+OBS_ARGS = ["simulate", "--sim", "--strategy", "dispfl_anneal", "--rounds",
+            "2", "--clients", "4", "--local-epochs", "1",
+            "--samples-per-class", "20", "--eval-every", "2", "--loss-prob",
+            "0.1", "--uplink-mode", "fair"]
+OBS_SPAN_RTOL = 0.02
 
 
 def log(*a):
@@ -634,6 +667,12 @@ def main() -> int:
         f"0.2 occupancy {mm1['occupancy']:.4f}: " + _times(mm1)
         + _library(mm1, "torch.mm"))
 
+    # 15. the observability plane, while no other engine is alive
+    t_obs = time.perf_counter()
+    obs_launches = obs_path(torch, train, counters)
+    log(f"obs phase: {time.perf_counter() - t_obs:.1f} s; traced launches "
+        f"{obs_launches}")
+
     # 4. the training path through the CLI's entry functions
     args = train.build_parser().parse_args([
         "simulate", "--model", "resnet18", "--hw", "32", "--clients", "4",
@@ -750,6 +789,7 @@ def main() -> int:
          "launches_strategies": strat_launches["gossip_avg"],
          "launches_serve_models": models_launches["gossip_avg"],
          "launches_lm": lm_launches["gossip_avg"],
+         "launches_obs": obs_launches["gossip_avg"],
          "shape": f"J=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in gossip_rows),
          "ms": gossip_rows[0]["ms"], "device_ms": gossip_rows[0]["device_ms"],
@@ -766,6 +806,7 @@ def main() -> int:
          "launches_strategies": strat_launches["packed_accum"],
          "launches_serve_models": models_launches["packed_accum"],
          "launches_lm": lm_launches["packed_accum"],
+         "launches_obs": obs_launches["packed_accum"],
          "shape": f"N={n_leaf} density 0.5 alpha 1",
          "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
          "ms": fold_rows[0]["ms"], "device_ms": fold_rows[0]["device_ms"],
@@ -781,6 +822,7 @@ def main() -> int:
          "launches_strategies": strat_launches["packed_accum_rows"],
          "launches_serve_models": models_launches["packed_accum_rows"],
          "launches_lm": lm_launches["packed_accum_rows"],
+         "launches_obs": obs_launches["packed_accum_rows"],
          "shape": f"K=4 N={n_leaf} density 0.5 alpha 1",
          "max_abs_err": max(r["max_abs_err"] for r in rows_rows),
          "ms": rows_rows[0]["ms"], "device_ms": rows_rows[0]["device_ms"],
@@ -796,6 +838,7 @@ def main() -> int:
          "launches_strategies": strat_launches["prune_regrow"],
          "launches_serve_models": models_launches["prune_regrow"],
          "launches_lm": lm_launches["prune_regrow"],
+         "launches_obs": obs_launches["prune_regrow"],
          "shape": f"K=4 N={n_leaf} float32",
          "max_abs_err": max(r["max_abs_err"] for r in pr_rows),
          "ms": pr_rows[0]["ms"], "device_ms": pr_rows[0]["device_ms"],
@@ -810,6 +853,7 @@ def main() -> int:
          "launches_strategies": strat_launches["masked_matmul"],
          "launches_serve_models": models_launches["masked_matmul"],
          "launches_lm": lm_launches["masked_matmul"],
+         "launches_obs": obs_launches["masked_matmul"],
          "shape": f"U={mm['U']} M={mm['M']} K={mm['K']} N={mm['N']} "
                   f"density 0.5 float32",
          "max_abs_err": max(r["max_abs_err"] for rows in mm_rows.values()
@@ -826,6 +870,7 @@ def main() -> int:
          "launches_strategies": strat_launches["masked_matmul_u1"],
          "launches_serve_models": models_launches["masked_matmul_u1"],
          "launches_lm": lm_launches["masked_matmul_u1"],
+         "launches_obs": obs_launches["masked_matmul_u1"],
          "shape": f"M={mm1['M']} K={mm1['K']} N={mm1['N']} density 0.2 "
                   f"float32",
          "max_abs_err": mm1["max_abs_err"],
@@ -2139,6 +2184,145 @@ def lm_path(torch, counters):
             if SMOKE_ARCHS[name].enc_layers == 0]
     runs.append(lm_full_width(torch, counters, pr))
     return {key: sum(r[key] for r in runs) for key in runs[0]}
+
+
+def _fresh_process_state():
+    """What a fresh CLI process starts from: no engine or store of an
+    earlier run alive (cycles collected) and the cumulative module counters
+    at 0, so a run archive's process-wide counters are its run's own."""
+    import gc
+
+    from repro_torch.obs import snapshot_counters
+    from repro_torch.sparse import codec, ops, packed
+    gc.collect()
+    live = [k for k in snapshot_counters()
+            if k.split("/")[0] in ("fl.engine", "sim.links", "serve.store")]
+    if live:
+        raise AssertionError(f"an earlier run is still alive: {live}")
+    ops.reset_counters()
+    codec.OBS.reset()
+    packed.OBS.reset()
+
+
+def _check_archive(run_dir):
+    """``dash render --run-dir D --check`` through the port's entry function;
+    returns the archive and its size in bytes."""
+    from repro_torch.launch import dash
+    from repro_torch.obs import RunArchive
+    nbytes = sum(os.path.getsize(os.path.join(run_dir, f))
+                 for f in os.listdir(run_dir))
+    rc = dash.main(["render", "--run-dir", run_dir, "-o",
+                    os.path.join(run_dir, "dash.html"), "--check"])
+    if rc != 0:
+        raise AssertionError(f"dash render --check failed on {run_dir}")
+    return RunArchive(run_dir), nbytes
+
+
+def obs_sim_runs(torch, train, counters, base, name, extra, modes):
+    """Phase 15 for one model: ``OBS_ARGS`` through ``train.main`` once per
+    tracing mode (None: untraced), launch counters zeroed just before each
+    run and read just after.  Each traced run writes a run archive, checked
+    by the dashboard, and must launch every kernel as often as the first
+    untraced run.  Returns the launches summed over the traced runs."""
+    from repro_torch.obs import get_tracer, phase_summary
+    runs = []
+    for mode in modes:
+        argv = OBS_ARGS + extra
+        run_dir = None
+        if mode is not None:
+            run_dir = os.path.join(base, f"{name}-{mode}-{len(runs)}")
+            argv = argv + ["--run-dir", run_dir, "--trace-mode", mode]
+        _fresh_process_state()
+        _zero(counters)
+        out = train.main(argv)
+        launches = _launches(counters)
+        get_tracer().disable()
+        runs.append((mode, out, launches, run_dir))
+    want = runs[0][2]
+    if min(want["gossip_avg"], want["packed_accum"]) < 1:
+        raise AssertionError(f"obs {name}: a kernel of the sim path never "
+                             f"ran: {want}")
+    traced = {k: 0 for k in want}
+    for mode, out, launches, run_dir in runs:
+        log(f"obs {name} tracing {mode or 'off'}: launches {launches}; warm "
+            f"round wall {out['round_wall_s'][-1]:.4f} s (rounds "
+            f"{out['round_wall_s']})")
+        if launches != want:
+            raise AssertionError(f"obs {name} {mode}: launches {launches} != "
+                                 f"untraced {want}")
+        if run_dir is None:
+            continue
+        for k, v in launches.items():
+            traced[k] += v
+        ar, nbytes = _check_archive(run_dir)
+        doc = ar.trace()
+        n_spans, dropped = (doc["otherData"]["spans"],
+                            doc["otherData"]["droppedSpans"])
+        ph = phase_summary(ar.spans(), clock="wall")
+        rows = []
+        for phase in ("mix", "local", "evolve", "eval"):
+            want_s = sum(p[phase] for p in out["phase_s"])
+            got = ph.get(f"round.{phase}", {}).get("total_s", 0.0)
+            rel = (got - want_s) / want_s if want_s > 0 else 0.0
+            rows.append(f"{phase} span {got:.6f} s / phase_s {want_s:.6f} s "
+                        f"({100 * rel:+.3f}%, {1e3 * (want_s - got):.3f} ms "
+                        f"outside)")
+            if (name == "resnet18" and mode == "full"
+                    and phase in ("local", "evolve")
+                    and abs(rel) > OBS_SPAN_RTOL):
+                raise AssertionError(f"obs {name}: round.{phase} spans "
+                                     f"{got} s against phase_s {want_s} s")
+        log(f"  archive {run_dir}: {nbytes} bytes, {n_spans} spans "
+            f"({n_spans / len(out['round_wall_s']):.1f} a round), dropped "
+            f"{dropped}, dashboard check ok; " + "; ".join(rows))
+        log(f"  counters {json.dumps(ar.counters())}")
+    return traced
+
+
+def obs_path(torch, train, counters):
+    """Phase 15: the sim runs of ``make obs-smoke`` at smallcnn and at
+    ResNet18-GN, then the serving CLI with a run archive.  Returns every
+    kernel's launches summed over the traced runs."""
+    import shutil
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.obs import get_tracer, store_rollup
+    base = os.path.join(ROOT, "runs", "chip_smoke_obs")
+    shutil.rmtree(base, ignore_errors=True)
+    totals = [obs_sim_runs(torch, train, counters, base, "smallcnn", [],
+                           (None, "full")),
+              obs_sim_runs(torch, train, counters, base, "resnet18",
+                           ["--model", "resnet18", "--hw", "32"],
+                           (None, "ring", "full", None))]
+    sargs = SERVE_ARGS + ["--backend", "kernel", "--metrics-jsonl",
+                          os.devnull]
+    run_dir = os.path.join(base, "serve-full")
+    serve = []
+    for extra in ([], ["--run-dir", run_dir, "--trace-mode", "full"]):
+        _fresh_process_state()
+        _zero(counters)
+        summary = serve_cli.main(sargs + extra)
+        serve.append((summary, _launches(counters)))
+        get_tracer().disable()
+    (s0, l0), (s1, l1) = serve
+    want = 3 * (s0["batches"] + 1)
+    if not l0 == l1 or l1["masked_matmul"] != want:
+        raise AssertionError(f"obs serve: launches traced {l1}, untraced "
+                             f"{l0}, expected {want} masked matmuls")
+    ar, nbytes = _check_archive(run_dir)
+    c, store = ar.counters(), store_rollup(ar.counters())
+    if (store["hits"], store["misses"], store["evictions"]) != (
+            c["serve.store/hits"], c["serve.store/misses"],
+            c["serve.store/evictions"]) or store["misses"] != s1[
+                "store_misses"]:
+        raise AssertionError(f"obs serve: store rollup {store} against "
+                             f"counters {c} and summary {s1}")
+    log(f"obs serve: launches {l1} traced == untraced; service_s untraced "
+        f"{s0['service_s']}, traced (full) {s1['service_s']}; archive "
+        f"{nbytes} bytes, {ar.trace()['otherData']['spans']} spans, "
+        f"dashboard check ok; store rollup hit ratio {store['hit_ratio']}")
+    totals.append(l1)
+    return {k: sum(t[k] for t in totals) for k in totals[0]}
 
 
 if __name__ == "__main__":

@@ -18,9 +18,11 @@ archives load into the reference.
 
 Per-phase wall times (mix, local, evolve, eval), each ended by a device
 synchronise, are kept in ``engine.phase_s``, one dict per round; the
-phases are also ``round.*`` spans on the ``engine`` track, and
-``engine.series`` samples the reference's ``fl.engine`` series once per
-round.
+phases are also ``round.*`` spans on the ``engine`` track, each closed
+after its phase's synchronise, so on the card a span holds the device's
+work and not only its launch.  ``engine.obs`` mirrors the reference's
+``fl.engine`` gauges and ``engine.series`` samples its ``fl.engine``
+series once per round.
 
 Fast path: ``local_exec="vmap"`` (or ``"auto"`` where it applies) runs the
 local phase of all active clients at once through
@@ -36,6 +38,7 @@ import dataclasses
 import json
 import os
 import time
+import weakref
 from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
@@ -54,7 +57,7 @@ from repro_torch.fl.base import (
     evaluate_clients,
     rounds_to_targets,
 )
-from repro_torch.obs import SeriesSet, span
+from repro_torch.obs import CounterSet, SeriesSet, span
 from repro_torch.optim.sgd import SGDConfig
 from repro_torch.sparse.packed import pack_tree, unpack_mask_tree, unpack_tree
 from repro_torch.utils.tree import (
@@ -417,6 +420,16 @@ class RoundEngine:
             "fwd_flops_per_sample": []}
         #: per round: seconds in each phase, each ended by a device sync
         self.phase_s: list[dict[str, float]] = []
+        # the gauges hold the engine weakly: a strong reference would make
+        # a cycle that keeps the engine's state alive until Python's cyclic
+        # collector runs
+        me = weakref.ref(self)
+        self.obs = CounterSet("fl.engine")
+        self.obs.gauge("rounds_completed", fn=lambda: me()._next_round)
+        self.obs.gauge("cum_flops", fn=lambda: float(
+            np.sum(me()._flops["per_round_flops"])))
+        self.obs.gauge("comm_total_mb", fn=lambda: float(
+            np.sum(me()._comm["total_mb"])))
         # per-round wall-clock series (not checkpointed: a resumed run
         # restarts its series)
         self.series = SeriesSet("fl.engine")
@@ -521,21 +534,22 @@ class RoundEngine:
 
     def _round_phases(self, ctx: RoundCtx, phases: dict, tp: float) -> float:
         """mix -> local -> evolve through the strategy's hooks, each phase
-        timed into ``phases``; returns the clock after the last."""
+        timed into ``phases`` inside its span; returns the clock after the
+        last."""
         strat = self.strategy
         with span("round.mix", track="engine", round=ctx.t):
             strat.mix(self.state, ctx)
-        tp = self._timed(phases, "mix", tp)
+            tp = self._timed(phases, "mix", tp)
         active = list(strat.active_clients(self.state, ctx))
         with span("round.local", track="engine", round=ctx.t,
                   active=len(active)):
             self.run_local_phase(ctx, active)
-        tp = self._timed(phases, "local", tp)
+            tp = self._timed(phases, "local", tp)
         with span("round.evolve", track="engine", round=ctx.t):
             for k in active:
                 strat.evolve(self.state, k, ctx)
             strat.post_round(self.state, ctx)
-        return self._timed(phases, "evolve", tp)
+            return self._timed(phases, "evolve", tp)
 
     def _round_accounting(self, ctx: RoundCtx):
         """(CommReport, FlopsReport) of the round just run."""

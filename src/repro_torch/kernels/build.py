@@ -6,8 +6,11 @@ git-ignored).  All missing libraries are compiled at once, one ``nvcc`` per
 source started together, on first use — so the first kernel call of a
 process, or ``chip_smoke.py``, builds everything from the checkout.  The
 hash covers the source and the flags: a changed source is rebuilt, an
-unchanged one reused.  ``--use_fast_math`` is deliberately absent: IEEE
-division and rounding are part of the kernels' parity contract.
+unchanged one reused.  Each build is counted in the process's ``torch``
+counter set (``backend_compiles``, ``backend_compile_s``), so a run archive
+shows the builds its first kernel call paid for.  ``--use_fast_math`` is
+deliberately absent: IEEE division and rounding are part of the kernels'
+parity contract.
 """
 from __future__ import annotations
 
@@ -16,9 +19,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
+
+from repro_torch.obs import install_torch_hooks
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
@@ -60,6 +66,7 @@ def build_all() -> dict[str, str]:
         return {}
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = []
     for src, out in todo:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -78,6 +85,9 @@ def build_all() -> dict[str, str]:
             os.replace(tmp, out)     # atomic: concurrent builders never see a partial file
     if errors:
         raise RuntimeError("\n".join(errors))
+    hooks = install_torch_hooks()
+    hooks.counter("backend_compiles").inc(len(todo))
+    hooks.counter("backend_compile_s").inc(time.perf_counter() - t0)
     return logs
 
 

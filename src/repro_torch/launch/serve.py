@@ -14,7 +14,9 @@ served family, as in the reference: ``mlp`` (the 64→128→128→32
 masked-matmul pipeline; backends vmap, ref and kernel — the reference's
 ``pallas``), ``smallcnn`` (the FL task model at 16x16 inputs, vmap only)
 or any registered smoke arch name (one-step scorer over an 8-token prompt,
-vmap only).
+vmap only).  ``--trace F`` writes the run's Perfetto trace and ``--run-dir
+D`` a run archive that ``repro_torch.launch.dash`` renders, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -108,6 +110,17 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="metrics_every")
     ap.add_argument("--metrics-jsonl", default="-", dest="metrics_jsonl",
                     help="stream JSON lines here ('-': stdout)")
+    ap.add_argument("--trace", default="",
+                    help="export a Perfetto-loadable trace_event JSON of "
+                         "the run (repro_torch.obs) to this path")
+    ap.add_argument("--trace-mode", default=None, dest="trace_mode",
+                    choices=["ring", "full"],
+                    help="span recorder: ring = bounded buffer (default), "
+                         "full = keep every span")
+    ap.add_argument("--run-dir", default="", dest="run_dir",
+                    help="write a run archive (manifest, counters, series, "
+                         "trace, health events) to this directory; implies "
+                         "tracing.  Render with repro_torch.launch.dash")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default; raises without a GPU) or cpu")
     return ap
@@ -118,12 +131,26 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from repro_torch.device import setup_device
     from repro_torch.sim.report import MetricsStream
 
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.trace_mode is not None and not (args.trace or args.run_dir):
+        ap.error("--trace-mode requires --trace or --run-dir")
     device = setup_device(args.device)
+    if args.trace or args.run_dir:
+        from repro_torch.obs import get_tracer
+        get_tracer().enable(mode=args.trace_mode or "ring")
     model = build_model(args.model, args.rows)
     store = build_store(args, model, device)
     with MetricsStream(args.metrics_jsonl) as stream:
         result = run_serve(args, model, store, stream)
+    if args.trace:
+        from repro_torch.obs import write_trace
+        doc = write_trace(args.trace)
+        print(f"wrote trace ({doc['otherData']['spans']} spans) to "
+              f"{args.trace} — open at https://ui.perfetto.dev")
+    if args.run_dir:
+        from repro_torch.launch.train import save_run_archive
+        save_run_archive(args, "serve", result.summary)
     return result.summary
 
 

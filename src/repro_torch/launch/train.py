@@ -13,7 +13,17 @@
    Prints one line per evaluated round, then a JSON object with the run's
    results, per-round wall times and per-phase times (mix, local, evolve,
    eval; ``--scale`` adds the host inputs phase); ``--sim`` adds the
-   simulator's ``"sim"`` report row.
+   simulator's ``"sim"`` report row.  ``--trace F`` writes the run's
+   Perfetto trace; ``--run-dir D`` writes a run archive (manifest,
+   counters, series, trace, health events) that ``launch.dash`` renders —
+   the reference's files and keys, ``torch/*`` counters in place of its
+   ``jax/*``:
+
+       PYTHONPATH=src python -m repro_torch.launch.train simulate --sim \
+           --loss-prob 0.1 --uplink-mode fair --run-dir runs/a \
+           --trace-mode full
+       PYTHONPATH=src python -m repro_torch.launch.dash render \
+           --run-dir runs/a -o dash.html --check
 
 2. ``lm`` — DisPFL on a reduced decoder LM (a smoke arch at ``--d-model``
    width, vocab 256) over synthetic Markov domains, one per client:
@@ -127,9 +137,16 @@ def build_engine(args):
 
 
 def run_engine(args, engine) -> dict:
-    """Stream the rounds, print the summary JSON, return it."""
+    """Stream the rounds, print the summary JSON, return it; with
+    ``--trace`` / ``--run-dir``, trace the run and write its trace and run
+    archive."""
     from repro_torch.checkpoint.npz import save_clients
 
+    if args.trace or args.run_dir:
+        # --run-dir implies tracing: the archive's rollups and dashboard
+        # are derived from spans, so an archive without them is near-empty
+        from repro_torch.obs import get_tracer
+        get_tracer().enable(mode=args.trace_mode or "ring")
     cfg = engine.cfg
     t0 = time.time()
     walls = []
@@ -155,11 +172,59 @@ def run_engine(args, engine) -> dict:
         targets = (args.target,) if args.target > 0 else ()
         out["sim"] = engine.report(targets=targets).row()
     print(json.dumps(out, indent=2))
+    if args.trace:
+        from repro_torch.obs import write_trace
+        doc = write_trace(args.trace)
+        print(f"wrote trace ({doc['otherData']['spans']} spans) to "
+              f"{args.trace} — open at https://ui.perfetto.dev")
+    if args.run_dir:
+        kind = "scale" if args.scale else ("sim" if args.sim else "train")
+        density = None
+        dm = engine.series.series("density_measured")
+        dt = engine.series.series("density_target")
+        if dm.points() and dt.points():
+            density = (dm, dt)
+        save_run_archive(args, kind, out, density=density)
     if args.save:
         save_clients(args.save, [{"final_acc": np.asarray(a)}
                                  for a in res.final_accs])
         print(f"saved per-client results to {args.save}")
     return out
+
+
+def save_run_archive(args, kind: str, report: dict, density=None) -> None:
+    """Write the run archive (manifest + counters + series + trace + report)
+    and stream fleet-health events to ``<run_dir>/health.jsonl`` — the
+    layout ``launch.dash`` renders and ``RunRegistry`` lists.  Counters are
+    the process-wide snapshot, as in the reference's CLIs."""
+    import os
+
+    from repro_torch.obs import (
+        RunManifest,
+        emit_health,
+        fleet_health,
+        get_tracer,
+        save_run,
+        snapshot_counters,
+    )
+    from repro_torch.sim.report import MetricsStream
+
+    config = {k: v for k, v in vars(args).items()
+              if isinstance(v, (int, float, str, bool, type(None)))}
+    manifest = RunManifest.build(kind, seed=args.seed, config=config)
+    tracer = get_tracer()
+    save_run(args.run_dir, manifest,
+             tracer=tracer if tracer.enabled else None, report=report)
+    _, events = fleet_health(
+        tracer, counters=snapshot_counters(), density=density,
+        dropped_spans=tracer.dropped)
+    with MetricsStream(os.path.join(args.run_dir, "health.jsonl"),
+                       header=True) as stream:
+        emit_health(stream, events)
+    for ev in events:
+        print(f"[health] {ev.severity}: {ev.kind} — {ev.message}")
+    print(f"saved run archive {manifest.run_id} to {args.run_dir} "
+          f"({len(events)} health events)")
 
 
 def run_simulate(args) -> dict:
@@ -364,6 +429,17 @@ def build_parser() -> argparse.ArgumentParser:
                      help="early-stop once mean personalized acc >= target")
     sim.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                      help="cuda (default; raises without a GPU) or cpu")
+    sim.add_argument("--trace", default="",
+                     help="export a Perfetto-loadable trace_event JSON of "
+                          "the run (repro_torch.obs) to this path")
+    sim.add_argument("--trace-mode", default=None, dest="trace_mode",
+                     choices=["ring", "full"],
+                     help="span recorder: ring = bounded buffer (default), "
+                          "full = keep every span")
+    sim.add_argument("--run-dir", default="", dest="run_dir",
+                     help="write a run archive (manifest, counters, series, "
+                          "trace, health events) to this directory; implies "
+                          "tracing.  Render with repro_torch.launch.dash")
     sim.add_argument("--scale", action="store_true",
                      help="run through ScaleEngine: every phase of the round "
                           "once over client-stacked state (dispfl, "
@@ -452,6 +528,8 @@ def check_args(ap: argparse.ArgumentParser, args) -> None:
         return
     if args.scale and args.sim:
         ap.error("--scale and --sim are mutually exclusive engines")
+    if args.trace_mode is not None and not (args.trace or args.run_dir):
+        ap.error("--trace-mode requires --trace or --run-dir")
     if not args.scale and args.scale_reduction != "einsum":
         ap.error("--scale-reduction require(s) --scale")
     if not args.sim:

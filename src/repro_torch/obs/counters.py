@@ -14,8 +14,13 @@ Two metric types:
 
 The reference's ``jax.monitoring`` compile-event bridge
 (``install_jax_hooks``, ``jax_compile_count``) becomes
-``torch_compile_count``: the graphs ``torch.compile`` has compiled in this
-process, which ``ScaleEngine`` snapshots around its round step.
+``install_torch_hooks``, which registers the ``torch`` namespace once per
+process: ``backend_compiles`` and ``backend_compile_s`` count the nvcc
+builds of the CUDA kernels (``kernels.build.build_all``), and the gauge
+``dynamo_graphs`` reads ``torch_compile_count``, the graphs
+``torch.compile`` has compiled in this process, which ``ScaleEngine``
+snapshots around its round step.  Run archives therefore hold ``torch/*``
+counters where the reference's hold ``jax/*``.
 """
 from __future__ import annotations
 
@@ -142,3 +147,21 @@ def torch_compile_count() -> int:
         return 0
     from torch._dynamo.utils import counters
     return int(counters["stats"]["unique_graphs"])
+
+
+_TORCH_SET: Optional[CounterSet] = None   # strong ref: lives for the process
+
+
+def install_torch_hooks() -> CounterSet:
+    """The process's ``torch`` counter set, registered on first call:
+    ``backend_compiles`` / ``backend_compile_s`` (kernel builds, counted by
+    ``kernels.build.build_all``) and the ``dynamo_graphs`` gauge over
+    ``torch_compile_count``.  Idempotent: every call returns the same set."""
+    global _TORCH_SET
+    if _TORCH_SET is None:
+        cs = CounterSet("torch")
+        cs.counter("backend_compiles")
+        cs.counter("backend_compile_s")
+        cs.gauge("dynamo_graphs", fn=torch_compile_count)
+        _TORCH_SET = cs
+    return _TORCH_SET

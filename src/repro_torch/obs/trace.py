@@ -1,6 +1,5 @@
 """Nestable span tracing on named tracks, wall- and virtual-clock
-(reference ``repro.obs.trace``, copied line for line, without its
-unused ``traced`` decorator).
+(reference ``repro.obs.trace``, copied line for line).
 
 One ``Tracer`` records ``Span`` intervals into a bounded ring buffer (or an
 unbounded list in ``mode="full"``).  Spans carry a *clock domain*: ``WALL``
@@ -23,6 +22,7 @@ overhead probe never clobbers a run-level ``--trace`` capture).
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from collections import deque
@@ -278,3 +278,22 @@ def span(name: str, track: str = "main", **attrs):
     if not t.enabled:
         return _NULL
     return _SpanCM(t, name, track, attrs)
+
+
+def traced(name: Optional[str] = None, track: str = "main"):
+    """Decorator form: time every call of ``fn`` as one span."""
+
+    def deco(fn):
+        label = name or fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t = _DEFAULT
+            if not t.enabled:
+                return fn(*args, **kwargs)
+            with _SpanCM(t, label, track, {}):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco

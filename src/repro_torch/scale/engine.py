@@ -43,7 +43,13 @@ from repro_torch.fl.base import (
     stack_eval_arrays,
 )
 from repro_torch.fl.engine import Callback, RoundCtx, RoundEngine, StrategyBase
-from repro_torch.obs import CounterSet, SeriesSet, span, torch_compile_count
+from repro_torch.obs import (
+    CounterSet,
+    SeriesSet,
+    install_torch_hooks,
+    span,
+    torch_compile_count,
+)
 from repro_torch.optim.sgd import SGDConfig
 from repro_torch.scale.stacked import (
     pack_stacked,
@@ -86,6 +92,7 @@ class ScaleEngine(RoundEngine):
         self._opt = SGDConfig(momentum=cfg.momentum,
                               weight_decay=cfg.weight_decay)
         self._eval_arrays = None
+        install_torch_hooks()
         self.scale_obs = CounterSet("scale.engine")
         self._c_step_calls = self.scale_obs.counter("step_calls")
         self._c_step_compiles = self.scale_obs.counter("step_compiles")

@@ -6,9 +6,9 @@ wall-clock to a target accuracy, the busiest node's upload/download
 timeline, per-link utilization and total measured bytes-on-wire
 (``SimReport``, ``time_to_target`` and ``build_report`` are copied line for
 line).  ``MetricsStream`` is the JSON-lines emitter the serving CLI
-streams through, one JSON object per line, without the reference's
-``append`` and ``header`` options, whose callers (run archives) are not
-ported.
+streams through and run archives write their health events with, one JSON
+object per line, without the reference's ``append`` option, which no port
+caller uses.
 """
 from __future__ import annotations
 
@@ -24,14 +24,18 @@ class MetricsStream:
     """Append one JSON object per line to a file or stdout, flushing each
     line so consumers see metrics live.
 
-    ``close`` only closes handles this stream opened — never stdout, even
-    if ``sys.stdout`` was rebound between open and close — and the stream
-    is a context manager."""
+    ``header=True`` prefixes the stream with one ``{"event": "schema",
+    "version": N}`` record (the JSONL schema version lives in
+    ``obs.export``).  ``close`` only closes handles this stream opened —
+    never stdout, even if ``sys.stdout`` was rebound between open and
+    close — and the stream is a context manager."""
 
-    def __init__(self, path: str = "-"):
+    def __init__(self, path: str = "-", header: bool = False):
         self.path = path
+        self.header = bool(header)
         self._fh: Optional[IO] = None
         self._owns = False          # True iff we opened (and must close) it
+        self._header_written = False
 
     def _handle(self) -> IO:
         if self._fh is None:
@@ -48,6 +52,11 @@ class MetricsStream:
 
     def emit(self, record: dict) -> None:
         fh = self._handle()
+        if self.header and not self._header_written:
+            self._header_written = True
+            from repro_torch.obs import JSONL_SCHEMA_VERSION
+            fh.write(json.dumps({"event": "schema",
+                                 "version": JSONL_SCHEMA_VERSION}) + "\n")
         fh.write(json.dumps(record) + "\n")
         fh.flush()
 

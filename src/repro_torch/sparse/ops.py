@@ -11,6 +11,12 @@ tensors (the reference's ``"pallas"`` backend), its plain version on the CPU
 
 Folds update the accumulators in place; every function here allocates the
 accumulators it folds into, so callers' tensors are never modified.
+
+``COUNTERS`` counts the folds the reference's ``accumulate`` and
+``packed_axpy`` count (mirrored into the ``sparse.ops`` counter set);
+``decode_tree``, which stands where the reference's barrier mix calls
+``unpack_tree``, counts as a tree unpack instead, so a run's counters equal
+the reference's.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import torch
 
 from repro_torch.core.gossip import _intersection_avg
 from repro_torch.kernels.packed_accum import packed_accum
+from repro_torch.obs import CounterSet, span
+from repro_torch.sparse import packed as _packed
 from repro_torch.sparse.packed import PackedSparse, is_packed
 from repro_torch.utils.tree import tree_map, tree_unzip
 
@@ -28,6 +36,11 @@ PyTree = Any
 #: accumulate instrumentation: calls == payload-leaf folds performed,
 #: values == nnz actually touched (reset with ``reset_counters``)
 COUNTERS = {"accum_calls": 0, "accum_values": 0}
+
+# mirror the dict into the process-wide registry (the gauges read it live)
+OBS = CounterSet("sparse.ops")
+OBS.gauge("accum_calls", fn=lambda: COUNTERS["accum_calls"])
+OBS.gauge("accum_values", fn=lambda: COUNTERS["accum_values"])
 
 
 def reset_counters() -> None:
@@ -46,15 +59,20 @@ def accumulate(num: torch.Tensor, den: torch.Tensor, ps: PackedSparse,
 
 def decode(ps: PackedSparse):
     """(w ⊙ m, m) of one payload in float32, by folding it into zero
-    accumulators."""
+    accumulators (not counted in ``COUNTERS``)."""
     num = torch.zeros(ps.shape, dtype=torch.float32, device=ps.values.device)
     den = torch.zeros(ps.shape, dtype=torch.float32, device=ps.values.device)
-    return accumulate(num, den, ps)
+    packed_accum(num.view(-1), den.view(-1), ps.bitmap, ps.values, 1.0)
+    return num, den
 
 
 def decode_tree(packed: PyTree):
-    """(params, masks) trees of one packed tree, each payload decoded once."""
-    return tree_unzip(tree_map(decode, packed, is_leaf=is_packed))
+    """(params, masks) trees of one packed tree, each payload decoded once
+    — one tree unpack (``sparse.packed/tree_unpacks``, a
+    ``codec.unpack_tree`` span)."""
+    with span("codec.unpack_tree", track="codec"):
+        _packed.OBS.counter("tree_unpacks").inc()
+        return tree_unzip(tree_map(decode, packed, is_leaf=is_packed))
 
 
 def packed_gossip_one(own_params: PyTree, own_mask: PyTree,

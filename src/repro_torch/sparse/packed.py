@@ -11,6 +11,11 @@ boundary (``words_to_numpy``/``words_from_numpy``).
 ``unpack(pack(w, m)) == w ⊙ m`` exactly: values are gathered, never
 re-quantized.  Packing has a data-dependent size, so it reads the nnz back
 from the device once per leaf.
+
+Tree packs and unpacks are counted in the ``sparse.packed`` counter set
+(``tree_packs``, ``tree_unpacks``) and traced as ``codec.pack_tree`` /
+``codec.unpack_tree`` spans, as in the reference; ``sparse.ops.decode_tree``,
+the barrier mix's unpack, counts as an unpack too.
 """
 from __future__ import annotations
 
@@ -20,9 +25,15 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs import CounterSet, span
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
+
+# message-boundary observability (pack/unpack happen per gossip payload)
+OBS = CounterSet("sparse.packed")
+_C_PACKS = OBS.counter("tree_packs")
+_C_UNPACKS = OBS.counter("tree_unpacks")
 
 BITS_PER_WORD = 32
 
@@ -132,13 +143,18 @@ def is_packed(x) -> bool:
 def pack_tree(params: PyTree, masks: Optional[PyTree] = None,
               dtype: Optional[torch.dtype] = None) -> PyTree:
     """Pack every leaf of a parameter tree (``masks=None`` -> dense)."""
-    if masks is None:
-        return tree_map(lambda w: pack(w, None, dtype), params)
-    return tree_map(lambda w, m: pack(w, m, dtype), params, masks)
+    with span("codec.pack_tree", track="codec"):
+        _C_PACKS.inc()
+        if masks is None:
+            return tree_map(lambda w: pack(w, None, dtype), params)
+        return tree_map(lambda w, m: pack(w, m, dtype), params, masks)
 
 
 def unpack_tree(packed: PyTree) -> PyTree:
-    return tree_map(unpack, packed, is_leaf=is_packed)
+    """Dense parameter tree from a packed one."""
+    with span("codec.unpack_tree", track="codec"):
+        _C_UNPACKS.inc()
+        return tree_map(unpack, packed, is_leaf=is_packed)
 
 
 def unpack_mask_tree(packed: PyTree, dtype=torch.float32) -> PyTree:
