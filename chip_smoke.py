@@ -163,12 +163,42 @@ line):
     (phase 7's arguments) untraced and with ``--run-dir --trace-mode
     full``: masked-matmul launches equal, the archive checked, its store
     rollup equal to its store counters;
-16. a ``{"kernels": [...]}`` line (``launches_strategies``: every kernel's
-    launches summed over phase 12's ten runs, its async run and its two
-    stacked runs; ``launches_serve_models``: over phase 13;
-    ``launches_lm``: over phase 14 (a) and (b); ``launches_obs``: over
-    phase 15's traced runs), then the last line
-    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+16. reduced precision, (b) right after phase 15 and the rest after phase
+    14: (a) phase 14 (b) again at bf16
+    (``ScalePlan.dtype``: params, caches and activations bf16, int8 masks),
+    counters zeroed just before and read just after: the train step, the
+    mask update (57 (bf16, int8) prune/regrow launches, each bit-equal to
+    plain), prefill and 16 decode steps within ``LM_DECODE_TOL_BF16`` of
+    teacher forcing, every figure printed beside phase 14's fp32 one; (b)
+    the prune/regrow kernel's other dtype pairs at K=4 rows of the largest
+    ResNet18-GN leaf, bit-equal and timed; the bf16 masked matmul over
+    the reference's sweep with fp32 and bf16 masks, each within one bf16
+    ulp of plain, the U=1 form at (128, 256, 128) and the batched one at
+    the serving MLP's middle layer timed against ``torch.bmm`` on
+    pre-masked bf16 weights, a mixed batch bit-equal to alone; (c)
+    ``pack_stacked(dtype=float16)`` of a ResNet18-GN K=4 state and
+    ``fold_stacked`` into zeros: one fp16 row-fold launch per leaf (62),
+    bit-equal to plain and to ``(fp16(w), m)`` (the fp16 row and flat
+    folds are timed in (b)); (d) phase 7's serving MLP (kernel backend)
+    from ``ModelStore(payload_dtype=np.float16)`` holding the CLI's users
+    and from the CLI's own fp32 store: ``bytes_at_rest`` the analytic
+    figure at 2 and 4 bytes a value, launches as predicted (3 x (batches
+    + 1) masked matmuls each; 3 fp16 flat folds per miss of the fp16
+    store), outputs within
+    ``SERVE_FP16_TOL`` of the fp32 store's, the fp16 pool equal to the fp32
+    pool rounded to fp16;
+17. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
+    dtypes in ``shape``).  Each row's launches are that entry's own, as
+    its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
+    U=1 rows ``LAUNCHES_U1_BY_ENTRY``): ``launches`` on the row's main
+    path and ``launches_<path>`` on each other counted path —
+    ``training`` (phase 4), ``scale_ordered`` and ``scale_state`` (phase
+    5), ``serve`` (7), ``sim_sync`` and ``sim_async`` (10, 11),
+    ``strategies`` (12: its ten runs, its async run and its two stacked
+    runs), ``serve_models`` (13), ``lm`` (14 (a) and (b)), ``obs`` (15's
+    traced runs) and ``precision`` (16 (a), (c) and (d)); then the last
+    line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+    "count": ...}}``.
 
 Exits non-zero, printing no result, without a CUDA GPU or without the
 repo's ``src/`` beside this file.
@@ -184,6 +214,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16, dense tensor cores
 BF16_REL_TOL = 2.0 ** -8        # one bf16 ulp, relative (expected: exact)
 MM_TOL = dict(atol=1e-5, rtol=1e-5)   # masked matmul vs torch.matmul (fp32 order)
 # vmap vs loop local phase on the card at ResNet18-GN width, where the loop
@@ -204,6 +235,10 @@ SERVE_MODEL_ARGS = ["--users", "4", "--density", "0.5", "--cache-size", "2",
 # abs difference (the tied-embedding logits reach ~190 at smoke width;
 # H100 80GB HBM3, 700 W: 4.58e-5 at most)
 SERVE_CPU_TOL = 1e-4
+# the MLP served from an fp16 store against the same users from an fp32
+# store, max abs difference relative to the outputs' scale: each weight
+# rounded to fp16 (2^-11 relative) through three layers
+SERVE_FP16_TOL = 2.0 ** -8
 FULL_WIDTH_ARCHS = ("gemma3-1b", "mamba2-1.3b")
 FULL_WIDTH_PROMPT = 2048
 LM_ARGS = ["lm", "--clients", "2", "--rounds", "2", "--steps", "4", "--seq",
@@ -213,8 +248,11 @@ LM_ARGS = ["lm", "--clients", "2", "--rounds", "2", "--steps", "4", "--seq",
 LM_CPU_RTOL = 1e-4
 LM_FULL_ARCH = "gemma3-1b"
 LM_FULL_CLIENTS, LM_FULL_SEQ, LM_FULL_DECODE = 2, 1024, 16
-# decoded logits against a teacher-forcing forward, relative to their scale
+# decoded logits against a teacher-forcing forward, relative to their scale;
+# at bf16 the two forwards round to bf16 after every op, in GEMMs of other
+# shapes: on an H100 the bf16 gemma3-1b reading is 4.0e-3, so 1e-2
 LM_DECODE_TOL = 1e-4
+LM_DECODE_TOL_BF16 = 1e-2
 # make obs-smoke's simulate arguments (Makefile), and the local and evolve
 # spans' totals against phase_s: each span opens and closes within
 # microseconds of its phase's clock (after the synchronise), on phases of
@@ -251,8 +289,10 @@ def cuda_ms(fn, iters=20, warmup=3):
 def device_ms(fn, iters=20):
     """Device time per call (the sum of every kernel the call launched),
     from a torch.profiler trace; None, with the reason printed, where the
-    profiler records no device time.  ``cuda_ms`` above is the time per call
-    as the caller sees it, host launch overhead included."""
+    profiler records no device time or records a call's kernels fewer than
+    ``iters`` times (late in a long run it has been seen to keep only a
+    tenth of them).  ``cuda_ms`` above is the time per call as the caller
+    sees it, host launch overhead included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -267,6 +307,10 @@ def device_ms(fn, iters=20):
     total_us = sum(r[0] for r in rows)
     if total_us <= 0:
         log("  device time not measured: the profiler recorded no kernels")
+        return None
+    if max(r[1] for r in rows) < iters:
+        log(f"  device time not measured: the profiler recorded "
+            f"{max(r[1] for r in rows)} launches of {iters} calls")
         return None
     return total_us / 1e3 / iters
 
@@ -300,9 +344,9 @@ def device_rows(prof):
         return None
 
 
-def bound(nbytes, nflops):
+def bound(nbytes, nflops, flops_per_s=FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nflops / FP32_FLOPS_PER_S * 1e3
+    t_ops = nflops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -346,24 +390,30 @@ def gossip_host(torch, ga, dev, j, n, gen):
     return {"J": j, "N": n, "host_us": min(runs), "runs": runs}
 
 
-def prune_regrow_host(torch, pr, dev, k, n, gen):
+def prune_regrow_host(torch, pr, dev, k, n, gen, pair=None):
     """Host microseconds per prune/regrow call on K rows of a small leaf
     (the device's share negligible, as on most of the LM mask update's
-    leaves): the best of two timings."""
+    leaves), weights and masks of the dtypes ``pair`` (fp32 by default):
+    the best of two timings."""
+    wdt, mdt = pair or (torch.float32, torch.float32)
     m = (torch.rand((k, n), generator=gen, device=dev) < 0.5).float()
     w = torch.randn((k, n), generator=gen, device=dev) * m
     g = torch.randn((k, n), generator=gen, device=dev)
+    w, g, m = w.to(wdt), g.to(wdt), m.to(mdt)
     th = pr.sort_thresholds(w, g, m, n // 4, n // 8)
     runs = [host_us(lambda: pr.prune_regrow_rows(w, g, m, th))
             for _ in range(2)]
     return {"K": k, "N": n, "host_us": min(runs), "runs": runs}
 
 
-def check_fold(torch, pa, pack_bits, dev, n, alpha, gen):
+def check_fold(torch, pa, pack_bits, dev, n, alpha, gen, dtype=None):
+    """One payload folded into non-zero accumulators, values of ``dtype``
+    (fp32 by default, or fp16): kernel vs plain bit for bit, timed."""
     flags = torch.rand(n, generator=gen, device=dev) < 0.5
     words = pack_bits(flags)
     nnz = int(flags.sum())
-    values = torch.randn(nnz, generator=gen, device=dev)
+    values = torch.randn(nnz, generator=gen, device=dev).to(
+        dtype or torch.float32)
     num0 = torch.randn(n, generator=gen, device=dev)
     den0 = torch.rand(n, generator=gen, device=dev)
     got = pa.packed_accum(num0.clone(), den0.clone(), words, values, alpha)
@@ -379,20 +429,23 @@ def check_fold(torch, pa, pack_bits, dev, n, alpha, gen):
     ms_p = cuda_ms(lambda: pa.packed_accum_plain(num, den, words, values, alpha))
     host = host_us(lambda: pa.packed_accum(num, den, words, values, alpha), 300)
     # num, den read and written once, the bitmap and the nnz values read once
-    b_ms, b_by = bound(16 * n + 4 * words.numel() + 4 * nnz, 3 * n)
+    b_ms, b_by = bound(16 * n + 4 * words.numel()
+                       + values.element_size() * nnz, 3 * n)
     return {"N": n, "nnz": nnz, "alpha": alpha, "max_abs_err": err,
+            "dtype": str(values.dtype).replace("torch.", ""),
             "ms": ms_k, "device_ms": dev_k, "plain_ms": ms_p, "host_us": host,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_fold_rows(torch, pa, dev, k, n, alpha, gen):
+def check_fold_rows(torch, pa, dev, k, n, alpha, gen, dtype=None):
     """The stacked fold of K payloads packed as the scale path packs them
-    (``pack_stacked`` of masked rows at density 0.5), kernel vs plain, into
-    non-zero accumulators."""
+    (``pack_stacked`` of masked rows at density 0.5, values of ``dtype``:
+    the state's fp32, or fp16), kernel vs plain, into non-zero
+    accumulators."""
     from repro_torch.scale.stacked import pack_stacked
     m = (torch.rand((k, n), generator=gen, device=dev) < 0.5).float()
     w = torch.randn((k, n), generator=gen, device=dev) * m
-    sp = pack_stacked({"w": w}, {"w": m})["w"]
+    sp = pack_stacked({"w": w}, {"w": m}, dtype=dtype)["w"]
     num0 = torch.randn((k, n), generator=gen, device=dev)
     den0 = torch.rand((k, n), generator=gen, device=dev)
     args = (sp.bitmap, sp.values, sp.nnz, alpha)
@@ -411,31 +464,36 @@ def check_fold_rows(torch, pa, dev, k, n, alpha, gen):
     host = host_us(lambda: pa.packed_accum_rows(num, den, *args), 300)
     # num, den read and written once; the bitmaps and the held values read
     # once (padding excluded); nnz and the per-group offsets are negligible
-    b_ms, b_by = bound(16 * k * n + 4 * sp.bitmap.numel() + 4 * nnz,
-                       3 * k * n)
+    b_ms, b_by = bound(16 * k * n + 4 * sp.bitmap.numel()
+                       + sp.values.element_size() * nnz, 3 * k * n)
     return {"K": k, "N": n, "nnz": nnz, "alpha": alpha, "max_abs_err": err,
+            "dtype": str(sp.values.dtype).replace("torch.", ""),
             "ms": ms_k, "device_ms": dev_k, "plain_ms": ms_p, "host_us": host,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_prune_regrow(torch, pr, dev, k, n, gen):
+def check_prune_regrow(torch, pr, dev, k, n, gen, pair=None):
     """The prune/regrow apply on K rows at a round's counts (held density
-    0.5, prune rate 0.25), thresholds by ``sort_thresholds``: kernel vs
+    0.5, prune rate 0.25), weights and masks of the dtypes ``pair`` (fp32
+    and fp32 by default), thresholds by ``sort_thresholds``: kernel vs
     plain bit for bit, and the time of the two sorts beside it."""
+    wdt, mdt = pair or (torch.float32, torch.float32)
     m = (torch.rand((k, n), generator=gen, device=dev) < 0.5).float()
     w = torch.randn((k, n), generator=gen, device=dev) * m
     g = torch.randn((k, n), generator=gen, device=dev)
+    w, g, m = w.to(wdt), g.to(wdt), m.to(mdt)
     n_active = n // 2
     n_prune = math.ceil(0.25 * n_active)
     th = pr.sort_thresholds(w, g, m, n_active - n_prune, n_prune)
     got = pr.prune_regrow_rows(w, g, m, th)
     torch.cuda.synchronize()
     want = pr.prune_regrow_rows_plain(w, g, m, th)
-    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    if not (torch.equal(got[0], want[0]) and torch.equal(
-            got[1].view(torch.int32), want[1].view(torch.int32))):
-        raise AssertionError(f"prune_regrow K={k} N={n}: kernel != plain "
-                             f"(max abs err {err})")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    if not (torch.equal(_bits(torch, got[0]), _bits(torch, want[0]))
+            and torch.equal(_bits(torch, got[1]), _bits(torch, want[1]))):
+        raise AssertionError(f"prune_regrow K={k} N={n} {wdt}/{mdt}: kernel "
+                             f"!= plain (max abs err {err})")
     ms_k = cuda_ms(lambda: pr.prune_regrow_rows(w, g, m, th))
     dev_k = device_ms(lambda: pr.prune_regrow_rows(w, g, m, th))
     ms_p = cuda_ms(lambda: pr.prune_regrow_rows_plain(w, g, m, th))
@@ -443,8 +501,11 @@ def check_prune_regrow(torch, pr, dev, k, n, gen):
                                                  n_prune), iters=5)
     # w, g, m read once, new_m and new_w written once (the (K, 2)
     # thresholds are negligible); about eight comparisons a coordinate
-    b_ms, b_by = bound(20 * k * n, 8 * k * n)
+    b_ms, b_by = bound((3 * w.element_size() + 2 * m.element_size()) * k * n,
+                       8 * k * n)
     return {"K": k, "N": n, "max_abs_err": err, "ms": ms_k,
+            "dtype": "/".join(str(d).replace("torch.", "")
+                              for d in (wdt, mdt)),
             "device_ms": dev_k, "plain_ms": ms_p, "sort_ms": ms_sort,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -536,6 +597,42 @@ def check_mixed_vs_alone(torch, mmk, x, w, mask, users):
             raise AssertionError(f"masked_matmul: user {i} alone != mixed")
     torch.cuda.synchronize()
     return len(users)
+
+
+def check_masked_matmul_bf16(torch, mmk, x, w, mask, timed=False):
+    """The bf16 entries: bf16 ``x`` and ``w``, ``mask`` fp32 or bf16,
+    against the plain version within one bf16 ulp (``within_bf16_ulp``);
+    with ``timed``, the times of ``check_masked_matmul`` with ``torch.bmm``
+    on the pre-masked bf16 weights as the library call.  The bound counts
+    x, m and the live tiles' w read once and y written once, or
+    2*U*M*K*N*occ operations over the bf16 tensor-core peak."""
+    u, m, k = x.shape
+    n = w.shape[2]
+    got = mmk.batched_masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    want = mmk.batched_masked_matmul_plain(x, w, mask)
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    if got.dtype != torch.bfloat16 or not mmk.within_bf16_ulp(got, want):
+        raise AssertionError(f"bf16 masked_matmul U={u} M={m} K={k} N={n} "
+                             f"mask {mask.dtype}: kernel not within one bf16 "
+                             f"ulp of plain (max abs err {err})")
+    row = {"U": u, "M": m, "K": k, "N": n, "max_abs_err": err,
+           "dtype": f"bfloat16/{str(mask.dtype).replace('torch.', '')}"}
+    if timed:
+        occ = mmk.block_occupancy(mask, mmk.TILE_K, mmk.TILE_N)
+        wm = w * mask.to(w.dtype)
+        call = lambda: mmk.batched_masked_matmul(x, w, mask)  # noqa: E731
+        row.update(
+            occupancy=occ, ms=cuda_ms(call), device_ms=device_ms(call),
+            plain_ms=cuda_ms(
+                lambda: mmk.batched_masked_matmul_plain(x, w, mask)),
+            host_us=host_us(call), library_ms=cuda_ms(lambda: torch.bmm(x, wm)),
+            library_device_ms=device_ms(lambda: torch.bmm(x, wm)))
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * u * m * k + (mask.element_size() + 2 * occ) * u * k * n
+            + 2 * u * m * n, 2 * u * m * k * n * occ, BF16_FLOPS_PER_S)
+    return row
 
 
 def _ms(v):
@@ -673,6 +770,10 @@ def main() -> int:
     log(f"obs phase: {time.perf_counter() - t_obs:.1f} s; traced launches "
         f"{obs_launches}")
 
+    # 16 (b). the kernels' bf16 and fp16 entries against their plain
+    # versions, timed while the profiler still records every launch
+    prec = precision_kernels(torch, n_leaf)
+
     # 4. the training path through the CLI's entry functions
     args = train.build_parser().parse_args([
         "simulate", "--model", "resnet18", "--hw", "32", "--clients", "4",
@@ -681,11 +782,9 @@ def main() -> int:
     engine = train.build_engine(args)
     budget_check = BudgetCheck()
     engine.callbacks.append(budget_check)
-    for c in counters:
-        c.LAUNCHES = 0
+    _zero(counters)
     out = train.run_engine(args, engine)
-    launches = {"gossip_avg": ga.LAUNCHES, "packed_accum": pa.LAUNCHES,
-                "masked_matmul": mmk.LAUNCHES}
+    launches = _launches(counters)
     log(f"training path launches: {launches}")
     if min(launches["gossip_avg"], launches["packed_accum"]) < 1:
         raise AssertionError(f"a kernel of the training path never ran: "
@@ -721,7 +820,8 @@ def main() -> int:
     # 5. the stacked path through the CLI's entry functions, then both
     # stacked kernels on the engine's own state
     scale_runs = scale_path(torch, train, counters, out)
-    scale_launches = scale_state_kernels(torch, scale_runs["ordered"][0])
+    scale_launches = scale_state_kernels(torch, scale_runs["ordered"][0],
+                                         counters)
     profile_round(torch, train, train.build_parser().parse_args(
         SCALE_ARGS + ["--scale-reduction", "ordered"]))
 
@@ -774,112 +874,105 @@ def main() -> int:
     # 14. LM training: the lm CLI on every decoder smoke arch, then the
     # step builders at gemma3-1b's published width
     t_lm = time.perf_counter()
-    lm_launches = lm_path(torch, counters)
+    lm_launches, lm_fp32 = lm_path(torch, counters)
     log(f"lm phase: {time.perf_counter() - t_lm:.1f} s; launches "
         f"{lm_launches}")
 
+    # 16 (a), (c), (d). reduced precision: gemma3-1b at bf16 beside phase
+    # 14's fp32, fp16 stacked payloads, an fp16 store
+    t_prec = time.perf_counter()
+    prec.update(precision_path(torch, counters, lm_fp32))
+    log(f"precision phase: {time.perf_counter() - t_prec:.1f} s")
+
+    # every row's launches are its own C entry's (the U=1 rows the U=1
+    # wrapper's), as the wrappers counted them on each path: ``launches`` on
+    # the row's main path, ``launches_<path>`` on every other counted path
+    paths = {"training": launches, "scale_ordered": scale_runs["ordered"][2],
+             "scale_state": scale_launches, "serve": serve_launches,
+             "sim_sync": sync_launches, "sim_async": async_launches,
+             "strategies": strat_launches, "serve_models": models_launches,
+             "lm": lm_launches, "obs": obs_launches,
+             "precision": prec["launches"]}
+
+    def row(name, source, replaces, entry, main, shape, r):
+        timed = {key: r[key] for key in (
+            "ms", "device_ms", "plain_ms", "host_us", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "sort_ms") if key in r}
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces, "entry": entry,
+                "launches": paths[main][entry],
+                **{f"launches_{p}": la[entry] for p, la in paths.items()
+                   if p != main},
+                "shape": shape, "max_abs_err": r["max_abs_err"],
+                "library_ms": None, **timed}
+
     kernels = [
-        {"name": "gossip_avg", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/gossip_avg.cu",
-         "replaces": "src/repro/kernels/gossip_avg.py:37",
-         "launches": launches["gossip_avg"],
-         "launches_scale_ordered": scale_runs["ordered"][2]["gossip_avg"],
-         "launches_sim_sync": sync_launches["gossip_avg"],
-         "launches_sim_async": async_launches["gossip_avg"],
-         "launches_strategies": strat_launches["gossip_avg"],
-         "launches_serve_models": models_launches["gossip_avg"],
-         "launches_lm": lm_launches["gossip_avg"],
-         "launches_obs": obs_launches["gossip_avg"],
-         "shape": f"J=4 N={n_leaf} float32",
-         "max_abs_err": max(r["max_abs_err"] for r in gossip_rows),
-         "ms": gossip_rows[0]["ms"], "device_ms": gossip_rows[0]["device_ms"],
-         "plain_ms": gossip_rows[0]["plain_ms"],
-         "bound_ms": gossip_rows[0]["bound_ms"],
-         "host_us": g_host["host_us"],
-         "bound_by": gossip_rows[0]["bound_by"], "library_ms": None},
-        {"name": "packed_accum", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/packed_accum.cu",
-         "replaces": "src/repro/kernels/packed_accum.py:63",
-         "launches": launches["packed_accum"],
-         "launches_sim_sync": sync_launches["packed_accum"],
-         "launches_sim_async": async_launches["packed_accum"],
-         "launches_strategies": strat_launches["packed_accum"],
-         "launches_serve_models": models_launches["packed_accum"],
-         "launches_lm": lm_launches["packed_accum"],
-         "launches_obs": obs_launches["packed_accum"],
-         "shape": f"N={n_leaf} density 0.5 alpha 1",
-         "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
-         "ms": fold_rows[0]["ms"], "device_ms": fold_rows[0]["device_ms"],
-         "plain_ms": fold_rows[0]["plain_ms"],
-         "host_us": fold_rows[0]["host_us"],
-         "bound_ms": fold_rows[0]["bound_ms"],
-         "bound_by": fold_rows[0]["bound_by"], "library_ms": None,
-         "library_device_ms": None},
-        {"name": "packed_accum_rows", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/packed_accum.cu",
-         "replaces": "src/repro/kernels/packed_accum.py:105",
-         "launches": scale_launches["packed_accum_rows"],
-         "launches_strategies": strat_launches["packed_accum_rows"],
-         "launches_serve_models": models_launches["packed_accum_rows"],
-         "launches_lm": lm_launches["packed_accum_rows"],
-         "launches_obs": obs_launches["packed_accum_rows"],
-         "shape": f"K=4 N={n_leaf} density 0.5 alpha 1",
-         "max_abs_err": max(r["max_abs_err"] for r in rows_rows),
-         "ms": rows_rows[0]["ms"], "device_ms": rows_rows[0]["device_ms"],
-         "plain_ms": rows_rows[0]["plain_ms"],
-         "host_us": rows_rows[0]["host_us"],
-         "bound_ms": rows_rows[0]["bound_ms"],
-         "bound_by": rows_rows[0]["bound_by"], "library_ms": None,
-         "library_device_ms": None},
-        {"name": "prune_regrow", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/prune_regrow.cu",
-         "replaces": "src/repro/kernels/prune_regrow.py:44",
-         "launches": scale_launches["prune_regrow"],
-         "launches_strategies": strat_launches["prune_regrow"],
-         "launches_serve_models": models_launches["prune_regrow"],
-         "launches_lm": lm_launches["prune_regrow"],
-         "launches_obs": obs_launches["prune_regrow"],
-         "shape": f"K=4 N={n_leaf} float32",
-         "max_abs_err": max(r["max_abs_err"] for r in pr_rows),
-         "ms": pr_rows[0]["ms"], "device_ms": pr_rows[0]["device_ms"],
-         "plain_ms": pr_rows[0]["plain_ms"], "sort_ms": pr_rows[0]["sort_ms"],
-         "host_us": pr_host["host_us"],
-         "bound_ms": pr_rows[0]["bound_ms"],
-         "bound_by": pr_rows[0]["bound_by"], "library_ms": None},
-        {"name": "masked_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
-         "replaces": "src/repro/kernels/masked_matmul.py:131",
-         "launches": serve_launches["masked_matmul"],
-         "launches_strategies": strat_launches["masked_matmul"],
-         "launches_serve_models": models_launches["masked_matmul"],
-         "launches_lm": lm_launches["masked_matmul"],
-         "launches_obs": obs_launches["masked_matmul"],
-         "shape": f"U={mm['U']} M={mm['M']} K={mm['K']} N={mm['N']} "
-                  f"density 0.5 float32",
-         "max_abs_err": max(r["max_abs_err"] for rows in mm_rows.values()
-                            for r in rows),
-         "ms": mm["ms"], "device_ms": mm["device_ms"],
-         "plain_ms": mm["plain_ms"], "host_us": mm["host_us"],
-         "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
-         "library_ms": mm["library_ms"],
-         "library_device_ms": mm["library_device_ms"]},
-        {"name": "masked_matmul_u1", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
-         "replaces": "src/repro/kernels/masked_matmul.py:64",
-         "launches": serve_launches["masked_matmul_u1"],
-         "launches_strategies": strat_launches["masked_matmul_u1"],
-         "launches_serve_models": models_launches["masked_matmul_u1"],
-         "launches_lm": lm_launches["masked_matmul_u1"],
-         "launches_obs": obs_launches["masked_matmul_u1"],
-         "shape": f"M={mm1['M']} K={mm1['K']} N={mm1['N']} density 0.2 "
-                  f"float32",
-         "max_abs_err": mm1["max_abs_err"],
-         "ms": mm1["ms"], "device_ms": mm1["device_ms"],
-         "plain_ms": mm1["plain_ms"], "host_us": mm1["host_us"],
-         "bound_ms": mm1["bound_ms"], "bound_by": mm1["bound_by"],
-         "library_ms": mm1["library_ms"],
-         "library_device_ms": mm1["library_device_ms"]},
+        row("gossip_avg", "gossip_avg.cu", "src/repro/kernels/gossip_avg.py:37",
+            "gossip_avg_f32", "training", f"J=4 N={n_leaf} float32",
+            {**gossip_rows[0], "host_us": g_host["host_us"], "max_abs_err": max(
+                r["max_abs_err"] for r in gossip_rows)}),
+        row("packed_accum", "packed_accum.cu",
+            "src/repro/kernels/packed_accum.py:63", "packed_accum_f32",
+            "training", f"N={n_leaf} density 0.5 alpha 1 float32",
+            {**fold_rows[0], "library_device_ms": None, "max_abs_err": max(
+                r["max_abs_err"] for r in fold_rows)}),
+        row("packed_accum_f16", "packed_accum.cu",
+            "src/repro/kernels/packed_accum.py:63", "packed_accum_f16",
+            "precision", f"N={n_leaf} density 0.5 alpha 1 float16",
+            {**prec["fold_f16"], "library_device_ms": None}),
+        row("packed_accum_rows", "packed_accum.cu",
+            "src/repro/kernels/packed_accum.py:105", "packed_accum_rows_f32",
+            "scale_state", f"K=4 N={n_leaf} density 0.5 alpha 1 float32",
+            {**rows_rows[0], "library_device_ms": None, "max_abs_err": max(
+                r["max_abs_err"] for r in rows_rows)}),
+        row("packed_accum_rows_f16", "packed_accum.cu",
+            "src/repro/kernels/packed_accum.py:105", "packed_accum_rows_f16",
+            "precision", f"K=4 N={n_leaf} density 0.5 alpha 1 float16",
+            {**prec["rows_f16"], "library_device_ms": None}),
+        row("prune_regrow", "prune_regrow.cu",
+            "src/repro/kernels/prune_regrow.py:44", "prune_regrow_rows_f32",
+            "scale_state", f"K=4 N={n_leaf} float32/float32",
+            {**pr_rows[0], "host_us": pr_host["host_us"], "max_abs_err": max(
+                r["max_abs_err"] for r in pr_rows)}),
     ]
+    for name, pair, entry, main in (
+            ("prune_regrow_f32_i8", (torch.float32, torch.int8),
+             "prune_regrow_rows_f32_i8", "lm"),
+            ("prune_regrow_bf16_i8", (torch.bfloat16, torch.int8),
+             "prune_regrow_rows_bf16_i8", "precision"),
+            ("prune_regrow_bf16", (torch.bfloat16, torch.bfloat16),
+             "prune_regrow_rows_bf16", "precision")):
+        r = prec["pr"][pair]
+        kernels.append(row(name, "prune_regrow.cu",
+                           "src/repro/kernels/prune_regrow.py:44", entry, main,
+                           f"K=4 N={n_leaf} {r['dtype']}", r))
+    kernels += [
+        row("masked_matmul", "masked_matmul.cu",
+            "src/repro/kernels/masked_matmul.py:131",
+            "batched_masked_matmul_f32", "serve",
+            f"U={mm['U']} M={mm['M']} K={mm['K']} N={mm['N']} density 0.5 "
+            f"float32", {**mm, "max_abs_err": max(
+                r["max_abs_err"] for rows in mm_rows.values() for r in rows)}),
+        row("masked_matmul_u1", "masked_matmul.cu",
+            "src/repro/kernels/masked_matmul.py:64",
+            "batched_masked_matmul_f32_u1", "serve",
+            f"M={mm1['M']} K={mm1['K']} N={mm1['N']} density 0.2 float32",
+            mm1),
+    ]
+    for name, r, entry, replaces in (
+            ("masked_matmul_bf16", prec["mm"], "batched_masked_matmul_bf16",
+             "src/repro/kernels/masked_matmul.py:131"),
+            ("masked_matmul_bf16_mbf16", prec["mm_mbf16"],
+             "batched_masked_matmul_bf16_mbf16",
+             "src/repro/kernels/masked_matmul.py:131"),
+            ("masked_matmul_u1_bf16", prec["mm_u1"],
+             "batched_masked_matmul_bf16_u1",
+             "src/repro/kernels/masked_matmul.py:64")):
+        kernels.append(row(
+            name, "masked_matmul.cu", replaces, entry, "precision",
+            f"U={r['U']} M={r['M']} K={r['K']} N={r['N']} {r['dtype']}",
+            {**r, "max_abs_err": prec["mm_err"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -897,9 +990,6 @@ def scale_path(torch, train, counters, loop_out):
     per reduction, launch counters zeroed just before each run and read
     just after; then both stacked kernels on the ordered run's own state.
     Returns the runs' summaries and launches and the kernels' rows."""
-    from repro_torch.kernels import gossip_avg as ga
-    from repro_torch.kernels import packed_accum as pa
-    from repro_torch.kernels import prune_regrow as pr
     runs = {}
     for reduction in ("ordered", "einsum"):
         args = train.build_parser().parse_args(
@@ -907,19 +997,14 @@ def scale_path(torch, train, counters, loop_out):
         engine = train.build_engine(args)
         budget_check = BudgetCheck()
         engine.callbacks.append(budget_check)
-        for c in counters:
-            c.LAUNCHES = 0
-        pa.LAUNCHES_ROWS = 0
+        _zero(counters)
         out = train.run_engine(args, engine)
-        launches = {"gossip_avg": ga.LAUNCHES, "packed_accum": pa.LAUNCHES,
-                    "packed_accum_rows": pa.LAUNCHES_ROWS,
-                    "prune_regrow": pr.LAUNCHES}
+        launches = _launches(counters)
         log(f"scale --scale-reduction {reduction} launches: {launches}")
-        want_gossip = (ga.LAUNCHES >= 1) if reduction == "ordered" else (
-            ga.LAUNCHES == 0)
-        if not want_gossip:
+        gossips = launches["gossip_avg"]
+        if not (gossips >= 1 if reduction == "ordered" else gossips == 0):
             raise AssertionError(f"{reduction}: gossip kernel launches "
-                                 f"{ga.LAUNCHES}")
+                                 f"{gossips}")
         if budget_check.rounds_checked != args.rounds:
             raise AssertionError("the ERK budget check did not run every round")
         accs = out["acc_history"] + [out["final_acc"]]
@@ -938,12 +1023,10 @@ def scale_path(torch, train, counters, loop_out):
     return runs
 
 
-def scale_state_kernels(torch, engine):
+def scale_state_kernels(torch, engine, counters):
     """Phase 5 (c): the stacked fold and the threshold prune/regrow on the
     engine's own state after its rounds, counters zeroed just before and
-    read just after each; returns their launches."""
-    from repro_torch.kernels import packed_accum as pa
-    from repro_torch.kernels import prune_regrow as pr
+    read just after each; returns their launches, summed."""
     from repro_torch.scale.stacked import (
         default_threshold_sparsifiable,
         fold_stacked,
@@ -956,10 +1039,11 @@ def scale_state_kernels(torch, engine):
     leaves = tree_leaves(params)
     packed = pack_stacked(params, masks)
     zeros = lambda: tree_map(torch.zeros_like, params)  # noqa: E731
-    pa.LAUNCHES_ROWS = 0
+    _zero(counters)
     num, den = fold_stacked(zeros(), zeros(), packed)
     torch.cuda.synchronize()
-    fold_launches = pa.LAUNCHES_ROWS
+    fold = _launches(counters)
+    fold_launches = fold["packed_accum_rows"]
     for a, b, w, m in zip(tree_leaves(num), tree_leaves(den), leaves,
                           tree_leaves(masks)):
         if not (torch.equal(a, w * m) and torch.equal(b, m)):
@@ -975,11 +1059,12 @@ def scale_state_kernels(torch, engine):
     grads = stacked_grads(engine.task.apply_fn, params,
                           *engine._evolve_batches(ctx))
     density = engine.cfg.density
-    pr.LAUNCHES = 0
+    _zero(counters)
     new_m, new_w = stacked_prune_regrow_threshold(
         params, masks, grads, ctx.prune_rate, density)
     torch.cuda.synchronize()
-    pr_launches = pr.LAUNCHES
+    prune = _launches(counters)
+    pr_launches = prune["prune_regrow"]
     n_sparse = sum(default_threshold_sparsifiable(w) for w in leaves)
     if pr_launches != n_sparse:
         raise AssertionError(f"prune_regrow launched {pr_launches} times for "
@@ -1005,7 +1090,7 @@ def scale_state_kernels(torch, engine):
         f"max |drift| {max((abs(d) for d in drift), default=0)} over "
         f"{len(drift)}, prune "
         f"rate {ctx.prune_rate}")
-    return {"packed_accum_rows": fold_launches, "prune_regrow": pr_launches}
+    return _sum_launches([fold, prune])
 
 
 RESNET_ARGS = ["simulate", "--model", "resnet18", "--hw", "32", "--clients",
@@ -1021,24 +1106,51 @@ ASYNC_ARGS = ["--sim", "--async", "--staleness", "2", "--compute-hetero",
 
 
 def _zero(counters):
-    """Every launch count to 0, the stacked fold's ``LAUNCHES_ROWS`` and the
-    U=1 masked matmul's ``LAUNCHES_U1`` too."""
+    """Every launch count to 0: each kernel's, the stacked fold's
+    ``LAUNCHES_ROWS``, the U=1 masked matmul's ``LAUNCHES_U1`` and each C
+    entry's (``LAUNCHES_BY_ENTRY``, ``LAUNCHES_U1_BY_ENTRY``)."""
     for c in counters:
         c.LAUNCHES = 0
         for extra in ("LAUNCHES_ROWS", "LAUNCHES_U1"):
             if hasattr(c, extra):
                 setattr(c, extra, 0)
+        for table in ("LAUNCHES_BY_ENTRY", "LAUNCHES_U1_BY_ENTRY"):
+            counts = getattr(c, table, {})
+            for entry in counts:
+                counts[entry] = 0
+
+
+# the per-kernel keys of ``_launches``; the others are its C entries'
+KERNEL_TOTALS = ("gossip_avg", "packed_accum", "masked_matmul",
+                 "prune_regrow", "packed_accum_rows", "masked_matmul_u1")
 
 
 def _launches(counters):
-    """Each kernel's launches since ``_zero``, the stacked fold's
-    (``packed_accum_rows``) apart from the flat fold's."""
+    """Launches since ``_zero``: each kernel's (``KERNEL_TOTALS``: the
+    stacked fold's ``packed_accum_rows`` apart from the flat fold's, the
+    U=1 matmul's ``masked_matmul_u1`` among the masked matmul's), then
+    each C entry's under its name (the U=1 wrapper's as ``<entry>_u1``),
+    as each wrapper counted them where it launched."""
     out = {c.__name__.rsplit(".", 1)[-1]: c.LAUNCHES for c in counters}
     out.update({c.__name__.rsplit(".", 1)[-1] + "_rows": c.LAUNCHES_ROWS
                 for c in counters if hasattr(c, "LAUNCHES_ROWS")})
     out.update({c.__name__.rsplit(".", 1)[-1] + "_u1": c.LAUNCHES_U1
                 for c in counters if hasattr(c, "LAUNCHES_U1")})
+    for c in counters:
+        out.update(c.LAUNCHES_BY_ENTRY)
+        out.update({f"{entry}_u1": n for entry, n in
+                    getattr(c, "LAUNCHES_U1_BY_ENTRY", {}).items()})
     return out
+
+
+def _totals(launches):
+    """The per-kernel counts of a ``_launches`` dict."""
+    return {k: launches[k] for k in KERNEL_TOTALS}
+
+
+def _sum_launches(runs):
+    """``_launches`` dicts summed key by key."""
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
 def _tensors(torch, tree):
@@ -1336,10 +1448,10 @@ def strategy_path(torch, train, counters, n_leaves):
         out = train.run_engine(args, engine)
         launches = _launches(counters)
         sel = getattr(engine.strategy, "n_sel", 0)
-        want = {k: 0 for k in launches}
+        want = {k: 0 for k in KERNEL_TOTALS}
         if name == "subfedavg":
             want["gossip_avg"] = args.rounds * sel * n_leaves
-        if launches != want:
+        if _totals(launches) != want:
             raise AssertionError(f"{name}: launches {launches}, expected "
                                  f"{want}")
         accs = out["acc_history"] + [out["final_acc"]]
@@ -1387,8 +1499,8 @@ def strategy_async_dpsgd(torch, train, counters, n_leaves):
     launches = _launches(counters)
     folds = sparse_ops.COUNTERS["accum_calls"]
     mixed = engine.mixed_messages
-    want = {**{k: 0 for k in launches}, "packed_accum": mixed * n_leaves}
-    if not (launches == want and folds == mixed * n_leaves > 0):
+    want = {**{k: 0 for k in KERNEL_TOTALS}, "packed_accum": mixed * n_leaves}
+    if not (_totals(launches) == want and folds == mixed * n_leaves > 0):
         raise AssertionError(f"async dpsgd: launches {launches}, folds "
                              f"{folds}, mixed messages {mixed}")
     accs = out["acc_history"] + [out["final_acc"]]
@@ -1753,7 +1865,7 @@ def serve_models_path(torch, counters):
             for name in ["smallcnn"] + sorted(SMOKE_ARCHS)]
     runs += [serve_full_width(torch, counters, ARCHS[name])
              for name in FULL_WIDTH_ARCHS]
-    return {k: sum(r[k] for r in runs) for k in runs[0]}
+    return _sum_launches(runs)
 
 
 def profile_serve(torch):
@@ -1906,13 +2018,14 @@ def lm_smoke_run(torch, counters, name):
 
 
 def _lm_full_state(torch, api, plan, gen):
-    """K clients' params drawn on the card, stacked, and int8 masks: each
-    coordinate of a sparsifiable leaf held with probability 0.5 (the
-    reference's step tests), the other leaves dense; params masked."""
+    """K clients' params of ``plan.dtype`` drawn on the card, stacked, and
+    int8 masks: each coordinate of a sparsifiable leaf held with
+    probability 0.5 (the reference's step tests), the other leaves dense;
+    params masked."""
     from repro_torch.scale.stacked import default_threshold_sparsifiable
     from repro_torch.utils.tree import tree_map
 
-    clients = [api.init(gen) for _ in range(plan.n_clients)]
+    clients = [api.init(gen, plan.dtype) for _ in range(plan.n_clients)]
     params = tree_map(lambda *xs: torch.stack(xs), *clients)
     del clients
 
@@ -1930,10 +2043,18 @@ def _events_ms(pairs):
     return sum(a.elapsed_time(b) for a, b in pairs)
 
 
-def lm_full_width(torch, counters, pr):
-    """Phase 14 (b): the step builders at gemma3-1b's published width, K=2
-    clients of one 1024-token row.  Returns the launches of the counted
-    run (train step, mask update, prefill, 16 decode steps)."""
+def _bits(torch, t):
+    """``t``'s bit patterns as integers of its width (so -0.0 != +0.0)."""
+    return t.view({4: torch.int32, 2: torch.int16,
+                   1: torch.int8}[t.element_size()])
+
+
+def lm_full_width(torch, counters, pr, dtype=None):
+    """Phase 14 (b), and at ``dtype=torch.bfloat16`` phase 16 (a): the
+    step builders at gemma3-1b's published width, K=2 clients of one
+    1024-token row, params, caches and activations of ``dtype`` (fp32 by
+    default), int8 masks.  Returns the launches of the counted run (train
+    step, mask update, prefill, 16 decode steps) and the stage figures."""
     import gc
 
     from torch.profiler import ProfilerActivity, profile
@@ -1945,10 +2066,13 @@ def lm_full_width(torch, counters, pr):
     from repro_torch.models import lm as lm_mod
     from repro_torch.utils.tree import tree_leaves, tree_map
 
+    dtype = dtype or torch.float32
+    dname = str(dtype).replace("torch.", "")
     cfg = ARCHS[LM_FULL_ARCH]
     k, s, n_dec = LM_FULL_CLIENTS, LM_FULL_SEQ, LM_FULL_DECODE
     api = bind(cfg)
-    plan = steps.ScalePlan(cfg, InputShape("lm_full", s, k, "train"), k, 1)
+    plan = steps.ScalePlan(cfg, InputShape("lm_full", s, k, "train"), k, 1,
+                           dtype)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()       # by earlier phases
@@ -1964,8 +2088,8 @@ def lm_full_width(torch, counters, pr):
     sparse = sum(1 for x in tree_leaves(params)
                  if stacked.default_threshold_sparsifiable(x))
     torch.cuda.synchronize()
-    log(f"lm full width {cfg.name}: {n_params} parameters a client, K={k}, "
-        f"{sparse} sparsifiable leaves, state built in "
+    log(f"lm full width {cfg.name} {dname}: {n_params} parameters a client, "
+        f"K={k}, {sparse} sparsifiable leaves, state built in "
         f"{time.perf_counter() - t0:.2f} s")
     train_step = steps.make_train_step(api, plan, "einsum")
     mask_update = steps.make_mask_update_step(api, plan, density=0.5)
@@ -2009,9 +2133,10 @@ def lm_full_width(torch, counters, pr):
         want_m, want_w = pr.prune_regrow_rows_plain(w, g, m, th)
         n_active = max(1, int(round(0.5 * w.shape[1])))
         checks.append((tuple(w.shape), torch.equal(new_m, want_m)
-                       and torch.equal(new_w.view(torch.int32),
-                                       want_w.view(torch.int32)),
-                       int((new_m.sum(1) - n_active).abs().max())))
+                       and torch.equal(_bits(torch, new_w),
+                                       _bits(torch, want_w)),
+                       int((new_m.sum(1) - n_active).abs().max()),
+                       (w.dtype, m.dtype)))
         del want_m, want_w
         return new_m, new_w
 
@@ -2021,16 +2146,18 @@ def lm_full_width(torch, counters, pr):
     finally:
         stacked.prune_regrow_rows = orig
     bad = [c for c in checks if not c[1]]
-    if bad or len(checks) != sparse:
+    pairs = {c[3] for c in checks}
+    if bad or len(checks) != sparse or pairs != {(dtype, torch.int8)}:
         raise AssertionError(f"lm full width: prune_regrow {len(checks)} "
-                             f"launches for {sparse} sparsifiable leaves; "
-                             f"not bit-equal to plain: {bad}")
+                             f"launches for {sparse} sparsifiable leaves, "
+                             f"dtype pairs {pairs}; not bit-equal to plain: "
+                             f"{bad}")
     excess = max(c[2] for c in checks)
     stage_peak("mask update (with the plain checks)")
 
     fresh_cache = lambda: tree_map(  # noqa: E731
         lambda t: torch.stack([t] * k),
-        api.init_cache(1, s + n_dec, device="cuda"))
+        api.init_cache(1, s + n_dec, dtype, device="cuda"))
     cache = fresh_cache()
     a, b = ev(), ev()
     a.record()
@@ -2053,7 +2180,7 @@ def lm_full_width(torch, counters, pr):
     stage_peak("prefill and decode")
     launches = _launches(counters)
     if launches["prune_regrow"] != sparse or any(
-            v for key, v in launches.items() if key != "prune_regrow"):
+            v for key, v in _totals(launches).items() if key != "prune_regrow"):
         raise AssertionError(f"lm full width launches {launches}, "
                              f"{sparse} sparsifiable leaves")
 
@@ -2081,12 +2208,14 @@ def lm_full_width(torch, counters, pr):
             lambda p, t: lm_mod.forward_train(p, t, cfg)[0])(params, seq)
     want = full[:, :, s - 1:]
     got = torch.stack(dec_logits, 2)
-    scale = float(want.abs().max())
-    err = float((got - want).abs().max())
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
     del full, want, got
-    if err > LM_DECODE_TOL * scale:
-        raise AssertionError(f"lm full width: decoded logits differ from "
-                             f"teacher forcing by {err} (scale {scale})")
+    tol = LM_DECODE_TOL if dtype == torch.float32 else LM_DECODE_TOL_BF16
+    if err > tol * scale:
+        raise AssertionError(f"lm full width {dname}: decoded logits differ "
+                             f"from teacher forcing by {err} (scale {scale}, "
+                             f"tolerance {tol} of it)")
     stage_peak("teacher forcing")
 
     # measurements (not counted): a warm train step, a timed mask update
@@ -2141,7 +2270,7 @@ def lm_full_width(torch, counters, pr):
         dwall = time.perf_counter() - t0
     del cache
     tokens = k * s
-    log(f"lm full width {cfg.name}: train step {train_ms:.3f} ms warm "
+    log(f"lm full width {cfg.name} {dname}: train step {train_ms:.3f} ms warm "
         f"({train_ms_cold:.3f} ms first), {tokens / (train_ms / 1e3):.1f} "
         f"tokens/s, losses {losses.tolist()}; mask update {update_ms:.3f} "
         f"ms, of which the torch.sort thresholds {sort_ms:.3f} ms "
@@ -2155,12 +2284,14 @@ def lm_full_width(torch, counters, pr):
         f"before); by stage, peak (held after): " + ", ".join(
             f"{name} {v[0] / 2 ** 30:.2f} ({v[1] / 2 ** 30:.2f}) GiB"
             for name, v in peaks.items()))
+    busy = {}
     for what, p, w in (("train step", prof, wall),
                        ("decode step", dprof, dwall)):
         rows = device_rows(p)
         if rows is None:
             continue
         busy_s = sum(r[0] for r in rows) / 1e6
+        busy[what] = busy_s / w
         log(f"  profiled {what}: wall {w:.4f} s (profiler on), device busy "
             f"{busy_s:.4f} s ({100 * busy_s / w:.1f}%), "
             f"{sum(r[1] for r in rows)} device events")
@@ -2169,21 +2300,284 @@ def lm_full_width(torch, counters, pr):
     del params, masks, batch, prof, dprof, losses
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    figures = {"train step ms": train_ms, "tokens/s": tokens / (train_ms / 1e3),
+               "train busy": busy.get("train step"),
+               "mask update ms": update_ms, "sorts' share": sort_ms / update_ms,
+               "prefill ms": prefill_ms, "decode ms/token": decode_ms,
+               "decode busy": busy.get("decode step"),
+               "decode err/scale": err / scale,
+               "peak GiB": peak / 2 ** 30}
+    figures.update({f"peak {name} GiB": v[0] / 2 ** 30
+                    for name, v in peaks.items()})
+    return launches, figures
 
 
 def lm_path(torch, counters):
     """Phase 14: ``train lm`` on every decoder smoke arch, then the step
     builders at full width.  Returns every kernel's launches summed over
-    the counted runs."""
+    the counted runs, and the full-width run's figures."""
     from repro_torch.configs import SMOKE_ARCHS
     from repro_torch.kernels import prune_regrow as pr
 
     runs = [lm_smoke_run(torch, counters, name)
             for name in sorted(SMOKE_ARCHS)
             if SMOKE_ARCHS[name].enc_layers == 0]
-    runs.append(lm_full_width(torch, counters, pr))
-    return {key: sum(r[key] for r in runs) for key in runs[0]}
+    full, figures = lm_full_width(torch, counters, pr)
+    runs.append(full)
+    return _sum_launches(runs), figures
+
+
+def _compare_lm(fp32, bf16):
+    """Phase 16 (a)'s figures beside phase 14's, one line a figure."""
+    for key, v in fp32.items():
+        w = bf16.get(key)
+        if v is None or w is None:
+            log(f"  {key}: fp32 {v}, bf16 {w}")
+            continue
+        log(f"  {key}: fp32 {v:.6g}, bf16 {w:.6g} (bf16/fp32 {w / v:.4f})"
+            if v else f"  {key}: fp32 {v}, bf16 {w}")
+
+
+def precision_kernels(torch, n_leaf):
+    """Phase 16 (b), run right after phase 15 (while the profiler still
+    records every launch): the prune/regrow kernel's other dtype pairs at
+    K=4 rows of the largest ResNet18-GN leaf, bit-equal to plain and timed;
+    the bf16 masked matmul over the reference's sweep with fp32 and bf16
+    masks, each within one bf16 ulp of plain, its U=1 form at (128, 256,
+    128) and the batched one at the serving MLP's middle layer timed
+    against ``torch.bmm`` on pre-masked bf16 weights, a mixed batch
+    bit-equal to alone; the fp16 row fold and flat fold timed.  Returns
+    the rows."""
+    from repro_torch.kernels import masked_matmul as mmk
+    from repro_torch.kernels import packed_accum as pa
+    from repro_torch.kernels import prune_regrow as pr
+    from repro_torch.sparse.packed import pack_bits
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf16 = torch.bfloat16
+    out = {"pr": {pair: check_prune_regrow(torch, pr, dev, 4, n_leaf, gen,
+                                           pair)
+                  for pair in pr.PAIRS if pair != (torch.float32,) * 2}}
+    for pair, r in out["pr"].items():
+        r["host_us"] = prune_regrow_host(torch, pr, dev, 4, 4096, gen,
+                                         pair)["host_us"]
+        log(f"prune_regrow K={r['K']} N={r['N']} {r['dtype']}: " + _times(r)
+            + f", torch.sort of the two thresholds {r['sort_ms']} ms (host "
+            f"per call at K=4 N=4096)")
+
+    sweep = []
+    for m, k, n in ((64, 128, 128), (128, 256, 128), (70, 200, 90),
+                    (13, 50, 17)):
+        for density in (0.0, 0.2, 1.0):
+            x, w, mask = mm_inputs(torch, dev, 1, m, k, n, density, gen)
+            for mdt in (torch.float32, bf16):
+                sweep.append(check_masked_matmul_bf16(
+                    torch, mmk, x.to(bf16), w.to(bf16), mask.to(mdt)))
+    x, w, mask = mm_inputs(torch, dev, 1, 128, 256, 128, 0.2, gen)
+    out["mm_u1"] = check_masked_matmul_bf16(torch, mmk, x.to(bf16),
+                                            w.to(bf16), mask, timed=True)
+    u, rows = _serve_arg("--cache-size"), _serve_arg("--rows")
+    x, w, mask = mm_inputs(torch, dev, u, rows, 128, 128, 0.5, gen)
+    xb, wb = x.to(bf16), w.to(bf16)
+    out["mm"] = check_masked_matmul_bf16(torch, mmk, xb, wb, mask, timed=True)
+    out["mm_mbf16"] = check_masked_matmul_bf16(torch, mmk, xb, wb,
+                                               mask.to(bf16), timed=True)
+    mixed = mmk.batched_masked_matmul(xb, wb, mask)
+    for i in (0, u - 1):
+        xs, ws, ms = (torch.zeros_like(t) for t in (xb, wb, mask))
+        xs[i], ws[i], ms[i] = xb[i], wb[i], mask[i]
+        if not torch.equal(mmk.batched_masked_matmul(xs, ws, ms)[i],
+                           mixed[i]):
+            raise AssertionError(f"bf16 masked_matmul: user {i} alone != "
+                                 "mixed")
+    out["mm_err"] = max(r["max_abs_err"] for r in sweep + [
+        out["mm_u1"], out["mm"], out["mm_mbf16"]])
+    log(f"precision (b) bf16 masked_matmul: {len(sweep)} sweep cases (fp32 "
+        f"and bf16 masks) within one bf16 ulp of plain (max abs err "
+        f"{max(r['max_abs_err'] for r in sweep)}); mixed batch bit-equal to "
+        f"alone")
+    for r in (out["mm_u1"], out["mm"], out["mm_mbf16"]):
+        log(f"masked_matmul bf16 U={r['U']} M={r['M']} K={r['K']} N={r['N']} "
+            f"{r['dtype']} occupancy {r['occupancy']:.4f}: " + _times(r)
+            + _library(r, "torch.bmm"))
+
+    out["rows_f16"] = check_fold_rows(torch, pa, dev, 4, n_leaf, 1.0, gen,
+                                      torch.float16)
+    r = out["rows_f16"]
+    log(f"packed_accum_rows K={r['K']} N={r['N']} nnz={r['nnz']} float16: "
+        + _times(r))
+    out["fold_f16"] = check_fold(torch, pa, pack_bits, dev, n_leaf, 1.0, gen,
+                                 torch.float16)
+    r = out["fold_f16"]
+    log(f"packed_accum N={r['N']} nnz={r['nnz']} float16: " + _times(r))
+    return out
+
+
+def precision_path(torch, counters, lm_fp32):
+    """Phase 16 (a), (c) and (d), after phase 14: full-width gemma3-1b at
+    bf16 beside phase 14's fp32 figures; fp16 stacked payloads of
+    ResNet18-GN through the row fold; the serving MLP from an fp16 store.
+    Returns each part's launches and figures, and the launches summed
+    over the phase's counted runs."""
+    from repro_torch.kernels import prune_regrow as pr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+
+    # (a) gemma3-1b at bf16, every stage beside the fp32 run's
+    t0 = time.perf_counter()
+    out["lm_launches"], figures = lm_full_width(torch, counters, pr,
+                                                torch.bfloat16)
+    log(f"precision (a) gemma3-1b bf16 beside fp32 (phase 14), "
+        f"{time.perf_counter() - t0:.1f} s:")
+    _compare_lm(lm_fp32, figures)
+    out["lm_bf16"] = figures
+
+    # (c) fp16 stacked payloads of ResNet18-GN, K=4, through the row fold
+    out.update(precision_fold(torch, counters, dev, gen))
+
+    # (d) the serving MLP from an fp16 store, beside the same fp32 store
+    out.update(precision_store(torch, counters, SERVE_ARGS))
+    out["launches"] = _sum_launches([out["lm_launches"], out["fold_launches"],
+                                     *out["store_launches"].values()])
+    return out
+
+
+def precision_fold(torch, counters, dev, gen):
+    """Phase 16 (c): ``pack_stacked(dtype=float16)`` of a ResNet18-GN K=4
+    state (masks at density 0.5) folded into zeros, one row-fold launch a
+    leaf, bit-equal to the plain version and to ``(fp16(w), m)``."""
+    from repro_torch.models.cnn import init_resnet18
+    from repro_torch.scale.stacked import fold_stacked, pack_stacked
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    out = {}
+    cpu_gen = torch.Generator().manual_seed(16)
+    params = tree_map(lambda *xs: torch.stack(xs).to(dev),
+                      *[init_resnet18(cpu_gen, 10) for _ in range(4)])
+    masks = tree_map(lambda t: (torch.rand(t.shape, generator=gen, device=dev)
+                                < 0.5).float(), params)
+    params = tree_map(lambda t, m: t * m, params, masks)
+    zeros = lambda tree: tree_map(torch.zeros_like, tree)  # noqa: E731
+    packed = pack_stacked(params, masks, dtype=torch.float16)
+    _zero(counters)
+    num, den = fold_stacked(zeros(params), zeros(params), packed)
+    torch.cuda.synchronize()
+    out["fold_launches"] = _launches(counters)
+    n_leaves = len(tree_leaves(params))
+    if out["fold_launches"]["packed_accum_rows"] != n_leaves or any(
+            v for key, v in _totals(out["fold_launches"]).items()
+            if key != "packed_accum_rows"):
+        raise AssertionError(f"fp16 fold_stacked launches "
+                             f"{out['fold_launches']}, {n_leaves} leaves")
+    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    num_p, den_p = fold_stacked(
+        zeros(cpu(params)), zeros(cpu(params)),
+        pack_stacked(cpu(params), cpu(masks), dtype=torch.float16))
+    for a, b in zip(tree_leaves(num) + tree_leaves(den),
+                    tree_leaves(num_p) + tree_leaves(den_p)):
+        if not torch.equal(_bits(torch, a.cpu()), _bits(torch, b)):
+            raise AssertionError("fp16 fold_stacked on the card != plain")
+    for a, b, w, m in zip(tree_leaves(num), tree_leaves(den),
+                          tree_leaves(params), tree_leaves(masks)):
+        if not (torch.equal(a, w.half().float()) and torch.equal(b, m)):
+            raise AssertionError("fold_stacked(0, 0, pack_stacked(w, m, "
+                                 "fp16)) != (fp16(w), m)")
+    log(f"precision (c) fp16 stacked payloads, ResNet18-GN K=4: "
+        f"{out['fold_launches']['packed_accum_rows']} row-fold launches for "
+        f"{n_leaves} leaves, bit-equal to plain and to (fp16(w), m)")
+    return out
+
+
+def precision_store(torch, counters, serve_args):
+    """Phase 16 (d): ``serve --backend kernel`` with ``serve_args`` from an
+    fp16 store and from the fp32 store of the same users: bytes at rest
+    the analytic figure at 2 and 4 bytes a value, launches as predicted
+    (the masked matmul 3 x (batches + 1) each; the flat fold's fp16 entry
+    once per leaf per miss of the fp16 store, none for the fp32 one), the
+    outputs within ``SERVE_FP16_TOL`` of each other, and the fp16 pool
+    equal to the fp32 pool rounded to fp16."""
+    import numpy as np
+
+    from repro_torch.core.accounting import HEADER_NBYTES, bitmap_nbytes
+    from repro_torch.core.masks import apply_mask, init_mask
+    from repro_torch.device import setup_device
+    from repro_torch.launch import serve as cli
+    from repro_torch.serve.store import ModelStore
+    from repro_torch.utils.tree import tree_leaves
+
+    out = {}
+    args = cli.build_parser().parse_args(serve_args + ["--backend", "kernel"])
+    model = cli.build_model(args.model, args.rows)
+    device = setup_device(args.device)
+
+    def fp16_store():
+        """The CLI's users (``build_store``'s draws) in an fp16 store."""
+        base = model.init(torch.Generator().manual_seed(args.seed))
+        store = ModelStore(base, cache_size=args.cache_size, device=device,
+                           payload_dtype=np.float16)
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        for u in range(args.users):
+            p = model.init(gen)
+            m = init_mask(gen, p, args.density)
+            store.put(u, apply_mask(p, m), m)
+        return store
+
+    runs = {}
+    for name, make in (("fp16", fp16_store),
+                       ("fp32", lambda: cli.build_store(args, model, device))):
+        store = make()
+        _zero(counters)
+        res = cli.run_serve(args, model, store)
+        runs[name] = (res, store, _launches(counters))
+    (r16, s16, l16), (r32, s32, _) = runs["fp16"], runs["fp32"]
+    n_coords, w_leaves = s16.spec.n_coords, len(tree_leaves(s16.base))
+    for name, (res, st, la) in runs.items():
+        size = {"fp16": 2, "fp32": 4}[name]
+        want = sum(HEADER_NBYTES + bitmap_nbytes(n_coords) + size * st.nnz(u)
+                   for u in st.users())
+        if st.total_bytes_at_rest() != want:
+            raise AssertionError(f"{name} store: bytes_at_rest "
+                                 f"{st.total_bytes_at_rest()} != {want}")
+        folds = w_leaves * st.misses if name == "fp16" else 0
+        mm = 3 * (res.summary["batches"] + 1)
+        if (la["masked_matmul"], la["packed_accum"]) != (mm, folds):
+            raise AssertionError(f"{name} store launches {la}: expected "
+                                 f"{mm} masked matmuls, {folds} folds")
+    if s16.stats()["hits"] != s32.stats()["hits"] or sorted(
+            r16.outputs) != sorted(r32.outputs):
+        raise AssertionError("the fp16 and fp32 stores served differently")
+    scale = max(float(abs(y).max()) for y in r32.outputs.values())
+    err = max(float(abs(r16.outputs[i] - y).max())
+              for i, y in r32.outputs.items())
+    if err > SERVE_FP16_TOL * max(1.0, scale):
+        raise AssertionError(f"fp16 store outputs {err} from the fp32 "
+                             f"store's (scale {scale})")
+    for user in (0, 1, args.users - 1):
+        p16, m16 = s16.get(user)
+        p32, m32 = s32.get(user)
+        for a, b in zip(tree_leaves(p16), tree_leaves(p32)):
+            if a.dtype != torch.float32 or not torch.equal(a, b.half().float()):
+                raise AssertionError(f"fp16 store: user {user}'s pool != "
+                                     "fp16(w) widened")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(m16), tree_leaves(m32))):
+            raise AssertionError(f"fp16 store: user {user}'s mask differs")
+    out["store_launches"] = {name: la for name, (_, _, la) in runs.items()}
+    out["store"] = {name: (res.summary, st.total_bytes_at_rest())
+                    for name, (res, st, _) in runs.items()}
+    log(f"precision (d) fp16 store: bytes_at_rest {s16.total_bytes_at_rest()} "
+        f"(fp32 {s32.total_bytes_at_rest()}, ratio "
+        f"{s16.total_bytes_at_rest() / s32.total_bytes_at_rest():.4f}), each "
+        f"the analytic figure; launches {l16} "
+        f"({r16.summary['store_misses']} misses x {w_leaves} leaves "
+        f"folds); outputs within {err:.3e} of the fp32 "
+        f"store's (scale {scale:.3f}); pools equal fp16(w) widened; "
+        f"service_s fp16 {r16.summary['service_s']} fp32 "
+        f"{r32.summary['service_s']}")
+    return out
 
 
 def _fresh_process_state():
@@ -2322,7 +2716,7 @@ def obs_path(torch, train, counters):
         f"{nbytes} bytes, {ar.trace()['otherData']['spans']} spans, "
         f"dashboard check ok; store rollup hit ratio {store['hit_ratio']}")
     totals.append(l1)
-    return {k: sum(t[k] for t in totals) for k in totals[0]}
+    return _sum_launches(totals)
 
 
 if __name__ == "__main__":

@@ -19,16 +19,45 @@ from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 PyTree = Any
 
 
+def _bfloat16_numpy():
+    """numpy's bfloat16 dtype (``ml_dtypes``, the type of the reference's
+    bf16 leaves), or None where ``ml_dtypes`` is not installed."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return None
+    return np.dtype(ml_dtypes.bfloat16)
+
+
 def to_numpy(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+    """A tensor as a numpy array, bit for bit.  numpy has no bfloat16 of
+    its own: a bf16 tensor leaves as its 16-bit patterns viewed as
+    ``ml_dtypes.bfloat16``, the type the reference's bf16 arrays have."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    if x.dtype != torch.bfloat16:
+        return x.numpy()
+    bf16 = _bfloat16_numpy()
+    if bf16 is None:
+        raise TypeError("a bfloat16 tensor needs ml_dtypes to leave as a "
+                        "numpy array (numpy has no bfloat16)")
+    return x.view(torch.int16).numpy().view(bf16)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a, bf16 = np.asarray(a), _bfloat16_numpy()
+    if bf16 is not None and a.dtype == bf16:
+        return torch.tensor(a.view(np.int16), device=device).view(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)
 
 
 def tree_from_numpy(tree: PyTree, device="cpu") -> PyTree:
     """A tree of numpy arrays (a reference tree, after ``np.asarray`` of
-    its leaves) as a tree of tensors on ``device``, copied bit for bit."""
-    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
+    its leaves) as a tree of tensors on ``device``, copied bit for bit;
+    ``ml_dtypes.bfloat16`` leaves arrive as ``torch.bfloat16``."""
+    return tree_map(lambda a: _tensor(a, device), tree)
 
 
 def save_pytree(path: str, tree: PyTree) -> None:

@@ -11,7 +11,9 @@ def setup_device(device: str | torch.device = "cuda") -> torch.device:
     raises: there is no silent CPU fallback, the CPU must be asked for.
     TF32 is switched off for matmuls and for cuDNN convolutions
     (``cudnn.allow_tf32`` defaults to True), so convolutions keep fp32
-    parity with the reference, and cuDNN is held to deterministic
+    parity with the reference; bf16 GEMMs reduce in fp32 (cuBLAS may
+    otherwise reduce them in bf16; the reference accumulates its bf16
+    products in fp32); and cuDNN is held to deterministic
     algorithms (no autotuning, no atomics in the weight gradients), so two
     runs from one state give the same bits on the card — what the
     simulator's sync mode and its resumed runs are checked against.  Sorts
@@ -26,6 +28,7 @@ def setup_device(device: str | torch.device = "cuda") -> torch.device:
         raise ValueError(f"device must be cuda or cpu, got {str(device)!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     return dev

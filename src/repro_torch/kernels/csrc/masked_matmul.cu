@@ -8,6 +8,8 @@
 //
 // with fp32 accumulation.  A (MMK_BK, MMK_BN) weight tile whose mask is all
 // zero contributes nothing and is skipped: it costs its mask bytes only.
+// The entries batched_masked_matmul_bf16[_mbf16] take bf16 x and w (the
+// kernel at the end of this file); what follows describes the fp32 one.
 //
 // Bound: HBM bytes at the serving shapes.  M is the rows of one request
 // (1-16) while K and N are 32-128, so each weight and mask element feeds M
@@ -51,6 +53,7 @@
 // mixed batch is bit-equal to the same user served alone.  Against
 // torch.matmul (cuBLAS, another summation order) it agrees to fp32
 // rounding.  No TF32 and no tensor cores.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -323,6 +326,144 @@ static int launch(const float* x, const float* w, const float* m, float* y,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 operands (the reference's bf16 path: x and w bf16, the mask cast to
+// w's type, an fp32 accumulator, y in x's type):
+//
+//     y[u] = bf16(x[u] @ bf16(w[u] * bf16(m[u])))     accumulated in fp32
+//
+// m is fp32 (the serving pool's masks) or bf16.  w * m is rounded to bf16
+// as the plain version's bf16 multiply rounds it (for m in {0, 1} it is
+// exact), then widened to fp32, as is x; each output is one fp32 FMA chain
+// in ascending k, skipping the empty (MMK_BK, MMK_BN) mask tiles, rounded
+// to bf16 once at the end.  Against the plain version (torch.matmul of the
+// fp32 widenings, another summation order, then one rounding) it agrees to
+// fp32 rounding before the final rounding, so within one bf16 ulp.
+//
+// Design: a simple first kernel, not yet the card's tensor-core path.  One
+// CTA per (user, 32-column strip, 16-row tile), as the fp32 kernel; per
+// 32-deep k tile each thread loads 8 mask values (a lane per column, so a
+// warp reads consecutive addresses), the CTA decides with one
+// __syncthreads_or whether the tile holds a non-zero, and only a live tile
+// has its weights and the x tile loaded, widened into shared memory as
+// fp32, and multiplied.  Ragged M, K and N edges are masked in the loads
+// and the stores, never padded on the host.  bf16 in, fp32 accumulate is
+// what mma.sync / wgmma compute; that design is later work.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float mask_f32(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));   // m.to(bf16)
+}
+__device__ __forceinline__ float mask_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename MT>
+__global__ void __launch_bounds__(MMK_THREADS)
+masked_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ w,
+                          const MT* __restrict__ m,
+                          __nv_bfloat16* __restrict__ y, int M, int K,
+                          int N) {
+  __shared__ float ws[MMK_BK][MMK_BN];    // bf16(w * m) of one k tile, widened
+  __shared__ float xs[MMK_BM][MMK_BK + 1];  // x tile, widened (+1: no conflicts)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t u = blockIdx.z;
+  const int m0 = blockIdx.y * MMK_BM;
+  const int n0 = blockIdx.x * MMK_BN;
+  const int col = n0 + lane;
+  const __nv_bfloat16* xu = x + u * M * (int64_t)K;
+  const __nv_bfloat16* wu = w + u * K * (int64_t)N;
+  const MT* mu = m + u * K * (int64_t)N;
+  constexpr int TILE_ROWS = MMK_BK / MMK_WARPS;   // k rows a thread loads
+
+  float acc[MMK_ROWS_PER_WARP];
+#pragma unroll
+  for (int i = 0; i < MMK_ROWS_PER_WARP; ++i) acc[i] = 0.0f;
+
+  for (int k0 = 0; k0 < K; k0 += MMK_BK) {
+    float mv[TILE_ROWS];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < TILE_ROWS; ++i) {
+      const int k = k0 + warp + MMK_WARPS * i;
+      const bool ok = k < K && col < N;
+      mv[i] = ok ? mask_f32(mu[(int64_t)k * N + col]) : 0.0f;
+      any |= mv[i] != 0.0f;
+    }
+    if (!__syncthreads_or(any)) continue;          // an empty tile: skipped
+#pragma unroll
+    for (int i = 0; i < TILE_ROWS; ++i) {
+      const int r = warp + MMK_WARPS * i;
+      const int k = k0 + r;
+      float wm = 0.0f;
+      if (k < K && col < N)
+        wm = __bfloat162float(__float2bfloat16_rn(__fmul_rn(
+            __bfloat162float(wu[(int64_t)k * N + col]), mv[i])));
+      ws[r][lane] = wm;
+    }
+    for (int i = threadIdx.x; i < MMK_BM * MMK_BK; i += MMK_THREADS) {
+      const int r = i / MMK_BK, kk = i % MMK_BK;
+      const bool ok = m0 + r < M && k0 + kk < K;
+      xs[r][kk] = ok ? __bfloat162float(xu[(int64_t)(m0 + r) * K + k0 + kk])
+                     : 0.0f;
+    }
+    __syncthreads();
+    const int kmax = min(MMK_BK, K - k0);
+    for (int kk = 0; kk < kmax; ++kk) {
+      const float wv = ws[kk][lane];
+#pragma unroll
+      for (int i = 0; i < MMK_ROWS_PER_WARP; ++i)
+        acc[i] = __fmaf_rn(xs[warp + MMK_WARPS * i][kk], wv, acc[i]);
+    }
+    __syncthreads();                               // ws, xs free again
+  }
+
+  if (col >= N) return;
+  __nv_bfloat16* yu = y + u * M * (int64_t)N;
+#pragma unroll
+  for (int i = 0; i < MMK_ROWS_PER_WARP; ++i) {
+    const int r = m0 + warp + MMK_WARPS * i;
+    if (r < M) yu[(int64_t)r * N + col] = __float2bfloat16_rn(acc[i]);
+  }
+}
+
+// the shape checks of every entry: cudaErrorInvalidValue when a dimension
+// is negative or exceeds int32 or the shapes do not chain,
+// cudaErrorInvalidConfiguration when U or the row tiles exceed the grid, 0
+// when they are fine
+static int check_dims(int64_t U, int64_t M, int64_t K, int64_t wU, int64_t wK,
+                      int64_t wN, int64_t mU, int64_t mK, int64_t mN) {
+  const int64_t dims[] = {U, M, K, wU, wK, wN, mU, mK, mN};
+  for (int64_t d : dims)
+    if (d < 0 || d > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (wU != U || wK != K || mU != U || mK != K || mN != wN)
+    return (int)cudaErrorInvalidValue;
+  if ((M + MMK_BM - 1) / MMK_BM > 65535 || U > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  return 0;
+}
+
+template <typename MT>
+static int launch_bf16(const void* x, const void* w, const void* m, void* y,
+                       int64_t U, int64_t M, int64_t K, int64_t wU, int64_t wK,
+                       int64_t wN, int64_t mU, int64_t mK, int64_t mN,
+                       void* stream) {
+  const int err = check_dims(U, M, K, wU, wK, wN, mU, mK, mN);
+  if (err) return err;
+  const int64_t N = wN;
+  if (U == 0 || M == 0 || N == 0) return 0;
+  dim3 grid((unsigned)((N + MMK_BN - 1) / MMK_BN),
+            (unsigned)((M + MMK_BM - 1) / MMK_BM), (unsigned)U);
+  masked_matmul_bf16_kernel<MT><<<grid, MMK_THREADS, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const MT*>(m),
+      static_cast<__nv_bfloat16*>(y), (int)M, (int)K, (int)N);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // x (U, M, K), w (wU, wK, wN) and m (mU, mK, mN), y (U, M, N = wN):
@@ -334,14 +475,9 @@ int batched_masked_matmul_f32(const void* x, const void* w, const void* m,
                               void* y, int64_t U, int64_t M, int64_t K,
                               int64_t wU, int64_t wK, int64_t wN, int64_t mU,
                               int64_t mK, int64_t mN, void* stream) {
-  const int64_t dims[] = {U, M, K, wU, wK, wN, mU, mK, mN};
-  for (int64_t d : dims)
-    if (d < 0 || d > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (wU != U || wK != K || mU != U || mK != K || mN != wN)
-    return (int)cudaErrorInvalidValue;
+  const int err = check_dims(U, M, K, wU, wK, wN, mU, mK, mN);
+  if (err) return err;
   const int64_t N = wN;
-  if ((M + MMK_BM - 1) / MMK_BM > 65535 || U > 65535)
-    return (int)cudaErrorInvalidConfiguration;
   if (U == 0 || M == 0 || N == 0) return 0;
   const bool vec = N % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(w) |
@@ -353,6 +489,25 @@ int batched_masked_matmul_f32(const void* x, const void* w, const void* m,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return vec ? launch<true>(xf, wf, mf, yf, (int)U, (int)M, (int)K, (int)N, s)
              : launch<false>(xf, wf, mf, yf, (int)U, (int)M, (int)K, (int)N, s);
+}
+
+// The same operands in bf16 (x, w, y) with an fp32 mask (the serving
+// pool's), and with a bf16 mask; the same shape checks and return codes.
+int batched_masked_matmul_bf16(const void* x, const void* w, const void* m,
+                               void* y, int64_t U, int64_t M, int64_t K,
+                               int64_t wU, int64_t wK, int64_t wN, int64_t mU,
+                               int64_t mK, int64_t mN, void* stream) {
+  return launch_bf16<float>(x, w, m, y, U, M, K, wU, wK, wN, mU, mK, mN,
+                            stream);
+}
+
+int batched_masked_matmul_bf16_mbf16(const void* x, const void* w,
+                                     const void* m, void* y, int64_t U,
+                                     int64_t M, int64_t K, int64_t wU,
+                                     int64_t wK, int64_t wN, int64_t mU,
+                                     int64_t mK, int64_t mN, void* stream) {
+  return launch_bf16<__nv_bfloat16>(x, w, m, y, U, M, K, wU, wK, wN, mU, mK,
+                                    mN, stream);
 }
 
 }  // extern "C"

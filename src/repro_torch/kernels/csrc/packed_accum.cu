@@ -46,6 +46,10 @@
 // balance point.  ptxas (-O3, sm_90a): the fold 29-32 registers, the scan
 // 29 registers and 40 B of shared memory, no spills.
 //
+// Values are fp32 or fp16 (the wire's two value types), in both the flat
+// and the row entries; an fp16 value is widened to fp32 exactly before it
+// is scaled.  num and den are fp32.
+//
 // Parity: the multiply and the add are separately rounded (__fmul_rn,
 // __fadd_rn — no FMA contraction), the same arithmetic as the plain
 // version, so results equal it bit for bit for every alpha.
@@ -339,6 +343,14 @@ int packed_accum_rows_f32(void* num, void* den, const void* words,
                           void* stream) {
   return launch_accum<float>(num, den, words, values, offsets, alpha, k, n,
                              n_words, vstride, stream);
+}
+
+int packed_accum_rows_f16(void* num, void* den, const void* words,
+                          const void* values, const void* offsets,
+                          float alpha, int k, int n, int n_words, int vstride,
+                          void* stream) {
+  return launch_accum<__half>(num, den, words, values, offsets, alpha, k, n,
+                              n_words, vstride, stream);
 }
 
 }  // extern "C"

@@ -29,6 +29,8 @@ LAUNCHES = 0
 
 MAX_J = 32                       # GOSSIP_MAX_J in csrc/gossip_avg.cu
 _ENTRY = {torch.float32: "gossip_avg_f32", torch.bfloat16: "gossip_avg_bf16"}
+#: of ``LAUNCHES``, each C entry's
+LAUNCHES_BY_ENTRY = dict.fromkeys(_ENTRY.values(), 0)
 # (w_ptrs, m_ptrs, J, own, out, n, stream)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
@@ -94,4 +96,5 @@ def gossip_avg(ws: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
         ctypes.cast(m_ptrs, ctypes.c_void_p), j, own.data_ptr(),
         out.data_ptr(), n), "gossip_avg")
     LAUNCHES += 1
+    LAUNCHES_BY_ENTRY[_ENTRY[own.dtype]] += 1
     return out

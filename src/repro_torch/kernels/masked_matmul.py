@@ -5,13 +5,16 @@ Replaces the Pallas kernels ``repro/kernels/masked_matmul.py``:
 ``masked_matmul``, its U=1 form, together with their padding wrappers in
 ``repro/kernels/ops.py``::
 
-    y[u] = x[u] @ (w[u] * m[u])      x (U, M, K), w and m (U, K, N), fp32
+    y[u] = x[u] @ (w[u] * m[u])      x (U, M, K), w and m (U, K, N)
 
-The wrappers run the plain version for CPU tensors and launch
-``csrc/masked_matmul.cu`` for CUDA tensors (or raise) — there is no
-fallback.  The kernel skips empty (``TILE_K``, ``TILE_N``) mask tiles and
-masks ragged edges itself, so nothing is padded on the host.  Only
-contiguous fp32 operands are taken, on either device.
+in fp32, or with bf16 x and w (the reference's bf16 path: the mask cast to
+w's type, an fp32 accumulator, y in x's type), the mask fp32 or bf16 —
+the ``(x and w, m)`` dtype pairs of ``PAIRS``.  The wrappers run the plain
+version for CPU tensors and launch ``csrc/masked_matmul.cu`` for CUDA
+tensors (or raise) — there is no fallback.  The kernel skips empty
+(``TILE_K``, ``TILE_N``) mask tiles and masks ragged edges itself, so
+nothing is padded on the host.  Only contiguous operands are taken, on
+either device.
 """
 from __future__ import annotations
 
@@ -38,19 +41,51 @@ _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 9 + (ctypes.c_void_p,)
 # cudaErrorInvalidConfiguration)
 _REFUSED = (1, 9)
 _F32 = torch.float32
+#: (x and w dtype, m dtype) -> C entry of csrc/masked_matmul.cu
+_ENTRY = {(torch.float32, torch.float32): "batched_masked_matmul_f32",
+          (torch.bfloat16, torch.float32): "batched_masked_matmul_bf16",
+          (torch.bfloat16, torch.bfloat16):
+              "batched_masked_matmul_bf16_mbf16"}
+PAIRS = tuple(_ENTRY)
+#: of ``LAUNCHES`` and of ``LAUNCHES_U1``, each C entry's
+LAUNCHES_BY_ENTRY = dict.fromkeys(_ENTRY.values(), 0)
+LAUNCHES_U1_BY_ENTRY = dict.fromkeys(_ENTRY.values(), 0)
 
 
 def batched_masked_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                                 m: torch.Tensor) -> torch.Tensor:
-    """``x @ (w * m)`` per user, in fp32 (the reference's
-    ``kernels.ref.batched_masked_matmul_ref``)."""
-    return torch.matmul(x, w * m)
+    """``x @ (w * m)`` per user (the reference's
+    ``kernels.ref.batched_masked_matmul_ref``): in fp32, or for bf16
+    operands ``w * m`` in w's type (exact for a 0/1 mask), multiplied in
+    fp32 and rounded to x's type once."""
+    if x.dtype == _F32:
+        return torch.matmul(x, w * m)
+    return torch.matmul(x.float(), (w * m.to(w.dtype)).float()).to(x.dtype)
 
 
 def masked_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                         m: torch.Tensor) -> torch.Tensor:
-    """``x @ (w * m)`` in fp32 (``kernels.ref.masked_matmul_ref``)."""
-    return torch.matmul(x, w * m)
+    """``x @ (w * m)`` (``kernels.ref.masked_matmul_ref``), typed as
+    ``batched_masked_matmul_plain``."""
+    return batched_masked_matmul_plain(x, w, m)
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at each ``|t|`` (0 at 0): ``2^(e - 7)``
+    for ``|t|`` in ``[2^e, 2^(e + 1))``, between 2^-8 and 2^-7 of ``|t|``."""
+    _, e = torch.frexp(t.float())
+    return torch.where(t == 0, 0.0, torch.ldexp(torch.ones_like(t.float()),
+                                                e - 8))
+
+
+def within_bf16_ulp(got: torch.Tensor, want: torch.Tensor,
+                    atol: float = 1e-5) -> bool:
+    """The bf16 entries' contract against their plain version: each
+    output within one bf16 ulp of the plain one, plus the fp32 kernel's
+    ``atol`` (both round one fp32 sum, summed in another order, to
+    bf16)."""
+    return bool(((got.float() - want.float()).abs()
+                 <= bf16_ulp(want) + atol).all())
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> None:
@@ -61,9 +96,13 @@ def _check(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> None:
     if w.shape != m.shape or w.shape[0] != u or w.shape[1] != k:
         raise ValueError(f"shapes do not chain: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, m {tuple(m.shape)}")
+    if (x.dtype, m.dtype) not in _ENTRY or w.dtype != x.dtype:
+        pairs = ", ".join(f"({a}, {b})".replace("torch.", "")
+                          for a, b in PAIRS)
+        raise TypeError(f"(x, w, m) dtypes ({x.dtype}, {w.dtype}, {m.dtype}) "
+                        f"are not taken: w must have x's dtype and (x, m) be "
+                        f"one of {pairs}")
     for name, t in (("x", x), ("w", w), ("m", m)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -77,14 +116,15 @@ def _check(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> None:
 def batched_masked_matmul(x: torch.Tensor, w: torch.Tensor,
                           m: torch.Tensor) -> torch.Tensor:
     """``y[u] = x[u] @ (w[u] * m[u])`` for every user, one launch; returns
-    a new (U, M, N) tensor.
+    a new (U, M, N) tensor of x's dtype.
 
     On the card only what the C entry cannot see is checked here (types,
     layout, device); it checks the shapes itself, and a refusal is turned
     into ``_check``'s message."""
     global LAUNCHES
-    if not (x.is_cuda and x.dtype is _F32 and w.dtype is _F32
-            and m.dtype is _F32 and x.is_contiguous() and w.is_contiguous()
+    entry = _ENTRY.get((x.dtype, m.dtype))
+    if not (x.is_cuda and entry is not None and w.dtype is x.dtype
+            and x.is_contiguous() and w.is_contiguous()
             and m.is_contiguous() and x.dim() == w.dim() == m.dim() == 3
             and x.get_device() == w.get_device() == m.get_device()):
         _check(x, w, m)
@@ -94,8 +134,7 @@ def batched_masked_matmul(x: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"unsupported device {x.device}")
     u, rows, k = x.shape
     y = x.new_empty((u, rows, w.shape[2]))
-    fn = build.function("masked_matmul", "batched_masked_matmul_f32",
-                        _ARGTYPES)
+    fn = build.function("masked_matmul", _ENTRY[x.dtype, m.dtype], _ARGTYPES)
     err = build.launch(fn, x, x.data_ptr(), w.data_ptr(), m.data_ptr(),
                        y.data_ptr(), u, rows, k, *w.shape, *m.shape)
     if err in _REFUSED:
@@ -103,6 +142,7 @@ def batched_masked_matmul(x: torch.Tensor, w: torch.Tensor,
     build.check(err, "batched_masked_matmul")
     if y.numel():
         LAUNCHES += 1
+        LAUNCHES_BY_ENTRY[_ENTRY[x.dtype, m.dtype]] += 1
     return y
 
 
@@ -116,7 +156,9 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(x.shape)}, {tuple(w.shape)}, {tuple(m.shape)}")
     launches = LAUNCHES
     y = batched_masked_matmul(x[None], w[None], m[None])[0]
-    LAUNCHES_U1 += LAUNCHES - launches
+    if LAUNCHES != launches:
+        LAUNCHES_U1 += 1
+        LAUNCHES_U1_BY_ENTRY[_ENTRY[x.dtype, m.dtype]] += 1
     return y
 
 

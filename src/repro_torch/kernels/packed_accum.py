@@ -39,6 +39,11 @@ BLOCK_N = 1024                  # coordinates per fold block, as in csrc/packed_
 GROUP_N = 128                   # coordinates per rank offset, as there
 SCAN_N = 256 * GROUP_N          # coordinates per scan block, as there
 _ENTRY = {torch.float32: "packed_accum_f32", torch.float16: "packed_accum_f16"}
+_ROWS_ENTRY = {torch.float32: "packed_accum_rows_f32",
+               torch.float16: "packed_accum_rows_f16"}
+#: of ``LAUNCHES`` and ``LAUNCHES_ROWS``, each C fold entry's
+LAUNCHES_BY_ENTRY = dict.fromkeys((*_ENTRY.values(), *_ROWS_ENTRY.values()),
+                                  0)
 # (words, offsets, res, scratch, scratch_len, nnz, expect, vstride, k, n,
 #  n_words, epoch, stream)
 _SCAN_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int64, ctypes.c_void_p) + (
@@ -145,6 +150,7 @@ def packed_accum(num: torch.Tensor, den: torch.Tensor, words: torch.Tensor,
         values.data_ptr(), offsets.data_ptr(), float(alpha), n,
         words.numel(), values.numel()), "packed_accum")
     LAUNCHES += 1
+    LAUNCHES_BY_ENTRY[_ENTRY[values.dtype]] += 1
     return num, den
 
 
@@ -188,8 +194,8 @@ def _check_rows(num, den, words, values, nnz) -> None:
     if words.dtype != torch.int32 or words.shape != (k, n_words(n)):
         raise ValueError(f"words must be ({k}, {n_words(n)}) int32, got "
                          f"{tuple(words.shape)} {words.dtype}")
-    if values.dtype != torch.float32 or values.shape[0] != k:
-        raise TypeError(f"values must be ({k}, max_nnz) float32, "
+    if values.dtype not in _ROWS_ENTRY or values.shape[0] != k:
+        raise TypeError(f"values must be ({k}, max_nnz) float32 or float16, "
                         f"got {tuple(values.shape)} {values.dtype}")
     if nnz.dtype != torch.int32 or nnz.shape != (k,):
         raise ValueError(f"nnz must be ({k},) int32, got {tuple(nnz.shape)} "
@@ -217,8 +223,9 @@ def packed_accum_rows(num: torch.Tensor, den: torch.Tensor,
                       words: torch.Tensor, values: torch.Tensor,
                       nnz: torch.Tensor, alpha: float = 1.0):
     """Fold payload k into row k of ``num``/``den`` (K, N) in place, for all
-    K rows in one launch; returns them.  ``values`` is (K, max_nnz), row k's
-    values left-aligned; ``nnz`` (K,) int32 on the same device."""
+    K rows in one launch; returns them.  ``values`` is (K, max_nnz) fp32 or
+    fp16 (widened exactly), row k's values left-aligned; ``nnz`` (K,) int32
+    on the same device."""
     global LAUNCHES_ROWS
     _check_rows(num, den, words, values, nnz)
     if num.device.type == "cpu":
@@ -228,7 +235,7 @@ def packed_accum_rows(num: torch.Tensor, den: torch.Tensor,
     k, n = num.shape
     if n == 0 or k == 0:
         return num, den
-    fold = build.function("packed_accum", "packed_accum_rows_f32",
+    fold = build.function("packed_accum", _ROWS_ENTRY[values.dtype],
                           _ROWS_ARGTYPES)
     offsets, res = _scan(words, k, n, nnz, 0, values.shape[1])
     if any(res[k:]):
@@ -238,4 +245,5 @@ def packed_accum_rows(num: torch.Tensor, den: torch.Tensor,
         values.data_ptr(), offsets.data_ptr(), float(alpha), k, n,
         words.shape[1], values.shape[1]), "packed_accum_rows")
     LAUNCHES_ROWS += 1
+    LAUNCHES_BY_ENTRY[_ROWS_ENTRY[values.dtype]] += 1
     return num, den

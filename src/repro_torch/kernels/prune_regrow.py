@@ -9,11 +9,16 @@ per-row thresholds ``(w_th, g_th)`` held in a (K, 2) tensor on the device::
     grown  = m <= 0 &  |g| >= g_th  &  |g| > 0
     new_m  = keep | grown,   new_w = keep ? w : +0.0
 
+w and g share one type, m may have another; every value is widened to
+fp32 before it is compared (exact), and the outputs keep m's and w's
+types, as the Pallas body does.  The (w, m) pairs taken are ``PAIRS``:
+(float32, float32), (float32, int8), (bfloat16, int8) and (bfloat16,
+bfloat16); any other raises ``TypeError``, on either device.
 It runs the plain version for CPU tensors and launches
 ``csrc/prune_regrow.cu`` for CUDA tensors (or raises) — no fallback.  The
 thresholds are kth order statistics picked by ``torch.sort`` on the device
-(``sort_thresholds``), as the reference picks them with ``jnp.sort`` outside
-its kernel; ``prune_regrow`` is the one-layer entry point of
+(``sort_thresholds``, in the weights' own type), as the reference picks
+them with ``jnp.sort`` outside its kernel; ``prune_regrow`` is the one-layer entry point of
 ``repro/kernels/ops.py:prune_regrow``.  Threshold semantics keep or grow a
 few more coordinates than the exact-count evolve on ties.
 """
@@ -29,6 +34,14 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 
 MAX_ROWS = 65535                # MAX_ROWS in csrc/prune_regrow.cu
+#: (w and g dtype, m dtype) -> C entry of csrc/prune_regrow.cu
+_ENTRY = {(torch.float32, torch.float32): "prune_regrow_rows_f32",
+          (torch.float32, torch.int8): "prune_regrow_rows_f32_i8",
+          (torch.bfloat16, torch.int8): "prune_regrow_rows_bf16_i8",
+          (torch.bfloat16, torch.bfloat16): "prune_regrow_rows_bf16"}
+PAIRS = tuple(_ENTRY)
+#: of ``LAUNCHES``, each C entry's
+LAUNCHES_BY_ENTRY = dict.fromkeys(_ENTRY.values(), 0)
 # (w, g, m, th, new_m, new_w, k, n, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p)
@@ -36,7 +49,9 @@ _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
 
 def prune_regrow_rows_plain(w: torch.Tensor, g: torch.Tensor,
                             m: torch.Tensor, thresholds: torch.Tensor):
-    """The kernel's arithmetic in PyTorch ops; returns (new_m, new_w)."""
+    """The kernel's arithmetic in PyTorch ops; returns (new_m, new_w).
+    Comparing a bf16 or int8 tensor with the fp32 thresholds promotes it
+    to fp32 exactly, as the kernel widens it."""
     w_th, g_th = thresholds[:, 0:1], thresholds[:, 1:2]
     ag = g.abs()
     keep = (m > 0) & (w.abs() >= w_th)
@@ -45,11 +60,15 @@ def prune_regrow_rows_plain(w: torch.Tensor, g: torch.Tensor,
 
 
 def _check(w, g, m, thresholds) -> None:
+    if (w.dtype, m.dtype) not in _ENTRY or g.dtype != w.dtype:
+        pairs = ", ".join(f"({a}, {b})".replace("torch.", "")
+                          for a, b in PAIRS)
+        raise TypeError(f"(w, g, m) dtypes ({w.dtype}, {g.dtype}, {m.dtype}) "
+                        f"are not taken: g must have w's dtype and (w, m) be "
+                        f"one of {pairs}")
     for name, t in (("w", w), ("g", g), ("m", m)):
         if t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"{name} must be 2-D (K, N) and contiguous")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.shape != w.shape:
             raise ValueError(f"{name} is {tuple(t.shape)}, w "
                              f"{tuple(w.shape)}")
@@ -71,7 +90,8 @@ def _check(w, g, m, thresholds) -> None:
 def prune_regrow_rows(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                       thresholds: torch.Tensor):
     """Apply row k's ``thresholds[k] = (w_th, g_th)`` to row k of (K, N)
-    float32 ``w``, ``g``, ``m``; returns new tensors ``(new_m, new_w)``."""
+    ``w``, ``g``, ``m`` (a pair of ``PAIRS``); returns new tensors
+    ``(new_m, new_w)`` of m's and w's dtypes."""
     global LAUNCHES
     _check(w, g, m, thresholds)
     if w.device.type == "cpu":
@@ -82,12 +102,13 @@ def prune_regrow_rows(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     k, n = w.shape
     if k == 0 or n == 0:
         return new_m, new_w
-    fn = build.function("prune_regrow", "prune_regrow_rows_f32", _ARGTYPES)
+    fn = build.function("prune_regrow", _ENTRY[w.dtype, m.dtype], _ARGTYPES)
     build.check(build.launch(
         fn, w, w.data_ptr(), g.data_ptr(), m.data_ptr(),
         thresholds.data_ptr(), new_m.data_ptr(), new_w.data_ptr(), k, n),
         "prune_regrow")
     LAUNCHES += 1
+    LAUNCHES_BY_ENTRY[_ENTRY[w.dtype, m.dtype]] += 1
     return new_m, new_w
 
 
@@ -102,17 +123,20 @@ def _column(sorted_desc: torch.Tensor, count) -> torch.Tensor:
 
 def sort_thresholds(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                     n_keep, n_prune) -> torch.Tensor:
-    """(K, 2) float32 ``(w_th, g_th)`` per row of (K, N) float32 tensors:
-    the ``n_keep``-th largest |w| among held coordinates and the
+    """(K, 2) float32 ``(w_th, g_th)`` per row of (K, N) tensors: the
+    ``n_keep``-th largest |w| among held coordinates and the
     ``n_prune``-th largest |g| among the others (``-inf`` marks excluded
-    coordinates), by ``torch.sort`` on the device."""
-    neg_inf = torch.tensor(float("-inf"), device=w.device)
+    coordinates), by ``torch.sort`` on the device in w's and g's own
+    dtype (half the bytes at bf16).  The widening to fp32 is exact, so
+    the thresholds equal those of a sort of the fp32 widenings."""
+    neg_inf = torch.tensor(float("-inf"), dtype=w.dtype, device=w.device)
     keep_sorted = torch.sort(torch.where(m > 0, w.abs(), neg_inf), dim=1,
                              descending=True).values
     grow_sorted = torch.sort(torch.where(m > 0, neg_inf, g.abs()), dim=1,
                              descending=True).values
     return torch.stack([_column(keep_sorted, n_keep),
-                        _column(grow_sorted, n_prune)], dim=1).contiguous()
+                        _column(grow_sorted, n_prune)],
+                       dim=1).to(torch.float32).contiguous()
 
 
 def prune_regrow(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor,

@@ -9,7 +9,10 @@ prefill and the decode are ``torch.func.vmap`` over clients.
 
 ``make_mask_update_step`` picks thresholds with ``torch.sort`` and applies
 them with the prune/regrow kernel (``kernels.prune_regrow``), one launch
-per sparsifiable leaf on the GPU.  The reference's ``ppermute`` gossip is
+per sparsifiable leaf on the GPU, on the leaf's own dtype.  Every step
+runs on float32 or bf16 state (``ScalePlan.dtype``) with int8 masks; bf16
+params take SGD's update in fp32 and are cast back, as in the
+reference.  The reference's ``ppermute`` gossip is
 a ``shard_map`` collective over a device mesh, and its ``plan_for``,
 ``lower_*`` and ``state_shardings`` lower these steps onto a TPU mesh:
 they are the JAX-only tooling of ROADMAP A13 and have no counterpart here.
@@ -21,6 +24,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models.registry import ModelAPI, meta_spec
@@ -39,8 +43,13 @@ GOSSIP_MODES = ("einsum", "einsum_bf16", "einsum_noopt", "ppermute", "none")
 @dataclasses.dataclass
 class ScalePlan:
     """K clients of ``arch`` on one card, each taking ``per_client_batch``
-    rows of ``shape``.  ``dtype`` types the float inputs (prefix, frames);
-    the port's params are float32."""
+    rows of ``shape``.  ``dtype`` types the params, the caches and the
+    float inputs (prefix, frames), as in the reference
+    (``abstract_params``, ``abstract_cache``, ``input_specs``).  The
+    default is float32, where the reference's is bf16: the reference's
+    default serves its TPU dry run (ROADMAP A13), the port's callers (the
+    ``lm`` loop, the tests, ``chip_smoke.py``'s fp32 phase) compute in
+    float32, and bf16 is asked for by name."""
     arch: ModelConfig
     shape: InputShape
     n_clients: int
@@ -55,6 +64,24 @@ class ScalePlan:
 
 def _stack_specs(tree: PyTree, k: int) -> PyTree:
     return tree_map(lambda s: meta_spec((k,) + tuple(s.shape), s.dtype), tree)
+
+
+def abstract_params(api: ModelAPI, plan: ScalePlan) -> PyTree:
+    """The stacked (K, ...) params of ``plan.dtype`` as ``meta`` tensors,
+    the port's ``jax.eval_shape`` of the reference's: ``api.init`` runs
+    under ``FakeTensorMode``, so no weight is drawn or stored."""
+    with FakeTensorMode():
+        shapes = api.init(torch.Generator(), plan.dtype)
+    return _stack_specs(shapes, plan.n_clients)
+
+
+def abstract_cache(api: ModelAPI, plan: ScalePlan) -> PyTree:
+    """The stacked (K, ...) caches of ``plan.dtype`` for the plan's
+    per-client batch and ``shape.seq_len`` slots, as ``meta`` tensors."""
+    with FakeTensorMode():
+        shapes = api.init_cache(plan.per_client_batch, plan.shape.seq_len,
+                                plan.dtype)
+    return _stack_specs(shapes, plan.n_clients)
 
 
 def abstract_masks(params_spec: PyTree) -> PyTree:

@@ -33,25 +33,30 @@ from repro_torch.models.common import (
 NEG_INF = -1e30
 
 
-def attn_init(gen: torch.Generator, cfg) -> dict:
+def attn_init(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
     dh = cfg.resolved_head_dim
     p = {
-        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * dh, cfg.use_bias),
-        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, cfg.use_bias),
-        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, cfg.use_bias),
-        "wo": dense_init(gen, cfg.n_heads * dh, cfg.d_model, cfg.use_bias),
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * dh, cfg.use_bias,
+                         dtype),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, cfg.use_bias,
+                         dtype),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, cfg.use_bias,
+                         dtype),
+        "wo": dense_init(gen, cfg.n_heads * dh, cfg.d_model, cfg.use_bias,
+                         dtype),
     }
     if cfg.qk_norm:
-        p["q_norm"] = rmsnorm_init(dh, gen.device)
-        p["k_norm"] = rmsnorm_init(dh, gen.device)
+        p["q_norm"] = rmsnorm_init(dh, gen.device, dtype)
+        p["k_norm"] = rmsnorm_init(dh, gen.device, dtype)
     return p
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
+                  device=None) -> dict:
     dh = cfg.resolved_head_dim
     shape = (batch, max_len, cfg.n_kv_heads, dh)
-    return {"k": torch.zeros(shape, device=device),
-            "v": torch.zeros(shape, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def _qkv(params, x, cfg, positions):

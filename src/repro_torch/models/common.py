@@ -2,14 +2,21 @@
 layers, GroupNorm, cross-entropy and accuracy (reference
 ``repro.models.common``).
 
-Params are nested dicts of float32 tensors; every initializer draws from an
+Params are nested dicts of tensors, float32 unless an initializer is given
+the reference's ``dtype`` (bf16 for the LM families' reduced-precision
+path; ``DTypePolicy``).  Every initializer draws in float32 from an
 explicit ``torch.Generator`` on the generator's own device (a CUDA
-generator draws a billion weights in milliseconds).  Draws cannot replay
-the reference's ``jax.random``: a run that must match it carries the
-reference's params across as numpy arrays.  Activations of the CNNs are
-NHWC tensors; those of the LMs are ``(B, S, d)``.
+generator draws a billion weights in milliseconds) and casts to ``dtype``
+after the scale, as the reference does.  Draws cannot replay the
+reference's ``jax.random``: a run that must match it carries the
+reference's params across as numpy arrays.  Norms, RoPE and the loss
+compute in float32 and cast back to the input's dtype at the reference's
+points.  Activations of the CNNs are NHWC tensors; those of the LMs are
+``(B, S, d)``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -20,24 +27,26 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
-def normal_init(gen: torch.Generator, shape, stddev, device=None
-                ) -> torch.Tensor:
-    """N(0, stddev²) float32, drawn on the generator's device, then moved
-    to ``device`` (default: left there)."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device) * stddev
+def normal_init(gen: torch.Generator, shape, stddev, device=None,
+                dtype=torch.float32) -> torch.Tensor:
+    """N(0, stddev²) drawn in float32 on the generator's device, cast to
+    ``dtype``, then moved to ``device`` (default: left there)."""
+    x = (torch.randn(shape, generator=gen, dtype=torch.float32,
+                     device=gen.device) * stddev).to(dtype)
     return x if device is None else x.to(device)
 
 
-def lecun_init(gen: torch.Generator, shape, fan_in=None,
-               device=None) -> torch.Tensor:
-    """N(0, 1/fan_in) float32; ``fan_in`` defaults to ``shape[0]``."""
+def lecun_init(gen: torch.Generator, shape, fan_in=None, device=None,
+               dtype=torch.float32) -> torch.Tensor:
+    """N(0, 1/fan_in); ``fan_in`` defaults to ``shape[0]``."""
     fan_in = fan_in if fan_in is not None else shape[0]
-    return normal_init(gen, shape, 1.0 / np.sqrt(max(fan_in, 1)), device)
+    return normal_init(gen, shape, 1.0 / np.sqrt(max(fan_in, 1)), device,
+                       dtype)
 
 
-def embed_init(gen: torch.Generator, shape) -> torch.Tensor:
-    return normal_init(gen, shape, 1.0)
+def embed_init(gen: torch.Generator, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    return normal_init(gen, shape, 1.0, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -45,8 +54,8 @@ def embed_init(gen: torch.Generator, shape) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm_init(d: int, device) -> dict:
-    return {"scale": torch.zeros(d, device=device)}  # (1+scale) form
+def rmsnorm_init(d: int, device, dtype=torch.float32) -> dict:
+    return {"scale": torch.zeros(d, dtype=dtype, device=device)}  # (1+scale)
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -57,9 +66,9 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * (1.0 + params["scale"].float())).to(x.dtype)
 
 
-def groupnorm_init(c: int, device="cpu") -> dict:
-    return {"scale": torch.ones(c, device=device),
-            "bias": torch.zeros(c, device=device)}
+def groupnorm_init(c: int, device="cpu", dtype=torch.float32) -> dict:
+    return {"scale": torch.ones(c, dtype=dtype, device=device),
+            "bias": torch.zeros(c, dtype=dtype, device=device)}
 
 
 def groupnorm(params: dict, x: torch.Tensor, groups: int = 32,
@@ -123,10 +132,10 @@ def activation(name: str):
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               use_bias: bool = False) -> dict:
-    p = {"w": lecun_init(gen, (d_in, d_out))}
+               use_bias: bool = False, dtype=torch.float32) -> dict:
+    p = {"w": lecun_init(gen, (d_in, d_out), dtype=dtype)}
     if use_bias:
-        p["b"] = torch.zeros(d_out, device=gen.device)
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=gen.device)
     return p
 
 
@@ -162,3 +171,17 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     valid = labels >= 0
     return (((pred == labels) & valid).sum()
             / torch.clamp_min(valid.sum(), 1))
+
+
+@dataclasses.dataclass
+class DTypePolicy:
+    """Parameter and compute dtypes (reference ``models.common.
+    DTypePolicy``): float32 by default; ``tpu()`` is the reference's bf16
+    policy, which the port runs on the H100's tensor cores."""
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def tpu():
+        return DTypePolicy(param_dtype=torch.bfloat16,
+                           compute_dtype=torch.bfloat16)

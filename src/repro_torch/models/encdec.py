@@ -34,38 +34,40 @@ from repro_torch.utils.tree import tree_index, tree_stack, tree_unstack
 PyTree = Any
 
 
-def _enc_layer_init(gen, cfg):
+def _enc_layer_init(gen, cfg, dtype):
     dev = gen.device
     return {
-        "norm1": rmsnorm_init(cfg.d_model, dev),
-        "attn": attn_mod.attn_init(gen, cfg),
-        "norm2": rmsnorm_init(cfg.d_model, dev),
-        "mlp": _mlp_init(gen, cfg, cfg.d_ff),
+        "norm1": rmsnorm_init(cfg.d_model, dev, dtype),
+        "attn": attn_mod.attn_init(gen, cfg, dtype),
+        "norm2": rmsnorm_init(cfg.d_model, dev, dtype),
+        "mlp": _mlp_init(gen, cfg, cfg.d_ff, dtype),
     }
 
 
-def _dec_layer_init(gen, cfg):
+def _dec_layer_init(gen, cfg, dtype):
     dev = gen.device
     return {
-        "norm1": rmsnorm_init(cfg.d_model, dev),
-        "self_attn": attn_mod.attn_init(gen, cfg),
-        "norm_x": rmsnorm_init(cfg.d_model, dev),
-        "cross_attn": attn_mod.attn_init(gen, cfg),
-        "norm2": rmsnorm_init(cfg.d_model, dev),
-        "mlp": _mlp_init(gen, cfg, cfg.d_ff),
+        "norm1": rmsnorm_init(cfg.d_model, dev, dtype),
+        "self_attn": attn_mod.attn_init(gen, cfg, dtype),
+        "norm_x": rmsnorm_init(cfg.d_model, dev, dtype),
+        "cross_attn": attn_mod.attn_init(gen, cfg, dtype),
+        "norm2": rmsnorm_init(cfg.d_model, dev, dtype),
+        "mlp": _mlp_init(gen, cfg, cfg.d_ff, dtype),
     }
 
 
-def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
-    """Float32 params on the generator's device."""
-    enc = [_enc_layer_init(gen, cfg) for _ in range(cfg.enc_layers)]
-    dec = [_dec_layer_init(gen, cfg) for _ in range(cfg.n_layers)]
+def init_encdec(gen: torch.Generator, cfg: ModelConfig,
+                dtype=torch.float32) -> PyTree:
+    """Params of ``dtype`` on the generator's device."""
+    enc = [_enc_layer_init(gen, cfg, dtype) for _ in range(cfg.enc_layers)]
+    dec = [_dec_layer_init(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+    dev = gen.device
     return {
-        "embed": {"table": embed_init(gen, (cfg.vocab, cfg.d_model))},
+        "embed": {"table": embed_init(gen, (cfg.vocab, cfg.d_model), dtype)},
         "encoder": tree_stack(enc),
-        "enc_norm": rmsnorm_init(cfg.d_model, gen.device),
+        "enc_norm": rmsnorm_init(cfg.d_model, dev, dtype),
         "decoder": tree_stack(dec),
-        "final_norm": rmsnorm_init(cfg.d_model, gen.device),
+        "final_norm": rmsnorm_init(cfg.d_model, dev, dtype),
     }
 
 
@@ -114,15 +116,16 @@ def _dec_layer(p, x, cfg, positions, cross_kv, cache=None, pos=None):
 
 
 def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      enc_len: int, device=None) -> PyTree:
+                      enc_len: int, dtype=torch.float32,
+                      device=None) -> PyTree:
     dh = cfg.resolved_head_dim
     n = cfg.n_layers
     cross = (n, batch, enc_len, cfg.n_kv_heads, dh)
     return {"self": tree_stack([attn_mod.init_kv_cache(cfg, batch, max_len,
-                                                       device)
+                                                       dtype, device)
                                 for _ in range(n)]),
-            "cross": {"k": torch.zeros(cross, device=device),
-                      "v": torch.zeros(cross, device=device)}}
+            "cross": {"k": torch.zeros(cross, dtype=dtype, device=device),
+                      "v": torch.zeros(cross, dtype=dtype, device=device)}}
 
 
 def decode_train(params, frames, tokens, cfg: ModelConfig):

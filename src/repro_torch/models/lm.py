@@ -84,16 +84,18 @@ def layer_plan(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _mlp_init(gen, cfg, d_ff):
+def _mlp_init(gen, cfg, d_ff, dtype=torch.float32):
     if cfg.mlp_gated:
         return {
-            "w_gate": lecun_init(gen, (cfg.d_model, d_ff)),
-            "w_up": lecun_init(gen, (cfg.d_model, d_ff)),
-            "w_down": lecun_init(gen, (d_ff, cfg.d_model), fan_in=d_ff),
+            "w_gate": lecun_init(gen, (cfg.d_model, d_ff), dtype=dtype),
+            "w_up": lecun_init(gen, (cfg.d_model, d_ff), dtype=dtype),
+            "w_down": lecun_init(gen, (d_ff, cfg.d_model), fan_in=d_ff,
+                                 dtype=dtype),
         }
     return {
-        "w_up": lecun_init(gen, (cfg.d_model, d_ff)),
-        "w_down": lecun_init(gen, (d_ff, cfg.d_model), fan_in=d_ff),
+        "w_up": lecun_init(gen, (cfg.d_model, d_ff), dtype=dtype),
+        "w_down": lecun_init(gen, (d_ff, cfg.d_model), fan_in=d_ff,
+                             dtype=dtype),
     }
 
 
@@ -107,28 +109,29 @@ def _mlp_apply(p, x, cfg):
     return h @ p["w_down"]
 
 
-def layer_init(gen: torch.Generator, cfg: ModelConfig, sub: SubLayer) -> dict:
+def layer_init(gen: torch.Generator, cfg: ModelConfig, sub: SubLayer,
+               dtype=torch.float32) -> dict:
     dev = gen.device
-    p: dict = {"norm1": rmsnorm_init(cfg.d_model, dev)}
+    p: dict = {"norm1": rmsnorm_init(cfg.d_model, dev, dtype)}
     if sub.kind == "attn":
-        p["attn"] = attn_mod.attn_init(gen, cfg)
+        p["attn"] = attn_mod.attn_init(gen, cfg, dtype)
     else:
-        p["ssm"] = ssm_mod.ssm_init(gen, cfg)
+        p["ssm"] = ssm_mod.ssm_init(gen, cfg, dtype)
     if sub.ffn == "mlp":
         d_ff = sub.d_ff_override or cfg.d_ff
-        p["norm2"] = rmsnorm_init(cfg.d_model, dev)
-        p["mlp"] = _mlp_init(gen, cfg, d_ff)
+        p["norm2"] = rmsnorm_init(cfg.d_model, dev, dtype)
+        p["mlp"] = _mlp_init(gen, cfg, d_ff, dtype)
     elif sub.ffn == "moe":
-        p["norm2"] = rmsnorm_init(cfg.d_model, dev)
-        p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.moe)
+        p["norm2"] = rmsnorm_init(cfg.d_model, dev, dtype)
+        p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.moe, dtype)
     return p
 
 
 def layer_cache_init(cfg: ModelConfig, sub: SubLayer, batch: int,
-                     max_len: int, device=None):
+                     max_len: int, dtype=torch.float32, device=None):
     if sub.kind == "attn":
-        return attn_mod.init_kv_cache(cfg, batch, max_len, device)
-    return ssm_mod.init_ssm_cache(cfg, batch, device)
+        return attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device)
+    return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
 
 
 def layer_apply(p, x, sub: SubLayer, cfg: ModelConfig, positions,
@@ -162,50 +165,54 @@ def layer_apply(p, x, sub: SubLayer, cfg: ModelConfig, positions,
 # ---------------------------------------------------------------------------
 
 
-def init_lm(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
-    """Float32 params on the generator's device, drawn in the reference's
-    key order (embedding, prelude, blocks period-major, tail, head)."""
+def init_lm(gen: torch.Generator, cfg: ModelConfig,
+            dtype=torch.float32) -> PyTree:
+    """Params of ``dtype`` on the generator's device (the MoE router, the
+    SSM's ``A_log``/``D``/``dt_bias`` float32 always), drawn in the
+    reference's key order (embedding, prelude, blocks period-major, tail,
+    head)."""
     prelude, period, n_blocks, tail, kinds = layer_plan(cfg)
     params: dict = {
-        "embed": {"table": embed_init(gen, (cfg.vocab, cfg.d_model))}}
+        "embed": {"table": embed_init(gen, (cfg.vocab, cfg.d_model), dtype)}}
     if prelude:
-        params["prelude"] = {str(i): layer_init(gen, cfg, kinds[i])
+        params["prelude"] = {str(i): layer_init(gen, cfg, kinds[i], dtype)
                              for i in prelude}
     if n_blocks > 0:
         start = len(prelude)
         params["blocks"] = {
             f"p{j}": tree_stack([
-                layer_init(gen, cfg, kinds[start + b * period + j])
+                layer_init(gen, cfg, kinds[start + b * period + j], dtype)
                 for b in range(n_blocks)])
             for j in range(period)}
     if tail:
-        params["tail"] = {str(i): layer_init(gen, cfg, kinds[i]) for i in tail}
-    params["final_norm"] = rmsnorm_init(cfg.d_model, gen.device)
+        params["tail"] = {str(i): layer_init(gen, cfg, kinds[i], dtype)
+                          for i in tail}
+    params["final_norm"] = rmsnorm_init(cfg.d_model, gen.device, dtype)
     if not cfg.tie_embeddings:
-        params["head"] = {"w": lecun_init(gen, (cfg.d_model, cfg.vocab))}
+        params["head"] = {"w": lecun_init(gen, (cfg.d_model, cfg.vocab),
+                                          dtype=dtype)}
     return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> PyTree:
+               dtype=torch.float32, device=None) -> PyTree:
+    """Zero caches: KV and conv tails of ``dtype``, SSD states float32."""
     prelude, period, n_blocks, tail, kinds = layer_plan(cfg)
+
+    def one(i):
+        return layer_cache_init(cfg, kinds[i], batch, max_len, dtype, device)
+
     cache: dict = {}
     if prelude:
-        cache["prelude"] = {
-            str(i): layer_cache_init(cfg, kinds[i], batch, max_len, device)
-            for i in prelude}
+        cache["prelude"] = {str(i): one(i) for i in prelude}
     if n_blocks > 0:
         start = len(prelude)
         cache["blocks"] = {
-            f"p{j}": tree_stack([
-                layer_cache_init(cfg, kinds[start + b * period + j], batch,
-                                 max_len, device)
-                for b in range(n_blocks)])
+            f"p{j}": tree_stack([one(start + b * period + j)
+                                 for b in range(n_blocks)])
             for j in range(period)}
     if tail:
-        cache["tail"] = {
-            str(i): layer_cache_init(cfg, kinds[i], batch, max_len, device)
-            for i in tail}
+        cache["tail"] = {str(i): one(i) for i in tail}
     return cache
 
 

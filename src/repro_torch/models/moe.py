@@ -32,20 +32,23 @@ import torch
 from repro_torch.models.common import activation, lecun_init
 
 
-def moe_init(gen: torch.Generator, d_model: int, spec) -> dict:
+def moe_init(gen: torch.Generator, d_model: int, spec,
+             dtype=torch.float32) -> dict:
+    """The router stays float32 whatever ``dtype`` is (the reference's
+    fp32 island: routing in ``_route`` is computed in fp32)."""
     e, de = spec.n_experts, spec.d_expert
     p = {
         "router": lecun_init(gen, (d_model, e)),
-        "w_gate": lecun_init(gen, (e, d_model, de)),
-        "w_up": lecun_init(gen, (e, d_model, de)),
-        "w_down": lecun_init(gen, (e, de, d_model), fan_in=de),
+        "w_gate": lecun_init(gen, (e, d_model, de), dtype=dtype),
+        "w_up": lecun_init(gen, (e, d_model, de), dtype=dtype),
+        "w_down": lecun_init(gen, (e, de, d_model), fan_in=de, dtype=dtype),
     }
     if spec.n_shared > 0:
         ds = spec.d_expert * spec.n_shared
         p["shared"] = {
-            "w_gate": lecun_init(gen, (d_model, ds)),
-            "w_up": lecun_init(gen, (d_model, ds)),
-            "w_down": lecun_init(gen, (ds, d_model), fan_in=ds),
+            "w_gate": lecun_init(gen, (d_model, ds), dtype=dtype),
+            "w_up": lecun_init(gen, (d_model, ds), dtype=dtype),
+            "w_down": lecun_init(gen, (ds, d_model), fan_in=ds, dtype=dtype),
         }
     return p
 

@@ -3,11 +3,11 @@
 ``bind(cfg)`` returns a ``ModelAPI`` whose methods take and return plain
 trees of tensors:
 
-  init(gen)                              -> params (on the generator's device)
+  init(gen, dtype)                       -> params (on the generator's device)
   train_loss(params, batch)              -> (loss, aux_metrics)
   prefill(params, batch, cache)          -> (logits, cache)
   decode(params, tokens, pos, cache)     -> (logits, cache)
-  init_cache(batch_size, max_len, ...)   -> cache
+  init_cache(batch_size, max_len, dtype, device, ...) -> cache
   input_specs(shape, dtype, batch)       -> batch tree of ``meta`` tensors
 
 Batch layout (per client, no client axis here — the step builders vmap):
@@ -16,6 +16,8 @@ Batch layout (per client, no client axis here — the step builders vmap):
   prefill: {'tokens': (B,S_t) int, ['prefix' | 'frames']}
   decode : tokens (B,1) int + pos, a 0-dim integer tensor
 
+``dtype`` defaults to float32 everywhere, as in the reference; bf16 gives
+the reference's reduced-precision params, caches and float inputs.
 ``input_specs`` gives the shapes and dtypes of a batch as tensors on the
 ``meta`` device (no storage), the port's form of ``jax.ShapeDtypeStruct``.
 The reference's ``remat``/``unroll`` options change how XLA lowers the same
@@ -63,8 +65,8 @@ def bind(cfg: ModelConfig, moe_dense: bool = False) -> ModelAPI:
 
 
 def _bind_lm(cfg: ModelConfig, moe_dense: bool) -> ModelAPI:
-    def init(gen: torch.Generator):
-        return lm_mod.init_lm(gen, cfg)
+    def init(gen: torch.Generator, dtype=torch.float32):
+        return lm_mod.init_lm(gen, cfg, dtype)
 
     def train_loss(params, batch):
         logits, aux = lm_mod.forward_train(params, batch["tokens"], cfg,
@@ -82,8 +84,8 @@ def _bind_lm(cfg: ModelConfig, moe_dense: bool) -> ModelAPI:
         return lm_mod.forward_decode(params, tokens, pos, cfg, cache,
                                      moe_dense=moe_dense)
 
-    def init_cache(batch_size, max_len, device=None):
-        return lm_mod.init_cache(cfg, batch_size, max_len, device)
+    def init_cache(batch_size, max_len, dtype=torch.float32, device=None):
+        return lm_mod.init_cache(cfg, batch_size, max_len, dtype, device)
 
     def input_specs(shape: InputShape, dtype=torch.float32,
                     batch: Optional[int] = None):
@@ -105,8 +107,8 @@ def _bind_lm(cfg: ModelConfig, moe_dense: bool) -> ModelAPI:
 
 
 def _bind_encdec(cfg: ModelConfig) -> ModelAPI:
-    def init(gen: torch.Generator):
-        return encdec_mod.init_encdec(gen, cfg)
+    def init(gen: torch.Generator, dtype=torch.float32):
+        return encdec_mod.init_encdec(gen, cfg, dtype)
 
     def train_loss(params, batch):
         logits, aux = encdec_mod.decode_train(params, batch["frames"],
@@ -121,9 +123,10 @@ def _bind_encdec(cfg: ModelConfig) -> ModelAPI:
     def decode(params, tokens, pos, cache):
         return encdec_mod.decode_step(params, tokens, pos, cfg, cache)
 
-    def init_cache(batch_size, max_len, device=None, enc_len: int = 1024):
+    def init_cache(batch_size, max_len, dtype=torch.float32, device=None,
+                   enc_len: int = 1024):
         return encdec_mod.init_encdec_cache(cfg, batch_size, max_len,
-                                            enc_len, device)
+                                            enc_len, dtype, device)
 
     def input_specs(shape: InputShape, dtype=torch.float32,
                     batch: Optional[int] = None):

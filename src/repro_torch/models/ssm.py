@@ -38,14 +38,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def ssm_init(gen: torch.Generator, cfg) -> dict:
+def ssm_init(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
+    """``A_log``, ``D`` and ``dt_bias`` stay float32 whatever ``dtype`` is,
+    as in the reference."""
     spec, d_inner, n_heads, conv_dim = _dims(cfg)
     d_in_proj = 2 * d_inner + 2 * spec.d_state + n_heads
     dev = gen.device
-    in_proj = lecun_init(gen, (cfg.d_model, d_in_proj))
+    in_proj = lecun_init(gen, (cfg.d_model, d_in_proj), dtype=dtype)
     conv_w = torch.randn((spec.conv_width, conv_dim), generator=gen,
                          dtype=torch.float32, device=dev)
-    conv_w = conv_w * spec.conv_width ** -0.5
+    conv_w = (conv_w * spec.conv_width ** -0.5).to(dtype)
     # dt bias init so softplus(dt_bias) spans [1e-3, 1e-1] (mamba2 default)
     u = torch.rand(n_heads, generator=gen, dtype=torch.float32, device=dev)
     lo, hi = math.log(1e-3), math.log(0.1)
@@ -54,22 +56,26 @@ def ssm_init(gen: torch.Generator, cfg) -> dict:
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,
-        "conv_b": torch.zeros(conv_dim, device=dev),
+        "conv_b": torch.zeros(conv_dim, dtype=dtype, device=dev),
         "A_log": torch.log(torch.linspace(1.0, 16.0, n_heads, device=dev)),
         "D": torch.ones(n_heads, device=dev),
         "dt_bias": dt_bias,
-        "norm": rmsnorm_init(d_inner, dev),
-        "out_proj": lecun_init(gen, (d_inner, cfg.d_model), fan_in=d_inner),
+        "norm": rmsnorm_init(d_inner, dev, dtype),
+        "out_proj": lecun_init(gen, (d_inner, cfg.d_model), fan_in=d_inner,
+                               dtype=dtype),
     }
 
 
-def init_ssm_cache(cfg, batch: int, device=None) -> dict:
+def init_ssm_cache(cfg, batch: int, dtype=torch.float32,
+                   device=None) -> dict:
+    """The SSD state is float32 whatever ``dtype`` is; the conv tail takes
+    ``dtype`` (as the reference's)."""
     spec, d_inner, n_heads, conv_dim = _dims(cfg)
     return {
         "ssm_state": torch.zeros((batch, n_heads, spec.head_dim, spec.d_state),
-                                 device=device),
+                                 dtype=torch.float32, device=device),
         "conv_state": torch.zeros((batch, spec.conv_width - 1, conv_dim),
-                                  device=device),
+                                  dtype=dtype, device=device),
     }
 
 

@@ -285,23 +285,25 @@ def stacked_prune_regrow_threshold(
     leaf, a static budget ``n_active = max(1, round(density * n))``,
     ``n_prune = ceil(f32(prune_rate) * n_active)`` (the reference's fp32
     product), thresholds by ``torch.sort`` on the device, then the
-    prune/regrow kernel — one launch per leaf.  Ties may keep or grow a few
-    more coordinates than the exact form.  Returns ``(masks, params)``."""
+    prune/regrow kernel — one launch per leaf, on the leaf's own dtypes
+    (a pair of ``kernels.prune_regrow.PAIRS``: fp32 or bf16 weights, int8
+    masks on the LM steps), with no widened copy of a leaf.  The reference
+    widens every leaf to fp32 first; the kernel widens each value as it
+    compares, which is exact, so the results are the same.  Ties may keep
+    or grow a few more coordinates than the exact form.  Returns
+    ``(masks, params)``."""
     rate = np.float32(prune_rate)
 
     def one(w, g, m):
         if not sparsifiable(w):
             return m, w
         k = w.shape[0]
-        wf = w.reshape(k, -1).to(torch.float32).contiguous()
-        gf = g.reshape(k, -1).to(torch.float32).contiguous()
-        mf = m.reshape(k, -1).to(torch.float32).contiguous()
-        n_active = max(1, int(round(density * wf.shape[1])))
+        w2, g2, m2 = (t.reshape(k, -1).contiguous() for t in (w, g, m))
+        n_active = max(1, int(round(density * w2.shape[1])))
         n_prune = int(np.ceil(rate * np.float32(n_active)))
-        th = sort_thresholds(wf, gf, mf, n_active - n_prune, n_prune)
-        new_m, new_w = prune_regrow_rows(wf, gf, mf, th)
-        return (new_m.to(m.dtype).reshape(m.shape),
-                new_w.to(w.dtype).reshape(w.shape))
+        th = sort_thresholds(w2, g2, m2, n_active - n_prune, n_prune)
+        new_m, new_w = prune_regrow_rows(w2, g2, m2, th)
+        return new_m.reshape(m.shape), new_w.reshape(w.shape)
 
     return tree_unzip(tree_map(one, params, grads, masks))
 
@@ -337,10 +339,14 @@ def is_stacked_packed(x) -> bool:
 
 
 def pack_stacked(stacked_params: PyTree,
-                 stacked_masks: Optional[PyTree] = None) -> PyTree:
+                 stacked_masks: Optional[PyTree] = None,
+                 dtype: Optional[torch.dtype] = None) -> PyTree:
     """Pack a stacked state into ``StackedPacked`` leaves on its device
-    (``masks=None`` packs dense: all-ones bitmaps).  The values width is
-    data-dependent, so each leaf reads its largest nnz back once."""
+    (``masks=None`` packs dense: all-ones bitmaps).  Values keep the
+    state's dtype, or are cast to ``dtype`` (``torch.float16``: the wire's
+    fp16 payloads, rounded to nearest even as the reference's numpy cast
+    rounds them).  The values width is data-dependent, so each leaf reads
+    its largest nnz back once."""
 
     def one(w, m):
         k = w.shape[0]
@@ -351,9 +357,10 @@ def pack_stacked(stacked_params: PyTree,
         width = int(nnz.max()) if k else 0
         # each held value to its rank in the row, the rest to a spare column
         col = torch.where(flags, torch.cumsum(flags, dim=1) - 1, width)
-        buf = torch.zeros((k, width + 1), dtype=flat.dtype,
+        vals = flat if dtype is None else flat.to(dtype)
+        buf = torch.zeros((k, width + 1), dtype=vals.dtype,
                           device=flat.device)
-        buf.scatter_(1, col, flat)
+        buf.scatter_(1, col, vals)
         return StackedPacked(bitmap=pack_bits_rows(flags),
                              values=buf[:, :width].contiguous(), nnz=nnz,
                              shape=tuple(w.shape[1:]))
@@ -422,7 +429,8 @@ def fold_stacked(num: PyTree, den: PyTree, packed: PyTree,
                  alpha: float = 1.0) -> tuple[PyTree, PyTree]:
     """Fold a stacked payload into stacked (num, den) accumulators — client
     k's payload into row k — in place, one stacked-fold launch per leaf
-    (its plain version for CPU tensors).  Returns ``(num, den)``."""
+    (its plain version for CPU tensors); fp16 payload values are widened
+    exactly into the fp32 accumulators.  Returns ``(num, den)``."""
 
     def one(nu, de, sp: StackedPacked):
         k = sp.n_clients

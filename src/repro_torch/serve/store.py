@@ -14,13 +14,21 @@ support (a replacement delta), so ``get(user)`` returns ``w ⊙ m``
 bit-exactly.  Users without a frame are served the base with an all-ones
 mask (cold start).
 
+Frame values are fp32, or fp16 with ``payload_dtype=np.float16`` (the
+reference's option: half the value bytes at rest, dtype code 1 in the
+header).  The pool keeps the base's dtype (fp32) either way.
+
 The LRU cache is a *slot pool*: one preallocated ``(cache_size, ...)``
 tensor per leaf on the store's device, holding the unpacked dense-masked
 models of the ``cache_size`` most recently served users.  The pool IS the
 batched launch operand, so a hit moves zero parameter bytes.  A miss
-decodes the user's frame on the pool's device (``codec.decode_dense``: the
-frame's bytes cross to the device once) and writes its slot in place
-(``pool[slot].copy_``); the pool is never rebuilt.  The LRU order and the
+decodes the user's frame on the pool's device — an fp32 frame by
+``codec.decode_dense`` (the frame's bytes cross to the device once), an
+fp16 frame leaf by leaf through the flat fold's fp16 entry into fp32 zeros
+(``sparse.ops.decode``: one fold launch per leaf on the card, each value
+widened exactly, as the reference's fp32 pool widens it on write) — and
+writes its slot in place (``pool[slot].copy_``); the pool is never
+rebuilt.  The LRU order and the
 ``hits`` / ``misses`` / ``evictions`` counters follow the reference's step
 for step.
 """
@@ -36,20 +44,32 @@ import torch
 from repro_torch.obs import CounterSet, SeriesSet, get_tracer, span
 from repro_torch.sparse.codec import (
     TreeSpec,
+    decode,
     decode_dense,
     encode,
     encoded_nbytes,
 )
-from repro_torch.sparse.packed import pack_tree, tree_packed_nnz
+from repro_torch.sparse.ops import decode as decode_leaf
+from repro_torch.sparse.packed import (
+    PackedSparse,
+    is_packed,
+    pack_tree,
+    tree_packed_nnz,
+)
 from repro_torch.utils.tree import (
     tree_index,
     tree_leaves,
     tree_map,
     tree_ones_like,
     tree_unflatten_like,
+    tree_unzip,
 )
 
 PyTree = Any
+
+#: the frame value types (the codec's two wire dtypes)
+PAYLOAD_DTYPES = {np.dtype(np.float32): torch.float32,
+                  np.dtype(np.float16): torch.float16}
 
 
 class ModelStore:
@@ -58,19 +78,22 @@ class ModelStore:
     ``base_params`` is the shared dense base (a tree of tensors): served,
     with an all-ones mask, to users without a stored delta, and the
     template the message schema (``TreeSpec``) is derived from.  Frames
-    carry fp32 values.  The pool lives on ``device`` (default: the base's
-    device).
+    carry ``payload_dtype`` values (``np.float32`` or ``np.float16``).  The
+    pool lives on ``device`` (default: the base's device).
     """
 
     def __init__(self, base_params: PyTree, cache_size: int = 32,
-                 device=None):
+                 device=None, payload_dtype=np.float32):
         if cache_size < 1:
             raise ValueError(f"cache_size must be >= 1, got {cache_size}")
+        self.payload_dtype = np.dtype(payload_dtype)
+        if self.payload_dtype not in PAYLOAD_DTYPES:
+            raise ValueError(f"unsupported wire dtype {self.payload_dtype}")
         self.base = base_params
         self.cache_size = int(cache_size)
         self.device = torch.device(
             device if device is not None else tree_leaves(base_params)[0].device)
-        self.spec = TreeSpec.from_tree(base_params, dtype=np.float32)
+        self.spec = TreeSpec.from_tree(base_params, dtype=self.payload_dtype)
         self._frames: dict[int, bytes] = {}
         self._nnz: dict[int, int] = {}
         # slot pool: preallocated stacked device buffers; _slot_of is the LRU map
@@ -104,7 +127,8 @@ class ModelStore:
     def put(self, user: int, params: PyTree, mask: Optional[PyTree]) -> int:
         """Encode ``params ⊙ mask`` as the user's at-rest frame; returns its
         size in bytes.  ``mask=None`` stores a dense (all-ones) delta."""
-        packed = pack_tree(params, mask, dtype=torch.float32)
+        packed = pack_tree(params, mask,
+                           dtype=PAYLOAD_DTYPES[self.payload_dtype])
         frame = encode(packed)
         assert len(frame) == encoded_nbytes(packed)
         self._frames[user] = frame
@@ -153,8 +177,7 @@ class ModelStore:
                          "masks": tree_ones_like(self.base)}
             else:
                 # one decode on the pool's device: the serving hot path
-                params, masks = decode_dense(frame, self.spec,
-                                             device=self.device)
+                params, masks = self._decode(frame)
                 entry = {"params": params, "masks": masks}
                 sp.attrs["nbytes"] = len(frame)
             if self._free:
@@ -168,6 +191,18 @@ class ModelStore:
             self._begin_residency(slot, user)
         self._h_miss_s.add(time.perf_counter() - t0)
         return slot
+
+    def _decode(self, frame: bytes) -> tuple[PyTree, PyTree]:
+        """(params, masks) of one frame on the pool's device: fp32 frames
+        in one dense decode, fp16 frames folded leaf by leaf into fp32."""
+        if self.payload_dtype == np.float32:
+            return decode_dense(frame, self.spec, device=self.device)
+        packed = tree_map(
+            lambda p: PackedSparse(bitmap=p.bitmap.to(self.device),
+                                   values=p.values.to(self.device),
+                                   shape=p.shape),
+            decode(frame, self.spec), is_leaf=is_packed)
+        return tree_unzip(tree_map(decode_leaf, packed, is_leaf=is_packed))
 
     def get(self, user: int) -> tuple[PyTree, PyTree]:
         """The user's unpacked (dense-masked params, mask) — bit-exact vs
@@ -246,7 +281,8 @@ class ModelStore:
     # ------------------------------------------------------------------
     @classmethod
     def from_checkpoint(cls, path: str, cache_size: int = 32,
-                        device="cuda") -> "ModelStore":
+                        device="cuda",
+                        payload_dtype=np.float32) -> "ModelStore":
         """Load a trained engine archive (written by either package's
         ``RoundEngine.save``) into a store: client k's personalized params
         (⊙ mask, when the strategy keeps masks) become user k's delta.
@@ -272,7 +308,8 @@ class ModelStore:
                    for leaves in zip(*(tree_leaves(p) for p in params))]
         base_params = tree_from_numpy(tree_unflatten_like(
             params[0], [s.mean(axis=0) for s in stacked]), device)
-        store = cls(base_params, cache_size=cache_size, device=device)
+        store = cls(base_params, cache_size=cache_size, device=device,
+                    payload_dtype=payload_dtype)
         for k, p in enumerate(params):
             # dispfl-style params are already w ⊙ m; pack gathers at the
             # mask's support, so the stored values are the trained weights

@@ -59,8 +59,12 @@ def accumulate(num: torch.Tensor, den: torch.Tensor, ps: PackedSparse,
 
 def decode(ps: PackedSparse):
     """(w ⊙ m, m) of one payload in float32, by folding it into zero
-    accumulators (not counted in ``COUNTERS``)."""
-    num = torch.zeros(ps.shape, dtype=torch.float32, device=ps.values.device)
+    accumulators (not counted in ``COUNTERS``).  ``num`` starts at -0.0, so
+    the fold's ``num + 1 * v`` keeps every held value's bits, a held -0.0
+    included, and an empty coordinate ends at +0.0 (-0 + +0 = +0): bit for
+    bit the reference's scatter into zeros."""
+    num = torch.full(ps.shape, -0.0, dtype=torch.float32,
+                     device=ps.values.device)
     den = torch.zeros(ps.shape, dtype=torch.float32, device=ps.values.device)
     packed_accum(num.view(-1), den.view(-1), ps.bitmap, ps.values, 1.0)
     return num, den

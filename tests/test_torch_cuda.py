@@ -7,10 +7,13 @@ port only, so it runs on a machine without jax:
 
 The gossip, fold (flat and stacked rows) and prune/regrow kernels must
 equal their plain versions bit for bit (fp32 and bf16 gossip, fp32 and fp16
-flat payload values, fp32 stacked payload values, any alpha, per-row thresholds, ties, zero gradients).  The
-masked matmul sums in another order than cuBLAS, so it agrees with its
+flat and stacked payload values, any alpha, per-row thresholds, ties, zero
+gradients, every (weight, mask) dtype pair of the prune/regrow kernel).
+The masked matmul sums in another order than cuBLAS, so it agrees with its
 plain version to atol 1e-5 and rtol 1e-5 on inputs scaled as the served
-MLP's (x ~ N(0, 1), w ~ N(0, 1/K)); a user's rows in a mixed batch are
+MLP's (x ~ N(0, 1), w ~ N(0, 1/K)), and its bf16 entries within one bf16
+ulp of the plain output plus that atol (``within_bf16_ulp``: the same
+fp32 sums, in another order, each rounded once to bf16); a user's rows in a mixed batch are
 bit-equal to the same user served alone; the prune/regrow kernel also at
 the LM mask update's full-width leaf and once per sparsifiable leaf of
 ``launch.steps.make_mask_update_step``.  SubFedAvg's server mix (the
@@ -266,11 +269,16 @@ def test_batched_kernel_mixed_equals_alone_at_staging_shapes(cuda_device, u,
 
 
 def test_batched_kernel_refuses_bad_dtype_and_shapes(cuda_device):
+    """Operand types the kernel has no entry for are refused with the
+    supported pairs named (bf16 x and w with an fp32 mask has one since
+    the bf16 entries: ``test_bf16_masked_matmul_*``)."""
     x, w, mask = _mm_inputs(2, 3, 8, 5, 0.5, 3, cuda_device)
     launches = mmk.LAUNCHES
-    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+    for dtype in (torch.float16, torch.float64):
         with pytest.raises(TypeError, match="float32"):
             mmk.batched_masked_matmul(x.to(dtype), w.to(dtype), mask)
+    with pytest.raises(TypeError, match="bfloat16"):
+        mmk.batched_masked_matmul(x.to(torch.bfloat16), w, mask)
     with pytest.raises(ValueError, match="chain"):
         mmk.batched_masked_matmul(x, w[:, :7].contiguous(), mask)
     with pytest.raises(ValueError, match="chain"):
@@ -692,3 +700,214 @@ def test_sim_resume_on_card_bit_identical(cuda_device, mode, tmp_path):
         assert eng._acc_history == full._acc_history
         for a, b in zip(tree_leaves(eng.state), tree_leaves(full.state)):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# reduced precision: the bf16 and fp16 entries
+# ---------------------------------------------------------------------------
+
+def _bf16_mm(x, w, mask, mask_dtype):
+    return (x.to(torch.bfloat16), w.to(torch.bfloat16), mask.to(mask_dtype))
+
+
+def _entry_launches(counts, before):
+    """The C entries whose count moved since ``before`` (a copy of a
+    ``LAUNCHES_BY_ENTRY`` table), and by how much."""
+    return {e: n - before[e] for e, n in counts.items() if n != before[e]}
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 128, 128), (128, 256, 128),
+                                   (70, 200, 90), (13, 50, 17)])
+@pytest.mark.parametrize("density", [0.0, 0.2, 1.0])
+def test_bf16_masked_matmul_matches_plain_on_card(cuda_device, shape,
+                                                  density, mask_dtype):
+    """The reference's kernel sweep at bf16: within one bf16 ulp of the
+    plain version, output bf16, one launch."""
+    m, k, n = shape
+    x, w, mask = _bf16_mm(*(t[0] for t in _mm_inputs(
+        1, m, k, n, density, m + k, cuda_device)), mask_dtype)
+    launches = mmk.LAUNCHES
+    by_entry = dict(mmk.LAUNCHES_BY_ENTRY)
+    u1 = dict(mmk.LAUNCHES_U1_BY_ENTRY)
+    got = mmk.masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    assert mmk.LAUNCHES == launches + 1
+    entry = {torch.float32: "batched_masked_matmul_bf16",
+             torch.bfloat16: "batched_masked_matmul_bf16_mbf16"}[mask_dtype]
+    assert _entry_launches(mmk.LAUNCHES_BY_ENTRY, by_entry) == {entry: 1}
+    assert _entry_launches(mmk.LAUNCHES_U1_BY_ENTRY, u1) == {entry: 1}
+    assert got.dtype == torch.bfloat16
+    assert mmk.within_bf16_ulp(got, mmk.masked_matmul_plain(x, w, mask))
+
+
+@pytest.mark.parametrize("u,m,k,n", [(256, 4, 128, 128), (7, 1, 64, 128),
+                                     (3, 16, 1000, 130), (2, 33, 128, 32)])
+def test_bf16_batched_kernel_at_serve_and_ragged_shapes(cuda_device, u, m, k,
+                                                        n):
+    x, w, mask = _bf16_mm(*_mm_inputs(u, m, k, n, 0.5, u + m + k,
+                                      cuda_device), torch.float32)
+    got = mmk.batched_masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    assert mmk.within_bf16_ulp(got,
+                               mmk.batched_masked_matmul_plain(x, w, mask))
+
+
+def test_bf16_batched_kernel_skips_dead_tiles_and_mixes_exactly(cuda_device):
+    """A checkerboard of empty (32, 32) tiles: dead tiles' weights do not
+    reach the result, and a user's rows in a mixed batch equal the same
+    user served alone."""
+    x, w, mask = _bf16_mm(*_mm_inputs(4, 9, 256, 256, 0.5, 8, cuda_device),
+                          torch.float32)
+    kt = torch.arange(256, device=cuda_device)[:, None] // 32
+    nt = torch.arange(256, device=cuda_device)[None, :] // 32
+    for u in range(4):
+        mask[u] *= ((kt + nt + u) % 2 == 0).float()
+    got = mmk.batched_masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    assert mmk.within_bf16_ulp(got,
+                               mmk.batched_masked_matmul_plain(x, w, mask))
+    w2 = torch.where(mask == 0, torch.full_like(w, 1e30), w)
+    assert torch.equal(mmk.batched_masked_matmul(x, w2, mask), got)
+    for i in (0, 3):
+        xs, ws, ms = (torch.zeros_like(t) for t in (x, w, mask))
+        xs[i], ws[i], ms[i] = x[i], w[i], mask[i]
+        assert torch.equal(mmk.batched_masked_matmul(xs, ws, ms)[i], got[i])
+
+
+def _pr_pair_inputs(k, n, seed, device, wdt, mdt, ties=False):
+    w, g, m = _pr_inputs(k, n, seed, device, ties)
+    return w.to(wdt), g.to(wdt), m.to(mdt)
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 2: torch.int16,
+                   1: torch.int8}[t.element_size()])
+
+
+@pytest.mark.parametrize("pair", pr.PAIRS, ids=lambda p: "-".join(
+    str(d).replace("torch.", "") for d in p))
+@pytest.mark.parametrize("k,n", [(1, 1000), (4, 4097), (2, 1_048_576)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_prune_regrow_kernel_dtype_pairs_on_card(cuda_device, pair, k, n,
+                                                 ties):
+    """Every instantiated (weight, mask) pair, bit-equal to the plain
+    version, outputs in m's and w's dtypes; thresholds sorted in the
+    native dtype equal those of the fp32 widenings."""
+    w, g, m = _pr_pair_inputs(k, n, n + k, cuda_device, *pair, ties)
+    th = pr.sort_thresholds(w, g, m, n // 4, n // 8)
+    assert torch.equal(th, pr.sort_thresholds(w.float(), g.float(),
+                                              m.float(), n // 4, n // 8))
+    launches, by_entry = pr.LAUNCHES, dict(pr.LAUNCHES_BY_ENTRY)
+    got = pr.prune_regrow_rows(w, g, m, th)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES == launches + 1
+    assert _entry_launches(pr.LAUNCHES_BY_ENTRY, by_entry) == {
+        pr._ENTRY[pair]: 1}
+    want = pr.prune_regrow_rows_plain(w, g, m, th)
+    assert got[0].dtype == m.dtype and got[1].dtype == w.dtype
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+
+
+def test_prune_regrow_kernel_refuses_pairs_it_has_no_entry_for(cuda_device):
+    w, g, m = _pr_inputs(2, 100, 1, cuda_device)
+    th = pr.sort_thresholds(w, g, m, 25, 12)
+    launches, by_entry = pr.LAUNCHES, dict(pr.LAUNCHES_BY_ENTRY)
+    for wdt, gdt, mdt in ((torch.float16, torch.float16, torch.float16),
+                          (torch.bfloat16, torch.bfloat16, torch.float32),
+                          (torch.float32, torch.float32, torch.bfloat16),
+                          (torch.bfloat16, torch.float32, torch.int8)):
+        with pytest.raises(TypeError, match="bfloat16, int8"):
+            pr.prune_regrow_rows(w.to(wdt), g.to(gdt), m.to(mdt), th)
+    assert pr.LAUNCHES == launches and pr.LAUNCHES_BY_ENTRY == by_entry
+
+
+@pytest.mark.parametrize("k,n", [(4, 1000), (3, 3 * BLOCK_N + 5),
+                                 (4, 2_359_296)])
+@pytest.mark.parametrize("alpha", [1.0, 0.75])
+def test_fold_rows_kernel_fp16_values_on_card(cuda_device, k, n, alpha):
+    """fp16 stacked payload values (``pack_stacked(dtype=float16)``),
+    widened exactly: bit-equal to the plain version, one launch."""
+    num, den, words, values, nnz = _rows_inputs(k, n, n + k, cuda_device)
+    values = values.to(torch.float16)
+    launches, by_entry = pa.LAUNCHES_ROWS, dict(pa.LAUNCHES_BY_ENTRY)
+    got = pa.packed_accum_rows(num.clone(), den.clone(), words, values, nnz,
+                               alpha)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES_ROWS == launches + 1
+    assert _entry_launches(pa.LAUNCHES_BY_ENTRY, by_entry) == {
+        "packed_accum_rows_f16": 1}
+    want = pa.packed_accum_rows_plain(num.clone(), den.clone(), words, values,
+                                      nnz, alpha)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("extra", [-1, 1])
+def test_fold_rows_kernel_fp16_refuses_wrong_nnz(cuda_device, extra):
+    """The refusal contract at fp16: a row whose bitmap disagrees with its
+    nnz raises before anything is folded."""
+    num, den, words, values, nnz = _rows_inputs(4, 3 * BLOCK_N, 7,
+                                                cuda_device)
+    values = values.to(torch.float16)
+    bad = nnz.clone()
+    bad[2] += extra
+    num0, den0 = num.clone(), den.clone()
+    launches, by_entry = pa.LAUNCHES_ROWS, dict(pa.LAUNCHES_BY_ENTRY)
+    with pytest.raises(ValueError, match="set bits"):
+        pa.packed_accum_rows(num, den, words, values, bad)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES_ROWS == launches and pa.LAUNCHES_BY_ENTRY == by_entry
+    assert torch.equal(num, num0) and torch.equal(den, den0)
+
+
+def test_fold_rows_kernel_refuses_other_value_types(cuda_device):
+    num, den, words, values, nnz = _rows_inputs(2, 1000, 3, cuda_device)
+    launches = pa.LAUNCHES_ROWS
+    for dtype in (torch.bfloat16, torch.float64):
+        with pytest.raises(TypeError, match="float16"):
+            pa.packed_accum_rows(num, den, words, values.to(dtype), nnz)
+    assert pa.LAUNCHES_ROWS == launches
+
+
+def test_lm_bf16_mask_update_step_on_card(cuda_device):
+    """``make_mask_update_step`` on bf16 params with int8 masks: one
+    (bf16, int8) prune/regrow launch per sparsifiable leaf, params stay
+    bf16, every weight zero outside its new mask."""
+    from repro_torch.configs import INPUT_SHAPES, SMOKE_ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models import bind
+    from repro_torch.scale.stacked import default_threshold_sparsifiable
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_stack
+
+    cfg = SMOKE_ARCHS["gemma3-1b"]
+    api = bind(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = tree_stack([api.init(gen, torch.bfloat16) for _ in range(2)])
+    masks = tree_map(
+        lambda w: ((torch.rand(w.shape, generator=gen, device=cuda_device)
+                    < 0.5) if default_threshold_sparsifiable(w)
+                   else torch.ones(w.shape, dtype=torch.bool,
+                                   device=cuda_device)).to(torch.int8),
+        params)
+    params = tree_map(lambda w, m: w * m.to(w.dtype), params, masks)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 2, 16), generator=gen,
+                                     device=cuda_device),
+             "labels": torch.randint(0, cfg.vocab, (2, 2, 16), generator=gen,
+                                     device=cuda_device)}
+    plan = steps.ScalePlan(cfg, INPUT_SHAPES["train_4k"], 2, 2,
+                           torch.bfloat16)
+    launches, by_entry = pr.LAUNCHES, dict(pr.LAUNCHES_BY_ENTRY)
+    new_params, new_masks = steps.make_mask_update_step(api, plan)(
+        params, masks, batch, 0.3)
+    torch.cuda.synchronize()
+    sparse = [x for x in tree_leaves(params)
+              if default_threshold_sparsifiable(x)]
+    assert sparse and pr.LAUNCHES - launches == len(sparse)
+    assert _entry_launches(pr.LAUNCHES_BY_ENTRY, by_entry) == {
+        "prune_regrow_rows_bf16_i8": len(sparse)}
+    for w, w0, m in zip(tree_leaves(new_params), tree_leaves(params),
+                        tree_leaves(new_masks)):
+        assert w.dtype == w0.dtype and m.dtype == torch.int8
+        assert bool(torch.all(w[m == 0] == 0))
