@@ -8,7 +8,9 @@ line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` (nvcc, one
-   process per source, in parallel), with the build time;
+   process per source, in parallel), with the build time and ptxas's lines
+   for each kernel instantiation (its entry function, then its registers,
+   shared memory and spills);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    ResNet18-GN gives the mix (J=4 rows of the largest leaf and of the whole
    flattened tree, fp32 and bf16; the packed fold at density 0.5), with its
@@ -26,7 +28,14 @@ line):
    masked matmul also the wrapper's host microseconds per call
    (``time.perf_counter`` over many calls with no synchronise), and for the
    masked matmul its library call's
-   (``torch.bmm``, ``torch.mm``) device time beside that call's time;
+   (``torch.bmm``, ``torch.mm``) device time beside that call's time and
+   its own bound (no mask read), and a device time with a cold L2; then
+   phase 16's bf16 masked matmul, timed here where the profiler keeps
+   every launch: its U=1 form at (128, 256, 128) first, the reference's
+   sweep with fp32 and bf16 masks, each within one bf16 ulp of plain and
+   bit-equal over two launches, the batched form at the serving MLP's
+   middle layer with either mask against ``torch.bmm`` on pre-masked bf16
+   weights, a mixed batch bit-equal to alone at 4 and at 20 rows;
 4. the training path through its CLI entry functions: ``simulate
    --model resnet18 --hw 32 --clients 4 --rounds 2`` on the default device
    (cuda), with launch counters zeroed just before and read just after —
@@ -171,11 +180,8 @@ line):
     plain), prefill and 16 decode steps within ``LM_DECODE_TOL_BF16`` of
     teacher forcing, every figure printed beside phase 14's fp32 one; (b)
     the prune/regrow kernel's other dtype pairs at K=4 rows of the largest
-    ResNet18-GN leaf, bit-equal and timed; the bf16 masked matmul over
-    the reference's sweep with fp32 and bf16 masks, each within one bf16
-    ulp of plain, the U=1 form at (128, 256, 128) and the batched one at
-    the serving MLP's middle layer timed against ``torch.bmm`` on
-    pre-masked bf16 weights, a mixed batch bit-equal to alone; (c)
+    ResNet18-GN leaf, bit-equal and timed (the bf16 masked matmul is
+    checked and timed in phase 3); (c)
     ``pack_stacked(dtype=float16)`` of a ResNet18-GN K=4 state and
     ``fold_stacked`` into zeros: one fp16 row-fold launch per leaf (62),
     bit-equal to plain and to ``(fp16(w), m)`` (the fp16 row and flat
@@ -203,6 +209,7 @@ line):
 Exits non-zero, printing no result, without a CUDA GPU or without the
 repo's ``src/`` beside this file.
 """
+import functools
 import json
 import math
 import os
@@ -217,6 +224,8 @@ FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16, dense tensor cores
 BF16_REL_TOL = 2.0 ** -8        # one bf16 ulp, relative (expected: exact)
 MM_TOL = dict(atol=1e-5, rtol=1e-5)   # masked matmul vs torch.matmul (fp32 order)
+L2_FLUSH_BYTES = 128 << 20      # read between calls timed with a cold L2
+PTXAS_LINES = ("entry function", "registers", "spill")  # logged at build
 # vmap vs loop local phase on the card at ResNet18-GN width, where the loop
 # on the card and on the CPU already differ by ~4.2e-4 (the CPU tests
 # measure no gap at their width and hold vmap to the loop's bits)
@@ -286,24 +295,33 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, cold_kernel=None):
     """Device time per call (the sum of every kernel the call launched),
     from a torch.profiler trace; None, with the reason printed, where the
     profiler records no device time or records a call's kernels fewer than
     ``iters`` times (late in a long run it has been seen to keep only a
     tenth of them).  ``cuda_ms`` above is the time per call as the caller
-    sees it, host launch overhead included."""
+    sees it, host launch overhead included.  Back-to-back calls find their
+    operands in the 50 MB L2 cache where they fit; with ``cold_kernel`` the
+    buffer of ``_l2_flush`` is read before each call, evicting them (read,
+    not written: dirty lines would charge their write-back to the call),
+    and only the kernels whose name holds ``cold_kernel`` are summed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    flush = _l2_flush() if cold_kernel else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush.sum()
             fn()
         torch.cuda.synchronize()
     rows = device_rows(prof)
     if rows is None:
         return None
+    if cold_kernel:
+        rows = [r for r in rows if cold_kernel in r[2]]
     total_us = sum(r[0] for r in rows)
     if total_us <= 0:
         log("  device time not measured: the profiler recorded no kernels")
@@ -313,6 +331,13 @@ def device_ms(fn, iters=20):
             f"{max(r[1] for r in rows)} launches of {iters} calls")
         return None
     return total_us / 1e3 / iters
+
+
+@functools.cache
+def _l2_flush():
+    """``L2_FLUSH_BYTES`` on the card, allocated once a run."""
+    import torch
+    return torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
 
 def host_us(fn, n=1000):
@@ -532,10 +557,13 @@ def check_mm_single(torch, mmk, dev, gen):
     return {"M": m_, "K": k_, "N": n_, "occupancy": occ, "max_abs_err": err,
             "ms": cuda_ms(lambda: mmk.masked_matmul(x, w, mask)),
             "device_ms": device_ms(lambda: mmk.masked_matmul(x, w, mask)),
+            "device_cold_ms": device_ms(lambda: mmk.masked_matmul(x, w, mask),
+                                        cold_kernel="masked_matmul"),
             "plain_ms": cuda_ms(lambda: mmk.masked_matmul_plain(x, w, mask)),
             "host_us": host_us(lambda: mmk.masked_matmul(x, w, mask)),
             "library_ms": cuda_ms(lambda: torch.mm(x, wm)),
             "library_device_ms": device_ms(lambda: torch.mm(x, wm)),
+            **_library_bound(4, 1, m_, k_, n_),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -574,11 +602,15 @@ def check_masked_matmul(torch, mmk, x, w, mask, timed=False):
         row["ms"] = cuda_ms(lambda: mmk.batched_masked_matmul(x, w, mask))
         row["device_ms"] = device_ms(
             lambda: mmk.batched_masked_matmul(x, w, mask))
+        row["device_cold_ms"] = device_ms(
+            lambda: mmk.batched_masked_matmul(x, w, mask),
+            cold_kernel="masked_matmul")
         row["plain_ms"] = cuda_ms(
             lambda: mmk.batched_masked_matmul_plain(x, w, mask))
         row["host_us"] = host_us(lambda: mmk.batched_masked_matmul(x, w, mask))
         row["library_ms"] = cuda_ms(lambda: torch.bmm(x, wm))
         row["library_device_ms"] = device_ms(lambda: torch.bmm(x, wm))
+        row.update(_library_bound(4, u, m, k, n))
         row["bound_ms"], row["bound_by"] = bound(
             4 * (u * m * k + (1 + occ) * u * k * n + u * m * n),
             2 * u * m * k * n * occ)
@@ -601,11 +633,12 @@ def check_mixed_vs_alone(torch, mmk, x, w, mask, users):
 
 def check_masked_matmul_bf16(torch, mmk, x, w, mask, timed=False):
     """The bf16 entries: bf16 ``x`` and ``w``, ``mask`` fp32 or bf16,
-    against the plain version within one bf16 ulp (``within_bf16_ulp``);
-    with ``timed``, the times of ``check_masked_matmul`` with ``torch.bmm``
-    on the pre-masked bf16 weights as the library call.  The bound counts
-    x, m and the live tiles' w read once and y written once, or
-    2*U*M*K*N*occ operations over the bf16 tensor-core peak."""
+    against the plain version within one bf16 ulp (``within_bf16_ulp``),
+    a second launch bit-equal to the first; with ``timed``, the times of
+    ``check_masked_matmul`` with ``torch.bmm`` on the pre-masked bf16
+    weights as the library call. The bound counts x, m and the live tiles'
+    w read once and y written once, or 2*U*M*K*N*occ operations over the
+    bf16 tensor-core peak."""
     u, m, k = x.shape
     n = w.shape[2]
     got = mmk.batched_masked_matmul(x, w, mask)
@@ -617,6 +650,9 @@ def check_masked_matmul_bf16(torch, mmk, x, w, mask, timed=False):
         raise AssertionError(f"bf16 masked_matmul U={u} M={m} K={k} N={n} "
                              f"mask {mask.dtype}: kernel not within one bf16 "
                              f"ulp of plain (max abs err {err})")
+    if not torch.equal(mmk.batched_masked_matmul(x, w, mask), got):
+        raise AssertionError(f"bf16 masked_matmul U={u} M={m} K={k} N={n} "
+                             f"mask {mask.dtype}: two launches differ")
     row = {"U": u, "M": m, "K": k, "N": n, "max_abs_err": err,
            "dtype": f"bfloat16/{str(mask.dtype).replace('torch.', '')}"}
     if timed:
@@ -625,10 +661,12 @@ def check_masked_matmul_bf16(torch, mmk, x, w, mask, timed=False):
         call = lambda: mmk.batched_masked_matmul(x, w, mask)  # noqa: E731
         row.update(
             occupancy=occ, ms=cuda_ms(call), device_ms=device_ms(call),
+            device_cold_ms=device_ms(call, cold_kernel="masked_matmul"),
             plain_ms=cuda_ms(
                 lambda: mmk.batched_masked_matmul_plain(x, w, mask)),
             host_us=host_us(call), library_ms=cuda_ms(lambda: torch.bmm(x, wm)),
-            library_device_ms=device_ms(lambda: torch.bmm(x, wm)))
+            library_device_ms=device_ms(lambda: torch.bmm(x, wm)),
+            **_library_bound(2, u, m, k, n))
         row["bound_ms"], row["bound_by"] = bound(
             2 * u * m * k + (mask.element_size() + 2 * occ) * u * k * n
             + 2 * u * m * n, 2 * u * m * k * n * occ, BF16_FLOPS_PER_S)
@@ -641,14 +679,28 @@ def _ms(v):
 
 def _times(r):
     host = f", host {r['host_us']} us per call" if "host_us" in r else ""
-    return (f"per call {r['ms']} ms, device {_ms(r['device_ms'])}, plain "
-            f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']})"
-            f"{host}, max abs err {r['max_abs_err']}")
+    cold = (f" (cold L2 {_ms(r['device_cold_ms'])})" if "device_cold_ms" in r
+            else "")
+    return (f"per call {r['ms']} ms, device {_ms(r['device_ms'])}{cold}, "
+            f"plain {r['plain_ms']} ms, bound {r['bound_ms']} ms "
+            f"({r['bound_by']}){host}, max abs err {r['max_abs_err']}")
+
+
+def _library_bound(itemsize, u, m, k, n):
+    """The bound of ``torch.bmm``/``torch.mm`` on pre-masked weights: x and
+    w*m read once, y written once (no mask, so below the kernel's bound),
+    or its dense operations over the fp32 or bf16 peak."""
+    ms_, by = bound(itemsize * (u * m * k + u * k * n + u * m * n),
+                    2 * u * m * k * n,
+                    FP32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S)
+    return {"library_bound_ms": ms_, "library_bound_by": by}
 
 
 def _library(r, call):
     return (f", {call} per call {r['library_ms']} ms, device "
-            f"{_ms(r['library_device_ms'])}")
+            f"{_ms(r['library_device_ms'])}, its bound "
+            f"{r['library_bound_ms']} ms ({r['library_bound_by']}, reads no "
+            f"mask)")
 
 
 class BudgetCheck:
@@ -718,7 +770,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f}s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in PTXAS_LINES):
                 log(f"  {name}: {line.strip()}")
     log("kernels: " + ", ".join(
         f"{src.stem} (src/repro_torch/kernels/csrc/{src.name})"
@@ -763,6 +815,7 @@ def main() -> int:
     log(f"masked_matmul U=1 M={mm1['M']} K={mm1['K']} N={mm1['N']} density "
         f"0.2 occupancy {mm1['occupancy']:.4f}: " + _times(mm1)
         + _library(mm1, "torch.mm"))
+    mm_bf16 = bf16_matmul_checks(torch, mmk, dev)
 
     # 15. the observability plane, while no other engine is alive
     t_obs = time.perf_counter()
@@ -770,9 +823,10 @@ def main() -> int:
     log(f"obs phase: {time.perf_counter() - t_obs:.1f} s; traced launches "
         f"{obs_launches}")
 
-    # 16 (b). the kernels' bf16 and fp16 entries against their plain
-    # versions, timed while the profiler still records every launch
-    prec = precision_kernels(torch, n_leaf)
+    # 16 (b). the kernels' other bf16 and fp16 entries against their plain
+    # versions, timed while the profiler still records every launch (the
+    # bf16 masked matmul's rows are phase 3's)
+    prec = {**precision_kernels(torch, n_leaf), **mm_bf16}
 
     # 4. the training path through the CLI's entry functions
     args = train.build_parser().parse_args([
@@ -896,8 +950,9 @@ def main() -> int:
 
     def row(name, source, replaces, entry, main, shape, r):
         timed = {key: r[key] for key in (
-            "ms", "device_ms", "plain_ms", "host_us", "bound_ms", "bound_by",
-            "library_ms", "library_device_ms", "sort_ms") if key in r}
+            "ms", "device_ms", "device_cold_ms", "plain_ms", "host_us",
+            "bound_ms", "bound_by", "library_ms", "library_device_ms",
+            "sort_ms") if key in r}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source}",
                 "replaces": replaces, "entry": entry,
@@ -2342,20 +2397,14 @@ def precision_kernels(torch, n_leaf):
     """Phase 16 (b), run right after phase 15 (while the profiler still
     records every launch): the prune/regrow kernel's other dtype pairs at
     K=4 rows of the largest ResNet18-GN leaf, bit-equal to plain and timed;
-    the bf16 masked matmul over the reference's sweep with fp32 and bf16
-    masks, each within one bf16 ulp of plain, its U=1 form at (128, 256,
-    128) and the batched one at the serving MLP's middle layer timed
-    against ``torch.bmm`` on pre-masked bf16 weights, a mixed batch
-    bit-equal to alone; the fp16 row fold and flat fold timed.  Returns
-    the rows."""
-    from repro_torch.kernels import masked_matmul as mmk
+    the fp16 row fold and flat fold timed (the bf16 masked matmul's rows
+    come from ``bf16_matmul_checks`` in phase 3).  Returns the rows."""
     from repro_torch.kernels import packed_accum as pa
     from repro_torch.kernels import prune_regrow as pr
     from repro_torch.sparse.packed import pack_bits
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(16)
-    bf16 = torch.bfloat16
     out = {"pr": {pair: check_prune_regrow(torch, pr, dev, 4, n_leaf, gen,
                                            pair)
                   for pair in pr.PAIRS if pair != (torch.float32,) * 2}}
@@ -2366,42 +2415,6 @@ def precision_kernels(torch, n_leaf):
             + f", torch.sort of the two thresholds {r['sort_ms']} ms (host "
             f"per call at K=4 N=4096)")
 
-    sweep = []
-    for m, k, n in ((64, 128, 128), (128, 256, 128), (70, 200, 90),
-                    (13, 50, 17)):
-        for density in (0.0, 0.2, 1.0):
-            x, w, mask = mm_inputs(torch, dev, 1, m, k, n, density, gen)
-            for mdt in (torch.float32, bf16):
-                sweep.append(check_masked_matmul_bf16(
-                    torch, mmk, x.to(bf16), w.to(bf16), mask.to(mdt)))
-    x, w, mask = mm_inputs(torch, dev, 1, 128, 256, 128, 0.2, gen)
-    out["mm_u1"] = check_masked_matmul_bf16(torch, mmk, x.to(bf16),
-                                            w.to(bf16), mask, timed=True)
-    u, rows = _serve_arg("--cache-size"), _serve_arg("--rows")
-    x, w, mask = mm_inputs(torch, dev, u, rows, 128, 128, 0.5, gen)
-    xb, wb = x.to(bf16), w.to(bf16)
-    out["mm"] = check_masked_matmul_bf16(torch, mmk, xb, wb, mask, timed=True)
-    out["mm_mbf16"] = check_masked_matmul_bf16(torch, mmk, xb, wb,
-                                               mask.to(bf16), timed=True)
-    mixed = mmk.batched_masked_matmul(xb, wb, mask)
-    for i in (0, u - 1):
-        xs, ws, ms = (torch.zeros_like(t) for t in (xb, wb, mask))
-        xs[i], ws[i], ms[i] = xb[i], wb[i], mask[i]
-        if not torch.equal(mmk.batched_masked_matmul(xs, ws, ms)[i],
-                           mixed[i]):
-            raise AssertionError(f"bf16 masked_matmul: user {i} alone != "
-                                 "mixed")
-    out["mm_err"] = max(r["max_abs_err"] for r in sweep + [
-        out["mm_u1"], out["mm"], out["mm_mbf16"]])
-    log(f"precision (b) bf16 masked_matmul: {len(sweep)} sweep cases (fp32 "
-        f"and bf16 masks) within one bf16 ulp of plain (max abs err "
-        f"{max(r['max_abs_err'] for r in sweep)}); mixed batch bit-equal to "
-        f"alone")
-    for r in (out["mm_u1"], out["mm"], out["mm_mbf16"]):
-        log(f"masked_matmul bf16 U={r['U']} M={r['M']} K={r['K']} N={r['N']} "
-            f"{r['dtype']} occupancy {r['occupancy']:.4f}: " + _times(r)
-            + _library(r, "torch.bmm"))
-
     out["rows_f16"] = check_fold_rows(torch, pa, dev, 4, n_leaf, 1.0, gen,
                                       torch.float16)
     r = out["rows_f16"]
@@ -2411,6 +2424,54 @@ def precision_kernels(torch, n_leaf):
                                  torch.float16)
     r = out["fold_f16"]
     log(f"packed_accum N={r['N']} nnz={r['nnz']} float16: " + _times(r))
+    return out
+
+
+def bf16_matmul_checks(torch, mmk, dev):
+    """Phase 3 for the masked matmul's bf16 entries (phase 16's kernels,
+    timed here: after phase 15 the profiler has dropped launches of their
+    cold-L2 runs): first the U=1 form at (128, 256, 128), timed against ``torch.mm``; the
+    reference's sweep with fp32 and bf16 masks, each within one bf16 ulp
+    of plain and bit-equal over two launches; the batched form at the
+    serving MLP's middle layer timed against ``torch.bmm`` on pre-masked
+    bf16 weights, with either mask; a mixed batch bit-equal to alone at the
+    serving rows and at 20 rows, with either mask.  Returns the rows."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf16 = torch.bfloat16
+    x, w, mask = mm_inputs(torch, dev, 1, 128, 256, 128, 0.2, gen)
+    out = {"mm_u1": check_masked_matmul_bf16(torch, mmk, x.to(bf16),
+                                             w.to(bf16), mask, timed=True)}
+    sweep = []
+    for m, k, n in ((64, 128, 128), (128, 256, 128), (70, 200, 90),
+                    (13, 50, 17)):
+        for density in (0.0, 0.2, 1.0):
+            x, w, mask = mm_inputs(torch, dev, 1, m, k, n, density, gen)
+            for mdt in (torch.float32, bf16):
+                sweep.append(check_masked_matmul_bf16(
+                    torch, mmk, x.to(bf16), w.to(bf16), mask.to(mdt)))
+    u, rows = _serve_arg("--cache-size"), _serve_arg("--rows")
+    x, w, mask = mm_inputs(torch, dev, u, rows, 128, 128, 0.5, gen)
+    xb, wb = x.to(bf16), w.to(bf16)
+    out["mm"] = check_masked_matmul_bf16(torch, mmk, xb, wb, mask, timed=True)
+    out["mm_mbf16"] = check_masked_matmul_bf16(torch, mmk, xb, wb,
+                                               mask.to(bf16), timed=True)
+    n_alone = 0
+    for mdt in (torch.float32, bf16):
+        n_alone += check_mixed_vs_alone(torch, mmk, xb, wb, mask.to(mdt),
+                                        (0, u - 1))
+        x, w, m_ = mm_inputs(torch, dev, 8, 20, 300, 64, 0.5, gen)
+        n_alone += check_mixed_vs_alone(torch, mmk, x.to(bf16), w.to(bf16),
+                                        m_.to(mdt), (0, 7))
+    out["mm_err"] = max(r["max_abs_err"] for r in sweep + [
+        out["mm_u1"], out["mm"], out["mm_mbf16"]])
+    log(f"bf16 masked_matmul: {len(sweep)} sweep cases (fp32 "
+        f"and bf16 masks) within one bf16 ulp of plain (max abs err "
+        f"{max(r['max_abs_err'] for r in sweep)}), each over two launches "
+        f"bit-equal; {n_alone} users alone bit-equal to the mixed batch")
+    for r in (out["mm_u1"], out["mm"], out["mm_mbf16"]):
+        log(f"masked_matmul bf16 U={r['U']} M={r['M']} K={r['K']} N={r['N']} "
+            f"{r['dtype']} occupancy {r['occupancy']:.4f}: " + _times(r)
+            + _library(r, "torch.bmm"))
     return out
 
 

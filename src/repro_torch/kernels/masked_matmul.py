@@ -11,7 +11,9 @@ in fp32, or with bf16 x and w (the reference's bf16 path: the mask cast to
 w's type, an fp32 accumulator, y in x's type), the mask fp32 or bf16 —
 the ``(x and w, m)`` dtype pairs of ``PAIRS``.  The wrappers run the plain
 version for CPU tensors and launch ``csrc/masked_matmul.cu`` for CUDA
-tensors (or raise) — there is no fallback.  The kernel skips empty
+tensors (or raise) — there is no fallback: fp32 operands on the CUDA cores
+(no TF32), bf16 ones on the tensor cores (``mma.sync`` m16n8k16, fp32
+accumulation), each entry at the same tile.  The kernels skip empty
 (``TILE_K``, ``TILE_N``) mask tiles and masks ragged edges itself, so
 nothing is padded on the host.  Only contiguous operands are taken, on
 either device.
@@ -30,8 +32,10 @@ LAUNCHES = 0
 #: of those, the launches made through the U=1 wrapper ``masked_matmul``
 LAUNCHES_U1 = 0
 
-# MMK_BM, MMK_BN, MMK_BK in csrc/masked_matmul.cu: the CUDA tile, and the
-# tile whose empty mask the kernel skips
+# MMK_BM, MMK_BN, MMK_BK in csrc/masked_matmul.cu: the CTA tile of every
+# entry (the fp32 kernel's and the bf16 tensor-core kernel's: rows, columns
+# of one strip) and the tile whose empty mask both skip; the grid is
+# (N / TILE_N, M / TILE_M, U) for every entry
 TILE_M, TILE_N, TILE_K = 16, 32, 32
 MAX_GRID_YZ = 65535
 # (x, w, m, y, U, M, K, wU, wK, wN, mU, mK, mN, stream): the C entry checks

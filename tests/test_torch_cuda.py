@@ -716,63 +716,145 @@ def _entry_launches(counts, before):
     return {e: n - before[e] for e, n in counts.items() if n != before[e]}
 
 
-@pytest.mark.parametrize("mask_dtype", [torch.float32, torch.bfloat16])
+_MASK_DTYPES = [torch.float32, torch.bfloat16]
+_BF16_ENTRY = {torch.float32: "batched_masked_matmul_bf16",
+               torch.bfloat16: "batched_masked_matmul_bf16_mbf16"}
+
+
+@pytest.mark.parametrize("mask_dtype", _MASK_DTYPES)
 @pytest.mark.parametrize("shape", [(64, 128, 128), (128, 256, 128),
                                    (70, 200, 90), (13, 50, 17)])
 @pytest.mark.parametrize("density", [0.0, 0.2, 1.0])
 def test_bf16_masked_matmul_matches_plain_on_card(cuda_device, shape,
                                                   density, mask_dtype):
     """The reference's kernel sweep at bf16: within one bf16 ulp of the
-    plain version, output bf16, one launch."""
+    plain version, output bf16, one launch counted for the mask dtype's
+    entry in both tables; the batched wrapper on the same operands counts
+    its launch in ``LAUNCHES_BY_ENTRY`` only."""
     m, k, n = shape
     x, w, mask = _bf16_mm(*(t[0] for t in _mm_inputs(
         1, m, k, n, density, m + k, cuda_device)), mask_dtype)
-    launches = mmk.LAUNCHES
+    launches, launches_u1 = mmk.LAUNCHES, mmk.LAUNCHES_U1
     by_entry = dict(mmk.LAUNCHES_BY_ENTRY)
     u1 = dict(mmk.LAUNCHES_U1_BY_ENTRY)
     got = mmk.masked_matmul(x, w, mask)
     torch.cuda.synchronize()
-    assert mmk.LAUNCHES == launches + 1
-    entry = {torch.float32: "batched_masked_matmul_bf16",
-             torch.bfloat16: "batched_masked_matmul_bf16_mbf16"}[mask_dtype]
+    assert (mmk.LAUNCHES, mmk.LAUNCHES_U1) == (launches + 1, launches_u1 + 1)
+    entry = _BF16_ENTRY[mask_dtype]
     assert _entry_launches(mmk.LAUNCHES_BY_ENTRY, by_entry) == {entry: 1}
     assert _entry_launches(mmk.LAUNCHES_U1_BY_ENTRY, u1) == {entry: 1}
     assert got.dtype == torch.bfloat16
     assert mmk.within_bf16_ulp(got, mmk.masked_matmul_plain(x, w, mask))
+    batched = mmk.batched_masked_matmul(x[None], w[None], mask[None])
+    torch.cuda.synchronize()
+    assert (mmk.LAUNCHES, mmk.LAUNCHES_U1) == (launches + 2, launches_u1 + 1)
+    assert _entry_launches(mmk.LAUNCHES_BY_ENTRY, by_entry) == {entry: 2}
+    assert _entry_launches(mmk.LAUNCHES_U1_BY_ENTRY, u1) == {entry: 1}
+    assert torch.equal(batched[0], got)
 
 
+# the tensor-core kernel's edges: rows that fill part of an n8 tile (1, 4),
+# exactly one (8), spill into a second (9, 16) or span several row tiles
+# (128); K a whole k16 step, one past it, and several k tiles (16, 17,
+# 200); N one mma half (8), ragged (90: the element copies), whole strips
+_BF16_EDGES = [(3, m, k, n) for m in (1, 4, 8, 9, 16, 128)
+               for k in (16, 17, 200) for n in (8, 90, 128)]
+
+
+@pytest.mark.parametrize("mask_dtype", _MASK_DTYPES)
 @pytest.mark.parametrize("u,m,k,n", [(256, 4, 128, 128), (7, 1, 64, 128),
-                                     (3, 16, 1000, 130), (2, 33, 128, 32)])
+                                     (3, 16, 1000, 130), (2, 33, 128, 32)]
+                         + _BF16_EDGES)
 def test_bf16_batched_kernel_at_serve_and_ragged_shapes(cuda_device, u, m, k,
-                                                        n):
+                                                        n, mask_dtype):
+    """Within one bf16 ulp of plain, one launch of the mask dtype's entry,
+    and the same bits on a second launch."""
     x, w, mask = _bf16_mm(*_mm_inputs(u, m, k, n, 0.5, u + m + k,
-                                      cuda_device), torch.float32)
+                                      cuda_device), mask_dtype)
+    launches = mmk.LAUNCHES
+    by_entry = dict(mmk.LAUNCHES_BY_ENTRY)
     got = mmk.batched_masked_matmul(x, w, mask)
     torch.cuda.synchronize()
+    assert mmk.LAUNCHES == launches + 1
+    assert _entry_launches(mmk.LAUNCHES_BY_ENTRY, by_entry) == {
+        _BF16_ENTRY[mask_dtype]: 1}
+    assert got.dtype == torch.bfloat16 and got.shape == (u, m, n)
     assert mmk.within_bf16_ulp(got,
                                mmk.batched_masked_matmul_plain(x, w, mask))
+    assert torch.equal(mmk.batched_masked_matmul(x, w, mask), got)
 
 
-def test_bf16_batched_kernel_skips_dead_tiles_and_mixes_exactly(cuda_device):
+@pytest.mark.parametrize("mask_dtype", _MASK_DTYPES)
+@pytest.mark.parametrize("u,m,k,n", [(4, 9, 256, 256), (16, 4, 128, 128),
+                                     (5, 8, 300, 64), (6, 9, 200, 90),
+                                     (3, 20, 128, 32)])
+def test_bf16_batched_kernel_skips_dead_tiles_and_mixes_exactly(
+        cuda_device, u, m, k, n, mask_dtype):
     """A checkerboard of empty (32, 32) tiles: dead tiles' weights do not
     reach the result, and a user's rows in a mixed batch equal the same
-    user served alone."""
-    x, w, mask = _bf16_mm(*_mm_inputs(4, 9, 256, 256, 0.5, 8, cuda_device),
-                          torch.float32)
-    kt = torch.arange(256, device=cuda_device)[:, None] // 32
-    nt = torch.arange(256, device=cuda_device)[None, :] // 32
-    for u in range(4):
-        mask[u] *= ((kt + nt + u) % 2 == 0).float()
+    user alone (every other slot zero) and launched on its own (U=1), at M
+    up to one n8 tile and past it."""
+    x, w, mask = _bf16_mm(*_mm_inputs(u, m, k, n, 0.5, 8, cuda_device),
+                          mask_dtype)
+    kt = torch.arange(k, device=cuda_device)[:, None] // 32
+    nt = torch.arange(n, device=cuda_device)[None, :] // 32
+    for i in range(u):
+        mask[i] *= ((kt + nt + i) % 2 == 0).to(mask_dtype)
     got = mmk.batched_masked_matmul(x, w, mask)
     torch.cuda.synchronize()
     assert mmk.within_bf16_ulp(got,
                                mmk.batched_masked_matmul_plain(x, w, mask))
     w2 = torch.where(mask == 0, torch.full_like(w, 1e30), w)
     assert torch.equal(mmk.batched_masked_matmul(x, w2, mask), got)
-    for i in (0, 3):
+    for i in (0, u // 2, u - 1):
         xs, ws, ms = (torch.zeros_like(t) for t in (x, w, mask))
         xs[i], ws[i], ms[i] = x[i], w[i], mask[i]
-        assert torch.equal(mmk.batched_masked_matmul(xs, ws, ms)[i], got[i])
+        assert torch.equal(mmk.batched_masked_matmul(xs, ws, ms)[i],
+                           got[i]), i
+        solo = mmk.batched_masked_matmul(x[i:i + 1].contiguous(),
+                                         w[i:i + 1].contiguous(),
+                                         mask[i:i + 1].contiguous())
+        assert torch.equal(solo[0], got[i]), i
+
+
+@pytest.mark.parametrize("mask_dtype", _MASK_DTYPES)
+@pytest.mark.parametrize("operand", ["x", "w", "m"])
+def test_bf16_kernel_unaligned_bases_on_card(cuda_device, mask_dtype,
+                                             operand):
+    """A contiguous operand whose base lies one element past a 16-byte
+    boundary (a slice at an odd element offset) takes the element copies:
+    the same bits as the aligned operands' 16-byte copies."""
+    ops = dict(zip("xwm", _bf16_mm(*_mm_inputs(4, 5, 128, 64, 0.5, 21,
+                                               cuda_device), mask_dtype)))
+    want = mmk.batched_masked_matmul(ops["x"], ops["w"], ops["m"])
+    t = ops[operand]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+    shifted = buf[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    ops[operand] = shifted
+    got = mmk.batched_masked_matmul(ops["x"], ops["w"], ops["m"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert mmk.within_bf16_ulp(
+        got, mmk.batched_masked_matmul_plain(ops["x"], ops["w"], ops["m"]))
+
+
+@pytest.mark.parametrize("mask_dtype", _MASK_DTYPES)
+@pytest.mark.parametrize("u,m,k,n", [(4, 4, 128, 128), (1, 128, 256, 128),
+                                     (2, 9, 17, 90)])
+def test_bf16_kernel_all_zero_mask_gives_positive_zero(cuda_device,
+                                                       mask_dtype, u, m, k,
+                                                       n):
+    """Every mask tile empty: nothing is multiplied and each output is
+    exactly +0.0, whatever the weights hold."""
+    x, w, _ = _bf16_mm(*_mm_inputs(u, m, k, n, 0.5, 5, cuda_device),
+                       mask_dtype)
+    mask = torch.zeros((u, k, n), dtype=mask_dtype, device=cuda_device)
+    got = mmk.batched_masked_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+    assert not torch.signbit(got).any()
 
 
 def _pr_pair_inputs(k, n, seed, device, wdt, mdt, ties=False):

@@ -139,11 +139,14 @@ def test_bf16_carrier_round_trips_bit_for_bit():
 
 
 @pytest.mark.parametrize("shape", [(64, 128, 128), (128, 256, 128),
-                                   (70, 200, 90), (13, 50, 17)])
+                                   (70, 200, 90), (13, 50, 17),
+                                   (1, 128, 128), (8, 17, 90), (9, 200, 8)])
 @pytest.mark.parametrize("density", [0.0, 0.2, 1.0])
 def test_bf16_masked_matmul_plain_matches_pallas(shape, density):
     """The reference's bf16 sweep (``tests/test_kernels.py``): bf16 x and
-    w, an fp32 mask, its tile sizes and tolerance."""
+    w, an fp32 mask, its tile sizes and tolerance; beside its shapes the
+    ones the CUDA tensor-core kernel tells apart (M = 1, 8 and 9 rows
+    about its n8 tile, K = 17 one past a k16 step, N = 8 one mma half)."""
     m, k, n = shape
     rng = np.random.default_rng(m + k)
     x = rng.standard_normal((m, k)).astype(BF16)
