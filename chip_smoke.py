@@ -193,7 +193,21 @@ line):
     store), outputs within
     ``SERVE_FP16_TOL`` of the fp32 store's, the fp16 pool equal to the fp32
     pool rounded to fp16;
-17. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
+17. the single-card dry run (``repro_torch.launch.dryrun``), after phase
+    16 (a): gemma3-1b at phase 14's plan (K=2 x one 1024-token row), fp32
+    and bf16, traced on ``cuda`` fake tensors and the same step run for
+    real on the card under the same counters (``utils.trace_cost``):
+    FLOPs and bytes accessed must be equal; the predicted peak against
+    the peak above what earlier phases held, measured in phase 14 / 16 (a)
+    and in this phase's own run, each ratio within ``DRYRUN_PEAK_BAND``;
+    the ``RooflineReport`` row of each step and the achieved ``mfu``
+    (``model_flops`` over phase 14's / 16 (a)'s warm train-step time x the
+    dtype's peak); then ``python -m repro_torch.launch.dryrun`` over every
+    arch at ``DRYRUN_SWEEP_SHAPE`` (train_4k) at published width (bf16,
+    K=2 x 1) into a temporary directory, every artifact ``ok`` or
+    ``skipped``, which of them fit the card, and ``python -m
+    repro_torch.launch.report`` over them;
+18. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
     dtypes in ``shape``).  Each row's launches are that entry's own, as
     its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
     U=1 rows ``LAUNCHES_U1_BY_ENTRY``): ``launches`` on the row's main
@@ -274,6 +288,15 @@ OBS_ARGS = ["simulate", "--sim", "--strategy", "dispfl_anneal", "--rounds",
             "--samples-per-class", "20", "--eval-every", "2", "--loss-prob",
             "0.1", "--uplink-mode", "fair"]
 OBS_SPAN_RTOL = 0.02
+# the dry run's predicted peak over a measured train-step peak: a sanity
+# band (the counter sees every storage the step allocates; the card's
+# allocator rounds each block and keeps cuBLAS workspaces)
+DRYRUN_PEAK_BAND = (0.5, 2.0)
+# the sweep: every arch at train_4k (its largest trace).  Every arch and
+# shape took 278.3 s on the H100's host (40 combinations), above the
+# 180 s this phase may spend on it; train_4k's ten traces took ~127 s of it
+DRYRUN_SWEEP_SHAPE = "train_4k"
+DRYRUN_SWEEP_TIMEOUT_S = 600
 
 
 def log(*a):
@@ -405,12 +428,15 @@ def check_gossip(torch, ga, dev, j, n, dtype, gen):
             "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def gossip_host(torch, ga, dev, j, n, gen):
+def gossip_host(torch, ga, dev, j, n, gen, dtype=None):
     """Host microseconds per gossip call on J rows of a small leaf (where
     the device's share of a call is negligible, as on most of the main
-    path's 62 leaves): the best of two timings."""
-    m = (torch.rand((j, n), generator=gen, device=dev) < 0.5).float()
-    ws, ms = list(torch.randn((j, n), generator=gen, device=dev) * m), list(m)
+    path's 62 leaves), fp32 unless ``dtype``: the best of two timings."""
+    dtype = dtype or torch.float32
+    m = (torch.rand((j, n), generator=gen, device=dev) < 0.5).to(dtype)
+    ws = list((torch.randn((j, n), generator=gen, device=dev)
+               * m.float()).to(dtype))
+    ms = list(m)
     runs = [host_us(lambda: ga.gossip_avg(ws, ms, ms[0])) for _ in range(2)]
     return {"J": j, "N": n, "host_us": min(runs), "runs": runs}
 
@@ -794,6 +820,10 @@ def main() -> int:
     g_host = gossip_host(torch, ga, dev, 4, min(sizes), gen)
     log(f"gossip_avg host per call, J=4 N={g_host['N']} fp32: "
         f"{g_host['host_us']} us (runs {g_host['runs']})")
+    g_host_bf16 = gossip_host(torch, ga, dev, 4, min(sizes), gen,
+                              torch.bfloat16)
+    log(f"gossip_avg host per call, J=4 N={g_host_bf16['N']} bf16: "
+        f"{g_host_bf16['host_us']} us (runs {g_host_bf16['runs']})")
     for r in fold_rows:
         log(f"packed_accum N={r['N']} nnz={r['nnz']} alpha={r['alpha']}: "
             + _times(r))
@@ -938,6 +968,12 @@ def main() -> int:
     prec.update(precision_path(torch, counters, lm_fp32))
     log(f"precision phase: {time.perf_counter() - t_prec:.1f} s")
 
+    # 17. the single-card dry run against phase 14's and 16 (a)'s steps,
+    # then its sweep (every arch at train_4k) and report
+    t_dry = time.perf_counter()
+    dryrun_path(torch, {"fp32": lm_fp32, "bf16": prec["lm_bf16"]})
+    log(f"dry-run phase: {time.perf_counter() - t_dry:.1f} s")
+
     # every row's launches are its own C entry's (the U=1 rows the U=1
     # wrapper's), as the wrappers counted them on each path: ``launches`` on
     # the row's main path, ``launches_<path>`` on every other counted path
@@ -966,7 +1002,13 @@ def main() -> int:
         row("gossip_avg", "gossip_avg.cu", "src/repro/kernels/gossip_avg.py:37",
             "gossip_avg_f32", "training", f"J=4 N={n_leaf} float32",
             {**gossip_rows[0], "host_us": g_host["host_us"], "max_abs_err": max(
-                r["max_abs_err"] for r in gossip_rows)}),
+                r["max_abs_err"] for r in gossip_rows if r["dtype"] == "float32")}),
+        row("gossip_avg_bf16", "gossip_avg.cu",
+            "src/repro/kernels/gossip_avg.py:37", "gossip_avg_bf16",
+            "precision", f"J=4 N={n_leaf} bfloat16",
+            {**gossip_rows[1], "host_us": g_host_bf16["host_us"],
+             "max_abs_err": max(r["max_abs_err"] for r in gossip_rows
+                                if r["dtype"] == "bfloat16")}),
         row("packed_accum", "packed_accum.cu",
             "src/repro/kernels/packed_accum.py:63", "packed_accum_f32",
             "training", f"N={n_leaf} density 0.5 alpha 1 float32",
@@ -2364,6 +2406,8 @@ def lm_full_width(torch, counters, pr, dtype=None):
                "peak GiB": peak / 2 ** 30}
     figures.update({f"peak {name} GiB": v[0] / 2 ** 30
                     for name, v in peaks.items()})
+    figures["train step peak above held GiB"] = (
+        peaks["train step"][0] - held) / 2 ** 30
     return launches, figures
 
 
@@ -2504,6 +2548,119 @@ def precision_path(torch, counters, lm_fp32):
     out["launches"] = _sum_launches([out["lm_launches"], out["fold_launches"],
                                      *out["store_launches"].values()])
     return out
+
+
+def dryrun_path(torch, measured):
+    """Phase 17: ``measured`` holds phase 14's (``fp32``) and 16 (a)'s
+    (``bf16``) full-width figures.  For each dtype, gemma3-1b at their
+    plan traced on ``cuda`` fake tensors, then the same step run for real
+    under the same counters: FLOPs and bytes accessed equal; the predicted
+    peak against the measured ones; the roofline row and the achieved
+    ``mfu``.  Then the sweep and its report."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs import ARCHS, InputShape
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import bind
+    from repro_torch.utils.trace_cost import step_cost
+
+    cfg = ARCHS[LM_FULL_ARCH]
+    shape = InputShape("lm_full", LM_FULL_SEQ, LM_FULL_CLIENTS, "train")
+    api = bind(cfg)
+    for dname, figs in measured.items():
+        plan = dryrun.make_plan(cfg, shape, LM_FULL_CLIENTS, 1, dname)
+        fake, trace_s = dryrun.trace_plan(plan, device="cuda")
+        step, specs = dryrun.step_and_specs(api, plan)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()       # by earlier phases
+        args = dryrun.materialize(specs, cfg.vocab, "cuda",
+                                  torch.Generator(device="cuda").manual_seed(17))
+        torch.cuda.synchronize()
+        out, real = step_cost(step, *args)
+        torch.cuda.synchronize()
+        own_peak = torch.cuda.max_memory_allocated() - held
+        del out, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"dry run {cfg.name} {dname} K={LM_FULL_CLIENTS} x "
+            f"{LM_FULL_SEQ}: traced on cuda fake tensors in {trace_s:.2f} s; "
+            f"flops fake {fake.flops} real {real.flops}; bytes accessed fake "
+            f"{fake.bytes_accessed} real {real.bytes_accessed}; peak live "
+            f"bytes fake {fake.peak_live_bytes} real {real.peak_live_bytes}; "
+            f"arguments {fake.argument_bytes} bytes; top ops {fake.aten_ops}")
+        if (fake.flops, fake.bytes_accessed) != (real.flops,
+                                                 real.bytes_accessed):
+            raise AssertionError(f"dry run {dname}: the fake trace counts "
+                                 f"{fake} and the real step {real}")
+        phase_peak = figs["train step peak above held GiB"] * 2 ** 30
+        for what, peak in (("phase 14 / 16 (a)'s train step", phase_peak),
+                           ("this phase's counted step", own_peak)):
+            ratio = fake.peak_live_bytes / peak
+            log(f"  predicted peak {fake.peak_live_bytes} bytes "
+                f"({fake.peak_live_bytes / 2 ** 30:.3f} GiB) against "
+                f"{what} {peak:.0f} bytes ({peak / 2 ** 30:.3f} GiB above "
+                f"held): predicted/measured {ratio:.4f}")
+            if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+                raise AssertionError(f"dry run {dname}: predicted/measured "
+                                     f"peak {ratio} outside "
+                                     f"{DRYRUN_PEAK_BAND}")
+        rep = roofline.build_report(
+            cfg, plan.shape, dryrun.MESH, 1,
+            {"flops": fake.flops, "bytes accessed": fake.bytes_accessed},
+            0.0, dtype=dname)
+        step_s = figs["train step ms"] / 1e3
+        mfu = rep.model_flops_global / (
+            step_s * roofline.PEAK_FLOPS_BY_DTYPE[dname])
+        log(f"  roofline {rep.row()}; model_flops "
+            f"{rep.model_flops_global:.6g}; measured warm train step "
+            f"{figs['train step ms']:.3f} ms: achieved "
+            f"{rep.model_flops_global / step_s / 1e12:.3f} TFLOP/s of "
+            f"model FLOPs, mfu {mfu:.6f} (roofline step / measured "
+            f"{rep.step_s / step_s:.6f})")
+
+    # the sweep at published width, every arch at DRYRUN_SWEEP_SHAPE, then
+    # its report
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        sweep = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape",
+             DRYRUN_SWEEP_SHAPE, "--out", out],
+            env=env, capture_output=True, text=True,
+            timeout=DRYRUN_SWEEP_TIMEOUT_S)
+        sweep_s = time.perf_counter() - t0
+        for line in sweep.stdout.splitlines():
+            log(f"  {line}")
+        if sweep.returncode != 0:
+            raise AssertionError(f"dry-run sweep exited {sweep.returncode}: "
+                                 f"{sweep.stderr[-3000:]}")
+        recs = []
+        for name in sorted(os.listdir(out)):
+            with open(os.path.join(out, name)) as f:
+                recs.append(json.load(f))
+        bad = [r["tag"] for r in recs if r["status"] not in ("ok", "skipped")]
+        if bad or len(recs) != len(ARCHS):
+            raise AssertionError(f"dry-run sweep: {len(recs)} artifacts, "
+                                 f"not ok or skipped: {bad}")
+        ok = [r for r in recs if r["status"] == "ok"]
+        log(f"dry-run sweep at {DRYRUN_SWEEP_SHAPE}: {len(recs)} "
+            f"combinations in {sweep_s:.1f} s "
+            f"({len(ok)} traced, {len(recs) - len(ok)} skipped); fit "
+            f"{ok[0]['device_memory_bytes']} bytes "
+            f"({ok[0]['device_memory_source']}): "
+            + ", ".join(f"{r['arch']}/{r['shape']}" for r in ok if r["fits"])
+            + "; do not fit: "
+            + ", ".join(f"{r['arch']}/{r['shape']} "
+                        f"{r['peak_live_bytes'] / 2 ** 30:.1f} GiB"
+                        for r in ok if not r["fits"]))
+        tables = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.report", "--dir", out],
+            env=env, capture_output=True, text=True, timeout=300, check=True)
+        for line in tables.stdout.splitlines():
+            log(line)
 
 
 def precision_fold(torch, counters, dev, gen):

@@ -14,9 +14,11 @@ runs on float32 or bf16 state (``ScalePlan.dtype``) with int8 masks; bf16
 params take SGD's update in fp32 and are cast back, as in the
 reference.  The reference's ``ppermute`` gossip is
 a ``shard_map`` collective over a device mesh, and its ``plan_for``,
-``lower_*`` and ``state_shardings`` lower these steps onto a TPU mesh:
-they are the JAX-only tooling of ROADMAP A13 and have no counterpart here.
-A ``ScalePlan`` therefore carries no mesh.
+``lower_*`` and ``state_shardings`` lower these steps onto a TPU mesh.
+The port runs on one H100, where a multi-card mesh cannot be verified:
+``launch.dryrun`` plans K clients on the card and traces these steps on
+fake tensors in place of lowering them (ROADMAP A13d).  A ``ScalePlan``
+therefore carries no mesh.
 """
 from __future__ import annotations
 
@@ -47,9 +49,9 @@ class ScalePlan:
     float inputs (prefix, frames), as in the reference
     (``abstract_params``, ``abstract_cache``, ``input_specs``).  The
     default is float32, where the reference's is bf16: the reference's
-    default serves its TPU dry run (ROADMAP A13), the port's callers (the
-    ``lm`` loop, the tests, ``chip_smoke.py``'s fp32 phase) compute in
-    float32, and bf16 is asked for by name."""
+    default serves its TPU dry run, the port's callers (the ``lm`` loop,
+    the tests, ``chip_smoke.py``'s fp32 phase) compute in float32, and
+    bf16 is asked for by name (``launch.dryrun`` names it by default)."""
     arch: ModelConfig
     shape: InputShape
     n_clients: int
@@ -133,7 +135,7 @@ def make_train_step(api: ModelAPI, plan: ScalePlan, gossip: str = "einsum"):
         raise NotImplementedError(
             "gossip='ppermute' is a shard_map collective_permute over a "
             "device mesh, JAX-only tooling with no counterpart on one card "
-            "(ROADMAP A13); use 'einsum'")
+            "(ROADMAP A13d); use 'einsum'")
     grads_fn = stacked_loss_grads(api)
     wd = WEIGHT_DECAY
 

@@ -381,6 +381,14 @@ def run_lm(args) -> dict:
     return lm_loop(args, cfg, params, masks, device)[0]
 
 
+# the reference shards the stacked client dim over a device mesh; the port
+# runs on one card
+MESH_SHAPE_REFUSED = (
+    "sharding the stacked client dim over a multi-card DeviceMesh is not "
+    "ported: the port runs on one H100, where a multi-card mesh cannot be "
+    "verified (ROADMAP A13d); run --scale without it")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -444,6 +452,8 @@ def build_parser() -> argparse.ArgumentParser:
                      help="run through ScaleEngine: every phase of the round "
                           "once over client-stacked state (dispfl, "
                           "dispfl_anneal, dpsgd)")
+    sim.add_argument("--mesh-shape", default="", dest="mesh_shape",
+                     help="refused: " + MESH_SHAPE_REFUSED)
     sim.add_argument("--scale-reduction", default="einsum",
                      dest="scale_reduction", choices=["einsum", "ordered"],
                      help="gossip fold: einsum = matmul (default), ordered = "
@@ -526,6 +536,8 @@ def check_args(ap: argparse.ArgumentParser, args) -> None:
         except ValueError as e:
             ap.error(str(e))
         return
+    if args.mesh_shape:
+        ap.error(f"--mesh-shape: {MESH_SHAPE_REFUSED}")
     if args.scale and args.sim:
         ap.error("--scale and --sim are mutually exclusive engines")
     if args.trace_mode is not None and not (args.trace or args.run_dir):

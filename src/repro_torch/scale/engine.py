@@ -81,8 +81,8 @@ class ScaleEngine(RoundEngine):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (sharding the client dim over a DeviceMesh) is not "
-                "ported yet; the port's ScaleEngine runs on one card "
-                "(mesh=None)")
+                "ported: the port's ScaleEngine runs on one H100, where a "
+                "multi-card mesh cannot be verified (mesh=None)")
         super().__init__(strategy, task, clients, cfg, callbacks=callbacks,
                          local_exec="loop")
         self.adapter = make_stacked(strategy, reduction=reduction)

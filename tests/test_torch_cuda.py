@@ -993,3 +993,34 @@ def test_lm_bf16_mask_update_step_on_card(cuda_device):
                         tree_leaves(new_masks)):
         assert w.dtype == w0.dtype and m.dtype == torch.int8
         assert bool(torch.all(w[m == 0] == 0))
+
+
+@pytest.mark.parametrize("name,dtype", [("gemma3-1b", "fp32"),
+                                        ("gemma3-1b", "bf16"),
+                                        ("deepseek-moe-16b", "bf16"),
+                                        ("mamba2-1.3b", "fp32")])
+def test_dryrun_fake_trace_counts_equal_the_real_step_on_card(
+        cuda_device, name, dtype):
+    """The dry run's train step traced on ``cuda`` fake tensors and the
+    same step run for real on the card, under the same counters
+    (``utils.trace_cost``): FLOPs and bytes accessed equal (the
+    counters' live-byte books too), at smoke width."""
+    from repro_torch.configs import SMOKE_ARCHS, InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import bind
+    from repro_torch.utils.trace_cost import step_cost
+
+    cfg = SMOKE_ARCHS[name]
+    plan = dryrun.make_plan(cfg, InputShape("train_64", 64, 2, "train"), 2,
+                            1, dtype)
+    fake, _ = dryrun.trace_plan(plan, device="cuda")
+    step, specs = dryrun.step_and_specs(bind(cfg), plan)
+    args = dryrun.materialize(specs, cfg.vocab, cuda_device,
+                              torch.Generator(device=cuda_device).manual_seed(0))
+    _, real = step_cost(step, *args)
+    torch.cuda.synchronize()
+    assert fake.flops > 0
+    assert (fake.flops, fake.bytes_accessed) == (real.flops,
+                                                 real.bytes_accessed)
+    assert (fake.argument_bytes, fake.output_bytes, fake.peak_live_bytes) == (
+        real.argument_bytes, real.output_bytes, real.peak_live_bytes)
