@@ -207,7 +207,27 @@ line):
     K=2 x 1) into a temporary directory, every artifact ``ok`` or
     ``skipped``, which of them fit the card, and ``python -m
     repro_torch.launch.report`` over them;
-18. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
+18. compiled steps (``repro_torch.utils.graph.graphed``, CUDA graphs), run
+    after phase 16 (a) and before phase 17, so that phase 17's counts are
+    of eager steps: gemma3-1b at phase 14's plan, fp32 then bf16, each
+    step builder graphed against the same builder run eagerly
+    (``graph.disabled()``) from the same state — 3 train steps, each with
+    its own lr tensor, adjacency and batch, then a profiled fourth
+    (losses each step, params after each step and whole at the end, all
+    bit-equal), one ``gossip="ppermute"`` train step, the mask update at
+    prune rates ``COMPILED_RATES`` (masks and params bit-equal;
+    prune/regrow launches per replay equal eager's), a prefill and 16
+    decode steps (tokens, logits and caches bit-equal); the graphed and
+    eager step, mask-update and decode times beside phase 14's / 16 (a)'s,
+    tokens/s, the device's busy share and the runtime's launch calls of
+    a profiled step, the peak memory with the graph pool and the capture
+    time; then ``ScaleEngine`` at phase 5's ResNet18-GN cell for
+    ``COMPILED_ROUNDS`` rounds per reduction, eager and graphed from one
+    state: state bit-equal, comm and FLOP rows equal, ``step_compiles``
+    1, each C entry's launches per replayed round equal eager's (the
+    first graphed round warms up eagerly, then replays), the round walls
+    and a profiled round's busy share;
+19. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
     dtypes in ``shape``).  Each row's launches are that entry's own, as
     its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
     U=1 rows ``LAUNCHES_U1_BY_ENTRY``): ``launches`` on the row's main
@@ -216,7 +236,8 @@ line):
     5), ``serve`` (7), ``sim_sync`` and ``sim_async`` (10, 11),
     ``strategies`` (12: its ten runs, its async run and its two stacked
     runs), ``serve_models`` (13), ``lm`` (14 (a) and (b)), ``obs`` (15's
-    traced runs) and ``precision`` (16 (a), (c) and (d)); then the last
+    traced runs), ``precision`` (16 (a), (c) and (d)) and ``compiled``
+    (18's graphed runs, warm-up runs included); then the last
     line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
     "count": ...}}``.
 
@@ -968,6 +989,11 @@ def main() -> int:
     prec.update(precision_path(torch, counters, lm_fp32))
     log(f"precision phase: {time.perf_counter() - t_prec:.1f} s")
 
+    # 18. compiled steps: gemma3-1b's step builders and ResNet18-GN's
+    # stacked round as CUDA graphs against the same steps run eagerly
+    compiled_launches, _ = compiled_path(torch, train, counters, lm_fp32,
+                                         prec["lm_bf16"])
+
     # 17. the single-card dry run against phase 14's and 16 (a)'s steps,
     # then its sweep (every arch at train_4k) and report
     t_dry = time.perf_counter()
@@ -982,7 +1008,7 @@ def main() -> int:
              "sim_sync": sync_launches, "sim_async": async_launches,
              "strategies": strat_launches, "serve_models": models_launches,
              "lm": lm_launches, "obs": obs_launches,
-             "precision": prec["launches"]}
+             "precision": prec["launches"], "compiled": compiled_launches}
 
     def row(name, source, replaces, entry, main, shape, r):
         timed = {key: r[key] for key in (
@@ -1116,6 +1142,7 @@ def scale_path(torch, train, counters, loop_out):
                 f"{k} {v:.4f} s" for k, v in ph.items()))
         log(f"scale {reduction}: step_calls {engine.scale_obs.snapshot()}, "
             f"accs {accs}")
+        engine._round_step.release()      # its graph's pool, until needed
         runs[reduction] = (engine, out, launches)
     return runs
 
@@ -1994,11 +2021,17 @@ def profile_round(torch, train, args):
     the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
     engine = train.build_engine(args)
-    engine.cfg.rounds = 1
+    # the stacked round captures its graph in its first round: profile the
+    # second, a replay
+    warm = 1 if args.scale else 0
+    engine.cfg.rounds = warm + 1
+    rounds = engine.rounds()
+    for _ in range(warm):
+        next(rounds)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run()
+        next(rounds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
@@ -2008,7 +2041,7 @@ def profile_round(torch, train, args):
     what = (f"scale {args.scale_reduction} round" if args.scale
             else f"{args.strategy} round ({engine.local_exec})")
     log(f"profiled {what}: wall {wall:.4f} s, device busy {busy_s:.4f} s "
-        f"({100 * busy_s / wall:.1f}%), phases {engine.phase_s[0]}")
+        f"({100 * busy_s / wall:.1f}%), phases {engine.phase_s[-1]}")
     for us, count, key in sorted(rows, reverse=True)[:10]:
         log(f"  {us / 1e3:.3f} ms in {count} launches: {key[:90]}")
 
@@ -2935,6 +2968,599 @@ def obs_path(torch, train, counters):
         f"dashboard check ok; store rollup hit ratio {store['hit_ratio']}")
     totals.append(l1)
     return _sum_launches(totals)
+
+
+# ---------------------------------------------------------------------------
+# 18. compiled steps
+# ---------------------------------------------------------------------------
+
+# the graphed train steps' learning rates, one a step (a fourth, profiled
+# step repeats the first's inputs); the mask update's prune rates
+COMPILED_LRS = (0.01, 0.02, 0.005)
+COMPILED_RATES = (0.25, 0.1)
+COMPILED_ROUNDS = 3
+# the runtime calls that launch device work, as torch.profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _trees_bit_equal(torch, a, b):
+    """Every leaf's bits equal (-0.0 != +0.0); a leaf on the card is
+    compared on the CPU where its partner lies there."""
+    from repro_torch.utils.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(_bits(torch, x),
+                                           _bits(torch, y.to(x.device)))
+        for x, y in zip(la, lb))
+
+
+
+def _digest(torch, tree):
+    """Per leaf, the sum of its bit patterns: a fingerprint of a state for
+    the steps between two whole-state comparisons."""
+    from repro_torch.utils.tree import tree_leaves
+    return torch.stack([_bits(torch, x).to(torch.int64).sum()
+                        for x in tree_leaves(tree)]).cpu()
+
+
+def _busy_union(prof):
+    """Seconds in which at least one device event of a finished profiler
+    run was running (overlapping kernels counted once); None where the
+    profiler gives no device events."""
+    try:
+        from torch.autograd import DeviceType
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+    except (RuntimeError, AttributeError) as e:
+        log(f"  device intervals not measured: {e!r}")
+        return None
+    if not spans:
+        return None
+    total, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e6
+
+
+def _profiled(torch, fn):
+    """``fn()`` once under torch.profiler: its wall seconds, the device's
+    busy seconds (the union of its events' intervals; None where the
+    profiler gives no device time), the runtime's launch calls
+    (``HOST_LAUNCH_CALLS``; None where it records none) and the sum of
+    the device events' own times (above the union where events
+    overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    summed = None if rows is None else sum(r[0] for r in rows) / 1e6
+    calls = [r[1] for r in (rows or []) if r[2] in HOST_LAUNCH_CALLS]
+    return wall, _busy_union(prof), (sum(calls) if calls else None), summed
+
+
+def _share(busy, wall):
+    return "not measured" if busy is None else f"{100 * busy / wall:.1f}%"
+
+
+def _expandable_segments(torch, on):
+    """The caching allocator's ``expandable_segments`` setting, for the
+    segments it makes from now on."""
+    setting = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setting or torch.cuda.memory._set_allocator_settings)(
+        f"expandable_segments:{on}")
+
+
+def _release(*graphs):
+    import gc
+    for g in graphs:
+        g.release()
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+
+
+def lm_compiled(torch, counters, dtype, eager):
+    """Phase 18 for one dtype: gemma3-1b at phase 14's plan, each step
+    builder through ``utils.graph.graphed`` against the same builder run
+    eagerly (``graph.disabled()``) from the same state: 3 train steps with
+    their own lr, adjacency and batch (then a profiled fourth), one
+    ppermute train step, the mask update at two prune rates, a prefill and
+    16 decode steps; bit-equal, or the phase fails.  ``eager`` holds phase
+    14's / 16 (a)'s figures, printed beside this phase's.  Returns the
+    launches of the graphed runs and the figures."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models import bind
+    from repro_torch.utils import graph
+    from repro_torch.utils.tree import tree_map
+
+    dname = str(dtype).replace("torch.", "")
+    cfg = ARCHS[LM_FULL_ARCH]
+    k, s, n_dec = LM_FULL_CLIENTS, LM_FULL_SEQ, LM_FULL_DECODE
+    api = bind(cfg)
+    plan = steps.ScalePlan(cfg, InputShape("lm_full", s, k, "train"), k, 1,
+                           dtype)
+    dev = torch.device("cuda")
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def state():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return _lm_full_state(torch, api, plan,
+                              torch.Generator(device="cuda").manual_seed(0))
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    toks = torch.randint(0, cfg.vocab, (len(COMPILED_LRS), k, 1, s + 1),
+                         generator=gen, device="cuda")
+    batches = [{"tokens": t[..., :s].contiguous(),
+                "labels": t[..., 1:].contiguous()} for t in toks]
+    batches.append(batches[0])
+    # every unit-diagonal (K, K) adjacency, in a random order: a different
+    # topology each step (K=2 has four)
+    offdiag = ~np.eye(k, dtype=bool)
+    adjs = []
+    for code in np.random.default_rng(18).permutation(2 ** (k * k - k)):
+        a = np.eye(k, dtype=np.float32)
+        a[offdiag] = [(code >> i) & 1 for i in range(k * k - k)]
+        adjs.append(torch.as_tensor(a, device=dev))
+    lrs = [torch.tensor(x, dtype=torch.float32, device=dev)
+           for x in COMPILED_LRS + COMPILED_LRS[:1]]
+    n_steps = len(lrs)
+    figs, launches = {}, []
+
+    # (a) the train step: 3 steps timed, a 4th profiled; graphed, then eager
+    def train_run(step, params, masks):
+        losses_all, digests, ms = [], [], []
+        for i in range(n_steps):
+            if i == n_steps - 1:
+                holder = {}
+
+                def last():
+                    holder["out"] = step(params, masks, batches[i], adjs[i],
+                                         lrs[i])
+
+                prof = _profiled(torch, last)
+                params, losses = holder.pop("out")
+            else:
+                a, b = ev(), ev()
+                a.record()
+                params, losses = step(params, masks, batches[i], adjs[i],
+                                      lrs[i])
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+            losses_all.append(losses.cpu())
+            digests.append(_digest(torch, params))
+        return params, losses_all, digests, ms, prof
+
+    builder = steps.make_train_step(api, plan, "einsum")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params, masks = state()
+    # donated masks have no output to take: the capture reads them in place
+    step = graph.graphed(builder, donate=(0, 1))
+    _zero(counters)
+    g_params, g_losses, g_dig, g_ms, g_prof = train_run(step, params, masks)
+    launches.append(_launches(counters))
+    g_params = _to(torch, g_params, "cpu")
+    figs["train peak GiB"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    figs["train reserved GiB"] = torch.cuda.memory_reserved() / 2 ** 30
+    figs["train capture s"] = step.capture_s
+    if step.captures != 1 or step.replays != n_steps:
+        raise AssertionError(f"train step: {step.captures} captures, "
+                             f"{step.replays} replays for {n_steps} calls")
+    _release(step)
+    del params, masks
+    params, masks = state()
+    with graph.disabled():
+        e_params, e_losses, e_dig, e_ms, e_prof = train_run(builder, params,
+                                                            masks)
+    del params
+    for i in range(n_steps):
+        if not (torch.equal(_bits(torch, g_losses[i]),
+                            _bits(torch, e_losses[i]))
+                and torch.equal(g_dig[i], e_dig[i])):
+            raise AssertionError(f"compiled {dname} train step {i}: losses "
+                                 f"{g_losses[i].tolist()} vs eager "
+                                 f"{e_losses[i].tolist()}, or params differ")
+    if not _trees_bit_equal(torch, g_params, e_params):
+        raise AssertionError(f"compiled {dname}: train-step params differ "
+                             "from eager's")
+    del g_params, e_params
+    figs["train step ms"] = float(np.mean(g_ms[1:]))
+    figs["eager train step ms"] = float(np.mean(e_ms[1:]))
+    for name, prof in (("train", g_prof), ("eager train", e_prof)):
+        figs[f"{name} busy"] = None if prof[1] is None else prof[1] / prof[0]
+        figs[f"{name} host launches"] = prof[2]
+    figs["tokens/s"] = k * s / (figs["train step ms"] / 1e3)
+
+    # (b) the ring gossip: one train step, graphed then eager
+    pp = steps.make_train_step(api, plan, "ppermute")
+    params, masks = state()
+    step = graph.graphed(pp, donate=(0, 1))
+    g_params, g_losses = step(params, masks, batches[0], adjs[0], lrs[0])
+    g_losses, g_params = g_losses.cpu(), _to(torch, g_params, "cpu")
+    _release(step)
+    del params
+    params, _ = state()
+    with graph.disabled():
+        e_params, e_losses = pp(params, masks, batches[0], adjs[0], lrs[0])
+    if not (torch.equal(_bits(torch, g_losses), _bits(torch, e_losses.cpu()))
+            and _trees_bit_equal(torch, g_params, e_params)):
+        raise AssertionError(f"compiled {dname}: the ppermute train step "
+                             "differs from eager's")
+    del params, g_params, e_params
+
+    # (c) the mask update at two prune rates, graphed then eager; launches
+    # per replay against eager's per call
+    mu = steps.make_mask_update_step(api, plan, density=0.5)
+    rates = [torch.tensor(r, dtype=torch.float32, device=dev)
+             for r in COMPILED_RATES]
+
+    def update_run(fn, params, masks):
+        per_call, ms = [], []
+        for rate in rates:
+            _zero(counters)
+            a, b = ev(), ev()
+            a.record()
+            params, masks = fn(params, masks, batches[0], rate)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+            per_call.append(_launches(counters))
+        return params, masks, per_call, ms
+
+    params, masks = state()
+    # the graphed mask update's capture needs expandable segments at full
+    # width: a capture cannot free cached segments and retry, as an eager
+    # allocation that runs out does, so the default allocator fragments
+    # its pool past the card (fp32, 5 GiB held: 76.7 GiB reserved, 19.3
+    # GiB of it split blocks).  Only the graphed run uses them: eager runs
+    # are timed with the default allocator.
+    _expandable_segments(torch, True)
+    try:
+        step = graph.graphed(mu, donate=(0, 1))
+        g_params, g_masks, g_calls, g_ums = update_run(step, params, masks)
+        figs["mask update capture s"] = step.capture_s
+        g_params, g_masks = (_to(torch, t, "cpu")
+                             for t in (g_params, g_masks))
+        del params, masks
+        _release(step)
+    finally:
+        _expandable_segments(torch, False)
+    params, masks = state()
+    with graph.disabled():
+        e_params, e_masks, e_calls, e_ums = update_run(mu, params, masks)
+    if not (_trees_bit_equal(torch, g_params, e_params)
+            and _trees_bit_equal(torch, g_masks, e_masks)):
+        raise AssertionError(f"compiled {dname}: the mask update differs "
+                             "from eager's")
+    first = {key: 2 * v for key, v in e_calls[0].items()}
+    if g_calls[0] != first or g_calls[1] != e_calls[1]:
+        raise AssertionError(f"compiled {dname} mask update launches "
+                             f"{g_calls} against eager's {e_calls} (the "
+                             "first graphed call warms up, then replays)")
+    launches += g_calls
+    figs["mask update ms"] = g_ums[1]
+    figs["eager mask update ms"] = e_ums[1]
+    del params, masks, g_params, g_masks, e_masks
+
+    # (d) prefill and 16 decode steps, graphed then eager (the 16th
+    # profiled); tokens, logits and caches bit-equal
+    prefill = steps.make_prefill_step(api, plan)
+    decode = steps.make_decode_step(api, plan)
+    params = e_params
+    prompt = {"tokens": batches[0]["tokens"]}
+
+    def fresh_cache():
+        return tree_map(lambda t: torch.stack([t] * k),
+                        api.init_cache(1, s + n_dec, dtype, device="cuda"))
+
+    def serve_run(pre, dec):
+        logits, cache = pre(params, prompt, fresh_cache())
+        tok = torch.argmax(logits[:, :, -1], -1)[..., None].to(torch.int32)
+        out, ms = [tok], []
+        for i in range(n_dec):
+            pos = torch.full((k,), s + i, dtype=torch.int32, device="cuda")
+
+            def one():
+                return dec(params, {"tokens": out[-1], "pos": pos}, cache)
+
+            if i == n_dec - 1:
+                holder = {}
+                prof = _profiled(torch, lambda: holder.update(r=one()))
+                nxt, cache = holder["r"]
+            else:
+                a, b = ev(), ev()
+                a.record()
+                nxt, cache = one()
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+            out.append(nxt[..., None])
+        return logits, cache, torch.cat(out, -1), ms, prof
+
+    # the params have no output to take: read in place, never copied
+    g_pre = graph.graphed(prefill, donate=(0, 2))
+    g_dec = graph.graphed(decode, donate=(0, 2))
+    g_logits, g_cache, g_toks, g_dms, g_dprof = serve_run(g_pre, g_dec)
+    figs["decode capture s"] = g_dec.capture_s
+    if g_dec.captures != 1 or g_pre.captures != 1:
+        raise AssertionError(f"decode {g_dec.captures} captures, prefill "
+                             f"{g_pre.captures}")
+    _release(g_pre, g_dec)
+    with graph.disabled():
+        e_logits, e_cache, e_toks, e_dms, e_dprof = serve_run(prefill,
+                                                              decode)
+    if not (torch.equal(g_toks, e_toks)
+            and _trees_bit_equal(torch, g_logits, e_logits)
+            and _trees_bit_equal(torch, g_cache, e_cache)):
+        raise AssertionError(f"compiled {dname}: prefill or decode differs "
+                             "from eager's (tokens, logits or caches)")
+    figs["decode ms/token"] = float(np.mean(g_dms[1:]))
+    figs["eager decode ms/token"] = float(np.mean(e_dms[1:]))
+    for name, prof in (("decode", g_dprof), ("eager decode", e_dprof)):
+        figs[f"{name} busy"] = None if prof[1] is None else prof[1] / prof[0]
+        figs[f"{name} host launches"] = prof[2]
+    del params, e_params, g_logits, e_logits, g_cache, e_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"compiled {cfg.name} {dname} K={k} x {s} (graphed against eager "
+        f"in this phase, phase 14 / 16 (a) beside): train step "
+        f"{figs['train step ms']:.3f} ms graphed (replays of steps 2-3; "
+        f"eager here {figs['eager train step ms']:.3f} ms, phase 14 / 16 "
+        f"(a) {eager['train step ms']:.3f} ms), {figs['tokens/s']:.1f} "
+        f"tokens/s; busy {_share(g_prof[1], g_prof[0])} graphed (summed "
+        f"{_share(g_prof[3], g_prof[0])}), {_share(e_prof[1], e_prof[0])} "
+        f"eager (summed {_share(e_prof[3], e_prof[0])}); host launches "
+        f"{g_prof[2]} graphed, {e_prof[2]} eager; peak "
+        f"{figs['train peak GiB']:.2f} GiB above held with the graph pool "
+        f"(reserved {figs['train reserved GiB']:.2f} GiB); capture "
+        f"{figs['train capture s']:.2f} s; 4 steps bit-equal (losses and "
+        f"params), ppermute step bit-equal")
+    log(f"  mask update {figs['mask update ms']:.3f} ms graphed (replay at "
+        f"rate {COMPILED_RATES[1]}), {figs['eager mask update ms']:.3f} ms "
+        f"eager (phase 14 / 16 (a) {eager['mask update ms']:.3f} ms); capture "
+        f"{figs['mask update capture s']:.2f} s; masks and params bit-equal "
+        f"at rates {COMPILED_RATES}; prune_regrow launches per call graphed "
+        f"{[c['prune_regrow'] for c in g_calls]}, eager "
+        f"{[c['prune_regrow'] for c in e_calls]}")
+    log(f"  decode {figs['decode ms/token']:.3f} ms a token step graphed, "
+        f"{figs['eager decode ms/token']:.3f} ms eager (phase 14 / 16 (a) "
+        f"{eager['decode ms/token']:.3f} ms); busy "
+        f"{_share(g_dprof[1], g_dprof[0])} graphed (summed "
+        f"{_share(g_dprof[3], g_dprof[0])}), "
+        f"{_share(e_dprof[1], e_dprof[0])} eager (summed "
+        f"{_share(e_dprof[3], e_dprof[0])}); host launches "
+        f"{g_dprof[2]} graphed, {e_dprof[2]} eager; capture "
+        f"{figs['decode capture s']:.2f} s; prefill and {n_dec} decoded "
+        f"tokens, logits and caches bit-equal")
+    return _sum_launches(launches), figs
+
+
+class RoundLaunches:
+    """Engine callback: each round's launches (``_launches``), the
+    counters zeroed after each read."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.rounds = []
+
+    def on_round_end(self, engine, metrics):
+        self.rounds.append(_launches(self.counters))
+        _zero(self.counters)
+
+    def on_run_end(self, engine):
+        pass
+
+
+# phase 18's ScaleEngine cells: phase 5's (K=4; the default degree 10
+# makes the graph fully connected) per reduction, then a random topology
+# whose in-degrees change from round to round (a batch of 8, which every
+# client of the 8-way split holds)
+SCALE_COMPILED_CASES = (
+    ("ordered", "K=4", []), ("einsum", "K=4", []),
+    ("ordered", "K=8 random degree 3",
+     ["--clients", "8", "--topology", "random", "--degree", "3",
+      "--batch-size", "8"]))
+
+
+def ordered_pads_exact(torch, engine, rounds):
+    """On the card, the ``ordered`` mix through the padded (K, J) index
+    against the gossip kernel over each receiver's real rows alone (views,
+    no pads), on the engine's state with a block of -0.0 weights under
+    set masks planted in each leaf: bit-equal for each of ``rounds``'
+    topologies, the planted block -0.0 in the result.  Returns the
+    topologies' distinct in-degree vectors."""
+    from repro_torch.core.topology import make_adjacency, max_in_degree
+    from repro_torch.kernels.gossip_avg import gossip_avg
+    from repro_torch.scale.stacked import (
+        in_neighbour_index,
+        masked_gossip_stacked,
+    )
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = engine.cfg
+    k = cfg.n_clients
+    width = 1 + max_in_degree(cfg.topology, k, cfg.degree)
+
+    def plant(t, value):
+        t = t.clone()
+        t.reshape(k, -1)[:, :64] = value
+        return t
+
+    w = tree_map(lambda t: plant(t, -0.0), engine.state["params"])
+    m = tree_map(lambda t: plant(t, 1.0), engine.state["masks"])
+    degrees = set()
+    for t in range(rounds):
+        adj = make_adjacency(cfg.topology, k, t, cfg.degree, cfg.seed,
+                             cfg.drop_prob)
+        index = in_neighbour_index(adj, width, engine.device)
+        degrees.add(tuple(int(x) for x in (index < k).sum(1).tolist()))
+        got = masked_gossip_stacked(w, m, index, reduction="ordered")
+        for a, b, mm in zip(tree_leaves(got), tree_leaves(w),
+                            tree_leaves(m)):
+            mw = mm.to(b.dtype)
+            for r in range(k):
+                rows = [r] + [j for j in range(k) if adj[r, j] > 0 and j != r]
+                want = gossip_avg([b[j] for j in rows], [mw[j] for j in rows],
+                                  mw[r])
+                if not torch.equal(_bits(torch, a[r]), _bits(torch, want)):
+                    raise AssertionError(f"ordered mix, round {t} receiver "
+                                         f"{r}: the padded index differs "
+                                         "from the real rows alone")
+            if not torch.equal(_bits(torch, a.reshape(k, -1)[:, :64]),
+                               _bits(torch, torch.full_like(
+                                   a.reshape(k, -1)[:, :64], -0.0))):
+                raise AssertionError("ordered mix: the planted -0.0 block "
+                                     "did not stay -0.0")
+    # one mix timed each way on the last topology, each captured in a
+    # CUDA graph so that only device time counts: the padded gather
+    # against the kernel over views of the real rows
+    def padded():
+        return masked_gossip_stacked(w, m, index, reduction="ordered")
+
+    def views():
+        out = []
+        for b, mm in zip(tree_leaves(w), tree_leaves(m)):
+            mw = mm.to(b.dtype)
+            for r in range(k):
+                rows = [r] + [j for j in range(k) if adj[r, j] > 0 and j != r]
+                out.append(gossip_avg([b[j] for j in rows],
+                                      [mw[j] for j in rows], mw[r]))
+        return out
+
+    times = {}
+    for name, fn in (("padded", padded), ("views", views)):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        times[name] = cuda_ms(g.replay, iters=5, warmup=1)
+        del g
+    torch.cuda.empty_cache()
+    log(f"ordered mix K={k} {cfg.topology} degree {cfg.degree}, graphed: "
+        f"padded index {times['padded']:.3f} ms, views of the real rows "
+        f"{times['views']:.3f} ms (CUDA events, mean of 5 replays)")
+    return degrees
+
+
+def scale_compiled(torch, train, counters):
+    """Phase 18 for ``ScaleEngine``: ResNet18-GN in each cell of
+    ``SCALE_COMPILED_CASES`` for ``COMPILED_ROUNDS`` rounds, eagerly
+    (``graph.disabled()``)
+    and graphed from the same state: masks and params bit-equal, comm rows
+    and FLOPs equal, one capture (``step_compiles == 1``), each C entry's
+    launches per replayed round equal to eager's per round (the first
+    graphed round warms up eagerly, then replays: twice eager's); then a
+    profiled further round of each.  At random topology the in-degrees
+    change between rounds and one capture serves them all; there the
+    padded index is also held to the real rows alone
+    (``ordered_pads_exact``).  Returns the graphed runs' launches."""
+    from repro_torch.utils import graph
+    argv = list(SCALE_ARGS)
+    argv[argv.index("--rounds") + 1] = str(COMPILED_ROUNDS)
+    launches = []
+    for reduction, cell, extra in SCALE_COMPILED_CASES:
+        args = train.build_parser().parse_args(
+            argv + extra + ["--scale-reduction", reduction])
+        runs = {}
+        start = None
+        for mode in ("eager", "graphed"):
+            engine = train.build_engine(args)
+            if start is None:
+                start = _to(torch, engine.state, "cuda")
+            else:
+                engine.state = _to(torch, start, "cuda")
+            per_round = RoundLaunches(counters)
+            engine.callbacks.append(per_round)
+            _zero(counters)
+            if mode == "eager":
+                with graph.disabled():
+                    out = train.run_engine(args, engine)
+            else:
+                out = train.run_engine(args, engine)
+            engine.callbacks.remove(per_round)
+            engine.cfg.rounds += 1
+            if mode == "eager":
+                with graph.disabled():
+                    prof = _profiled(torch, lambda: list(engine.rounds()))
+            else:
+                prof = _profiled(torch, lambda: list(engine.rounds()))
+            runs[mode] = (engine, out, per_round.rounds, prof)
+        (eng_e, out_e, la_e, prof_e), (eng_g, out_g, la_g, prof_g) = (
+            runs["eager"], runs["graphed"])
+        if not _trees_bit_equal(torch, eng_g.state, eng_e.state):
+            raise AssertionError(f"compiled scale {reduction} {cell}: state "
+                                 "differs from eager's")
+        if eng_g._comm != eng_e._comm or eng_g._flops != eng_e._flops:
+            raise AssertionError(f"compiled scale {reduction} {cell}: comm "
+                                 "or FLOP rows differ from eager's")
+        if eng_g.step_compiles != 1 or eng_e.step_compiles != 0:
+            raise AssertionError(f"compiled scale {reduction} {cell}: "
+                                 f"step_compiles {eng_g.step_compiles} "
+                                 "graphed, "
+                                 f"{eng_e.step_compiles} eager")
+        want = [{key: 2 * v for key, v in la_e[0].items()}] + la_e[1:]
+        if la_g != want:
+            raise AssertionError(f"compiled scale {reduction} {cell}: "
+                                 f"launches per round {la_g} against "
+                                 f"eager's {la_e}")
+        launches += la_g
+        if extra:
+            degrees = ordered_pads_exact(torch, eng_g, COMPILED_ROUNDS + 1)
+            if len(degrees) < 2:
+                raise AssertionError(f"compiled scale {cell}: the in-degrees "
+                                     f"never changed: {degrees}")
+            log(f"compiled scale {cell}: in-degree vectors over the rounds "
+                f"{sorted(degrees)}; the padded ordered mix bit-equal to the "
+                "real rows alone, a planted -0.0 block kept -0.0")
+        log(f"compiled scale {reduction} (resnet18 {cell}, "
+            f"{COMPILED_ROUNDS} rounds): state bit-equal to eager, comm and FLOP rows equal, "
+            f"step_compiles 1, capture {eng_g._round_step.capture_s:.2f} s; "
+            f"gossip_avg launches per round {[r['gossip_avg'] for r in la_g]}"
+            f" (eager {[r['gossip_avg'] for r in la_e]}); round wall graphed "
+            f"{[round(w, 4) for w in out_g['round_wall_s']]} s, eager "
+            f"{[round(w, 4) for w in out_e['round_wall_s']]} s; a profiled "
+            f"replayed round {prof_g[0]:.4f} s busy "
+            f"{_share(prof_g[1], prof_g[0])} (kernel times summed "
+            f"{_share(prof_g[3], prof_g[0])}; {prof_g[2]} host launches), "
+            f"eager {prof_e[0]:.4f} s busy {_share(prof_e[1], prof_e[0])} "
+            f"(summed {_share(prof_e[3], prof_e[0])}; {prof_e[2]} host "
+            f"launches); phases graphed "
+            f"{eng_g.phase_s[-1]}, eager {eng_e.phase_s[-1]}")
+        _release(eng_g._round_step)
+        del runs, eng_e, eng_g
+    return _sum_launches(launches)
+
+
+def compiled_path(torch, train, counters, lm_fp32, lm_bf16):
+    """Phase 18: the compiled steps.  Returns the graphed runs' launches
+    summed and the gemma3-1b figures per dtype."""
+    t0 = time.perf_counter()
+    runs, figs = [], {}
+    for dtype, eager in ((torch.float32, lm_fp32), (torch.bfloat16, lm_bf16)):
+        la, figs[str(dtype).replace("torch.", "")] = lm_compiled(
+            torch, counters, dtype, eager)
+        runs.append(la)
+    runs.append(scale_compiled(torch, train, counters))
+    log(f"compiled phase: {time.perf_counter() - t0:.1f} s")
+    return _sum_launches(runs), figs
 
 
 if __name__ == "__main__":

@@ -105,6 +105,20 @@ def directed_out_neighbors(
     return np.sort(rng.choice(others, size=degree, replace=False))
 
 
+def max_in_degree(kind: str, n_clients: int, degree: int = 10) -> int:
+    """The most in-neighbours (self excluded) any client has under
+    ``make_adjacency(kind, n_clients, ..., degree)`` in any round; drops
+    only remove edges.  A fixed bound for consumers that need one shape
+    for every round."""
+    if kind == "ring":
+        return min(2, n_clients - 1)
+    if kind in ("fc", "fully_connected"):
+        return n_clients - 1
+    if kind in ("random", "time_varying", "dynamic"):
+        return min(degree, n_clients - 1)
+    raise ValueError(f"unknown topology kind: {kind}")
+
+
 def busiest_node_degree(a: np.ndarray) -> int:
     """Max #models any single node must *upload* (out-degree excl. self).
 

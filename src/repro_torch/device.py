@@ -1,7 +1,14 @@
 """Device selection and the numeric settings the parity contract needs."""
 from __future__ import annotations
 
+import os
+
 import torch
+
+#: cuBLAS's workspace, fixed before the first handle is made: a captured
+#: step and the same step run eagerly then get one workspace size on every
+#: stream, hence the same GEMM algorithms and bits (32 MiB, Hopper's size)
+CUBLAS_WORKSPACE = ":4096:8"
 
 
 def setup_device(device: str | torch.device = "cuda") -> torch.device:
@@ -18,6 +25,8 @@ def setup_device(device: str | torch.device = "cuda") -> torch.device:
     runs from one state give the same bits on the card — what the
     simulator's sync mode and its resumed runs are checked against.  Sorts
     are made stable at each call site (``torch.argsort(..., stable=True)``).
+    ``CUBLAS_WORKSPACE_CONFIG`` is set to ``CUBLAS_WORKSPACE`` unless the
+    environment already sets it (``utils.graph``'s captured steps).
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -26,6 +35,7 @@ def setup_device(device: str | torch.device = "cuda") -> torch.device:
             "is False; pass device='cpu' (CLI: --device cpu) to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {str(device)!r}")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

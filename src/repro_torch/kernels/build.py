@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -124,9 +125,90 @@ def launch(fn: ctypes._CFuncPtr, t: torch.Tensor, *args) -> int:
     current device for the call only when it is not already (the device
     guard costs a few microseconds a call; so does ``torch.cuda.
     current_stream``, hence the raw getter that PyTorch's own generated
-    kernels use)."""
+    kernels use).  The call is counted in ``CALLS_BY_ENTRY``."""
+    CALLS_BY_ENTRY[fn.__name__] = CALLS_BY_ENTRY.get(fn.__name__, 0) + 1
     index = t.get_device()
     if index == torch.cuda.current_device():
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+# ---------------------------------------------------------------------------
+# launch counts
+# ---------------------------------------------------------------------------
+
+#: the wrapper modules whose ``LAUNCHES*`` attributes (ints, and tables by
+#: C entry) count the kernels they launched; each joins when it is
+#: imported (``counts_launches(__name__)``)
+COUNTED: list = []
+#: calls of ``launch`` by C entry name, counted or not by a wrapper
+CALLS_BY_ENTRY: dict[str, int] = {}
+
+
+def counts_launches(module_name: str) -> None:
+    """Register a wrapper module's ``LAUNCHES*`` counts (its
+    ``LAUNCHES_BY_ENTRY`` keyed by C entry name), so that
+    ``launch_counts`` reads them."""
+    mod = sys.modules[module_name]
+    if mod not in COUNTED:
+        COUNTED.append(mod)
+
+
+def launch_counts() -> dict:
+    """Every launch count: ``CALLS_BY_ENTRY`` and each ``LAUNCHES*`` of
+    the ``COUNTED`` modules, keyed ``(module name, attribute)``; ints, and
+    each table copied."""
+    out = {(__name__, "CALLS_BY_ENTRY"): dict(CALLS_BY_ENTRY)}
+    for mod in COUNTED:
+        for attr in dir(mod):
+            if attr.startswith("LAUNCHES"):
+                v = getattr(mod, attr)
+                out[mod.__name__, attr] = dict(v) if isinstance(v, dict) else v
+    return out
+
+
+def launch_count_delta(before: dict, after: dict) -> dict:
+    """``after - before`` of two ``launch_counts``, the non-zero counts
+    only; a module that joined in between counts from 0."""
+    out = {}
+    for key, v in after.items():
+        if isinstance(v, dict):
+            was = before.get(key, {})
+            d = {e: n - was.get(e, 0) for e, n in v.items()
+                 if n != was.get(e, 0)}
+            if d:
+                out[key] = d
+        elif v != before.get(key, 0):
+            out[key] = v - before.get(key, 0)
+    return out
+
+
+def add_launch_counts(delta: dict, sign: int = 1) -> None:
+    """Add ``sign`` times a ``launch_count_delta`` to the counts."""
+    for (name, attr), v in delta.items():
+        mod = sys.modules[name]
+        if isinstance(v, dict):
+            table = getattr(mod, attr)
+            for e, n in v.items():
+                table[e] = table.get(e, 0) + sign * n
+        else:
+            setattr(mod, attr, getattr(mod, attr) + sign * v)
+
+
+def check_counted(delta: dict) -> None:
+    """Raise unless each C entry that ``launch`` called within ``delta``
+    is counted in the ``LAUNCHES_BY_ENTRY`` of a ``COUNTED`` module: a
+    wrapper module that never joined would have its launches missed."""
+    counted: dict[str, int] = {}
+    for (_, attr), v in delta.items():
+        if attr == "LAUNCHES_BY_ENTRY":
+            for e, n in v.items():
+                counted[e] = counted.get(e, 0) + n
+    missing = sorted(e for e, n in delta.get((__name__, "CALLS_BY_ENTRY"),
+                                             {}).items()
+                     if n > 0 and counted.get(e, 0) <= 0)
+    if missing:
+        raise RuntimeError(f"C entries {missing} were launched but no "
+                           "wrapper module counted them: the module must "
+                           "join with build.counts_launches(__name__)")

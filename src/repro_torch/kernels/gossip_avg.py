@@ -31,6 +31,7 @@ MAX_J = 32                       # GOSSIP_MAX_J in csrc/gossip_avg.cu
 _ENTRY = {torch.float32: "gossip_avg_f32", torch.bfloat16: "gossip_avg_bf16"}
 #: of ``LAUNCHES``, each C entry's
 LAUNCHES_BY_ENTRY = dict.fromkeys(_ENTRY.values(), 0)
+build.counts_launches(__name__)
 # (w_ptrs, m_ptrs, J, own, out, n, stream)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)

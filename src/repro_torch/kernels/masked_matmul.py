@@ -54,6 +54,7 @@ PAIRS = tuple(_ENTRY)
 #: of ``LAUNCHES`` and of ``LAUNCHES_U1``, each C entry's
 LAUNCHES_BY_ENTRY = dict.fromkeys(_ENTRY.values(), 0)
 LAUNCHES_U1_BY_ENTRY = dict.fromkeys(_ENTRY.values(), 0)
+build.counts_launches(__name__)
 
 
 def batched_masked_matmul_plain(x: torch.Tensor, w: torch.Tensor,

@@ -44,6 +44,7 @@ _ROWS_ENTRY = {torch.float32: "packed_accum_rows_f32",
 #: of ``LAUNCHES`` and ``LAUNCHES_ROWS``, each C fold entry's
 LAUNCHES_BY_ENTRY = dict.fromkeys((*_ENTRY.values(), *_ROWS_ENTRY.values()),
                                   0)
+build.counts_launches(__name__)
 # (words, offsets, res, scratch, scratch_len, nnz, expect, vstride, k, n,
 #  n_words, epoch, stream)
 _SCAN_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int64, ctypes.c_void_p) + (
@@ -67,7 +68,13 @@ def _scan(words: torch.Tensor, k: int, n: int, nnz, expect: int,
           vstride: int) -> tuple[torch.Tensor, list[int]]:
     """One scan launch over K bitmap rows of n coordinates: returns the
     (K, ceil(n / GROUP_N)) rank offsets on the device and, read back to the
-    host, each row's set bits followed by each row's disagreement flag."""
+    host, each row's set bits followed by each row's disagreement flag.
+    The read-back cannot be captured, and a capture would bake the
+    scratch epoch in, so under a CUDA-graph capture it raises."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the packed fold reads its popcount check back "
+                           "to the host: it cannot run inside a CUDA-graph "
+                           "capture")
     card = words.get_device()
     key = (card, torch._C._cuda_getCurrentRawStream(card))
     need = 1 + k * -(-n // SCAN_N)

@@ -42,6 +42,7 @@ _ENTRY = {(torch.float32, torch.float32): "prune_regrow_rows_f32",
 PAIRS = tuple(_ENTRY)
 #: of ``LAUNCHES``, each C entry's
 LAUNCHES_BY_ENTRY = dict.fromkeys(_ENTRY.values(), 0)
+build.counts_launches(__name__)
 # (w, g, m, th, new_m, new_w, k, n, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p)
@@ -116,7 +117,8 @@ def _column(sorted_desc: torch.Tensor, count) -> torch.Tensor:
     """Per row, the value at rank ``max(count - 1, 0)`` of a descending
     sort; ``count`` is an int or a (K,) integer tensor on the device."""
     k = sorted_desc.shape[0]
-    idx = torch.as_tensor(count, device=sorted_desc.device).to(torch.int64)
+    idx = (count.to(torch.int64) if isinstance(count, torch.Tensor) else
+           torch.full((), count, dtype=torch.int64, device=sorted_desc.device))
     idx = torch.clamp_min(idx.reshape(-1).expand(k) - 1, 0)
     return sorted_desc.gather(1, idx[:, None])[:, 0]
 
@@ -129,7 +131,7 @@ def sort_thresholds(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     coordinates), by ``torch.sort`` on the device in w's and g's own
     dtype (half the bytes at bf16).  The widening to fp32 is exact, so
     the thresholds equal those of a sort of the fp32 widenings."""
-    neg_inf = torch.tensor(float("-inf"), dtype=w.dtype, device=w.device)
+    neg_inf = torch.full((), float("-inf"), dtype=w.dtype, device=w.device)
     keep_sorted = torch.sort(torch.where(m > 0, w.abs(), neg_inf), dim=1,
                              descending=True).values
     grow_sorted = torch.sort(torch.where(m > 0, neg_inf, g.abs()), dim=1,

@@ -12,13 +12,20 @@ them with the prune/regrow kernel (``kernels.prune_regrow``), one launch
 per sparsifiable leaf on the GPU, on the leaf's own dtype.  Every step
 runs on float32 or bf16 state (``ScalePlan.dtype``) with int8 masks; bf16
 params take SGD's update in fp32 and are cast back, as in the
-reference.  The reference's ``ppermute`` gossip is
-a ``shard_map`` collective over a device mesh, and its ``plan_for``,
-``lower_*`` and ``state_shardings`` lower these steps onto a TPU mesh.
-The port runs on one H100, where a multi-card mesh cannot be verified:
-``launch.dryrun`` plans K clients on the card and traces these steps on
-fake tensors in place of lowering them (ROADMAP A13d).  A ``ScalePlan``
-therefore carries no mesh.
+reference.  ``gossip="ppermute"`` is the reference's ring gossip
+(``launch.gossip_opt``), a roll over the client dim.  The reference's
+``plan_for``, ``lower_*`` and ``state_shardings`` lower these steps onto a
+TPU mesh.  The port runs on one H100, where a multi-card mesh cannot be
+verified: ``launch.dryrun`` plans K clients on the card and traces these
+steps on fake tensors in place of lowering them (ROADMAP A13d).  A
+``ScalePlan`` therefore carries no mesh.
+
+The steps are plain functions, as the reference's are; a caller compiles
+one with ``utils.graph.graphed`` (the reference's callers ``jax.jit``
+them).  Every per-call value may be a tensor on the state's device (the
+learning rate, the prune rate, the decode positions, the adjacency), so
+a captured step replays with new values; Python numbers and arrays work
+eagerly.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.launch.gossip_opt import ppermute_gossip
 from repro_torch.models.registry import ModelAPI, meta_spec
 from repro_torch.scale.stacked import (
     masked_gossip_stacked,
@@ -125,23 +133,20 @@ def make_train_step(api: ModelAPI, plan: ScalePlan, gossip: str = "einsum"):
     gossip: ``'einsum'`` (adjacency einsums over the client dim, fp32),
     ``'einsum_bf16'`` (the same, accumulated in bfloat16), ``'einsum_noopt'``
     (``'einsum'`` without its K=1 skip, where the 1x1 identity mix is a
-    no-op), ``'none'`` (no gossip).  ``'ppermute'`` is JAX mesh tooling
-    and raises.
+    no-op), ``'ppermute'`` (the ring gossip of ``launch.gossip_opt``,
+    ±1 neighbours; the adjacency is not read) or ``'none'`` (no gossip).
     """
     if gossip not in GOSSIP_MODES:
         raise ValueError(f"gossip must be one of {GOSSIP_MODES}, got "
                          f"{gossip!r}")
-    if gossip == "ppermute":
-        raise NotImplementedError(
-            "gossip='ppermute' is a shard_map collective_permute over a "
-            "device mesh, JAX-only tooling with no counterpart on one card "
-            "(ROADMAP A13d); use 'einsum'")
     grads_fn = stacked_loss_grads(api)
     wd = WEIGHT_DECAY
 
     def train_step(params, masks, batch, adjacency, lr):
         if gossip in ("einsum", "einsum_bf16") and plan.n_clients == 1:
             pass    # the 1x1 identity mix returns w (already masked)
+        elif gossip == "ppermute":
+            params = ppermute_gossip(params, masks, plan)
         elif gossip != "none":
             acc = torch.bfloat16 if gossip == "einsum_bf16" else torch.float32
             params = masked_gossip_stacked(params, masks, adjacency,
@@ -164,15 +169,16 @@ def make_mask_update_step(api: ModelAPI, plan: ScalePlan,
     """Once-per-round mask search (Alg. 2) for every client at once: the
     dense gradient on one batch, then ``stacked_prune_regrow_threshold``
     (kth order statistics by sort, then the prune/regrow kernel once per
-    sparsifiable leaf).  Layer budgets are static (``density`` x numel).
-    Returns ``(params, masks)``."""
+    sparsifiable leaf).  Layer budgets are static (``density`` x numel);
+    ``prune_rate`` may be a float32 device tensor.  Returns ``(params,
+    masks)``."""
     dense_grads = torch.func.vmap(
         torch.func.grad(lambda p, b: api.train_loss(p, b)[0]))
 
     def mask_update(params, masks, batch, prune_rate):
         grads = dense_grads(params, batch)
         new_masks, new_params = stacked_prune_regrow_threshold(
-            params, masks, grads, float(prune_rate), density)
+            params, masks, grads, prune_rate, density)
         return new_params, new_masks
 
     return mask_update

@@ -276,7 +276,11 @@ def lm_loop(args, cfg, params: list, masks: list,
     (gossip over the round's random topology, one masked SGD step at ``lr
     * 0.998**round``) and one exact mask evolution per client at the cosine
     prune rate.  Batches, topology and rates follow the reference's draws
-    in its order.  Returns ``({"arch", "loss_history", "improved"},
+    in its order.  The stacked step is compiled (``utils.graph.graphed``,
+    the reference's ``jax.jit``, params and masks donated): captured once
+    on the card and replayed with each round's adjacency and learning rate as
+    device tensors; the mask evolution runs eagerly, as the reference's
+    does.  Returns ``({"arch", "loss_history", "improved"},
     {"params", "masks"})``: the run's result and its final stacked
     state."""
     import torch
@@ -292,6 +296,7 @@ def lm_loop(args, cfg, params: list, masks: list,
     from repro_torch.data.synthetic import make_lm_corpus
     from repro_torch.launch.steps import stacked_loss_grads
     from repro_torch.models import bind
+    from repro_torch.utils.graph import graphed
     from repro_torch.utils.tree import (
         tree_map,
         tree_size,
@@ -335,6 +340,8 @@ def lm_loop(args, cfg, params: list, masks: list,
 
         return tree_map(upd, mixed, grads, sm), losses
 
+    step = graphed(step, donate=(0, 1))
+
     def client_grad(p, batch):
         return torch.func.grad(lambda q: api.train_loss(q, batch)[0])(p)
 
@@ -344,8 +351,10 @@ def lm_loop(args, cfg, params: list, masks: list,
     t0 = time.time()
     it = 0
     for r in range(args.rounds):
-        adj = make_adjacency("random", k_clients, r,
-                             degree=min(3, k_clients - 1), seed=args.seed)
+        adj = torch.as_tensor(
+            make_adjacency("random", k_clients, r,
+                           degree=min(3, k_clients - 1), seed=args.seed),
+            dtype=torch.float32, device=device)
         lr = args.lr * (0.998 ** r)
         lr_t = torch.tensor(lr, dtype=torch.float32, device=device)
         for _ in range(steps_per_round):
@@ -358,7 +367,10 @@ def lm_loop(args, cfg, params: list, masks: list,
         for k in range(k_clients):
             g = client_grad(ps[k], batch_for(k))
             ms[k], ps[k] = evolve_masks(ps[k], ms[k], g, alpha, budgets)
-        sp, sm = tree_stack(ps), tree_stack(ms)
+        # the new masks into the step's own buffers: a donated argument
+        # passed as the same tensors is read in place, never copied
+        sp = tree_stack(ps)
+        sm = tree_map(torch.Tensor.copy_, sm, tree_stack(ms))
         mean_loss = float(torch.mean(losses))
         hist.append(mean_loss)
         print(f"[lm] round {r + 1}/{args.rounds} step {it} "

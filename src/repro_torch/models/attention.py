@@ -84,8 +84,8 @@ def _sdpa(q, k, v, cfg, mask):
     if mask.ndim == 2:
         mask = mask[None]
     scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(NEG_INF, dtype=scores.dtype,
-                                      device=scores.device))
+                         torch.full((), NEG_INF, dtype=scores.dtype,
+                                    device=scores.device))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, sq, h, dh)
@@ -123,8 +123,8 @@ def _local_attention(q, k, v, cfg, window: int):
     first = torch.arange(nb, device=dev)[:, None, None] == 0
     valid = torch.where(first, mask[None] & (kpos >= w)[None], mask[None])
     scores = torch.where(valid[:, None, None, :, :], scores,
-                         torch.tensor(NEG_INF, dtype=scores.dtype,
-                                      device=dev))
+                         torch.full((), NEG_INF, dtype=scores.dtype,
+                                    device=dev))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bnkgqs,bnskd->bnqkgd", probs, v2)
     return out.reshape(b, s, h, dh)

@@ -94,8 +94,8 @@ def groupnorm(params: dict, x: torch.Tensor, groups: int = 32,
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

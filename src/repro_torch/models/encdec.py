@@ -75,7 +75,7 @@ def _sinusoidal_pos(s: int, d: int, device=None) -> torch.Tensor:
     """Length-agnostic sinusoidal encoder positions, (s, d) float32, sines
     in the even columns and cosines in the odd ones."""
     pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
-    log_base = torch.log(torch.tensor(10000.0, device=device))
+    log_base = torch.log(torch.full((), 10000.0, device=device))
     div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
                     * (-log_base / d))
     pe = torch.zeros((s, d), dtype=torch.float32, device=device)

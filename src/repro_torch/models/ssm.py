@@ -114,7 +114,7 @@ def _segsum(dA):
     cs = torch.cumsum(dA, dim=-1)
     seg = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dA.device))
-    return torch.where(mask, seg, torch.tensor(-math.inf, device=dA.device))
+    return torch.where(mask, seg, torch.full((), -math.inf, device=dA.device))
 
 
 def _ssd_chunked(xh, dt, a, Bm, Cm, chunk):

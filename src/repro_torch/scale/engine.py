@@ -21,10 +21,20 @@ Semantics contract (``tests/test_torch_scale.py``):
 * ``reduction="einsum"`` mixes by matmul: values agree within fp32
   rounding, masks as long as no drift crosses a top-k tie.
 
-The round runs eagerly (the kernels launch through ctypes, which does not
-trace), so ``step_compiles`` — rounds whose step triggered a
-``torch.compile`` — stays 0.  ``mesh`` (sharding the client dim over a
-``DeviceMesh``) is not ported: the port runs on one card.
+The round's mix, local phase and evolve are one ``round_step``, built
+once (``_build_round_step``, as the reference's) and compiled with
+``utils.graph.graphed``, the reference's ``jax.jit``: on the card the
+first round captures it as a CUDA graph and every later round replays it,
+with the round's learning rate, topology and evolve counts as device
+tensors, so ``step_compiles`` (rounds whose step captured) reads 1 over a
+run, the reference's invariant.  The ``ordered`` mix takes a (K, J)
+in-neighbour index whose width is the topology's in-degree bound, so
+neither a new topology nor a drop changes the step's input shapes.  On
+the CPU the same phases run eagerly, each timed on its own (``mix``,
+``local``, ``evolve`` in ``phase_s``), and ``step_compiles`` reads 0; one
+graph has no boundaries inside it, so the card times the ``step`` whole.
+``mesh`` (sharding the client dim over a ``DeviceMesh``) is not ported:
+the port runs on one card.
 
 Constraints, checked at construction: homogeneous client densities, one
 effective batch size for all clients (ragged step counts are padded), and a
@@ -36,6 +46,7 @@ import time
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.fl.base import (
     Task,
@@ -43,13 +54,7 @@ from repro_torch.fl.base import (
     stack_eval_arrays,
 )
 from repro_torch.fl.engine import Callback, RoundCtx, RoundEngine, StrategyBase
-from repro_torch.obs import (
-    CounterSet,
-    SeriesSet,
-    install_torch_hooks,
-    span,
-    torch_compile_count,
-)
+from repro_torch.obs import CounterSet, SeriesSet, install_torch_hooks, span
 from repro_torch.optim.sgd import SGDConfig
 from repro_torch.scale.stacked import (
     pack_stacked,
@@ -58,6 +63,7 @@ from repro_torch.scale.stacked import (
     stacked_local_phase,
 )
 from repro_torch.scale.strategy import make_stacked
+from repro_torch.utils.graph import graphed
 
 PyTree = Any
 
@@ -72,7 +78,8 @@ class ScaleEngine(RoundEngine):
     ``reduction`` picks the gossip fold: ``"einsum"`` (matmul, default) or
     ``"ordered"`` (the loop's accumulation order, through the gossip
     kernel).  ``phase_s`` holds each round's seconds per phase (inputs,
-    mix, local, evolve, eval), each ended by a device synchronise.
+    mix, local, evolve, eval on the CPU; inputs, step, eval on the card),
+    each ended by a device synchronise.
     """
 
     def __init__(self, strategy: StrategyBase, task: Task, clients, cfg,
@@ -91,6 +98,9 @@ class ScaleEngine(RoundEngine):
         self.state = self.adapter.stack_state(self.state)
         self._opt = SGDConfig(momentum=cfg.momentum,
                               weight_decay=cfg.weight_decay)
+        self._round_step = None
+        self._phase_fns: tuple = ()
+        self._count_paths: tuple[str, ...] = ()
         self._eval_arrays = None
         install_torch_hooks()
         self.scale_obs = CounterSet("scale.engine")
@@ -113,9 +123,64 @@ class ScaleEngine(RoundEngine):
 
     @property
     def step_compiles(self) -> int:
-        """Rounds whose step triggered a ``torch.compile``: 0, since the
-        round runs eagerly."""
+        """Rounds whose step dispatch captured a CUDA graph: 1 over a run
+        on the card (the reference's "traced scalars never recompile"),
+        0 on the CPU, where the step runs eagerly."""
         return int(self._c_step_compiles.value)
+
+    # ------------------------------------------------------------------
+    # the compiled round step
+    # ------------------------------------------------------------------
+    def _build_round_step(self):
+        """The round's phases, each a function of the stacked state and
+        the round's device inputs, and ``round_step``, which runs them in
+        order, compiled (the reference's ``_build_round_step``)."""
+        adapter = self.adapter
+        apply_fn = self.task.apply_fn
+        opt = self._opt
+        paths = self._count_paths
+
+        def mix(state, inp):
+            return adapter.stacked_mix(state, inp["mix"])
+
+        def local(state, inp):
+            params = stacked_local_phase(
+                apply_fn, opt, state["params"], adapter.stacked_masks(state),
+                inp["bx"], inp["by"], inp["live"], inp["lr"])
+            return {**state, "params": params}
+
+        def evolve(state, inp):
+            if not adapter.evolves:
+                return state
+            grads = stacked_grads(apply_fn, state["params"], inp["ev_x"],
+                                  inp["ev_y"])
+            counts = inp["counts"]
+            return adapter.stacked_evolve(
+                state, grads,
+                {p: (counts[i, 0], counts[i, 1]) for i, p in enumerate(paths)})
+
+        phases = (("mix", mix), ("local", local), ("evolve", evolve))
+
+        def round_step(state, inp):
+            for _, phase in phases:
+                state = phase(state, inp)
+            return state
+
+        return phases, graphed(round_step, donate=(0,))
+
+    def _count_tensor(self, counts: dict):
+        """The round's ``(n_keep, n_prune)`` per leaf as one (L, 2) int64
+        tensor on the device, in the order the step was built with."""
+        if not counts:
+            return None
+        if not self._count_paths:
+            self._count_paths = tuple(counts)
+        if tuple(counts) != self._count_paths:
+            raise ValueError("the evolve counts changed leaves between "
+                             "rounds: the round step is built for "
+                             f"{self._count_paths}")
+        return torch.tensor([counts[p] for p in self._count_paths],
+                            dtype=torch.int64, device=self.device)
 
     # ------------------------------------------------------------------
     # host-side per-round inputs (the reference's draws, in its order)
@@ -129,33 +194,47 @@ class ScaleEngine(RoundEngine):
         return self.task.as_tensor(np.stack(xs)), self.task.as_tensor(
             np.stack(ys))
 
+    def _round_inputs(self, ctx: RoundCtx) -> dict:
+        """The round's host draws, in the reference's order, as the round
+        step's device inputs: batches, evolve batches and counts, the mix
+        input and the learning rate."""
+        adapter = self.adapter
+        dev = self.device
+        bx, by, live = self._stacked_batches(
+            ctx, range(len(self.clients)), self.cfg.local_epochs)
+        ev_x, ev_y = (self._evolve_batches(ctx) if adapter.evolves
+                      else (None, None))
+        counts = self._count_tensor(adapter.evolve_counts(ctx))
+        return {"mix": adapter.mix_input(ctx, dev), "bx": bx, "by": by,
+                "live": live, "ev_x": ev_x, "ev_y": ev_y, "counts": counts,
+                "lr": torch.tensor(ctx.lr, dtype=torch.float32, device=dev)}
+
     # ------------------------------------------------------------------
     # the round
     # ------------------------------------------------------------------
     def _round_phases(self, ctx: RoundCtx, phases: dict, tp: float) -> float:
-        """The host inputs, then mix -> local phase -> evolve on the stacked
-        state inside the ``scale.step`` span, with the step counters."""
-        adapter = self.adapter
-        bx, by, live = self._stacked_batches(
-            ctx, range(len(self.clients)), self.cfg.local_epochs)
-        ev = self._evolve_batches(ctx) if adapter.evolves else None
-        counts = adapter.evolve_counts(ctx)
+        """The host inputs on the device, then the round step (mix ->
+        local phase -> evolve on the stacked state) inside the
+        ``scale.step`` span, with the step counters: on the CPU each phase
+        eagerly and timed on its own, on the card the compiled step."""
+        dev = self.device
+        inp = self._round_inputs(ctx)
+        if self._round_step is None:
+            self._phase_fns, self._round_step = self._build_round_step()
+        step = self._round_step
         tp = self._timed(phases, "inputs", tp)
-        n_compiles = torch_compile_count()
+        n_captures = step.captures
         with span("scale.step", track="engine", round=ctx.t) as sp:
-            state = adapter.stacked_mix(self.state, adapter.mix_matrix(ctx))
-            tp = self._timed(phases, "mix", tp)
-            params = stacked_local_phase(
-                self.task.apply_fn, self._opt, state["params"],
-                adapter.stacked_masks(state), bx, by, live, ctx.lr)
-            state = {**state, "params": params}
-            tp = self._timed(phases, "local", tp)
-            if adapter.evolves:
-                grads = stacked_grads(self.task.apply_fn, params, *ev)
-                state = adapter.stacked_evolve(state, grads, counts)
-            self.state = state
-            tp = self._timed(phases, "evolve", tp)
-            delta = torch_compile_count() - n_compiles
+            if dev.type == "cpu":
+                state = self.state
+                for name, phase in self._phase_fns:
+                    state = phase(state, inp)
+                    tp = self._timed(phases, name, tp)
+                self.state = state
+            else:
+                self.state = step(self.state, inp)
+                tp = self._timed(phases, "step", tp)
+            delta = step.captures - n_captures
             sp.attrs["compiles"] = delta
         self._c_step_calls.inc()
         if delta > 0:

@@ -95,11 +95,27 @@ def _on_device(matrix, dtype, tree) -> torch.Tensor:
                            device=tree_leaves(tree)[0].device)
 
 
-def _in_neighbours(adjacency) -> list[list[int]]:
+def in_neighbour_index(adjacency, width: Optional[int] = None,
+                       device=None) -> torch.Tensor:
+    """The ``ordered`` gossip's (K, J) int64 read index on ``device``: row
+    k is ``[k, *in-neighbours ascending]``, then ``K`` (the pad row, which
+    the mix fills with -0.0) up to ``width`` columns; ``width`` defaults to
+    the largest in-degree plus one.  The (K, K) adjacency is read on the
+    host here, once, so a captured mix takes each round's topology as a
+    tensor of one shape: with the topology's bound as ``width``
+    (``core.topology.max_in_degree``) one capture serves every round,
+    drops included."""
     a = np.asarray(adjacency.cpu() if isinstance(adjacency, torch.Tensor)
                    else adjacency)
     k = a.shape[0]
-    return [[j for j in range(k) if a[r, j] > 0 and j != r] for r in range(k)]
+    rows = [[r] + [j for j in range(k) if a[r, j] > 0 and j != r]
+            for r in range(k)]
+    j = max(map(len, rows)) if width is None else int(width)
+    if any(len(r) > j for r in rows):
+        raise ValueError(f"a receiver mixes {max(map(len, rows))} rows, "
+                         f"more than the index's width {j}")
+    return torch.tensor([r + [k] * (j - len(r)) for r in rows],
+                        dtype=torch.int64, device=device)
 
 
 def masked_gossip_stacked(params: PyTree, masks: PyTree, adjacency,
@@ -108,12 +124,20 @@ def masked_gossip_stacked(params: PyTree, masks: PyTree, adjacency,
     """Intersection-weighted gossip over the stacked client dim.
 
     ``adjacency`` is the (K, K) receive matrix with unit diagonal (numpy or
-    a tensor): client k mixes every j with ``A[k, j] > 0``, itself
+    a float tensor): client k mixes every j with ``A[k, j] > 0``, itself
     included.  The state must be masked (``w == w ⊙ m``), as DisPFL's
     always is; the result is re-masked by each receiver's own mask.
     ``accum_dtype`` is the einsum's operand and result type (bfloat16 halves
-    its bytes); the division and the re-mask are fp32.  The ``ordered``
-    reduction accumulates in the state's dtype."""
+    its bytes); the division and the re-mask are fp32.
+
+    The ``ordered`` reduction accumulates in the state's dtype.  It also
+    takes ``in_neighbour_index``'s (K, J) int64 tensor in place of the
+    matrix, and then reads nothing on the host.  Per leaf it gathers the
+    K * J rows it reads, weights and masks, into one (K, J, ...) stack on
+    the device, the index's pad slots reading a row of -0.0, and launches
+    the gossip kernel once per receiver over its J rows.  ``x + -0.0 ==
+    x`` for every x, so the pads leave each sum's bits as the real rows
+    alone give them."""
     check_reduction(reduction)
     if reduction == "einsum":
         a = _on_device(adjacency, accum_dtype, params)
@@ -127,14 +151,21 @@ def masked_gossip_stacked(params: PyTree, masks: PyTree, adjacency,
 
         return tree_map(one, params, masks)
 
-    nbrs = _in_neighbours(adjacency)
+    index = (adjacency if isinstance(adjacency, torch.Tensor)
+             and adjacency.dtype == torch.int64 else
+             in_neighbour_index(adjacency,
+                                device=tree_leaves(params)[0].device))
+    k, j = index.shape
+    flat = index.reshape(-1)
 
     def one(w, m):
-        mw = m.to(w.dtype)
-        return torch.stack([
-            gossip_avg([w[k]] + [w[j] for j in nbrs[k]],
-                       [mw[k]] + [mw[j] for j in nbrs[k]], mw[k])
-            for k in range(len(nbrs))])
+        pad = w.new_full((1, *w.shape[1:]), -0.0)
+        wp = torch.cat([w, pad])
+        mp = torch.cat([m.to(w.dtype), pad])
+        gw = wp.index_select(0, flat).reshape(k, j, *w.shape[1:])
+        gm = mp.index_select(0, flat).reshape(k, j, *w.shape[1:])
+        return torch.stack([gossip_avg(list(gw[r]), list(gm[r]), mp[r])
+                            for r in range(k)])
 
     return tree_map(one, params, masks)
 
@@ -244,7 +275,7 @@ def stacked_evolve_exact(params: PyTree, masks: PyTree, grads: PyTree,
         n_keep, n_prune = counts[path]
         k = w.shape[0]
         mf = m.reshape(k, -1).to(torch.float32)
-        neg_inf = torch.tensor(float("-inf"), device=w.device)
+        neg_inf = torch.full((), float("-inf"), device=w.device)
         m_half = _topk_rows(
             torch.where(mf > 0, w.reshape(k, -1).to(torch.float32).abs(),
                         neg_inf), n_keep)
@@ -277,14 +308,16 @@ def default_threshold_sparsifiable(w: torch.Tensor) -> bool:
 
 
 def stacked_prune_regrow_threshold(
-    params: PyTree, masks: PyTree, grads: PyTree, prune_rate: float,
+    params: PyTree, masks: PyTree, grads: PyTree, prune_rate,
     density: float,
     sparsifiable: Callable[[torch.Tensor], bool] = default_threshold_sparsifiable,
 ) -> tuple[PyTree, PyTree]:
     """Threshold-based stacked prune/regrow.  Per client and sparsifiable
     leaf, a static budget ``n_active = max(1, round(density * n))``,
     ``n_prune = ceil(f32(prune_rate) * n_active)`` (the reference's fp32
-    product), thresholds by ``torch.sort`` on the device, then the
+    product, on the device: ``prune_rate`` is a float or a float32 tensor,
+    so a captured step takes a new rate each call), thresholds by
+    ``torch.sort`` on the device, then the
     prune/regrow kernel — one launch per leaf, on the leaf's own dtypes
     (a pair of ``kernels.prune_regrow.PAIRS``: fp32 or bf16 weights, int8
     masks on the LM steps), with no widened copy of a leaf.  The reference
@@ -292,7 +325,10 @@ def stacked_prune_regrow_threshold(
     compares, which is exact, so the results are the same.  Ties may keep
     or grow a few more coordinates than the exact form.  Returns
     ``(masks, params)``."""
-    rate = np.float32(prune_rate)
+    dev = tree_leaves(params)[0].device
+    rate = (prune_rate.to(dev, torch.float32)
+            if isinstance(prune_rate, torch.Tensor) else
+            torch.full((), prune_rate, dtype=torch.float32, device=dev))
 
     def one(w, g, m):
         if not sparsifiable(w):
@@ -300,7 +336,7 @@ def stacked_prune_regrow_threshold(
         k = w.shape[0]
         w2, g2, m2 = (t.reshape(k, -1).contiguous() for t in (w, g, m))
         n_active = max(1, int(round(density * w2.shape[1])))
-        n_prune = int(np.ceil(rate * np.float32(n_active)))
+        n_prune = torch.ceil(rate * n_active).to(torch.int64)
         th = sort_thresholds(w2, g2, m2, n_active - n_prune, n_prune)
         new_m, new_w = prune_regrow_rows(w2, g2, m2, th)
         return new_m.reshape(m.shape), new_w.reshape(w.shape)

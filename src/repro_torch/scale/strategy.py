@@ -6,10 +6,13 @@ engine drives — and re-expresses its phases on stacked (K-leading) state:
 
     stack_state / unstack_state   per-client lists <-> stacked trees
     mix_matrix(ctx)               (K, K) host matrix for the mix
+    mix_input(ctx, device)        the mix's device input for the round step
     stacked_mix(state, mix)       the communication phase
     stacked_masks(state)          masks for the local phase
     stacked_evolve(state, grads, counts)   the mask search
     evolve_counts(ctx)            per-round host counts for the search
+                                  (the engine hands them to its step as
+                                  device tensors)
 
 plus ``round_comm``/``round_flops`` (the base strategy's accounting) and
 ``eval_params``/``stacked_eval_params``.  ``ScaleEngine`` composes them:
@@ -21,13 +24,16 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.accounting import decentralized_comm
+from repro_torch.core.topology import max_in_degree
 from repro_torch.fl.decentralized import metropolis_weights
 from repro_torch.fl.engine import RoundCtx, StrategyBase
 from repro_torch.scale.stacked import (
     check_reduction,
     evolve_counts_for,
+    in_neighbour_index,
     masked_gossip_stacked,
     plain_mix_stacked,
     stacked_evolve_exact,
@@ -108,6 +114,12 @@ class StackedStrategyBase:
     def mix_matrix(self, ctx: RoundCtx) -> np.ndarray:
         raise NotImplementedError
 
+    def mix_input(self, ctx: RoundCtx, device):
+        """What ``stacked_mix`` takes as ``mix``, on ``device``: the
+        round's matrix as a float32 tensor."""
+        return torch.as_tensor(self.mix_matrix(ctx), dtype=torch.float32,
+                               device=device)
+
     def stacked_mix(self, state: dict, mix) -> dict:
         raise NotImplementedError
 
@@ -159,6 +171,18 @@ class StackedDisPFL(StackedStrategyBase):
 
     def mix_matrix(self, ctx: RoundCtx) -> np.ndarray:
         return np.asarray(ctx.adjacency, dtype=np.float32)
+
+    def mix_input(self, ctx: RoundCtx, device):
+        """The ``ordered`` mix takes the (K, J) in-neighbour index, J fixed
+        by the topology's in-degree bound: one shape, so one captured step,
+        for every round and every drop."""
+        if self.reduction == "ordered":
+            cfg = ctx.cfg
+            k = len(self.base.clients)
+            return in_neighbour_index(
+                self.mix_matrix(ctx),
+                1 + max_in_degree(cfg.topology, k, cfg.degree), device)
+        return super().mix_input(ctx, device)
 
     def stacked_mix(self, state: dict, mix) -> dict:
         params = masked_gossip_stacked(state["params"], state["masks"], mix,

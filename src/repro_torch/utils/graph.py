@@ -1,0 +1,308 @@
+"""Compiled steps: a step function captured once as a CUDA graph and
+replayed, the port's counterpart of ``jax.jit`` (``donate_argnums``
+included), with ``disabled()`` for ``jax.disable_jit``.
+
+    step = graphed(train_step, donate=(0,))
+    params, losses = step(params, masks, batch, adjacency, lr_tensor)
+
+A graph replays the kernels it recorded, so a replay gives the bits the
+same step gives eagerly on the card.  On CPU tensors ``graphed`` calls the
+step as it is.  On CUDA tensors, the first call for each input signature
+(tree structure, shapes, dtypes, devices) runs the step once eagerly on a
+side stream (kernel builds and ctypes loads happen there, never inside a
+capture), then captures it into a ``torch.cuda.CUDAGraph`` over static
+input buffers; every call copies its inputs into those buffers and
+replays.  Arguments are tensors only: a Python number would be baked into
+the capture, so it is refused, and per-call scalars (learning rate, prune
+rate, counts) travel as device tensors.  Static configuration goes
+through the step's closure.  A capture that fails raises; nothing falls
+back to eager.
+
+Donation: a donated argument's tensors are the capture's own input
+buffers, and the step writes its matching output back into them (the
+output, or an element of a tuple output, with the argument's tree
+structure, shapes and dtypes), so the caller's state is updated in place
+and held once, as XLA reuses a donated buffer.  A donated argument with no
+matching output is read in place, never copied (read-only state: the
+masks of a train step, the params of a decode).  Passing the same tensors
+again costs no copy; other tensors are copied into those buffers.  Other
+outputs are returned as fresh tensors, so a later replay never overwrites
+a result the caller holds.
+
+The kernel wrappers count a launch in Python where they call their C
+entry, which a capture runs once and a replay not at all.  So ``graphed``
+takes the counts a capture added (``kernels.build.launch_counts``: every
+wrapper module that joined its registry) back out and adds them on every
+replay: each wrapper's counts stay the launches the card ran.  A capture
+that launched a C entry no registered wrapper counted raises.
+
+``check_capturable()`` is the CPU check that a step can be captured: a
+dispatch mode that refuses host reads, data-dependent shapes and tensors
+built from host data inside the step.  It cannot see a Python number that
+the step bakes in; that shows only as a replay that differs on the card.
+"""
+from __future__ import annotations
+
+import contextlib
+import gc
+import threading
+import time
+from typing import Any, Callable, Sequence
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from repro_torch.kernels import build
+
+_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def disabled():
+    """Within it, every ``graphed`` step of this thread runs eagerly, on
+    whatever device its tensors are (``jax.disable_jit``)."""
+    before = getattr(_STATE, "disabled", False)
+    _STATE.disabled = True
+    try:
+        yield
+    finally:
+        _STATE.disabled = before
+
+
+def is_disabled() -> bool:
+    return getattr(_STATE, "disabled", False)
+
+
+# ---------------------------------------------------------------------------
+# graphed
+# ---------------------------------------------------------------------------
+
+
+def _sorted(tree):
+    """``tree`` with every dict's keys in sorted order, as ``jax.tree_util``
+    orders them: a state whose dicts were rebuilt in another key order is
+    the same input."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_sorted(x) for x in tree)
+    return tree
+
+
+def _leaves(args) -> tuple[list, Any]:
+    """The tensor leaves and the structure of ``args``; ``None`` is
+    structure (an absent input), any other non-tensor is refused."""
+    leaves, spec = tree_flatten(_sorted(args))
+    for i, x in enumerate(leaves):
+        if x is not None and not isinstance(x, torch.Tensor):
+            raise TypeError(
+                f"graphed step argument leaf {i} is a {type(x).__name__}: a "
+                "capture would bake it in; pass a (0-d) tensor for a "
+                "per-call value and close over static configuration")
+    return leaves, spec
+
+
+def _signature(leaves, spec) -> tuple:
+    return (str(spec),) + tuple(None if x is None else
+                                (tuple(x.shape), x.dtype, x.device)
+                                for x in leaves)
+
+
+def _same_layout(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x is y is None or (isinstance(x, torch.Tensor)
+                           and isinstance(y, torch.Tensor)
+                           and x.shape == y.shape and x.dtype == y.dtype)
+        for x, y in zip(a, b))
+
+
+class _Capture:
+    """One input signature's graph: static inputs, the outputs it writes,
+    which of them alias a donated argument, and its counter delta."""
+
+    def __init__(self, graph, inputs, out_spec, outputs, aliased, delta):
+        self.graph = graph
+        self.inputs = inputs
+        self.out_spec = out_spec
+        self.outputs = outputs
+        self.aliased = aliased
+        self.delta = delta
+
+
+class Graphed:
+    """``fn`` captured per input signature; see the module docstring.
+    ``captures`` and ``replays`` count this callable's own, ``capture_s``
+    the host seconds its captures took (warm-up run included)."""
+
+    def __init__(self, fn: Callable, donate: Sequence[int] = ()):
+        self.fn = fn
+        self.donate = tuple(donate)
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
+        self._graphs: dict[tuple, _Capture] = {}
+
+    def release(self) -> None:
+        """Drop every captured graph and its memory pool."""
+        self._graphs.clear()
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+    def __call__(self, *args):
+        leaves, spec = _leaves(args)
+        if is_disabled() or not any(x is not None and x.is_cuda
+                                    for x in leaves):
+            return self.fn(*args)
+        devices = {x.device for x in leaves if x is not None}
+        if len(devices) != 1:
+            raise ValueError(f"a graphed step's tensors must share one "
+                             f"device, got {sorted(map(str, devices))}")
+        key = _signature(leaves, spec)
+        cap = self._graphs.get(key)
+        if cap is None:
+            cap = self._capture(args, leaves, spec)
+            self._graphs[key] = cap
+        else:
+            for static, x in zip(cap.inputs, leaves):
+                if x is not static:      # None is static
+                    static.copy_(x)
+        cap.graph.replay()
+        self.replays += 1
+        build.add_launch_counts(cap.delta)
+        outs = [o if a or o is None else o.clone()
+                for o, a in zip(cap.outputs, cap.aliased)]
+        return tree_unflatten(outs, cap.out_spec)
+
+    def _static_inputs(self, args, leaves) -> list:
+        """The donated arguments' own tensors, clones of the others."""
+        donated = set()
+        for i in self.donate:
+            donated.update(id(x) for x in tree_flatten(args[i])[0]
+                           if x is not None)
+        return [x if x is None or id(x) in donated else x.clone()
+                for x in leaves]
+
+    def _donated_targets(self, static_args, out):
+        """Per output leaf, the donated input tensor it is written back
+        into (or None): each donated argument takes the whole output, or
+        the first element of a tuple output, with its structure, shapes
+        and dtypes that no other donated argument took."""
+        out_leaves, _ = tree_flatten(out)
+        targets = [None] * len(out_leaves)
+        candidates = [(out, 0)]
+        if isinstance(out, (tuple, list)):
+            start = 0
+            for o in out:
+                candidates.append((o, start))
+                start += len(tree_flatten(o)[0])
+        taken = set()
+        for i in self.donate:
+            arg_leaves, arg_spec = tree_flatten(static_args[i])
+            for j, (cand, start) in enumerate(candidates):
+                c_leaves, c_spec = tree_flatten(cand)
+                if (j not in taken and c_spec == arg_spec
+                        and _same_layout(c_leaves, arg_leaves)):
+                    taken.add(j)
+                    for n, d in enumerate(arg_leaves):
+                        targets[start + n] = d
+                    break
+        return targets
+
+    def _capture(self, args, leaves, spec) -> _Capture:
+        t0 = time.perf_counter()
+        device = next(x.device for x in leaves if x is not None)
+        static = self._static_inputs(args, leaves)
+        static_args = tree_unflatten(static, spec)
+        # warm up on a side stream: first kernel builds, library handles
+        # and cuBLAS workspaces are made outside the capture
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            warm = self.fn(*static_args)
+        torch.cuda.current_stream(device).wait_stream(side)
+        del warm     # torch.cuda.graph synchronises and empties the cache
+        before = build.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = _sorted(self.fn(*static_args))
+                targets = self._donated_targets(static_args, out)
+                out_leaves, out_spec = tree_flatten(out)
+                for o, d in zip(out_leaves, targets):
+                    if d is not None and o is not d:
+                        d.copy_(o)
+        finally:
+            delta = build.launch_count_delta(before, build.launch_counts())
+            build.add_launch_counts(delta, -1)      # recorded, not run
+        build.check_counted(delta)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        outputs = [o if d is None else d for o, d in zip(out_leaves, targets)]
+        return _Capture(graph, static, out_spec, outputs,
+                        [d is not None for d in targets], delta)
+
+
+def graphed(fn: Callable, donate: Sequence[int] = ()) -> Graphed:
+    """``fn`` as a compiled step: eager on CPU tensors, a CUDA graph per
+    input signature on the card; ``donate`` lists the argument indices
+    whose tensors the step may update in place."""
+    return Graphed(fn, donate)
+
+
+# ---------------------------------------------------------------------------
+# the CPU check that a step can be captured
+# ---------------------------------------------------------------------------
+
+
+class CaptureError(RuntimeError):
+    """An op a CUDA-graph capture refuses, or bakes in, inside a step."""
+
+
+_HOST_READS = ("aten._local_scalar_dense",)
+_DATA_SHAPES = ("aten.nonzero", "aten.masked_select")
+_HOST_DATA = ("aten.lift_fresh",)
+
+
+class _CaptureCheck(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket._qualified_op_name.replace("::", ".")
+        why = None
+        if name in _HOST_READS:
+            why = "reads a device value on the host"
+        elif name in _DATA_SHAPES:
+            why = "has a data-dependent shape"
+        elif name == "aten.index" and any(
+                isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                for i in (args[1] if len(args) > 1 else ())):
+            why = "indexes by a boolean mask (a data-dependent shape)"
+        elif name in _HOST_DATA:
+            why = "builds a tensor from host data"
+        if why is not None:
+            raise CaptureError(f"{func} {why}: a CUDA-graph capture "
+                               "refuses it or bakes it in")
+        return func(*args, **(kwargs or {}))
+
+
+def _refuse_host_copy(self, *args, **kwargs):
+    raise CaptureError("Tensor.tolist/numpy reads device values on the "
+                       "host: a CUDA-graph capture refuses it")
+
+
+@contextlib.contextmanager
+def check_capturable():
+    """Within it, an op that a capture would refuse or bake in raises
+    ``CaptureError``: a host read (``.item()``, ``int(t)``, ``float(t)``,
+    ``bool(t)``, ``.tolist()``, ``.numpy()``), a data-dependent shape
+    (``nonzero``, ``masked_select``, a boolean index) or a tensor built
+    from host data (``torch.tensor``, ``torch.as_tensor`` of a number or
+    an array).  ``tolist`` and ``numpy`` dispatch no op, so they are
+    patched on ``torch.Tensor`` for the context's span."""
+    saved = torch.Tensor.tolist, torch.Tensor.numpy
+    torch.Tensor.tolist = torch.Tensor.numpy = _refuse_host_copy
+    try:
+        with _CaptureCheck():
+            yield
+    finally:
+        torch.Tensor.tolist, torch.Tensor.numpy = saved

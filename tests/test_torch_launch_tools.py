@@ -253,12 +253,38 @@ def test_dryrun_refuses_missing_gpu(monkeypatch, tmp_path):
 
 
 def test_gossip_ppermute_fails_the_run(tmp_path):
-    with pytest.raises(SystemExit):
-        dryrun.main(["--smoke", "--device", "cpu", "--arch", "gemma3-1b",
-                     "--shape", "train_4k", "--gossip", "ppermute", "--out",
-                     str(tmp_path)])
+    """``--gossip ppermute`` (the ring gossip) traces: the record is ``ok``,
+    its analytic counts are the reference's (parameters, ``model_flops``),
+    its collective term is 0 on one card, as for ``einsum``, and the fake
+    trace's counts equal the same ppermute step run for real."""
+    dryrun.main(["--smoke", "--device", "cpu", "--arch", "gemma3-1b",
+                 "--shape", "train_4k", "--gossip", "ppermute", "--out",
+                 str(tmp_path)])
     rec = json.loads(next(tmp_path.glob("*.json")).read_text())
-    assert rec["status"] == "failed" and "ppermute" in rec["error"]
+    assert rec["status"] == "ok" and rec["gossip"] == "ppermute", rec
+    assert rec["tag"].endswith("__ppermute")
+    assert rec["aten_ops"].get("aten.roll", 0) > 0
+    assert rec["coll_bytes_per_device"] == 0.0
+    assert rec["collectives"] == {"total_GB": 0.0, "counts": {}}
+    cfg, ref_cfg = (configs.SMOKE_ARCHS["gemma3-1b"],
+                    ref_configs.SMOKE_ARCHS["gemma3-1b"])
+    assert rec["total_params"] == ref_roofline.total_params(ref_cfg)
+    shape = dataclasses.replace(configs.INPUT_SHAPES["train_4k"],
+                                seq_len=rec["seq_len"], global_batch=2)
+    ref_shape = dataclasses.replace(ref_configs.INPUT_SHAPES["train_4k"],
+                                    seq_len=rec["seq_len"], global_batch=2)
+    mf = ref_roofline.model_flops(ref_cfg, ref_shape)
+    assert roofline.model_flops(cfg, shape) == mf
+    assert math.isclose(rec["roofline"]["useful_ratio"],
+                        mf / rec["cost"]["flops"], abs_tol=5e-4)
+    plan = dryrun.make_plan(cfg, shape, 2, 1, "bf16")
+    fake, _ = dryrun.trace_plan(plan, "ppermute", device="cpu")
+    step, specs = dryrun.step_and_specs(bind(cfg), plan, "ppermute")
+    args = dryrun.materialize(specs, cfg.vocab, "cpu",
+                              torch.Generator().manual_seed(0))
+    _, real = step_cost(step, *args)
+    assert dataclasses.asdict(fake) == dataclasses.asdict(real)
+    assert rec["cost"]["flops"] == fake.flops
 
 
 # ---------------------------------------------------------------------------

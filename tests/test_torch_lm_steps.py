@@ -185,10 +185,11 @@ def test_train_step_skips_the_identity_mix_at_one_client(qwen):
 
 
 def test_train_step_refuses_ppermute_and_unknown_modes(qwen):
+    """Unknown gossip modes are refused; ``"ppermute"``, the reference's
+    ring gossip, is built (its values: ``tests/test_torch_gossip_opt.py``)."""
     _, plan = _plans(qwen["name"])
     api = bind(configs.SMOKE_ARCHS[qwen["name"]])
-    with pytest.raises(NotImplementedError, match="A13"):
-        steps.make_train_step(api, plan, "ppermute")
+    assert callable(steps.make_train_step(api, plan, "ppermute"))
     with pytest.raises(ValueError, match="gossip must be one of"):
         steps.make_train_step(api, plan, "allreduce")
 
