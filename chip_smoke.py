@@ -26,7 +26,10 @@ line):
    versions, with the ``torch.sort`` time of the prune/regrow thresholds;
    for the gossip (J=4 rows of the smallest leaf), the folds and the
    masked matmul also the wrapper's host microseconds per call
-   (``time.perf_counter`` over many calls with no synchronise), and for the
+   (``time.perf_counter`` over many calls with no synchronise; the flat
+   fold's per fold through the tree-level path, ``packed_accum_all`` over
+   a ResNet18-GN payload with one read-back, beside one call a fold), and
+   for the
    masked matmul its library call's
    (``torch.bmm``, ``torch.mm``) device time beside that call's time and
    its own bound (no mask read), and a device time with a cold L2; then
@@ -226,7 +229,19 @@ line):
     state: state bit-equal, comm and FLOP rows equal, ``step_compiles``
     1, each C entry's launches per replayed round equal eager's (the
     first graphed round warms up eagerly, then replays), the round walls
-    and a profiled round's busy share;
+    and a profiled round's busy share; then the loop engine
+    (``LOOP_COMPILED_CASES``: phase 4's cell on the per-client loop, with
+    ``--exec vmap``, ``--sim`` and ``--sim --async ... --round-s 30`` on
+    the loop and at the default ``--exec auto``, which runs the vmap
+    step one client a phase), ``LOOP_COMPILED_ROUNDS`` rounds and a
+    profiled further round, graphed (``Task``'s value_and_grad, accuracy
+    and local step, per client or stacked) against eager from one state:
+    state, comm and FLOP rows and accuracies bit-equal (the simulators'
+    transfers too), captures made only in rounds in which a client
+    computed for the first time, the stacked step's one per batch size
+    whatever the phases' step counts, each C entry's launches per round
+    equal eager's; the host wall per round, busy share, launch calls,
+    capture seconds and the graph pools' memory;
 19. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
     dtypes in ``shape``).  Each row's launches are that entry's own, as
     its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
@@ -507,6 +522,38 @@ def check_fold(torch, pa, pack_bits, dev, n, alpha, gen, dtype=None):
             "dtype": str(values.dtype).replace("torch.", ""),
             "ms": ms_k, "device_ms": dev_k, "plain_ms": ms_p, "host_us": host,
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def fold_tree_host(torch, pa, dev, gen):
+    """The flat fold's host microseconds per fold through the tree-level
+    path: ``packed_accum_all`` over one ResNet18-GN payload tree (every
+    leaf at density 0.5: 62 scans, one read-back, 62 folds) into
+    preallocated accumulators, per leaf; beside it the same leaves folded
+    one ``packed_accum`` call each (a read-back a call), and the tree's
+    time per fold as the caller sees it (CUDA events).  The best of two
+    timings each."""
+    from repro_torch.models.cnn import init_resnet18
+    from repro_torch.sparse.packed import is_packed, pack_tree
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    params = init_resnet18(torch.Generator().manual_seed(0), 10, device=dev)
+    masks = tree_map(lambda w: (torch.rand(w.shape, generator=gen, device=dev)
+                                < 0.5).float(), params)
+    leaves = tree_leaves(pack_tree(params, masks), is_leaf=is_packed)
+    folds = [(torch.zeros(p.n_coords, device=dev),
+              torch.zeros(p.n_coords, device=dev), p.bitmap, p.values, 1.0)
+             for p in leaves]
+    n = len(folds)
+
+    def singles():
+        for f in folds:
+            pa.packed_accum(*f)
+
+    tree = [host_us(lambda: pa.packed_accum_all(folds), 30) for _ in range(2)]
+    single = [host_us(singles, 30) for _ in range(2)]
+    ms = cuda_ms(lambda: pa.packed_accum_all(folds))
+    return {"leaves": n, "host_us": min(tree) / n, "tree_host_us": min(tree),
+            "single_host_us": min(single) / n, "ms_per_fold": ms / n,
+            "runs": tree}
 
 
 def check_fold_rows(torch, pa, dev, k, n, alpha, gen, dtype=None):
@@ -848,6 +895,13 @@ def main() -> int:
     for r in fold_rows:
         log(f"packed_accum N={r['N']} nnz={r['nnz']} alpha={r['alpha']}: "
             + _times(r))
+    f_host = fold_tree_host(torch, pa, dev, gen)
+    log(f"packed_accum host per fold through the tree path "
+        f"(packed_accum_all over a ResNet18-GN payload, {f_host['leaves']} "
+        f"leaves, one read-back): {f_host['host_us']} us a fold, "
+        f"{f_host['tree_host_us']} us a tree (runs {f_host['runs']}); one "
+        f"call a fold: {f_host['single_host_us']} us a fold; the tree's "
+        f"time as the caller sees it {f_host['ms_per_fold']} ms a fold")
     rows_rows = [check_fold_rows(torch, pa, dev, 4, n, alpha, gen)
                  for n in (n_leaf, n_tree) for alpha in (1.0, 0.75)]
     pr_rows = [check_prune_regrow(torch, pr, dev, 4, n, gen)
@@ -919,6 +973,7 @@ def main() -> int:
         f"phases {dense.phase_s[0]}")
     if ga.LAUNCHES < 1 or pa.LAUNCHES != 0:
         raise AssertionError("the dense mix must run the gossip kernel only")
+    _free_graphs(engine, dense)
 
     profile_round(torch, train, args)
 
@@ -929,6 +984,9 @@ def main() -> int:
                                          counters)
     profile_round(torch, train, train.build_parser().parse_args(
         SCALE_ARGS + ["--scale-reduction", "ordered"]))
+    for scale_engine, *_ in scale_runs.values():
+        _free_graphs(scale_engine)
+        _release(scale_engine._round_step)
 
     # 6. a small round on the card against the same round on the CPU, on
     # the loop engine and on the stacked engine's ordered mix
@@ -948,6 +1006,7 @@ def main() -> int:
     async_launches, async_engine = sim_async_path(torch, train, counters)
     profile_async_round(torch, train)
     sim_checkpoint_path(torch, train, async_engine)
+    _free_graphs(async_engine)
 
     # 12. the strategies this slice added: each at ResNet18-GN, dpsgd async
     # and stacked, vmap against loop, and a small round cuda against cpu
@@ -1038,8 +1097,9 @@ def main() -> int:
         row("packed_accum", "packed_accum.cu",
             "src/repro/kernels/packed_accum.py:63", "packed_accum_f32",
             "training", f"N={n_leaf} density 0.5 alpha 1 float32",
-            {**fold_rows[0], "library_device_ms": None, "max_abs_err": max(
-                r["max_abs_err"] for r in fold_rows)}),
+            {**fold_rows[0], "library_device_ms": None,
+             "host_us": f_host["host_us"], "max_abs_err": max(
+                 r["max_abs_err"] for r in fold_rows)}),
         row("packed_accum_f16", "packed_accum.cu",
             "src/repro/kernels/packed_accum.py:63", "packed_accum_f16",
             "precision", f"N={n_leaf} density 0.5 alpha 1 float16",
@@ -1491,19 +1551,24 @@ def sim_async_path(torch, train, counters):
 
 
 def profile_async_round(torch, train):
-    """One async run of one round under torch.profiler: the device's busy
-    share of its wall time and the kernels that took the most device time
-    (the path packs one payload per push, reading back per leaf)."""
+    """The second round of an async run under torch.profiler: the device's
+    busy share of its wall time and the kernels that took the most device
+    time (the path packs one payload per push, one read-back a payload)."""
     from torch.profiler import ProfilerActivity, profile
     args = train.parse_args(RESNET_ARGS + ASYNC_ARGS)
-    args.rounds = 1
+    args.rounds = 2
     engine = train.build_engine(args)
+    # the first round captures the engine's graphs: profile the second
+    rounds = engine.rounds()
+    next(rounds)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run()
+        next(rounds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    for _ in rounds:
+        pass
     rows = device_rows(prof)
     if rows is None:
         return
@@ -1594,6 +1659,7 @@ def strategy_path(torch, train, counters, n_leaves):
         runs[name] = (engine, out, launches)
         if name in ("dpsgd", "fedavg", "subfedavg"):
             profile_round(torch, train, args)
+        _free_graphs(engine)
 
     engine = runs["subfedavg"][0]
     cpu_state = _to(torch, engine.state, "cpu")
@@ -2021,9 +2087,9 @@ def profile_round(torch, train, args):
     the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
     engine = train.build_engine(args)
-    # the stacked round captures its graph in its first round: profile the
-    # second, a replay
-    warm = 1 if args.scale else 0
+    # a fresh engine captures its graphs in its first round: profile the
+    # second, which replays them
+    warm = 1
     engine.cfg.rounds = warm + 1
     rounds = engine.rounds()
     for _ in range(warm):
@@ -3059,6 +3125,16 @@ def _expandable_segments(torch, on):
         f"expandable_segments:{on}")
 
 
+def _free_graphs(*engines):
+    """Drop the compiled graphs of loop engines that later phases keep
+    only for their state: each capture holds a memory pool (a vmap phase
+    at ResNet18-GN K=4 held 3.16 GiB on an NVIDIA H100 80GB HBM3 at
+    700 W), and phase 13 (b) needs the card."""
+    for engine in engines:
+        for g in _loop_graphs(engine):
+            g.release()
+
+
 def _release(*graphs):
     import gc
     for g in graphs:
@@ -3549,6 +3625,174 @@ def scale_compiled(torch, train, counters):
     return _sum_launches(launches)
 
 
+# phase 18's loop-engine cells: phase 4's ResNet18-GN cell (K=4) on the
+# per-client loop and with the vmap local phase, and the synchronous and
+# asynchronous simulators (phases 9 and 10's arguments); the asynchronous
+# one also at the default --exec auto, the vmap step one client a phase
+# on dirichlet shards of ragged sizes
+LOOP_COMPILED_CASES = (
+    ("loop", ["--exec", "loop"]), ("vmap", ["--exec", "vmap"]),
+    ("sim sync", ["--sim", "--exec", "loop"]),
+    ("sim async", ["--exec", "loop"] + ASYNC_ARGS),
+    ("sim async auto", ASYNC_ARGS))
+LOOP_COMPILED_ROUNDS = 2
+
+
+def _loop_graphs(engine):
+    """The graphed functions of a loop engine (its task's)."""
+    return engine.task.graphs()
+
+
+class RoundStamps:
+    """Engine callback: per round, the host clock, the launches (the
+    counters zeroed after each read), the captures so far and how many
+    clients have run a local phase so far (``track`` wraps the engine's
+    ``run_local_phase``)."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.t, self.launches, self.captures, self.computed = [], [], [], []
+        self.seen = set()
+
+    def track(self, engine):
+        run = engine.run_local_phase
+
+        def tracked(ctx, active):
+            self.seen.update(active)
+            return run(ctx, active)
+
+        engine.run_local_phase = tracked
+
+    def on_round_end(self, engine, metrics):
+        self.t.append(time.perf_counter())
+        self.launches.append(_launches(self.counters))
+        _zero(self.counters)
+        self.captures.append(sum(g.captures for g in _loop_graphs(engine)))
+        self.computed.append(len(self.seen))
+
+    def on_run_end(self, engine):
+        pass
+
+
+def loop_compiled(torch, train, counters):
+    """Phase 18 for the loop engine: each cell of ``LOOP_COMPILED_CASES``
+    for ``LOOP_COMPILED_ROUNDS`` rounds and a profiled further round,
+    eagerly (``graph.disabled()``) and graphed from one state: state
+    bit-equal, comm and FLOP rows and accuracies equal (the simulators'
+    transfers too), captures made in round 0 and afterwards only in a
+    round in which a client ran its first local phase, the vmap step's
+    one per distinct (active clients, batch size), each C entry's
+    launches per round equal to eager's (the mix, the only kernels'
+    caller, runs eagerly in both); the host wall per round, the profiled
+    round's busy share and launch calls, the capture seconds and the
+    memory the graph pools hold.  Returns the graphed runs' launches."""
+    import contextlib
+    import gc
+
+    from repro_torch.utils import graph
+    argv = list(RESNET_ARGS)
+    argv[argv.index("--rounds") + 1] = str(LOOP_COMPILED_ROUNDS + 1)
+    rounds_n = LOOP_COMPILED_ROUNDS
+    launches = []
+    for cell, extra in LOOP_COMPILED_CASES:
+        args = train.parse_args(argv + extra)
+        runs, start = {}, None
+        for mode in ("eager", "graphed"):
+            engine = train.build_engine(args)
+            if start is None:
+                start = _to(torch, engine.state, "cuda")
+            else:
+                engine.state = _to(torch, start, "cuda")
+            stamps = RoundStamps(counters)
+            engine.callbacks.append(stamps)
+            stamps.track(engine)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            _zero(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (graph.disabled() if mode == "eager"
+                  else contextlib.nullcontext()):
+                rounds = engine.rounds()
+                for _ in range(rounds_n):
+                    next(rounds)
+                prof = _profiled(torch, lambda: next(rounds))
+                for _ in rounds:
+                    pass
+            walls = [b - a for a, b in zip([t0] + stamps.t, stamps.t)]
+            runs[mode] = dict(
+                engine=engine, stamps=stamps, walls=walls, prof=prof,
+                peak=(torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+                reserved=torch.cuda.memory_reserved() / 2 ** 30)
+        e, g = runs["eager"], runs["graphed"]
+        eng_e, eng_g = e["engine"], g["engine"]
+        what = f"compiled loop engine {cell}"
+        if not _trees_bit_equal(torch, eng_g.state, eng_e.state):
+            raise AssertionError(f"{what}: state differs from eager's")
+        if (eng_g._comm != eng_e._comm or eng_g._flops != eng_e._flops
+                or eng_g._acc_history != eng_e._acc_history):
+            raise AssertionError(f"{what}: comm or FLOP rows or accuracies "
+                                 "differ from eager's")
+        if getattr(eng_g, "stats", None) is not None and (
+                eng_g.stats.transfers != eng_e.stats.transfers):
+            raise AssertionError(f"{what}: transfers differ from eager's")
+        caps, seen = g["stamps"].captures, g["stamps"].computed
+        grew = [r for r in range(1, len(caps)) if caps[r] > caps[r - 1]]
+        if caps[0] < 1 or any(seen[r] == seen[r - 1] for r in grew) or any(
+                e["stamps"].captures):
+            raise AssertionError(
+                f"{what}: captures per round {caps} with {seen} clients "
+                f"computed so far (eager {e['stamps'].captures})")
+        stacked = [f for (_, is_stacked), f in eng_g.task._steps.items()
+                   if is_stacked]
+        if stacked:
+            # one phase of K=4 (one batch size), or one client a phase
+            bss = ({min(args.batch_size, eng_g.clients[k].n_train)
+                    for k in g["stamps"].seen} if "async" in cell
+                   else {min(args.batch_size, min(
+                       c.n_train for c in eng_g.clients))})
+            if len(stacked) != 1 or stacked[0].captures != len(bss):
+                raise AssertionError(
+                    f"{what}: {[f.captures for f in stacked]} captures of "
+                    f"the vmap step for batch sizes {sorted(bss)}")
+        if g["stamps"].launches != e["stamps"].launches:
+            raise AssertionError(f"{what}: launches per round "
+                                 f"{g['stamps'].launches} against eager's "
+                                 f"{e['stamps'].launches}")
+        launches += g["stamps"].launches
+        graphs = _loop_graphs(eng_g)
+        cap_s = sum(x.capture_s for x in graphs)
+        pg, pe = g["prof"], e["prof"]
+        log(f"{what} (resnet18 K=4, {rounds_n} rounds + a profiled "
+            f"one): state, rows and accuracies bit-equal to eager; "
+            f"captures per round {caps}, clients computed so far {seen}"
+            + (f", the vmap step's for batch sizes {sorted(bss)} "
+               f"({stacked[0].captures}, {stacked[0].replays} replays)"
+               if stacked else "") + " "
+            f"({[(x.captures, x.replays) for x in graphs]} captures and "
+            f"replays a function), capture {cap_s:.2f} s; gossip_avg / "
+            f"packed_accum launches per round "
+            f"{[(r['gossip_avg'], r['packed_accum']) for r in g['stamps'].launches]}"
+            f" (equal to eager's); host wall per round graphed "
+            f"{[round(w, 4) for w in g['walls'][:rounds_n]]} s, eager "
+            f"{[round(w, 4) for w in e['walls'][:rounds_n]]} s; the "
+            f"profiled round {pg[0]:.4f} s busy {_share(pg[1], pg[0])} "
+            f"(summed {_share(pg[3], pg[0])}; {pg[2]} host launches), eager "
+            f"{pe[0]:.4f} s busy {_share(pe[1], pe[0])} (summed "
+            f"{_share(pe[3], pe[0])}; {pe[2]} host launches); peak "
+            f"{g['peak']:.3f} GiB above held with the {caps[-1]} graph pools "
+            f"(eager {e['peak']:.3f} GiB; reserved {g['reserved']:.3f} / "
+            f"{e['reserved']:.3f} GiB); phases of round "
+            f"{rounds_n - 1} graphed "
+            f"{eng_g.phase_s[rounds_n - 1:rounds_n]}, eager "
+            f"{eng_e.phase_s[rounds_n - 1:rounds_n]}")
+        _release(*graphs)
+        del runs, eng_e, eng_g, e, g
+    return _sum_launches(launches)
+
+
 def compiled_path(torch, train, counters, lm_fp32, lm_bf16):
     """Phase 18: the compiled steps.  Returns the graphed runs' launches
     summed and the gemma3-1b figures per dtype."""
@@ -3559,6 +3803,9 @@ def compiled_path(torch, train, counters, lm_fp32, lm_bf16):
             torch, counters, dtype, eager)
         runs.append(la)
     runs.append(scale_compiled(torch, train, counters))
+    t_loop = time.perf_counter()
+    runs.append(loop_compiled(torch, train, counters))
+    log(f"compiled loop-engine cells: {time.perf_counter() - t_loop:.1f} s")
     log(f"compiled phase: {time.perf_counter() - t0:.1f} s")
     return _sum_launches(runs), figs
 

@@ -52,7 +52,7 @@ def evolve_mask_layer(w: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
     mf = m.reshape(-1).float()
     wf = w.reshape(-1).float()
     gf = g.reshape(-1).float()
-    neg_inf = torch.tensor(float("-inf"), device=w.device)
+    neg_inf = torch.full((), float("-inf"), device=w.device)
     keep_scores = torch.where(mf > 0, wf.abs(), neg_inf)
     m_half = _exact_topk_mask(keep_scores, n_keep)
     # regrow among coordinates inactive in the *pruned* mask, so a coordinate

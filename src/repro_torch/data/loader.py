@@ -4,6 +4,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.data.partition import (
     dirichlet_partition,
@@ -16,10 +17,10 @@ from repro_torch.data.synthetic import Dataset, make_image_classification
 
 @dataclasses.dataclass
 class ClientData:
-    train_x: np.ndarray
-    train_y: np.ndarray
-    test_x: np.ndarray
-    test_y: np.ndarray
+    train_x: np.ndarray | torch.Tensor
+    train_y: np.ndarray | torch.Tensor
+    test_x: np.ndarray | torch.Tensor
+    test_y: np.ndarray | torch.Tensor
     label_dist: np.ndarray
 
     @property
@@ -36,6 +37,15 @@ class ClientData:
     def sample_batch(self, rng: np.random.Generator, batch_size: int):
         sel = rng.integers(0, self.n_train, size=min(batch_size, self.n_train))
         return self.train_x[sel], self.train_y[sel]
+
+
+def clients_on(clients, device) -> list[ClientData]:
+    """``clients`` with their train and test sets on ``device``, copied
+    there once; the label distributions stay numpy."""
+    sets = ("train_x", "train_y", "test_x", "test_y")
+    return [dataclasses.replace(c, **{
+        f: torch.as_tensor(getattr(c, f), device=device) for f in sets})
+        for c in clients]
 
 
 def build_federated_image_task(

@@ -442,7 +442,7 @@ def _magnitude_prune(params, mask, rate: float, floor: float):
         if target >= cur:
             return m, w
         scores = torch.where(m.reshape(-1) > 0, w.reshape(-1).abs(),
-                             torch.tensor(float("-inf"), device=w.device))
+                             torch.full((), float("-inf"), device=w.device))
         new_m = _exact_topk_mask(scores, target).reshape(w.shape)
         return new_m.to(m.dtype), w * new_m.to(w.dtype)
 

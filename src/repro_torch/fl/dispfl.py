@@ -36,7 +36,7 @@ from repro_torch.fl.base import FLConfig, FLResult, Task, init_generator, local_
 from repro_torch.fl.engine import RoundCtx, StrategyBase, register, run_strategy
 from repro_torch.sparse.ops import decode_tree, packed_gossip_one
 from repro_torch.sparse.packed import pack_tree
-from repro_torch.utils.tree import tree_nnz, tree_size
+from repro_torch.utils.tree import tree_nnz_each, tree_size
 
 
 @register("dispfl")
@@ -141,7 +141,7 @@ class DisPFLStrategy(StrategyBase):
             self.budgets_at(ctx.t, k))
 
     def round_comm(self, state: dict, ctx: RoundCtx):
-        nnz = [tree_nnz(m) for m in state["masks"]]
+        nnz = tree_nnz_each(state["masks"])
         return decentralized_comm(ctx.adjacency, nnz, self.n_coords)
 
     def round_flops(self, state: dict, ctx: RoundCtx):

@@ -25,12 +25,19 @@ work and not only its launch.  ``engine.obs`` mirrors the reference's
 series once per round.
 
 Fast path: ``local_exec="vmap"`` (or ``"auto"`` where it applies) runs the
-local phase of all active clients at once through
-``scale.stacked.stacked_local_phase`` (``torch.func.vmap`` of ``grad``),
-masked when the strategy's ``local_mask`` is a tree and plain when it is
-None, with batch orders drawn from the same per-client generators, ragged
-step counts padded with exact no-op steps and momentum as stacked
-per-client state, so the schedule and the update rule are the loop's.
+local phase of all active clients at once, one
+``scale.stacked.stacked_sgd_step`` (``torch.func.vmap`` of ``grad``) a
+step, masked when the strategy's ``local_mask`` is a tree and plain when
+it is None, with batch orders drawn from the same per-client generators,
+ragged step counts padded with exact no-op steps and momentum as stacked
+per-client state, so the schedule and the update rule are the loop's.  The
+step is compiled as the loop's is (``Task.local_step(opt, stacked=True)``
+on the task's working buffers, the learning rate a device tensor), so its
+captures depend on the number of active clients and the batch shape, not
+on the phase's step count.
+
+The engine keeps its clients' train and test sets on the device
+(``data.loader.clients_on``), copied there once.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from repro_torch.checkpoint.npz import load_pytree, save_pytree
 from repro_torch.core.accounting import CommReport, FlopsReport
 from repro_torch.core.evolve import cosine_prune_rate
 from repro_torch.core.topology import make_adjacency
+from repro_torch.data.loader import clients_on
 from repro_torch.device import setup_device, synchronize
 from repro_torch.fl.base import (
     FLConfig,
@@ -402,11 +410,11 @@ class RoundEngine:
         self.device = setup_device(task.device)
         self.strategy = strategy
         self.task = task
-        self.clients = clients
+        self.clients = clients_on(clients, self.device)
         self.cfg = cfg
         self.callbacks = list(callbacks)
         self.local_exec = local_exec
-        self.state = strategy.init_state(task, clients, cfg)
+        self.state = strategy.init_state(task, self.clients, cfg)
         self._next_round = 0
         self._stop = False
         self._acc_history: list[float] = []
@@ -676,31 +684,39 @@ class RoundEngine:
                 [_pad_order(self.clients[k].n_train, bs, rng)
                  for _ in range(epochs)]))
         s_max = max(len(o) // bs for o in orders)
-        xb, yb, live = [], [], []
-        for k, order in zip(active, orders):
-            steps = len(order) // bs
-            c = self.clients[k]
-            padded = np.resize(order, s_max * bs)
-            xb.append(c.train_x[padded].reshape(
-                (s_max, bs) + c.train_x.shape[1:]))
-            yb.append(c.train_y[padded].reshape(s_max, bs))
-            live.append(np.arange(s_max) < steps)
-        return tuple(self.task.as_tensor(np.stack(a)) for a in (xb, yb, live))
+        # every client's padded order in one copy, its batches gathered on
+        # the device from its own train set
+        idx = self.task.as_tensor(
+            np.stack([np.resize(o, s_max * bs) for o in orders]))
+        xb = torch.stack([self.clients[k].train_x[i]
+                          for k, i in zip(active, idx)])
+        yb = torch.stack([self.clients[k].train_y[i]
+                          for k, i in zip(active, idx)])
+        live = self.task.as_tensor(np.stack(
+            [np.arange(s_max) < len(o) // bs for o in orders]))
+        return (xb.reshape((len(active), s_max, bs) + xb.shape[2:]),
+                yb.reshape(len(active), s_max, bs), live)
 
     def _vmap_local_phase(self, ctx: RoundCtx, active: list[int]) -> None:
-        # imported here: repro_torch.scale imports this module
-        from repro_torch.scale.stacked import stacked_local_phase
-
         strat = self.strategy
         state = self.state
         bx, by, live = self._stacked_batches(
             ctx, active, strat.local_epochs(state, ctx))
         masks = [strat.local_mask(state, k) for k in active]
-        new = stacked_local_phase(
-            self.task.apply_fn, strat.opt,
+        work = self.task.working_buffers(
             tree_stack([strat.local_params(state, k) for k in active]),
             None if masks[0] is None else tree_stack(masks),
-            bx, by, live, ctx.lr)
+            strat.opt, ctx.lr, bx[:, 0], by[:, 0], live[:, 0])
+        step = self.task.local_step(strat.opt, stacked=True)
+        w, st = work["w"], work["st"]
+        for s in range(bx.shape[1]):
+            work["x"].copy_(bx[:, s])
+            work["y"].copy_(by[:, s])
+            work["alive"].copy_(live[:, s])
+            w, st = step(w, st, work["m"], work["x"], work["y"], work["lr"],
+                         work["alive"])
+        # the working buffers outlive the phase: copy the result out
+        new = tree_map(torch.clone, w)
         for k, params in zip(active, tree_unstack(new, len(active))):
             strat.set_local(state, k, params)
 

@@ -13,17 +13,21 @@ bitmap (int32 words holding the reference's little-endian uint32 bits) and
 
 The rank offsets (exclusive prefix of the per-128-coordinate popcounts
 along each row) are made on the device by one scan launch, which also
-totals each row's set bits.  Both wrappers run their plain version for CPU
-tensors and launch ``csrc/packed_accum.cu`` for CUDA tensors (or raise) —
-no fallback.  Both raise ``ValueError`` when a bitmap's set bits are not
-exactly its value count (``values.numel()``, or ``nnz[k]`` for row k); on
-the card that check reads the scan's totals back to the host (one
-synchronisation per fold) before the fold launches, so a refused fold
-leaves ``num``, ``den`` and the launch counts untouched.
+totals each row's set bits.  Every wrapper runs its plain version for CPU
+tensors and launches ``csrc/packed_accum.cu`` for CUDA tensors (or raises)
+— no fallback.  Each raises ``ValueError`` when a bitmap's set bits are not
+exactly its value count (``values.numel()``, or ``nnz[k]`` for row k); that
+check reads the scans' totals back to the host before any fold launches,
+so a refused call leaves every ``num``, ``den`` and the launch counts
+untouched.  ``packed_accum_all`` folds a whole payload tree (or several)
+with one such read: every leaf's scan first, one read of all their totals,
+then every fold.  ``packed_accum`` is its one-fold case; the plain version
+takes the same single read, so a CPU run makes the reads the card makes.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
 
@@ -65,12 +69,14 @@ _SCAN_SCRATCH: dict[tuple[int, int], list] = {}
 
 
 def _scan(words: torch.Tensor, k: int, n: int, nnz, expect: int,
-          vstride: int) -> tuple[torch.Tensor, list[int]]:
-    """One scan launch over K bitmap rows of n coordinates: returns the
-    (K, ceil(n / GROUP_N)) rank offsets on the device and, read back to the
-    host, each row's set bits followed by each row's disagreement flag.
-    The read-back cannot be captured, and a capture would bake the
-    scratch epoch in, so under a CUDA-graph capture it raises."""
+          vstride: int, offsets: int, res: int) -> None:
+    """One scan launch over K bitmap rows of n coordinates: writes the
+    (K, ceil(n / GROUP_N)) int32 rank offsets at the device address
+    ``offsets`` and, at ``res``, each row's set bits followed by each row's
+    disagreement flag (2K int32, on the device: the caller reads them
+    back).  A capture would bake the scratch epoch in, and the caller's
+    read-back cannot be captured, so under a CUDA-graph capture it
+    raises."""
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError("the packed fold reads its popcount check back "
                            "to the host: it cannot run inside a CUDA-graph "
@@ -83,16 +89,28 @@ def _scan(words: torch.Tensor, k: int, n: int, nnz, expect: int,
         size = max(need, 2 * scratch[0].numel() if scratch else 0)
         scratch = [torch.zeros(size, dtype=torch.int64, device=words.device), 0]
         _SCAN_SCRATCH[key] = scratch
+    # scans on one stream run one after another, so a later scan may reuse
+    # the status words under a new epoch while earlier scans' folds wait:
+    # each scan's offsets and totals have addresses of their own
     scratch[1] += 1
-    n_off = k * -(-n // GROUP_N)
-    out = torch.empty(n_off + 2 * k, dtype=torch.int32, device=words.device)
     scan = build.function("packed_accum", "packed_scan_rows", _SCAN_ARGTYPES)
     build.check(build.launch(
-        scan, words, words.data_ptr(), out.data_ptr(),
-        out.data_ptr() + 4 * n_off, scratch[0].data_ptr(), scratch[0].numel(),
-        None if nnz is None else nnz.data_ptr(), expect, vstride, k, n,
-        words.shape[-1], scratch[1]), "packed_scan_rows")
-    return out, out[n_off:].tolist()
+        scan, words, words.data_ptr(), offsets, res, scratch[0].data_ptr(),
+        scratch[0].numel(), None if nnz is None else nnz.data_ptr(), expect,
+        vstride, k, n, words.shape[-1], scratch[1]), "packed_scan_rows")
+
+
+def _fold_plain(num, den, flags, values, alpha) -> None:
+    """The kernel's arithmetic in PyTorch ops (separately rounded multiply
+    and add), in place, with no host read: each held value gathered by its
+    rank among the set bits."""
+    contrib = torch.zeros_like(num)
+    if values.numel():
+        rank = (torch.cumsum(flags, 0) - 1).clamp_(0, values.numel() - 1)
+        contrib = torch.where(flags, values.index_select(0, rank).to(
+            num.dtype), contrib)
+    num.add_(alpha * contrib)
+    den.add_(flags.to(den.dtype))
 
 
 def packed_accum_plain(num: torch.Tensor, den: torch.Tensor,
@@ -100,13 +118,19 @@ def packed_accum_plain(num: torch.Tensor, den: torch.Tensor,
                        alpha: float = 1.0):
     """The kernel's arithmetic in PyTorch ops (separately rounded multiply
     and add), in place on ``num`` and ``den``."""
-    flags = unpack_bits(words, num.numel())
-    _check_nnz(int(flags.sum()), values)
-    contrib = torch.zeros_like(num)
-    contrib[flags] = values.to(num.dtype)
-    num.add_(alpha * contrib)
-    den.add_(flags.to(den.dtype))
+    _fold_all_plain([(num, den, words, values, alpha)])
     return num, den
+
+
+def _fold_all_plain(folds) -> None:
+    """Every fold's set bits read back at once and checked, then every
+    fold: the card's order and its one read."""
+    flags = [unpack_bits(words, num.numel()) for num, _, words, _, _ in folds]
+    set_bits = torch.stack([f.sum() for f in flags]).tolist()
+    for (*_, values, _), bits in zip(folds, set_bits):
+        _check_nnz(bits, values)
+    for (num, den, _, values, alpha), f in zip(folds, flags):
+        _fold_plain(num, den, f, values, alpha)
 
 
 def _check(num, den, words, values) -> None:
@@ -136,28 +160,58 @@ def _check_nnz(set_bits: int, values: torch.Tensor) -> None:
                          f"are {values.numel()} values")
 
 
+def packed_accum_all(folds: Sequence[tuple]) -> None:
+    """Fold every ``(num, den, words, values, alpha)`` of ``folds`` in place,
+    in order (folds into one accumulator add up in list order), with one
+    read-back for all of them: every scan, one read of their set-bit
+    totals, a ``ValueError`` for the first payload whose bits disagree with
+    its value count (nothing folded then), then every fold.  The folds
+    share one device: the card, or the CPU's plain version."""
+    global LAUNCHES
+    folds = list(folds)
+    if not folds:
+        return
+    dev = folds[0][0].device
+    for num, den, words, values, _ in folds:
+        _check(num, den, words, values)
+        if num.device != dev:
+            raise ValueError(f"folds on {num.device} and {dev}")
+    if dev.type == "cpu":
+        return _fold_all_plain(folds)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    # one buffer for every scan's totals (2 int32 a fold, first) and rank
+    # offsets (ceil(n / GROUP_N) int32 a fold, after them)
+    starts, at = [], 2 * len(folds)
+    for num, *_ in folds:
+        starts.append(at)
+        at += -(-num.numel() // GROUP_N)
+    buf = torch.zeros(at, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    for i, (num, _, words, values, _) in enumerate(folds):
+        if num.numel():
+            _scan(words, 1, num.numel(), None, values.numel(),
+                  values.numel(), base + 4 * starts[i], base + 8 * i)
+    set_bits = buf[:2 * len(folds)].tolist()[::2]
+    for (*_, values, _), bits in zip(folds, set_bits):
+        _check_nnz(bits, values)
+    for (num, den, words, values, alpha), start in zip(folds, starts):
+        if num.numel() == 0:
+            continue
+        fold = build.function("packed_accum", _ENTRY[values.dtype],
+                              _FOLD_ARGTYPES)
+        build.check(build.launch(
+            fold, num, num.data_ptr(), den.data_ptr(), words.data_ptr(),
+            values.data_ptr(), base + 4 * start, float(alpha), num.numel(),
+            words.numel(), values.numel()), "packed_accum")
+        LAUNCHES += 1
+        LAUNCHES_BY_ENTRY[_ENTRY[values.dtype]] += 1
+
+
 def packed_accum(num: torch.Tensor, den: torch.Tensor, words: torch.Tensor,
                  values: torch.Tensor, alpha: float = 1.0):
     """Fold one payload into ``num``/``den`` in place; returns them."""
-    global LAUNCHES
-    _check(num, den, words, values)
-    if num.device.type == "cpu":
-        return packed_accum_plain(num, den, words, values, alpha)
-    if num.device.type != "cuda":
-        raise ValueError(f"unsupported device {num.device}")
-    n = num.numel()
-    if n == 0:
-        return num, den
-    fold = build.function("packed_accum", _ENTRY[values.dtype], _FOLD_ARGTYPES)
-    offsets, (set_bits, _) = _scan(words, 1, n, None, values.numel(),
-                                   values.numel())
-    _check_nnz(set_bits, values)
-    build.check(build.launch(
-        fold, num, num.data_ptr(), den.data_ptr(), words.data_ptr(),
-        values.data_ptr(), offsets.data_ptr(), float(alpha), n,
-        words.numel(), values.numel()), "packed_accum")
-    LAUNCHES += 1
-    LAUNCHES_BY_ENTRY[_ENTRY[values.dtype]] += 1
+    packed_accum_all([(num, den, words, values, alpha)])
     return num, den
 
 
@@ -244,7 +298,12 @@ def packed_accum_rows(num: torch.Tensor, den: torch.Tensor,
         return num, den
     fold = build.function("packed_accum", _ROWS_ENTRY[values.dtype],
                           _ROWS_ARGTYPES)
-    offsets, res = _scan(words, k, n, nnz, 0, values.shape[1])
+    res = torch.empty(2 * k, dtype=torch.int32, device=num.device)
+    offsets = torch.empty(k * -(-n // GROUP_N), dtype=torch.int32,
+                          device=num.device)
+    _scan(words, k, n, nnz, 0, values.shape[1], offsets.data_ptr(),
+          res.data_ptr())
+    res = res.tolist()
     if any(res[k:]):
         raise _rows_nnz_error(res[:k], nnz.tolist(), values.shape[1])
     build.check(build.launch(

@@ -45,7 +45,6 @@ from __future__ import annotations
 import time
 from typing import Any, Sequence
 
-import numpy as np
 import torch
 
 from repro_torch.fl.base import (
@@ -191,8 +190,7 @@ class ScaleEngine(RoundEngine):
         bs = self.cfg.batch_size
         xs, ys = zip(*(c.sample_batch(ctx.client_rng(k), bs)
                        for k, c in enumerate(self.clients)))
-        return self.task.as_tensor(np.stack(xs)), self.task.as_tensor(
-            np.stack(ys))
+        return torch.stack(xs), torch.stack(ys)
 
     def _round_inputs(self, ctx: RoundCtx) -> dict:
         """The round's host draws, in the reference's order, as the round

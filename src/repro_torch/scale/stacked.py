@@ -17,6 +17,7 @@ Primitives
                             order, bit for bit.
 ``plain_mix_stacked``       row-stochastic mixing (D-PSGD Metropolis), same
                             two reductions.
+``stacked_sgd_step``        one vmapped SGD step of all clients
 ``stacked_local_phase``     the local SGD phase for all clients at once
                             (``torch.func.vmap`` of ``grad`` over the
                             model), ragged schedules padded, padded steps
@@ -210,39 +211,49 @@ def stacked_grads(apply_fn: Callable, params: PyTree, x: torch.Tensor,
     return torch.func.vmap(_grad_fn(apply_fn))(params, x, y)
 
 
+def stacked_sgd_step(apply_fn: Callable, opt: SGDConfig) -> Callable:
+    """``step(w, st, m, x, y, lr, alive) -> (w, st)``: one vmapped SGD step
+    of K stacked clients on the batches ``x``, ``y`` (K, B, ...) — masked
+    with stacked ``m``, plain with ``m=None`` — where a client whose
+    ``alive[k]`` is False keeps ``w`` and ``st`` exactly (``torch.where``).
+
+    The update rule is the loop's (``optim.sgd.masked_sgd_step`` or
+    ``sgd_step``).  Conv weights stay HWIO: the model permutes inside the
+    vmapped function, per client."""
+    grad = _grad_fn(apply_fn)
+
+    def step(w, st, m, x, y, lr, alive):
+        if m is None:
+            w2, st2 = sgd_step(w, grad(w, x, y), st, opt, lr)
+        else:
+            w2, st2 = masked_sgd_step(w, grad(w, x, y), m, st, opt, lr)
+        keep = lambda o, n: torch.where(alive, n, o)  # noqa: E731
+        return tree_map(keep, w, w2), tree_map(keep, st, st2)
+
+    def vstep(w, st, m, x, y, lr, alive):
+        # an unmasked step passes no mask tree: vmap maps none of it
+        return torch.func.vmap(step, in_dims=(
+            0, 0, None if m is None else 0, 0, 0, None, 0))(
+                w, st, m, x, y, lr, alive)
+
+    return vstep
+
+
 def stacked_local_phase(apply_fn: Callable, opt: SGDConfig, params: PyTree,
                         masks: Optional[PyTree], bx: torch.Tensor,
                         by: torch.Tensor, live: torch.Tensor,
                         lr: float) -> PyTree:
     """The local phase for all K clients: for each of the S padded steps,
-    one vmapped SGD step on batches ``bx[:, s]``, ``by[:, s]`` — masked
-    with stacked ``masks``, plain with ``masks=None``.
-
-    The update rule is the loop's (``optim.sgd.masked_sgd_step`` or
-    ``sgd_step``); a step with ``live[k, s]`` False is an exact no-op for
-    client k (``torch.where``), so ragged schedules pad with recycled
-    batches; momentum starts at zero, stacked per client, as the loop's
-    ``init_sgd``.  Conv weights stay HWIO: the model permutes inside the
-    vmapped function, per client."""
-    grad = _grad_fn(apply_fn)
-
-    def update(w, st, m, x, y):
-        if m is None:
-            return sgd_step(w, grad(w, x, y), st, opt, lr)
-        return masked_sgd_step(w, grad(w, x, y), m, st, opt, lr)
-
-    def step(w, st, m, x, y, alive):
-        w2, st2 = update(w, st, m, x, y)
-        keep = lambda o, n: torch.where(alive, n, o)  # noqa: E731
-        return tree_map(keep, w, w2), tree_map(keep, st, st2)
-
-    # an unmasked phase passes no mask tree: vmap maps none of it
-    vstep = torch.func.vmap(step, in_dims=(0, 0, None if masks is None else 0,
-                                           0, 0, 0))
+    ``stacked_sgd_step`` on batches ``bx[:, s]``, ``by[:, s]``.  A step with
+    ``live[k, s]`` False is an exact no-op for client k, so ragged
+    schedules pad with recycled batches; momentum starts at zero, stacked
+    per client, as the loop's ``init_sgd``."""
+    vstep = stacked_sgd_step(apply_fn, opt)
     st = ({"mu": tree_map(torch.zeros_like, params)}
           if opt.momentum != 0.0 else {})
     for s in range(bx.shape[1]):
-        params, st = vstep(params, st, masks, bx[:, s], by[:, s], live[:, s])
+        params, st = vstep(params, st, masks, bx[:, s], by[:, s], lr,
+                           live[:, s])
     return params
 
 

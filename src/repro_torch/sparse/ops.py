@@ -10,7 +10,11 @@ tensors (the reference's ``"pallas"`` backend), its plain version on the CPU
 (the reference's ``"ref"`` backend); the device of the tensors decides.
 
 Folds update the accumulators in place; every function here allocates the
-accumulators it folds into, so callers' tensors are never modified.
+accumulators it folds into, so callers' tensors are never modified.  The
+tree-level functions (``decode_tree``, ``packed_gossip_one``,
+``packed_axpy``) hand all their folds to one ``packed_accum_all``: one
+host read checks every leaf of every payload, and a malformed leaf is
+refused before anything is folded.
 
 ``COUNTERS`` counts the folds the reference's ``accumulate`` and
 ``packed_axpy`` count (mirrored into the ``sparse.ops`` counter set);
@@ -25,7 +29,7 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.core.gossip import _intersection_avg
-from repro_torch.kernels.packed_accum import packed_accum
+from repro_torch.kernels.packed_accum import packed_accum_all
 from repro_torch.obs import CounterSet, span
 from repro_torch.sparse import packed as _packed
 from repro_torch.sparse.packed import PackedSparse, is_packed
@@ -48,35 +52,58 @@ def reset_counters() -> None:
     COUNTERS["accum_values"] = 0
 
 
+def _fold(folds: list) -> None:
+    """Fold every ``(num, den, payload leaf, alpha)`` in order, counted as
+    the reference's ``accumulate`` counts, with one read-back for all."""
+    COUNTERS["accum_calls"] += len(folds)
+    COUNTERS["accum_values"] += sum(ps.nnz for _, _, ps, _ in folds)
+    packed_accum_all([(num.view(-1), den.view(-1), ps.bitmap, ps.values,
+                       alpha) for num, den, ps, alpha in folds])
+
+
 def accumulate(num: torch.Tensor, den: torch.Tensor, ps: PackedSparse,
                alpha: float = 1.0):
     """Fold one packed leaf into dense (num, den) accumulators, in place."""
-    COUNTERS["accum_calls"] += 1
-    COUNTERS["accum_values"] += ps.nnz
-    packed_accum(num.view(-1), den.view(-1), ps.bitmap, ps.values, alpha)
+    _fold([(num, den, ps, alpha)])
     return num, den
+
+
+def _zero_accumulators(ps: PackedSparse):
+    """(num, den) to decode ``ps`` into.  ``num`` starts at -0.0, so the
+    fold's ``num + 1 * v`` keeps every held value's bits, a held -0.0
+    included, and an empty coordinate ends at +0.0 (-0 + +0 = +0): bit for
+    bit the reference's scatter into zeros."""
+    dev = ps.values.device
+    return (torch.full(ps.shape, -0.0, dtype=torch.float32, device=dev),
+            torch.zeros(ps.shape, dtype=torch.float32, device=dev))
 
 
 def decode(ps: PackedSparse):
     """(w ⊙ m, m) of one payload in float32, by folding it into zero
-    accumulators (not counted in ``COUNTERS``).  ``num`` starts at -0.0, so
-    the fold's ``num + 1 * v`` keeps every held value's bits, a held -0.0
-    included, and an empty coordinate ends at +0.0 (-0 + +0 = +0): bit for
-    bit the reference's scatter into zeros."""
-    num = torch.full(ps.shape, -0.0, dtype=torch.float32,
-                     device=ps.values.device)
-    den = torch.zeros(ps.shape, dtype=torch.float32, device=ps.values.device)
-    packed_accum(num.view(-1), den.view(-1), ps.bitmap, ps.values, 1.0)
+    accumulators (not counted in ``COUNTERS``)."""
+    num, den = _zero_accumulators(ps)
+    packed_accum_all([(num.view(-1), den.view(-1), ps.bitmap, ps.values,
+                       1.0)])
     return num, den
 
 
 def decode_tree(packed: PyTree):
     """(params, masks) trees of one packed tree, each payload decoded once
-    — one tree unpack (``sparse.packed/tree_unpacks``, a
-    ``codec.unpack_tree`` span)."""
+    with one read-back for the tree — one tree unpack
+    (``sparse.packed/tree_unpacks``, a ``codec.unpack_tree`` span)."""
     with span("codec.unpack_tree", track="codec"):
         _packed.OBS.counter("tree_unpacks").inc()
-        return tree_unzip(tree_map(decode, packed, is_leaf=is_packed))
+        folds = []
+
+        def start(ps):
+            num, den = _zero_accumulators(ps)
+            folds.append((num.view(-1), den.view(-1), ps.bitmap, ps.values,
+                          1.0))
+            return num, den
+
+        out = tree_unzip(tree_map(start, packed, is_leaf=is_packed))
+        packed_accum_all(folds)
+        return out
 
 
 def packed_gossip_one(own_params: PyTree, own_mask: PyTree,
@@ -84,25 +111,32 @@ def packed_gossip_one(own_params: PyTree, own_mask: PyTree,
     """Intersection-weighted gossip for ONE client from packed neighbour
     payloads (paper Alg. 1 line 7) — O(degree · nnz) folds, bit-identical
     to ``gossip_average_one`` on the densified neighbours."""
+    folds = []
 
-    def one(w, m, *packs):
+    def start(w, m, *packs):
         mf = m.to(w.dtype)
         num = w * mf
         den = mf.clone()
-        for p in packs:
-            accumulate(num, den, p, 1.0)
-        return _intersection_avg(num, den, mf)
+        folds.extend((num, den, p, 1.0) for p in packs)
+        return num, den, mf
 
-    return tree_map(one, own_params, own_mask, *neighbor_packed,
-                    is_leaf=is_packed)
+    acc = tree_map(start, own_params, own_mask, *neighbor_packed,
+                   is_leaf=is_packed)
+    _fold(folds)
+    return tree_map(lambda t: _intersection_avg(*t), acc,
+                    is_leaf=lambda t: isinstance(t, tuple))
 
 
 def packed_axpy(acc: PyTree, packed: PyTree, alpha: float) -> PyTree:
     """acc + alpha * densify(packed), leafwise, without materializing the
     densified payload outside the fused fold."""
+    folds = []
 
-    def one(a, p):
-        num, _ = accumulate(a.clone(), torch.zeros_like(a), p, alpha)
+    def start(a, p):
+        num = a.clone()
+        folds.append((num, torch.zeros_like(a), p, alpha))
         return num
 
-    return tree_map(one, acc, packed, is_leaf=is_packed)
+    out = tree_map(start, acc, packed, is_leaf=is_packed)
+    _fold(folds)
+    return out

@@ -9,8 +9,9 @@ tensors with the same bits and converted by ``.view`` at the archive/codec
 boundary (``words_to_numpy``/``words_from_numpy``).
 
 ``unpack(pack(w, m)) == w ⊙ m`` exactly: values are gathered, never
-re-quantized.  Packing has a data-dependent size, so it reads the nnz back
-from the device once per leaf.
+re-quantized.  Packing has a data-dependent size, so ``pack_tree`` reads
+every leaf's nnz back from the device in one read, then places each held
+value at its rank on the device.
 
 Tree packs and unpacks are counted in the ``sparse.packed`` counter set
 (``tree_packs``, ``tree_unpacks``) and traced as ``codec.pack_tree`` /
@@ -107,19 +108,35 @@ def words_from_numpy(words: np.ndarray, device="cpu") -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
+def _pack_leaves(pairs, dtype: Optional[torch.dtype]) -> list:
+    """Pack every ``(dense, mask)`` of ``pairs`` (``mask=None``: an all-ones
+    bitmap) with one read-back of all their nnz.  Each held value goes to
+    its rank among the set bits by one scatter, the rest to a spare slot."""
+    counts = [torch.count_nonzero(m) for _, m in pairs if m is not None]
+    nnz = iter(torch.stack(counts).tolist() if counts else ())
+    out = []
+    for dense, mask in pairs:
+        flat = dense.reshape(-1)
+        if mask is None:
+            flags = torch.ones(flat.numel(), dtype=torch.bool,
+                               device=flat.device)
+            vals = flat.to(dtype or flat.dtype, copy=True)
+        else:
+            flags = mask.reshape(-1) != 0
+            n = next(nnz)
+            src = flat if dtype is None else flat.to(dtype)
+            slot = torch.cumsum(flags, 0).sub_(1).masked_fill_(~flags, n)
+            buf = torch.zeros(n + 1, dtype=src.dtype, device=flat.device)
+            vals = buf.scatter_(0, slot, src)[:n]
+        out.append(PackedSparse(bitmap=pack_bits(flags), values=vals,
+                                shape=tuple(dense.shape)))
+    return out
+
+
 def pack(dense: torch.Tensor, mask: Optional[torch.Tensor] = None,
          dtype: Optional[torch.dtype] = None) -> PackedSparse:
     """Pack one leaf.  ``mask=None`` means dense (all-ones bitmap)."""
-    flat = dense.reshape(-1)
-    if mask is None:
-        flags = torch.ones(flat.numel(), dtype=torch.bool, device=flat.device)
-    else:
-        flags = mask.reshape(-1) != 0
-    vals = flat[flags]
-    if dtype is not None:
-        vals = vals.to(dtype)
-    return PackedSparse(bitmap=pack_bits(flags), values=vals,
-                        shape=tuple(dense.shape))
+    return _pack_leaves([(dense, mask)], dtype)[0]
 
 
 def unpack(ps: PackedSparse) -> torch.Tensor:
@@ -142,12 +159,20 @@ def is_packed(x) -> bool:
 
 def pack_tree(params: PyTree, masks: Optional[PyTree] = None,
               dtype: Optional[torch.dtype] = None) -> PyTree:
-    """Pack every leaf of a parameter tree (``masks=None`` -> dense)."""
+    """Pack every leaf of a parameter tree (``masks=None`` -> dense), with
+    one read-back for the tree."""
     with span("codec.pack_tree", track="codec"):
         _C_PACKS.inc()
-        if masks is None:
-            return tree_map(lambda w: pack(w, None, dtype), params)
-        return tree_map(lambda w, m: pack(w, m, dtype), params, masks)
+        pairs = []
+
+        def start(w, m=None):
+            pairs.append((w, m))
+            return len(pairs) - 1
+
+        index = (tree_map(start, params) if masks is None
+                 else tree_map(start, params, masks))
+        packed = _pack_leaves(pairs, dtype)
+        return tree_map(lambda i: packed[i], index)
 
 
 def unpack_tree(packed: PyTree) -> PyTree:

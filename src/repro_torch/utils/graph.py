@@ -109,6 +109,12 @@ def _signature(leaves, spec) -> tuple:
                                 for x in leaves)
 
 
+def signature(args) -> tuple:
+    """The input signature ``graphed`` keys its captures by: the tree
+    structure of ``args`` and each tensor's shape, dtype and device."""
+    return _signature(*_leaves(args))
+
+
 def _same_layout(a: list, b: list) -> bool:
     return len(a) == len(b) and all(
         x is y is None or (isinstance(x, torch.Tensor)
@@ -225,6 +231,11 @@ class Graphed:
         del warm     # torch.cuda.graph synchronises and empties the cache
         before = build.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        # no cyclic collection inside the capture: a collected object that
+        # holds another graph would destroy it mid-capture, which the
+        # runtime refuses, and the capture would be invalidated
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 out = _sorted(self.fn(*static_args))
@@ -234,6 +245,8 @@ class Graphed:
                     if d is not None and o is not d:
                         d.copy_(o)
         finally:
+            if collecting:
+                gc.enable()
             delta = build.launch_count_delta(before, build.launch_counts())
             build.add_launch_counts(delta, -1)      # recorded, not run
         build.check_counted(delta)

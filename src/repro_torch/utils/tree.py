@@ -87,10 +87,15 @@ def tree_size(tree: PyTree) -> int:
 def tree_nnz(tree: PyTree) -> int:
     """Number of non-zero entries (for masks: active parameter count), read
     back from the device once."""
-    leaves = tree_leaves(tree)
-    if not leaves:
-        return 0
-    return int(torch.stack([(x != 0).sum() for x in leaves]).sum())
+    return tree_nnz_each([tree])[0] if tree_leaves(tree) else 0
+
+
+def tree_nnz_each(trees: list[PyTree]) -> list[int]:
+    """``tree_nnz`` of every tree of ``trees``, read back once for all."""
+    counts = torch.stack([torch.stack([(x != 0).sum()
+                                       for x in tree_leaves(t)]).sum()
+                          for t in trees])
+    return [int(c) for c in counts.tolist()]
 
 
 def tree_ones_like(tree: PyTree) -> PyTree:

@@ -1024,3 +1024,221 @@ def test_dryrun_fake_trace_counts_equal_the_real_step_on_card(
                                                  real.bytes_accessed)
     assert (fake.argument_bytes, fake.output_bytes, fake.peak_live_bytes) == (
         real.argument_bytes, real.output_bytes, real.peak_live_bytes)
+
+
+# ---------------------------------------------------------------------------
+# the loop engine compiled: graphed against graph.disabled() from one state
+# ---------------------------------------------------------------------------
+
+
+def _loop_world(cuda_device, name, rounds, local_exec="loop", sim=None):
+    """A K=4 smallcnn engine on the card (``SimEngine`` in ``sim`` mode
+    when given), every test client with its own test-set size."""
+    from repro_torch.data.loader import build_federated_image_task
+    from repro_torch.fl.base import FLConfig, make_cnn_task
+    from repro_torch.fl.engine import RoundEngine, make_strategy
+
+    clients, _ = build_federated_image_task(
+        0, n_clients=4, partition="pathological", n_train_per_class=24,
+        n_test_per_client=16, hw=8)
+    cfg = FLConfig(n_clients=4, rounds=rounds, local_epochs=1, batch_size=16,
+                   degree=2)
+    task = make_cnn_task("smallcnn", 10, 8, width=4, device=cuda_device)
+    if sim is not None:
+        from repro_torch.sim import SimEngine
+        return SimEngine(make_strategy(name), task, clients, cfg, mode=sim,
+                         local_exec=local_exec)
+    return RoundEngine(make_strategy(name), task, clients, cfg,
+                       local_exec=local_exec)
+
+
+def _same_bits(a, b):
+    """Equal dtypes and bits (-0.0 is not +0.0)."""
+    if a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        return torch.equal(a.view(as_int), b.view(as_int))
+    return torch.equal(a, b)
+
+
+def _captures(engine):
+    return sum(g.captures for g in engine.task.graphs())
+
+
+def _run_per_round(engine, eager):
+    """Run ``engine`` to its end (eagerly under ``graph.disabled()``);
+    per round its fold and gossip launches and its captures so far."""
+    import contextlib
+
+    from repro_torch.fl.engine import Callback
+    from repro_torch.kernels import gossip_avg as ga
+    from repro_torch.utils import graph
+
+    rows = []
+
+    class PerRound(Callback):
+        def on_round_end(self, eng, metrics):
+            rows.append((dict(pa.LAUNCHES_BY_ENTRY),
+                         dict(ga.LAUNCHES_BY_ENTRY), _captures(eng)))
+
+    engine.callbacks.append(PerRound())
+    before = (dict(pa.LAUNCHES_BY_ENTRY), dict(ga.LAUNCHES_BY_ENTRY))
+    with graph.disabled() if eager else contextlib.nullcontext():
+        engine.run()
+    torch.cuda.synchronize()
+    out = []
+    for fold, gossip, caps in rows:
+        out.append(({e: n - before[0][e] for e, n in fold.items()},
+                    {e: n - before[1][e] for e, n in gossip.items()}, caps))
+        before = (fold, gossip)
+    return out
+
+
+def _graphed_against_eager(cuda_device, name, rounds, local_exec="loop"):
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    eager = _loop_world(cuda_device, name, rounds, local_exec)
+    start = tree_map(lambda x: x.clone(), eager.state)
+    e_rows = _run_per_round(eager, eager=True)
+    graphed = _loop_world(cuda_device, name, rounds, local_exec)
+    graphed.state = tree_map(lambda x: x.clone(), start)
+    g_rows = _run_per_round(graphed, eager=False)
+    for a, b in zip(tree_leaves(graphed.state), tree_leaves(eager.state),
+                    strict=True):
+        assert _same_bits(a, b)
+    assert graphed._acc_history == eager._acc_history
+    assert graphed._comm == eager._comm and graphed._flops == eager._flops
+    # launches per round equal eager's (the graphs hold no counted kernel:
+    # the mix runs eagerly); captures stop growing after the first round
+    assert [r[:2] for r in g_rows] == [r[:2] for r in e_rows]
+    caps = [r[2] for r in g_rows]
+    assert caps[0] > 0 and caps == [caps[0]] * rounds
+    assert all(r[2] == 0 for r in e_rows)
+    return graphed, g_rows
+
+
+@pytest.mark.parametrize("name", ["dispfl", "dispfl_anneal"])
+def test_loop_engine_graphed_equals_eager(cuda_device, name):
+    graphed, rows = _graphed_against_eager(cuda_device, name, 3)
+    assert sum(rows[0][0].values()) > 0 and sum(rows[0][1].values()) > 0
+    ((_, stacked), step), = graphed.task._steps.items()
+    assert not stacked and step.captures == 1 and step.replays > 0
+
+
+def test_vmap_phase_graphed_equals_eager(cuda_device):
+    graphed, _ = _graphed_against_eager(cuda_device, "dispfl", 3, "vmap")
+    ((_, stacked), step), = graphed.task._steps.items()
+    # one capture of the stacked step, replayed every step of every phase
+    assert stacked and step.captures == 1 and step.replays > 3
+
+
+def test_async_sim_vmap_captures_do_not_depend_on_step_count(cuda_device):
+    """The asynchronous simulator at the default ``local_exec="auto"`` runs
+    the vmap step one client a phase; on dirichlet shards of ragged sizes
+    it captures once per batch size, not once per phase length, and stays
+    bit-equal to the same run under ``graph.disabled()``."""
+    import contextlib
+
+    from repro_torch.data.loader import build_federated_image_task
+    from repro_torch.fl.base import FLConfig, make_cnn_task
+    from repro_torch.fl.engine import make_strategy
+    from repro_torch.sim import SimEngine
+    from repro_torch.utils import graph
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    clients, _ = build_federated_image_task(
+        0, n_clients=4, partition="dirichlet", alpha=0.5,
+        n_train_per_class=24, n_test_per_client=16, hw=8)
+    cfg = FLConfig(n_clients=4, rounds=3, local_epochs=1, batch_size=16,
+                   degree=2)
+    bss = {min(cfg.batch_size, c.n_train) for c in clients}
+    steps = {-(-c.n_train // min(cfg.batch_size, c.n_train))
+             for c in clients}
+    assert len(steps) > len(bss)          # phases of several lengths
+    runs, start = [], None
+    for eager in (True, False):
+        eng = SimEngine(make_strategy("dispfl"),
+                        make_cnn_task("smallcnn", 10, 8, width=4,
+                                      device=cuda_device),
+                        clients, cfg, mode="async", staleness=2)
+        if start is None:
+            start = tree_map(lambda x: x.clone(), eng.state)
+        else:
+            eng.state = tree_map(lambda x: x.clone(), start)
+        with graph.disabled() if eager else contextlib.nullcontext():
+            eng.run()
+        runs.append(eng)
+    eager, graphed = runs
+    ((_, stacked), step), = graphed.task._steps.items()
+    assert stacked and step.captures == len(bss)
+    assert step.replays > step.captures
+    assert graphed._acc_history == eager._acc_history
+    for a, b in zip(tree_leaves(graphed.state), tree_leaves(eager.state),
+                    strict=True):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("name", ["dpsgd", "ditto", "fomo", "dfedalt",
+                                  "dfedsam", "subfedavg"])
+def test_strategy_graphed_equals_eager(cuda_device, name):
+    _graphed_against_eager(cuda_device, name, 2)
+
+
+def test_sync_sim_graphed_equals_round_engine(cuda_device):
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    sim = _loop_world(cuda_device, "dispfl", 2, sim="sync")
+    eng = _loop_world(cuda_device, "dispfl", 2)
+    eng.state = tree_map(lambda x: x.clone(), sim.state)
+    sim.run(), eng.run()
+    assert _captures(sim) > 0 and _captures(eng) > 0
+    assert sim._acc_history == eng._acc_history
+    for a, b in zip(tree_leaves(sim.state), tree_leaves(eng.state),
+                    strict=True):
+        assert _same_bits(a, b)
+
+
+def test_tree_fold_refusal_on_card(cuda_device):
+    """A malformed leaf inside a payload tree: ``decode_tree``,
+    ``packed_gossip_one`` and ``packed_accum_all`` raise before any fold —
+    accumulators and ``LAUNCHES`` unchanged — and the same folds without it
+    equal their plain versions."""
+    from repro_torch.sparse import ops
+    from repro_torch.sparse.packed import PackedSparse, pack_tree
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    shapes = {"a": (3, 3, 16, 32), "b": (1000,), "c": (17, 10)}
+    w = {k: torch.randn(s, generator=gen, device=cuda_device)
+         for k, s in shapes.items()}
+    m = {k: (torch.rand(s, generator=gen, device=cuda_device) < 0.4).float()
+         for k, s in shapes.items()}
+    w = {k: w[k] * m[k] for k in w}
+    is_p = lambda p: isinstance(p, PackedSparse)  # noqa: E731
+    leaves = tree_leaves(pack_tree(w, m), is_leaf=is_p)
+    leaves[1] = PackedSparse(leaves[1].bitmap, leaves[1].values[:-1],
+                             leaves[1].shape)
+    bad = tree_unflatten_like(w, leaves)
+    launches = pa.LAUNCHES
+    for call in (lambda: ops.decode_tree(bad),
+                 lambda: ops.packed_gossip_one(w, m, [bad])):
+        with pytest.raises(ValueError, match="set bits"):
+            call()
+    folds = [(torch.randn(p.n_coords, generator=gen, device=cuda_device),
+              torch.rand(p.n_coords, generator=gen, device=cuda_device),
+              p.bitmap, p.values, 0.75) for p in leaves]
+    before = [(f[0].clone(), f[1].clone()) for f in folds]
+    with pytest.raises(ValueError, match="set bits"):
+        pa.packed_accum_all(folds)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == launches
+    for f, (n0, d0) in zip(folds, before):
+        assert torch.equal(f[0], n0) and torch.equal(f[1], d0)
+    good = [folds[0], folds[2]]
+    pa.packed_accum_all(good)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == launches + 2
+    for f, (n0, d0) in zip(good, [before[0], before[2]]):
+        want = pa.packed_accum_plain(n0, d0, *f[2:])
+        assert torch.equal(f[0], want[0]) and torch.equal(f[1], want[1])
