@@ -62,7 +62,9 @@ line):
 7. the serving path through its CLI entry functions (``launch/serve.py``:
    1024 users of the 64-128-128-32 MLP, a 256-slot pool, 4096 requests),
    counters zeroed just before and read just after: ``--backend kernel``
-   must launch the masked matmul 3 x (batches + 1 warmup) times, match
+   must launch the masked matmul 3 x (batches + 2) times (the warmup's
+   capturing call runs the forward eagerly and replays it; then one
+   replay a batch), match
    ``--backend vmap`` per request within 1e-5 with identical cache
    counters, and hold ``bytes_at_rest == sum of encoded_nbytes``, all
    untraced and in the order kernel, vmap, vmap, kernel; then a traced
@@ -126,12 +128,18 @@ line):
     ``bytes_at_rest``; (b) full published width: ``ArchModel(ARCHS[...],
     prompt_len=2048)`` for gemma3-1b and then mamba2-1.3b through
     ``ServeEngine`` (2 users drawn on a CUDA generator at density 0.5, 2
-    slots, max batch 2, 8 requests, each model freed before the next) — the
-    mixed batch bit-equal to each request served alone and finite; its
-    parameter count, prefill ms per request and prompt tokens/s (CUDA
-    events over the pool-wide forward), peak memory, ``bytes_at_rest``
-    (equal to the frames' analytic size), and a profiled serving run's
-    device busy share with its top three device kernels;
+    slots, max batch 2, 8 requests, each model freed before the next),
+    graphed (phase 18's full-width cells: the forward captured by
+    ``warmup()``, one capture) and again, from a fresh store of the same
+    base and frames, under ``graph.disabled()`` — outputs
+    and cache counters bit-equal, the mixed batch bit-equal to each
+    request served alone and finite; its parameter count, graphed and
+    eager prefill ms per request and prompt tokens/s (CUDA events over the
+    pool-wide forward), peak memory, ``bytes_at_rest`` (equal to the
+    frames' analytic size), a profiled serving run's device busy share,
+    the memory the forward's capture holds until ``release()`` (device
+    memory reserved and allocated before and after it); each graph
+    released and each store freed before the next run;
 14. ``lm``, LM training: (a) through the CLI's entry functions (``train
     lm``'s ``lm_loop`` from ``init_lm_clients``' state), every decoder
     smoke arch at ``LM_ARGS`` (2 clients, 2 rounds, 4 steps, 64-token
@@ -192,8 +200,8 @@ line):
     from ``ModelStore(payload_dtype=np.float16)`` holding the CLI's users
     and from the CLI's own fp32 store: ``bytes_at_rest`` the analytic
     figure at 2 and 4 bytes a value, launches as predicted (3 x (batches
-    + 1) masked matmuls each; 3 fp16 flat folds per miss of the fp16
-    store), outputs within
+    + 2) masked matmuls each, as in phase 7; 3 fp16 flat folds per miss of
+    the fp16 store), outputs within
     ``SERVE_FP16_TOL`` of the fp32 store's, the fp16 pool equal to the fp32
     pool rounded to fp16;
 17. the single-card dry run (``repro_torch.launch.dryrun``), after phase
@@ -241,7 +249,21 @@ line):
     computed for the first time, the stacked step's one per batch size
     whatever the phases' step counts, each C entry's launches per round
     equal eager's; the host wall per round, busy share, launch calls,
-    capture seconds and the graph pools' memory;
+    capture seconds and the graph pools' memory; then the serving path
+    (``serve/model.py``'s pool-wide forwards through ``graphed``; a miss
+    decodes straight into its slot, so no slot write is compiled): the
+    MLP at ``SERVE_ARGS`` on the ``kernel`` and ``vmap`` backends (the
+    ``ref`` backend's graph is held to eager by the card tests), smallcnn
+    and each smoke arch at ``SERVE_MODEL_ARGS``, each served through
+    ``ServeEngine`` as
+    the CLI serves, graphed and under ``graph.disabled()`` from stores
+    built from one seed: outputs and cache counters bit-equal, one
+    capture of the forward, in ``warmup()``, none while serving, masked-matmul launches 3 x (batches + 2)
+    graphed and 3 x (batches + 1) eager on the kernel backend; each
+    cell's service_s, p50/p99, a profiled pass's busy share and launch
+    calls, replays, capture seconds, the peak of both engines and the
+    memory the graphed forward's capture holds until ``release()``,
+    graphed beside eager (the full-width cells are phase 13 (b)'s);
 19. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
     dtypes in ``shape``).  Each row's launches are that entry's own, as
     its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
@@ -997,7 +1019,6 @@ def main() -> int:
 
     # 7. the serving path through the CLI's entry functions
     serve_launches = serve_path(torch, counters)
-    profile_serve(torch)
     mm = mm_rows["serve"][1]          # the (128, 128) layer at serve shapes
 
     # 8.-11. the vmap local phase and the simulator, sync and async
@@ -1844,7 +1865,7 @@ def serve_run(torch, counters, backend, trace=False):
 
 
 def serve_path(torch, counters):
-    """Phase 6: the serving CLI's entry functions, untraced, in the order
+    """Phase 7: the serving CLI's entry functions, untraced, in the order
     kernel, vmap, vmap, kernel (so a drift of the shared host's speed
     during the phase falls on both backends alike; their summaries are the
     serving numbers), then a fifth, traced kernel run for the split of
@@ -1856,7 +1877,8 @@ def serve_path(torch, counters):
     order = ("kernel", "vmap", "vmap", "kernel")
     runs = [serve_run(torch, counters, b) for b in order]
     (res, store, launches), (vres, vstore, vlaunches) = runs[0], runs[1]
-    want = 3 * (res.summary["batches"] + 1)
+    # the capturing call (warmup) runs the forward eagerly and replays it
+    want = 3 * (res.summary["batches"] + 2)
     for b, (r, st, la) in zip(order, runs):
         if la["masked_matmul"] != (want if b == "kernel" else 0):
             raise AssertionError(f"{b}: masked_matmul launches {la}, "
@@ -1921,7 +1943,10 @@ def serve_smoke_model(torch, counters, name):
     if any(launches.values()):
         raise AssertionError(f"{name}: a kernel launched while serving "
                              f"through vmap: {launches}")
-    alone = ServeEngine(cli.build_store(args, model, dev), model,
+    # a model of its own: a model serves one store (its capture reads
+    # that store's pool in place)
+    solo = cli.build_model(args.model, args.rows)
+    alone = ServeEngine(cli.build_store(args, solo, dev), solo,
                         backend="vmap", max_batch=args.max_batch)
     alone.warmup()
     reqs = RequestStream(n_users=args.users, n_requests=args.requests,
@@ -1955,94 +1980,169 @@ def serve_smoke_model(torch, counters, name):
 
 
 def serve_full_width(torch, counters, cfg):
-    """Phase 13 (b) for one full config: build the store on the card, serve,
-    hold each request bit-equal to it served alone, time the pool-wide
-    prefill with CUDA events, profile one serving run.  Frees its memory.
-    Returns the launches of the first serving run."""
+    """Phase 13 (b) for one full config, and phase 18's full-width serving
+    cell: build the store on the card and serve, graphed (the forward
+    captured by ``warmup()``), then, from a fresh store of the same base
+    and frames, the same requests under ``graph.disabled()``: outputs and
+    cache counters bit-equal, one capture of the forward, taken in
+    ``warmup()``; each request bit-equal to it served alone (graphed);
+    the pool-wide prefill timed with CUDA events, a profiled serving run,
+    the peak memory above what was held before and the memory the
+    capture holds until ``release()`` (``_graph_hold``).  Each graph is
+    released and the store freed before the next.  Returns the launches
+    of the graphed serving run."""
+    import contextlib
     import gc
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.accounting import HEADER_NBYTES, bitmap_nbytes
     from repro_torch.core.masks import apply_mask, init_mask
     from repro_torch.serve import ArchModel, ModelStore, RequestStream
     from repro_torch.serve import ServeEngine
+    from repro_torch.utils import graph
     from repro_torch.utils.tree import tree_leaves
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()       # by earlier phases
-    t0 = time.perf_counter()
-    model = ArchModel(cfg, prompt_len=FULL_WIDTH_PROMPT)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    store = ModelStore(model.init(gen), cache_size=2)
-    n_params = sum(x.numel() for x in tree_leaves(store.base))
-    for u in range(2):
-        p = model.init(gen)
-        m = init_mask(gen, p, 0.5)
-        store.put(u, apply_mask(p, m), m)
-        del p, m
-    build_s = time.perf_counter() - t0
-    at_rest = sum(HEADER_NBYTES + bitmap_nbytes(n_params) + 4 * store.nnz(u)
-                  for u in store.users())
-    if at_rest != store.total_bytes_at_rest():
-        raise AssertionError(f"{cfg.name}: bytes_at_rest "
-                             f"{store.total_bytes_at_rest()} != {at_rest}")
     # seed 2: three of the five batches hold both users
     reqs = RequestStream(n_users=2, n_requests=8, seed=2).requests()
-    _zero(counters)
-    res = ServeEngine(store, model, backend="vmap", max_batch=2).serve(reqs)
-    launches = _launches(counters)
-    if any(launches.values()):
-        raise AssertionError(f"{cfg.name}: a kernel launched: {launches}")
-    alone = ServeEngine(store, model, backend="vmap", max_batch=2)
-    for r in reqs:
-        y = res.outputs[r.rid]
-        if y.shape != (1, cfg.vocab) or not bool(
-                torch.isfinite(torch.from_numpy(y)).all()):
-            raise AssertionError(f"{cfg.name}: request {r.rid} output "
-                                 f"{y.shape} not finite")
-        if not (alone.serve([r], warmup=False).outputs[r.rid] == y).all():
-            raise AssertionError(f"{cfg.name}: request {r.rid} served in a "
-                                 "mixed batch differs from it alone")
-    xs = torch.from_numpy(np.stack([model.make_input(i)
-                                    for i in range(2)])).cuda()
-    ms = cuda_ms(lambda: model.batched_forward(store.pool_params,
-                                               store.pool_masks, xs),
-                 iters=3, warmup=1)
-    profiled = ServeEngine(store, model, backend="vmap", max_batch=2)
-    profiled.warmup()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pres = profiled.serve(reqs, warmup=False)
-    peak = torch.cuda.max_memory_allocated()
-    miss = store.series.histogram("miss_decode_s")
-    s = res.summary
-    log(f"full width {cfg.name}: {n_params} parameters, store built in "
-        f"{build_s:.2f} s, bytes_at_rest {store.total_bytes_at_rest()}; "
-        f"service_s {s['service_s']}, p50 {s['p50_ms']} ms, p99 "
-        f"{s['p99_ms']} ms, {s['requests']} requests in {s['batches']} "
-        f"batches, hit rate {s['cache_hit_rate']} ({miss.count} misses, "
-        f"decode and slot write {miss.mean:.3f} s each); {len(reqs)} "
-        f"bit-equal "
-        f"alone; pool-wide prefill of 2 x {FULL_WIDTH_PROMPT} tokens "
-        f"{ms:.3f} ms: {ms / 2:.3f} ms per request, "
-        f"{2 * FULL_WIDTH_PROMPT / (ms / 1e3):.1f} prompt tokens/s; peak "
-        f"memory {peak} bytes ({peak / 2 ** 30:.2f} GiB; "
-        f"{(peak - held) / 2 ** 30:.2f} GiB above the {held} bytes held "
-        f"before the model)")
-    rows = device_rows(prof)
-    if rows is not None:
-        busy_s = sum(r[0] for r in rows) / 1e6
-        svc = pres.summary["service_s"]
-        log(f"  profiled serving run: service_s {svc} (profiler on), device "
-            f"busy {busy_s:.4f} s ({100 * busy_s / svc:.1f}%)")
-        for us, count, key in sorted(rows, reverse=True)[:3]:
-            log(f"  {us / 1e3:.3f} ms in {count} launches: {key[:90]}")
-    del res, pres, alone, profiled, store, model, xs, prof
+    runs, users = {}, None
+    for mode in ("graphed", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()       # by earlier phases
+        t0 = time.perf_counter()
+        model = ArchModel(cfg, prompt_len=FULL_WIDTH_PROMPT)
+        if users is None:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            store = ModelStore(model.init(gen), cache_size=2)
+            for u in range(2):
+                p = model.init(gen)
+                m = init_mask(gen, p, 0.5)
+                store.put(u, apply_mask(p, m), m)
+                del p, m
+        else:
+            # the same users' frames over the same base in a fresh store:
+            # an empty pool, so the LRU serves the requests as it did
+            store = ModelStore(users[0], cache_size=2)
+            store._frames, store._nnz = users[1:]
+        n_params = sum(x.numel() for x in tree_leaves(store.base))
+        build_s = time.perf_counter() - t0
+        at_rest = sum(HEADER_NBYTES + bitmap_nbytes(n_params)
+                      + 4 * store.nnz(u) for u in store.users())
+        if at_rest != store.total_bytes_at_rest():
+            raise AssertionError(f"{cfg.name}: bytes_at_rest "
+                                 f"{store.total_bytes_at_rest()} != {at_rest}")
+        engine = ServeEngine(store, model, backend="vmap", max_batch=2)
+        box = {}
+        with (graph.disabled() if mode == "eager"
+              else contextlib.nullcontext()):
+            _zero(counters)
+            warm_s = engine.warmup()
+            graphs = model.graphs()
+            warm_caps = [g.captures for g in graphs]
+            res = engine.serve(reqs, warmup=False)
+            launches = _launches(counters)
+            stats = store.stats()
+            if any(launches.values()):
+                raise AssertionError(f"{cfg.name}: a kernel launched: "
+                                     f"{launches}")
+            if [g.captures for g in graphs] != warm_caps or warm_caps != (
+                    [1] if mode == "graphed" else [0]):
+                raise AssertionError(
+                    f"{cfg.name} {mode}: captures {warm_caps} in warmup, "
+                    f"{[g.captures for g in graphs]} after serving")
+            if mode == "graphed":
+                alone = ServeEngine(store, model, backend="vmap",
+                                    max_batch=2)
+                for r in reqs:
+                    y = res.outputs[r.rid]
+                    if y.shape != (1, cfg.vocab) or not bool(
+                            torch.isfinite(torch.from_numpy(y)).all()):
+                        raise AssertionError(f"{cfg.name}: request {r.rid} "
+                                             f"output {y.shape} not finite")
+                    if not (alone.serve([r], warmup=False).outputs[r.rid]
+                            == y).all():
+                        raise AssertionError(
+                            f"{cfg.name}: request {r.rid} served in a mixed "
+                            "batch differs from it alone")
+                del alone
+            xs = torch.from_numpy(np.stack([model.make_input(i)
+                                            for i in range(2)])).cuda()
+            ms = cuda_ms(lambda: model.batched_forward(
+                store.pool_params, store.pool_masks, xs), iters=3, warmup=1)
+            prof = _profiled(torch, lambda: box.setdefault(
+                "res", engine.serve(reqs, warmup=False)))
+        peak = torch.cuda.max_memory_allocated()
+        miss = store.series.histogram("miss_decode_s")
+        runs[mode] = dict(
+            res=res, stats=stats, ms=ms, prof=prof,
+            psvc=box["res"].summary["service_s"], peak=peak, held=held,
+            warm_s=warm_s, build_s=build_s, miss=(miss.count, miss.mean),
+            caps=[(g.captures, g.replays) for g in graphs],
+            capture_s=sum(g.capture_s for g in graphs),
+            at_rest=store.total_bytes_at_rest(), n_params=n_params,
+            hold=_graph_hold(torch, graphs))
+        users = (store.base, store._frames, store._nnz)
+        del engine, store, model, xs, res, box, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+    g, e = runs["graphed"], runs["eager"]
+    for rid, y in g["res"].outputs.items():
+        if not np.array_equal(y.view(np.int32),
+                              e["res"].outputs[rid].view(np.int32)):
+            raise AssertionError(f"{cfg.name}: request {rid} graphed differs "
+                                 "from eager")
+    if g["stats"] != e["stats"]:
+        raise AssertionError(f"{cfg.name}: cache counters graphed "
+                             f"{g['stats']} against eager {e['stats']}")
+    s = g["res"].summary
+    log(f"full width {cfg.name}: {g['n_params']} parameters, store built in "
+        f"{g['build_s']:.2f} s (from its frames {e['build_s']:.2f} s), "
+        f"bytes_at_rest {g['at_rest']}; graphed: "
+        f"outputs and cache counters bit-equal to eager; service_s "
+        f"{s['service_s']} (eager {e['res'].summary['service_s']}), p50 "
+        f"{s['p50_ms']} ms (eager {e['res'].summary['p50_ms']}), p99 "
+        f"{s['p99_ms']} ms (eager {e['res'].summary['p99_ms']}), "
+        f"{s['requests']} requests in {s['batches']} batches, hit rate "
+        f"{s['cache_hit_rate']} ({g['miss'][0]} misses, decode and slot "
+        f"write {g['miss'][1]:.3f} s each; eager {e['miss'][1]:.3f} s); "
+        f"{len(reqs)} bit-equal alone; warmup {g['warm_s']:.3f} s (eager "
+        f"{e['warm_s']:.3f}), captures and replays of the forward "
+        f"{g['caps']}, capture {g['capture_s']:.3f} s")
+    for mode, r in runs.items():
+        log(f"  {mode}: pool-wide prefill of 2 x {FULL_WIDTH_PROMPT} tokens "
+            f"{r['ms']:.3f} ms: {r['ms'] / 2:.3f} ms per request, "
+            f"{2 * FULL_WIDTH_PROMPT / (r['ms'] / 1e3):.1f} prompt tokens/s; "
+            f"peak memory {r['peak']} bytes ({r['peak'] / 2 ** 30:.2f} GiB; "
+            f"{(r['peak'] - r['held']) / 2 ** 30:.2f} GiB above the "
+            f"{r['held']} bytes held before the model); profiled serving "
+            f"run: service_s {r['psvc']} (profiler on), device busy "
+            f"{_share(r['prof'][1], r['psvc'])} of it, {r['prof'][2]} host "
+            f"launches")
+    log(f"  graphed: the forward's capture held {_hold_figs(g['hold'])}")
+    return launches
+
+
+def _graph_hold(torch, graphs):
+    """Release ``graphs`` and return the device memory they held: bytes
+    reserved (the capture's memory pool: its activations and outputs)
+    and allocated, each before less after, with the cache emptied before
+    both reads, so no other free block counts."""
+    import gc
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    before = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    for g in graphs:
+        g.release()
+    after = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    return before[0] - after[0], before[1] - after[1]
+
+
+def _hold_figs(hold):
+    return (f"{hold[0]} bytes reserved ({hold[0] / 2 ** 30:.3f} GiB), "
+            f"{hold[1]} allocated ({hold[1] / 2 ** 30:.3f} GiB) until "
+            "release()")
 
 
 def serve_models_path(torch, counters):
@@ -2056,29 +2156,6 @@ def serve_models_path(torch, counters):
     runs += [serve_full_width(torch, counters, ARCHS[name])
              for name in FULL_WIDTH_ARCHS]
     return _sum_launches(runs)
-
-
-def profile_serve(torch):
-    """One more kernel-backend serving run under torch.profiler: the
-    device's busy share of the service time and the top device kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.device import setup_device
-    from repro_torch.launch import serve as cli
-    args = cli.build_parser().parse_args(SERVE_ARGS + ["--backend", "kernel"])
-    model = cli.build_model(args.model, args.rows)
-    store = cli.build_store(args, model, setup_device(args.device))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        res = cli.run_serve(args, model, store)
-    rows = device_rows(prof)
-    if rows is None:
-        return
-    busy_s = sum(r[0] for r in rows) / 1e6
-    svc = res.summary["service_s"]
-    log(f"profiled serve: service_s {svc} (profiler on), device busy "
-        f"{busy_s:.4f} s ({100 * busy_s / svc:.1f}%)")
-    for us, count, key in sorted(rows, reverse=True)[:8]:
-        log(f"  {us / 1e3:.3f} ms in {count} launches: {key[:90]}")
 
 
 def profile_round(torch, train, args):
@@ -2812,7 +2889,7 @@ def precision_store(torch, counters, serve_args):
     """Phase 16 (d): ``serve --backend kernel`` with ``serve_args`` from an
     fp16 store and from the fp32 store of the same users: bytes at rest
     the analytic figure at 2 and 4 bytes a value, launches as predicted
-    (the masked matmul 3 x (batches + 1) each; the flat fold's fp16 entry
+    (the masked matmul 3 x (batches + 2) each; the flat fold's fp16 entry
     once per leaf per miss of the fp16 store, none for the fp32 one), the
     outputs within ``SERVE_FP16_TOL`` of each other, and the fp16 pool
     equal to the fp32 pool rounded to fp16."""
@@ -2827,10 +2904,9 @@ def precision_store(torch, counters, serve_args):
 
     out = {}
     args = cli.build_parser().parse_args(serve_args + ["--backend", "kernel"])
-    model = cli.build_model(args.model, args.rows)
     device = setup_device(args.device)
 
-    def fp16_store():
+    def fp16_store(model):
         """The CLI's users (``build_store``'s draws) in an fp16 store."""
         base = model.init(torch.Generator().manual_seed(args.seed))
         store = ModelStore(base, cache_size=args.cache_size, device=device,
@@ -2844,8 +2920,10 @@ def precision_store(torch, counters, serve_args):
 
     runs = {}
     for name, make in (("fp16", fp16_store),
-                       ("fp32", lambda: cli.build_store(args, model, device))):
-        store = make()
+                       ("fp32", lambda m: cli.build_store(args, m, device))):
+        # a model for each store: a model serves one store
+        model = cli.build_model(args.model, args.rows)
+        store = make(model)
         _zero(counters)
         res = cli.run_serve(args, model, store)
         runs[name] = (res, store, _launches(counters))
@@ -2859,7 +2937,7 @@ def precision_store(torch, counters, serve_args):
             raise AssertionError(f"{name} store: bytes_at_rest "
                                  f"{st.total_bytes_at_rest()} != {want}")
         folds = w_leaves * st.misses if name == "fp16" else 0
-        mm = 3 * (res.summary["batches"] + 1)
+        mm = 3 * (res.summary["batches"] + 2)
         if (la["masked_matmul"], la["packed_accum"]) != (mm, folds):
             raise AssertionError(f"{name} store launches {la}: expected "
                                  f"{mm} masked matmuls, {folds} folds")
@@ -3016,7 +3094,7 @@ def obs_path(torch, train, counters):
         serve.append((summary, _launches(counters)))
         get_tracer().disable()
     (s0, l0), (s1, l1) = serve
-    want = 3 * (s0["batches"] + 1)
+    want = 3 * (s0["batches"] + 2)
     if not l0 == l1 or l1["masked_matmul"] != want:
         raise AssertionError(f"obs serve: launches traced {l1}, untraced "
                              f"{l0}, expected {want} masked matmuls")
@@ -3793,6 +3871,136 @@ def loop_compiled(torch, train, counters):
     return _sum_launches(launches)
 
 
+def serve_cell(torch, counters, name, backend, cli_args):
+    """Phase 18 for one serving cell: the serving CLI's model and store
+    (``cli_args``) served through ``ServeEngine`` as ``run_serve`` serves,
+    graphed and under ``graph.disabled()``, each engine on a fresh model
+    and a store built from the same seed: each ``warmup()`` (graphed: one
+    capture of the forward) and first pass over the request stream with
+    the launch counters zeroed just before and read just after, then a
+    second, profiled pass each, in the order eager, graphed, graphed,
+    eager (a drift of the shared host's speed falls on both alike).
+    Outputs of both passes and cache counters bit-equal; no capture while
+    serving; the masked matmul 3 x (batches + 2) graphed and 3 x (batches
+    + 1) eager on the kernel backend, none on the others.  Prints
+    service_s and p50/p99 of each pass, the profiled pass's busy share
+    and the runtime's launch calls, captures, replays, capture seconds,
+    the peak above what was held and the memory the graphed forward's
+    capture holds until ``release()``, graphed beside eager.  Returns the
+    graphed first pass's launches."""
+    import contextlib
+    import gc
+
+    import numpy as np
+
+    from repro_torch.device import setup_device
+    from repro_torch.launch import serve as cli
+    from repro_torch.serve import RequestStream, ServeEngine
+    from repro_torch.utils import graph
+
+    args = cli.build_parser().parse_args(cli_args + ["--model", name,
+                                                     "--backend", backend])
+    runs = {}
+
+    def mode_of(mode):
+        return (graph.disabled() if mode == "eager"
+                else contextlib.nullcontext())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for mode in ("eager", "graphed"):
+        model = cli.build_model(args.model, args.rows)
+        store = cli.build_store(args, model, setup_device(args.device))
+        engine = ServeEngine(store, model, backend=args.backend,
+                             max_batch=args.max_batch, max_wait=args.max_wait)
+        reqs = RequestStream(n_users=len(store.users()),
+                             n_requests=args.requests, seed=args.seed,
+                             rate=args.rate).requests()
+        with mode_of(mode):
+            _zero(counters)
+            warm_s = engine.warmup()
+            graphs = model.graphs()
+            warm_caps = [g.captures for g in graphs]
+            res = engine.serve(reqs, warmup=False)
+            launches = _launches(counters)
+        runs[mode] = dict(engine=engine, reqs=reqs, store=store,
+                          graphs=graphs, warm_s=warm_s, warm_caps=warm_caps,
+                          passes=[res], launches=launches)
+    for mode in ("graphed", "eager"):
+        r = runs[mode]
+        box = {}
+        with mode_of(mode):
+            r["prof"] = _profiled(torch, lambda: box.setdefault(
+                "res", r["engine"].serve(r["reqs"], warmup=False)))
+        r["passes"].append(box["res"])
+        r["psvc"] = box["res"].summary["service_s"]
+        r["caps"] = [g.captures for g in r["graphs"]]
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    g, e = runs["graphed"], runs["eager"]
+    what = f"compiled serving {name} --backend {backend}"
+    if g["warm_caps"] != [1] or g["caps"] != [1] or any(e["caps"]):
+        raise AssertionError(f"{what}: captures graphed {g['warm_caps']} "
+                             f"in warmup, {g['caps']} after serving; eager "
+                             f"{e['caps']}")
+    for gp, ep in zip(g["passes"], e["passes"]):
+        if sorted(gp.outputs) != sorted(ep.outputs) or any(
+                not np.array_equal(y.view(np.int32),
+                                   ep.outputs[rid].view(np.int32))
+                for rid, y in gp.outputs.items()):
+            raise AssertionError(f"{what}: outputs differ from eager")
+    if g["store"].stats() != e["store"].stats():
+        raise AssertionError(f"{what}: cache counters graphed "
+                             f"{g['store'].stats()} against eager "
+                             f"{e['store'].stats()}")
+    batches = g["passes"][0].summary["batches"]
+    want = ((3 * (batches + 2), 3 * (batches + 1)) if backend == "kernel"
+            else (0, 0))
+    got = (g["launches"]["masked_matmul"], e["launches"]["masked_matmul"])
+    if got != want or any(v for k, v in g["launches"].items()
+                          if "masked_matmul" not in k):
+        raise AssertionError(f"{what}: masked_matmul launches graphed, eager "
+                             f"{got}, expected {want}; {g['launches']}")
+
+    def figs(r):
+        sm = [p.summary for p in r["passes"]]
+        return (f"service_s {[x['service_s'] for x in sm]}, p50 "
+                f"{[x['p50_ms'] for x in sm]} ms, p99 "
+                f"{[x['p99_ms'] for x in sm]} ms (the second pass "
+                f"profiled), warmup {r['warm_s']:.3f} s, profiled pass busy "
+                f"{_share(r['prof'][1], r['psvc'])} of its service_s "
+                f"({r['prof'][2]} host launches)")
+
+    s0 = g["passes"][0].summary
+    log(f"{what}: outputs and cache counters bit-equal to eager, "
+        f"{s0['requests']} requests in {batches} batches a pass, hit rate "
+        f"{s0['cache_hit_rate']}; masked_matmul launches {got[0]} (eager "
+        f"{got[1]}); captures of the forward {g['caps']}, in warmup, "
+        f"replays {[x.replays for x in g['graphs']]}, capture "
+        f"{sum(x.capture_s for x in g['graphs']):.3f} s; graphed "
+        f"{figs(g)}; eager {figs(e)}; peak of both {peak:.3f} GiB above held; "
+        f"the graphed forward's capture held "
+        f"{_hold_figs(_graph_hold(torch, g['graphs']))}")
+    return g["launches"]
+
+
+def serve_compiled(torch, counters):
+    """Phase 18's serving cells: the MLP at ``SERVE_ARGS`` on the kernel
+    and vmap backends (the ``ref`` backend's graph is held to eager by the
+    card tests), smallcnn and each smoke arch at ``SERVE_MODEL_ARGS``.
+    The full-width cells are phase 13 (b)'s.  Returns the graphed runs'
+    launches summed."""
+    from repro_torch.configs import SMOKE_ARCHS
+
+    runs = [serve_cell(torch, counters, "mlp", backend, SERVE_ARGS)
+            for backend in ("kernel", "vmap")]
+    for name in ["smallcnn"] + sorted(SMOKE_ARCHS):
+        runs.append(serve_cell(torch, counters, name, "vmap",
+                               SERVE_MODEL_ARGS))
+    return _sum_launches(runs)
+
+
 def compiled_path(torch, train, counters, lm_fp32, lm_bf16):
     """Phase 18: the compiled steps.  Returns the graphed runs' launches
     summed and the gemma3-1b figures per dtype."""
@@ -3806,6 +4014,9 @@ def compiled_path(torch, train, counters, lm_fp32, lm_bf16):
     t_loop = time.perf_counter()
     runs.append(loop_compiled(torch, train, counters))
     log(f"compiled loop-engine cells: {time.perf_counter() - t_loop:.1f} s")
+    t_serve = time.perf_counter()
+    runs.append(serve_compiled(torch, counters))
+    log(f"compiled serving cells: {time.perf_counter() - t_serve:.1f} s")
     log(f"compiled phase: {time.perf_counter() - t0:.1f} s")
     return _sum_launches(runs), figs
 

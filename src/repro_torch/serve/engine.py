@@ -14,7 +14,10 @@ Latency accounting, as the reference's: arrivals are *virtual*
 (seed-derived, ``batcher.RequestStream``) while the launch is wall-clock
 measured end to end — slot acquisition (miss decodes included), input
 placement and copy, the batched forward, a device synchronise and the copy
-of the outputs back to the host.  A request's reported latency is its
+of the outputs back to the host.  The forward is compiled
+(``utils.graph.graphed``: a CUDA graph on the card, as the reference
+jits it); ``warmup()`` takes its capture, so none lands in a request's
+service time.  A request's reported latency is its
 virtual queue wait plus the wall service time of its launch.  p50/p99
 latency and requests/s stream as JSON lines through
 ``sim.report.MetricsStream``.
@@ -119,9 +122,9 @@ class ServeEngine:
 
     def warmup(self) -> float:
         """One throwaway pool-wide launch (zero inputs, current pool) so
-        first-call costs (kernel build and load, allocator growth) never
-        land in a request's latency.  Touches no slots and no counters.
-        Returns its seconds."""
+        first-call costs (kernel build and load, allocator growth, on the
+        card the forward's capture) never land in a request's latency.
+        Touches no slots and no counters.  Returns its seconds."""
         x0 = self.model.make_input(0)
         x_pool = np.zeros((self.store.cache_size,) + x0.shape,
                           dtype=x0.dtype)

@@ -18,6 +18,19 @@ Three adapters cover the repo's model families, as in the reference:
 ``vmap`` backend (``torch.func.vmap`` of the per-user forward) applies, and
 any other raises ``ValueError``.
 
+Every pool-wide forward is compiled as the reference jits it: through
+``utils.graph.graphed``, built at first use (``MLPModel`` one per backend),
+so on the card it is a CUDA graph captured by the engine's ``warmup()``
+and replayed for every batch (eager on CPU tensors and under
+``graph.disabled()``).  The pool's params and masks are donated: the
+capture reads the store's pool in place, never copies it, and so a model
+serves one store (on the card, another store's pool of the same shapes
+raises ``ValueError``); the request inputs are copied into the capture's
+own buffer.  Until ``release()`` each capture keeps its store's pool and
+its own memory pool (the forward's activations) alive.  ``graphs()``
+lists a model's compiled forwards (captures, replays, ``capture_s``,
+``release()``).
+
 Params are plain nested dicts of tensors keyed as the reference's.  A
 reference tree (numpy leaves, ``np.asarray`` of its jax arrays) becomes a
 port tree through ``repro_torch.checkpoint.npz.tree_from_numpy``, bit for
@@ -35,6 +48,7 @@ from repro_torch.kernels.masked_matmul import (
     batched_masked_matmul_plain,
 )
 from repro_torch.models import bind
+from repro_torch.utils.graph import Graphed, graphed
 
 PyTree = Any
 
@@ -65,6 +79,7 @@ class MLPModel:
         self.dims = (self.d_in, *[int(w) for w in widths], int(n_out))
         self.rows = int(rows)
         self._keys = [f"layer{i}" for i in range(len(self.dims) - 1)]
+        self._jfwd: dict[str, Graphed] = {}
 
     def init(self, gen: torch.Generator, device="cpu") -> PyTree:
         """Lecun-normal weights drawn from ``gen`` (on the generator's
@@ -90,24 +105,40 @@ class MLPModel:
                 h = torch.relu(h)
         return h
 
-    def batched_forward(self, params_stack: PyTree, masks_stack: PyTree,
-                        xs: torch.Tensor, backend: str = "vmap"
-                        ) -> torch.Tensor:
-        """xs: (U, rows, d_in) -> (U, rows, n_out); one launch per layer."""
+    def _build(self, backend: str) -> Graphed:
+        """The compiled pool-wide forward ``fwd(ps, ms, xs)`` of one
+        backend."""
         if backend == "vmap":
-            return torch.func.vmap(self.forward)(params_stack, xs)
+            def fwd(ps, ms, xs):
+                del ms  # params are already w ⊙ m
+                return torch.func.vmap(self.forward)(ps, xs)
+            return graphed(fwd, donate=(0, 1))
         if backend == "ref":
             bmm = batched_masked_matmul_plain
         elif backend == "kernel":
             bmm = batched_masked_matmul
         else:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend}")
-        h = xs
-        for i, name in enumerate(self._keys):
-            h = bmm(h, params_stack[name]["w"], masks_stack[name]["w"])
-            if i < len(self._keys) - 1:
-                h = torch.relu(h)
-        return h
+
+        def fwd(ps, ms, xs):
+            h = xs
+            for i, name in enumerate(self._keys):
+                h = bmm(h, ps[name]["w"], ms[name]["w"])
+                if i < len(self._keys) - 1:
+                    h = torch.relu(h)
+            return h
+        return graphed(fwd, donate=(0, 1))
+
+    def batched_forward(self, params_stack: PyTree, masks_stack: PyTree,
+                        xs: torch.Tensor, backend: str = "vmap"
+                        ) -> torch.Tensor:
+        """xs: (U, rows, d_in) -> (U, rows, n_out); one launch per layer."""
+        if backend not in self._jfwd:
+            self._jfwd[backend] = self._build(backend)
+        return self._jfwd[backend](params_stack, masks_stack, xs)
+
+    def graphs(self) -> list[Graphed]:
+        return list(self._jfwd.values())
 
     def backends(self) -> tuple[str, ...]:
         return BACKENDS
@@ -120,7 +151,29 @@ def _vmap_only(name: str, backend: str) -> None:
             f"applies, got {backend}")
 
 
-class TaskModel:
+class _VmapForward:
+    """The vmap-only families' compiled pool-wide forward: ``forward``
+    vmapped over the users, built at first use."""
+
+    _jfwd: Graphed | None = None
+
+    def batched_forward(self, params_stack: PyTree, masks_stack: PyTree,
+                        xs: torch.Tensor, backend: str = "vmap"
+                        ) -> torch.Tensor:
+        del masks_stack  # params are already w ⊙ m
+        _vmap_only(self._name(), backend)
+        if self._jfwd is None:
+            self._jfwd = graphed(torch.func.vmap(self.forward), donate=(0,))
+        return self._jfwd(params_stack, xs)
+
+    def graphs(self) -> list[Graphed]:
+        return [] if self._jfwd is None else [self._jfwd]
+
+    def backends(self) -> tuple[str, ...]:
+        return ("vmap",)
+
+
+class TaskModel(_VmapForward):
     """Serve an FL ``Task``'s model family (conv CNNs): request = one image
     batch ``(rows, hw, hw, in_ch)``, response = class logits.  vmap
     backend only."""
@@ -143,18 +196,11 @@ class TaskModel:
     def forward(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
         return self.task.apply_fn(params, x)
 
-    def batched_forward(self, params_stack: PyTree, masks_stack: PyTree,
-                        xs: torch.Tensor, backend: str = "vmap"
-                        ) -> torch.Tensor:
-        del masks_stack  # params are already w ⊙ m
-        _vmap_only(f"TaskModel ({self.task.name})", backend)
-        return torch.func.vmap(self.forward)(params_stack, xs)
-
-    def backends(self) -> tuple[str, ...]:
-        return ("vmap",)
+    def _name(self) -> str:
+        return f"TaskModel ({self.task.name})"
 
 
-class ArchModel:
+class ArchModel(_VmapForward):
     """Serve a registered LM config as a one-step scorer: prefill
     ``prompt_len`` tokens (``rows`` prompts per request), return the last
     position's logits ``(rows, vocab)``.  VLMs get a zero patch prefix of
@@ -193,12 +239,5 @@ class ArchModel:
         logits, _ = self.api.prefill(params, batch, cache)
         return logits[:, -1, :]
 
-    def batched_forward(self, params_stack: PyTree, masks_stack: PyTree,
-                        xs: torch.Tensor, backend: str = "vmap"
-                        ) -> torch.Tensor:
-        del masks_stack  # params are already w ⊙ m
-        _vmap_only(f"ArchModel ({self.cfg.name})", backend)
-        return torch.func.vmap(self.forward)(params_stack, xs)
-
-    def backends(self) -> tuple[str, ...]:
-        return ("vmap",)
+    def _name(self) -> str:
+        return f"ArchModel ({self.cfg.name})"

@@ -22,15 +22,22 @@ The LRU cache is a *slot pool*: one preallocated ``(cache_size, ...)``
 tensor per leaf on the store's device, holding the unpacked dense-masked
 models of the ``cache_size`` most recently served users.  The pool IS the
 batched launch operand, so a hit moves zero parameter bytes.  A miss
-decodes the user's frame on the pool's device — an fp32 frame by
-``codec.decode_dense`` (the frame's bytes cross to the device once), an
-fp16 frame leaf by leaf through the flat fold's fp16 entry into fp32 zeros
-(``sparse.ops.decode``: one fold launch per leaf on the card, each value
-widened exactly, as the reference's fp32 pool widens it on write) — and
-writes its slot in place (``pool[slot].copy_``); the pool is never
-rebuilt.  The LRU order and the
-``hits`` / ``misses`` / ``evictions`` counters follow the reference's step
-for step.
+decodes the user's frame on the pool's device straight into its slot —
+an fp32 frame by ``codec.decode_dense`` (the frame's bytes cross to the
+device once), an fp16 frame through the flat fold's fp16 entry, every
+leaf with one read-back (``sparse.ops.decode_into``: one fold launch per
+leaf on the card, each value widened exactly, as the reference's fp32
+pool widens it on write) — so the decoded model is held once, in the
+pool, with no entry buffer and no slot write (the reference's
+buffer-donating jit writes a decoded tree into its slot; ``PERF.md`` §6
+times that write, compiled and as a per-leaf ``copy_``, against none).
+The pool is never rebuilt.  The LRU order and the ``hits`` / ``misses``
+/ ``evictions`` counters follow the reference's step for step.  A frame
+that fails ``codec.check_frame`` (header, length) raises before any slot
+changes, as the reference's decode does; one whose bitmap disagrees with
+its value count is found only while it decodes into its slot, which is
+then left free: the user it was taken from is no longer resident, and no
+eviction is counted.
 """
 from __future__ import annotations
 
@@ -44,12 +51,13 @@ import torch
 from repro_torch.obs import CounterSet, SeriesSet, get_tracer, span
 from repro_torch.sparse.codec import (
     TreeSpec,
+    check_frame,
     decode,
     decode_dense,
     encode,
     encoded_nbytes,
 )
-from repro_torch.sparse.ops import decode as decode_leaf
+from repro_torch.sparse.ops import decode_into
 from repro_torch.sparse.packed import (
     PackedSparse,
     is_packed,
@@ -60,9 +68,7 @@ from repro_torch.utils.tree import (
     tree_index,
     tree_leaves,
     tree_map,
-    tree_ones_like,
     tree_unflatten_like,
-    tree_unzip,
 )
 
 PyTree = Any
@@ -151,13 +157,6 @@ class ModelStore:
             self._slot_handles[slot] = tr.begin(
                 f"user:{user}", track=f"slot/{slot}", user=user)
 
-    def _write(self, slot: int, entry: dict) -> None:
-        """Copy one unpacked model into pool slot ``slot``, in place."""
-        for key in ("params", "masks"):
-            for buf, x in zip(tree_leaves(self._pool[key]),
-                              tree_leaves(entry[key])):
-                buf[slot].copy_(x)
-
     def acquire(self, user: int) -> int:
         """Slot index of the user's unpacked model, loading it into the
         pool on a miss (evicting the least recently served user if full).
@@ -172,37 +171,52 @@ class ModelStore:
         t0 = time.perf_counter()
         with span("store.miss_decode", track="store", user=user) as sp:
             frame = self._frames.get(user)
-            if frame is None:
-                entry = {"params": self.base,
-                         "masks": tree_ones_like(self.base)}
-            else:
-                # one decode on the pool's device: the serving hot path
-                params, masks = self._decode(frame)
-                entry = {"params": params, "masks": masks}
-                sp.attrs["nbytes"] = len(frame)
-            if self._free:
-                slot = self._free.pop()
-            else:
+            if frame is not None:
+                # a malformed frame raises here, the store as it was
+                check_frame(frame, self.spec)
+            evicted = not self._free
+            if evicted:
                 _, slot = self._slot_of.popitem(last=False)
-                self._c_evictions.inc()
+            else:
+                slot = self._free.pop()
             self._end_residency(slot)
-            self._write(slot, entry)
+            try:
+                self._load(slot, frame)
+            except BaseException:
+                self._free.append(slot)
+                raise
+            if evicted:
+                self._c_evictions.inc()
+            if frame is not None:
+                sp.attrs["nbytes"] = len(frame)
             self._slot_of[user] = slot
             self._begin_residency(slot, user)
         self._h_miss_s.add(time.perf_counter() - t0)
         return slot
 
-    def _decode(self, frame: bytes) -> tuple[PyTree, PyTree]:
-        """(params, masks) of one frame on the pool's device: fp32 frames
-        in one dense decode, fp16 frames folded leaf by leaf into fp32."""
-        if self.payload_dtype == np.float32:
-            return decode_dense(frame, self.spec, device=self.device)
-        packed = tree_map(
-            lambda p: PackedSparse(bitmap=p.bitmap.to(self.device),
-                                   values=p.values.to(self.device),
-                                   shape=p.shape),
-            decode(frame, self.spec), is_leaf=is_packed)
-        return tree_unzip(tree_map(decode_leaf, packed, is_leaf=is_packed))
+    def _load(self, slot: int, frame: Optional[bytes]) -> None:
+        """Decode ``frame`` straight into pool slot ``slot`` (the serving
+        hot path): fp32 frames in one dense decode, fp16 frames' leaves
+        folded into fp32 with one read-back; no frame: the base with an
+        all-ones mask."""
+        params, masks = (tree_index(self._pool[k], slot)
+                         for k in ("params", "masks"))
+        if frame is None:
+            for buf, x in zip(tree_leaves(params), tree_leaves(self.base)):
+                buf.copy_(x)
+            for buf in tree_leaves(masks):
+                buf.fill_(1.0)
+        elif self.payload_dtype == np.float32:
+            decode_dense(frame, self.spec, device=self.device,
+                         out=(params, masks))
+        else:
+            decode_into([
+                (PackedSparse(bitmap=p.bitmap.to(self.device),
+                              values=p.values.to(self.device),
+                              shape=p.shape), num, den)
+                for p, num, den in zip(
+                    tree_leaves(decode(frame, self.spec), is_leaf=is_packed),
+                    tree_leaves(params), tree_leaves(masks))])
 
     def get(self, user: int) -> tuple[PyTree, PyTree]:
         """The user's unpacked (dense-masked params, mask) — bit-exact vs

@@ -197,15 +197,31 @@ def encode(packed: PyTree) -> bytes:
     return out
 
 
-def _frame_words(data: bytes, spec: TreeSpec):
-    """Parse one frame's header and pull out (bitmap words, values, nnz) as
-    host arrays — the shared prelude of ``decode`` / ``decode_dense``."""
+def check_frame(data: bytes, spec: TreeSpec) -> tuple[Any, int]:
+    """(value dtype, nnz) of one frame, after checking its header and that
+    it holds every byte a decode over ``spec`` reads.  What it cannot
+    see without unpacking the bitmap: whether the bitmap holds ``nnz``
+    bits (a decode raises where it does not)."""
+    if len(data) < HEADER_NBYTES:
+        raise ValueError(f"frame of {len(data)} bytes has no header")
     magic, version, code, nnz = _HEADER.unpack_from(data, 0)
     if magic != MAGIC:
         raise ValueError(f"bad magic 0x{magic:04x}")
     if version != VERSION:
         raise ValueError(f"unsupported codec version {version}")
     dtype = _CODE_DTYPES[code]
+    need = (HEADER_NBYTES + bitmap_nbytes(spec.n_coords)
+            + np.dtype(dtype).itemsize * nnz)
+    if len(data) < need:
+        raise ValueError(f"frame holds {len(data)} bytes, its header and "
+                         f"schema need {need}")
+    return dtype, nnz
+
+
+def _frame_words(data: bytes, spec: TreeSpec):
+    """Parse one frame's header and pull out (bitmap words, values, nnz) as
+    host arrays — the shared prelude of ``decode`` / ``decode_dense``."""
+    dtype, nnz = check_frame(data, spec)
     n_coords = spec.n_coords
     off = HEADER_NBYTES
     nb_bitmap = bitmap_nbytes(n_coords)
@@ -242,9 +258,12 @@ def decode(data: bytes, spec: TreeSpec) -> PyTree:
 
 
 def decode_dense(data: bytes, spec: TreeSpec, mask_dtype=torch.float32,
-                 device="cpu") -> tuple[PyTree, PyTree]:
+                 device="cpu", out=None) -> tuple[PyTree, PyTree]:
     """Decode one frame straight to dense leaves: ``(params, masks)`` trees
     of tensors on ``device``, bit-exact vs ``unpack_tree(decode(...))``.
+    With ``out``, a ``(params, masks)`` pair of trees of the schema's
+    shapes (contiguous, on ``device``), the frame is decoded into those
+    tensors in place, and ``out`` is returned.
 
     This is the serving hot path (a cache miss stands between a request
     and its launch): the frame's words and values go to ``device`` once,
@@ -258,20 +277,27 @@ def decode_dense(data: bytes, spec: TreeSpec, mask_dtype=torch.float32,
         words, values, nnz = _frame_words(data, spec)
         words = words_from_numpy(words, device)
         values = torch.from_numpy(values).to(device)
+        into = None if out is None else [tree_leaves(t) for t in out]
         params, masks, pos, vpos = [], [], 0, 0
-        for shape in spec.shapes:
+        for i, shape in enumerate(spec.shapes):
             n = int(np.prod(shape))
             w0, w1 = pos // BITS_PER_WORD, n_words(pos + n)
             lo = pos - w0 * BITS_PER_WORD
             flags = unpack_bits(words[w0:w1], lo + n)[lo:]
             k = int(flags.sum())
-            dense = torch.zeros(n, dtype=values.dtype, device=device)
-            dense[flags] = values[vpos:vpos + k]
-            params.append(dense.reshape(shape))
-            masks.append(flags.reshape(shape).to(mask_dtype))
+            if into is None:
+                dense = torch.zeros(n, dtype=values.dtype, device=device)
+                params.append(dense.reshape(shape))
+                masks.append(flags.reshape(shape).to(mask_dtype))
+            else:
+                dense = into[0][i].view(-1).zero_()
+                into[1][i].view(-1).copy_(flags)
+            dense[flags] = values[vpos:vpos + k].to(dense.dtype)
             pos += n
             vpos += k
         if vpos != nnz:
             raise ValueError(
                 f"frame carries {nnz} values, schema holds {vpos}")
+        if out is not None:
+            return out
         return spec.unflatten(params), spec.unflatten(masks)

@@ -68,22 +68,29 @@ def accumulate(num: torch.Tensor, den: torch.Tensor, ps: PackedSparse,
     return num, den
 
 
-def _zero_accumulators(ps: PackedSparse):
-    """(num, den) to decode ``ps`` into.  ``num`` starts at -0.0, so the
-    fold's ``num + 1 * v`` keeps every held value's bits, a held -0.0
-    included, and an empty coordinate ends at +0.0 (-0 + +0 = +0): bit for
-    bit the reference's scatter into zeros."""
-    dev = ps.values.device
-    return (torch.full(ps.shape, -0.0, dtype=torch.float32, device=dev),
-            torch.zeros(ps.shape, dtype=torch.float32, device=dev))
+def decode_into(decodes) -> None:
+    """Decode each ``(payload, num, den)`` of ``decodes`` into its
+    contiguous float32 ``num`` and ``den`` of the payload's shape, in
+    place, with one read-back for all (``packed_accum_all``).  ``num``
+    starts at -0.0, so the fold's ``num + 1 * v`` keeps every held value's
+    bits, a held -0.0 included, and an empty coordinate ends at +0.0
+    (-0 + +0 = +0): bit for bit the reference's scatter into zeros."""
+    packed_accum_all([(num.view(-1).fill_(-0.0), den.view(-1).zero_(),
+                       ps.bitmap, ps.values, 1.0)
+                      for ps, num, den in decodes])
+
+
+def _accumulators(ps: PackedSparse):
+    """Float32 (num, den) of ``ps``'s shape on its device, to decode into."""
+    return tuple(torch.empty(ps.shape, dtype=torch.float32,
+                             device=ps.values.device) for _ in range(2))
 
 
 def decode(ps: PackedSparse):
     """(w ⊙ m, m) of one payload in float32, by folding it into zero
     accumulators (not counted in ``COUNTERS``)."""
-    num, den = _zero_accumulators(ps)
-    packed_accum_all([(num.view(-1), den.view(-1), ps.bitmap, ps.values,
-                       1.0)])
+    num, den = _accumulators(ps)
+    decode_into([(ps, num, den)])
     return num, den
 
 
@@ -93,16 +100,15 @@ def decode_tree(packed: PyTree):
     (``sparse.packed/tree_unpacks``, a ``codec.unpack_tree`` span)."""
     with span("codec.unpack_tree", track="codec"):
         _packed.OBS.counter("tree_unpacks").inc()
-        folds = []
+        decodes = []
 
         def start(ps):
-            num, den = _zero_accumulators(ps)
-            folds.append((num.view(-1), den.view(-1), ps.bitmap, ps.values,
-                          1.0))
+            num, den = _accumulators(ps)
+            decodes.append((ps, num, den))
             return num, den
 
         out = tree_unzip(tree_map(start, packed, is_leaf=is_packed))
-        packed_accum_all(folds)
+        decode_into(decodes)
         return out
 
 

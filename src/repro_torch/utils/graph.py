@@ -24,10 +24,15 @@ output, or an element of a tuple output, with the argument's tree
 structure, shapes and dtypes), so the caller's state is updated in place
 and held once, as XLA reuses a donated buffer.  A donated argument with no
 matching output is read in place, never copied (read-only state: the
-masks of a train step, the params of a decode).  Passing the same tensors
-again costs no copy; other tensors are copied into those buffers.  Other
-outputs are returned as fresh tensors, so a later replay never overwrites
-a result the caller holds.
+masks of a train step, the params of a decode, a serving pool): every
+call of its signature must pass the capture's own tensors there, and
+other tensors raise ``ValueError``, since copying them in would overwrite
+tensors their owner still reads.  A donated argument with a matching
+output costs no copy when it is passed the same tensors again; other
+tensors are copied into those buffers.  Other outputs are returned as
+fresh tensors, so a later replay never overwrites a result the caller
+holds.  A capture keeps its donated tensors and its memory pool alive
+until ``release()``.
 
 The kernel wrappers count a launch in Python where they call their C
 entry, which a capture runs once and a replay not at all.  So ``graphed``
@@ -124,12 +129,15 @@ def _same_layout(a: list, b: list) -> bool:
 
 
 class _Capture:
-    """One input signature's graph: static inputs, the outputs it writes,
-    which of them alias a donated argument, and its counter delta."""
+    """One input signature's graph: static inputs and which of them are
+    donated with no matching output, the outputs it writes, which of them
+    alias a donated argument, and its counter delta."""
 
-    def __init__(self, graph, inputs, out_spec, outputs, aliased, delta):
+    def __init__(self, graph, inputs, read_only, out_spec, outputs, aliased,
+                 delta):
         self.graph = graph
         self.inputs = inputs
+        self.read_only = read_only
         self.out_spec = out_spec
         self.outputs = outputs
         self.aliased = aliased
@@ -171,9 +179,15 @@ class Graphed:
             cap = self._capture(args, leaves, spec)
             self._graphs[key] = cap
         else:
-            for static, x in zip(cap.inputs, leaves):
-                if x is not static:      # None is static
-                    static.copy_(x)
+            moved = [i for i, (static, x) in enumerate(zip(cap.inputs, leaves))
+                     if x is not static]         # None is static
+            if any(cap.read_only[i] for i in moved):
+                raise ValueError(
+                    "a donated argument with no matching output is read in "
+                    "place: pass its capture's own tensors (copying others "
+                    "in would overwrite them)")
+            for i in moved:
+                cap.inputs[i].copy_(leaves[i])
         cap.graph.replay()
         self.replays += 1
         build.add_launch_counts(cap.delta)
@@ -253,7 +267,10 @@ class Graphed:
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         outputs = [o if d is None else d for o, d in zip(out_leaves, targets)]
-        return _Capture(graph, static, out_spec, outputs,
+        written = {id(d) for d in targets if d is not None}
+        read_only = [x is not None and x is leaf and id(x) not in written
+                     for x, leaf in zip(static, leaves)]
+        return _Capture(graph, static, read_only, out_spec, outputs,
                         [d is not None for d in targets], delta)
 
 

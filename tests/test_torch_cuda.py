@@ -1242,3 +1242,133 @@ def test_tree_fold_refusal_on_card(cuda_device):
     for f, (n0, d0) in zip(good, [before[0], before[2]]):
         want = pa.packed_accum_plain(n0, d0, *f[2:])
         assert torch.equal(f[0], want[0]) and torch.equal(f[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# the serving path compiled: pool-wide forwards and the slot write as CUDA
+# graphs, captured in ``ServeEngine.warmup()``
+# ---------------------------------------------------------------------------
+
+SERVE_GRAPH_CASES = [("mlp", "vmap"), ("mlp", "ref"), ("mlp", "kernel"),
+                     ("smallcnn", "vmap"), ("gemma3-1b", "vmap"),
+                     ("qwen3-moe-30b-a3b", "vmap"), ("mamba2-1.3b", "vmap"),
+                     ("jamba-1.5-large-398b", "vmap"),
+                     ("llava-next-mistral-7b", "vmap"),
+                     ("seamless-m4t-large-v2", "vmap")]
+
+
+def _serve_world(cuda_device, name):
+    """A fresh model and store on the card (users drawn on the CPU from
+    seeds, as the serving CLI draws them): 6 users, 3 slots."""
+    from repro_torch.configs import SMOKE_ARCHS
+    from repro_torch.core.masks import apply_mask, init_mask
+    from repro_torch.fl.base import make_cnn_task
+    from repro_torch.serve import ArchModel, MLPModel, ModelStore, TaskModel
+    from repro_torch.utils.tree import tree_map
+
+    if name == "mlp":
+        model = MLPModel(d_in=64, widths=(128, 128), n_out=32, rows=4)
+    elif name == "smallcnn":
+        model = TaskModel(make_cnn_task("smallcnn", 10, 8, width=4,
+                                        device="cpu"), hw=8)
+    else:
+        model = ArchModel(SMOKE_ARCHS[name], prompt_len=4)
+    to = lambda t: tree_map(lambda x: x.to(cuda_device), t)  # noqa: E731
+    store = ModelStore(to(model.init(torch.Generator().manual_seed(0))),
+                       cache_size=3)
+    gen = torch.Generator().manual_seed(1)
+    for u in range(6):
+        p = model.init(gen)
+        m = init_mask(gen, p, 0.5)
+        store.put(u, to(apply_mask(p, m)), to(m))
+    return model, store
+
+
+def _serve_on_card(cuda_device, name, backend, eager):
+    """Serve one request stream (``warmup()`` called first, on its own);
+    returns the result, store, model, the captures ``warmup()`` took and
+    the masked-matmul launches of warmup and serving."""
+    import contextlib
+
+    from repro_torch.serve import RequestStream, ServeEngine
+    from repro_torch.utils import graph
+
+    model, store = _serve_world(cuda_device, name)
+    engine = ServeEngine(store, model, backend=backend, max_batch=3)
+    reqs = RequestStream(n_users=6, n_requests=24, seed=3).requests()
+    launches = mmk.LAUNCHES
+    with graph.disabled() if eager else contextlib.nullcontext():
+        engine.warmup()
+        warm = [g.captures for g in model.graphs()]
+        res = engine.serve(reqs, warmup=False)
+    torch.cuda.synchronize()
+    assert [g.captures for g in model.graphs()] == warm
+    return res, store, model, warm, mmk.LAUNCHES - launches
+
+
+@pytest.mark.parametrize("name,backend", SERVE_GRAPH_CASES)
+def test_serving_graphed_equals_eager_on_card(cuda_device, name, backend):
+    """Graphed serving is bit-equal to the same serving under
+    ``graph.disabled()`` (outputs and cache counters); ``warmup()`` takes
+    exactly one capture of the forward, and serving takes none; the
+    kernel backend launches the masked matmul
+    3 x (batches + 2) times (the capturing call's eager warm-up and its
+    replay, then one replay a batch), eagerly 3 x (batches + 1)."""
+    res_g, st_g, model_g, warm_g, mm_g = _serve_on_card(
+        cuda_device, name, backend, eager=False)
+    res_e, st_e, model_e, warm_e, mm_e = _serve_on_card(
+        cuda_device, name, backend, eager=True)
+    assert warm_g == [1] and warm_e == [0]
+    (fwd,) = model_g.graphs()
+    assert fwd.replays == res_g.summary["batches"] + 1
+    assert sorted(res_g.outputs) == sorted(res_e.outputs)
+    for rid, y in res_g.outputs.items():
+        assert np.isfinite(y).all()
+        assert np.array_equal(y.view(np.int32),
+                              res_e.outputs[rid].view(np.int32))
+    assert st_g.stats() == st_e.stats() and st_g.evictions > 0
+    batches = res_g.summary["batches"]
+    if backend == "kernel":
+        assert (mm_g, mm_e) == (3 * (batches + 2), 3 * (batches + 1))
+    else:
+        assert mm_g == mm_e == 0
+
+
+@pytest.mark.parametrize("name,backend", [("mlp", "kernel"),
+                                          ("gemma3-1b", "vmap")])
+def test_serving_graph_reads_the_store_pool_in_place(cuda_device, name,
+                                                     backend):
+    """The forward's capture takes the store's own pool tensors as its
+    static inputs (``data_ptr`` equal), and the request inputs as a copy;
+    a second store's pool, which a replay would have to copy over the
+    first's, is refused, and the first store's pool stays as it was."""
+    from repro_torch.serve import RequestStream, ServeEngine
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    res, store, model, _, _ = _serve_on_card(cuda_device, name, backend,
+                                             eager=False)
+    (fwd,) = model.graphs()
+    (cap,) = fwd._graphs.values()
+    pool = tree_leaves(store.pool_params)
+    if name == "mlp":
+        pool += tree_leaves(store.pool_masks)
+    static = [x for x in cap.inputs if x is not None]
+    # the arguments' leaves in order: the pool's, then the inputs' one
+    assert len(static) == len(pool) + 1
+    assert {x.data_ptr() for x in static[:-1]} == {
+        x.data_ptr() for x in pool}
+    assert static[-1].data_ptr() not in {x.data_ptr() for x in pool}
+    before = tree_map(torch.clone, store._pool)
+    _, other = _serve_world(cuda_device, name)
+    engine = ServeEngine(other, model, backend=backend, max_batch=3)
+    reqs = RequestStream(n_users=6, n_requests=8, seed=4).requests()
+    with pytest.raises(ValueError, match="read in place"):
+        engine.serve(reqs)
+    torch.cuda.synchronize()
+    assert fwd.captures == 1 and len(fwd._graphs) == 1
+    for a, b in zip(tree_leaves(store._pool), tree_leaves(before)):
+        assert torch.equal(a, b)
+    again = ServeEngine(store, model, backend=backend, max_batch=3).serve(
+        reqs)
+    assert fwd.captures == 1
+    assert all(np.isfinite(y).all() for y in again.outputs.values())
