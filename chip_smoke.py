@@ -123,7 +123,9 @@ line):
     just before and read just after (every kernel 0: these families serve
     through ``torch.func.vmap`` only, as in the reference) — each request
     bit-equal to the same request served alone through a launch of the
-    same width on the card, and within ``SERVE_CPU_TOL`` (max abs) of the
+    same width on the card, from a second store of the same users on the
+    same model (its own capture: two in all), and within ``SERVE_CPU_TOL``
+    (max abs) of the
     same store served on the CPU; its service time, p50/p99 latency and
     ``bytes_at_rest``; (b) full published width: ``ArchModel(ARCHS[...],
     prompt_len=2048)`` for gemma3-1b and then mamba2-1.3b through
@@ -135,7 +137,12 @@ line):
     and cache counters bit-equal, the mixed batch bit-equal to each
     request served alone and finite; its parameter count, graphed and
     eager prefill ms per request and prompt tokens/s (CUDA events over the
-    pool-wide forward), peak memory, ``bytes_at_rest`` (equal to the
+    pool-wide forward); for ``TWO_STORE_ARCHS`` (gemma3-1b) a second store
+    of the same shapes (A's frames over the same base) on the same model,
+    served A, B, A, graphed and eager,
+    bit-equal mode against mode and B to A's first pass, with the
+    graph-pool bytes each store's capture reserved (the captures share one
+    pool); peak memory, ``bytes_at_rest`` (equal to the
     frames' analytic size), a profiled serving run's device busy share,
     the memory the forward's capture holds until ``release()`` (device
     memory reserved and allocated before and after it); each graph
@@ -200,8 +207,11 @@ line):
     from ``ModelStore(payload_dtype=np.float16)`` holding the CLI's users
     and from the CLI's own fp32 store: ``bytes_at_rest`` the analytic
     figure at 2 and 4 bytes a value, launches as predicted (3 x (batches
-    + 2) masked matmuls each, as in phase 7; 3 fp16 flat folds per miss of
-    the fp16 store), outputs within
+    + 2) masked matmuls for the first store, as in phase 7, 3 x (batches +
+    1) for the second, whose capture needs no eager warm-up; 3 fp16 flat
+    folds per miss of the fp16 store; one model serves both stores, a
+    capture each), outputs
+    within
     ``SERVE_FP16_TOL`` of the fp32 store's, the fp16 pool equal to the fp32
     pool rounded to fp16;
 17. the single-card dry run (``repro_torch.launch.dryrun``), after phase
@@ -264,7 +274,12 @@ line):
     calls, replays, capture seconds, the peak of both engines and the
     memory the graphed forward's capture holds until ``release()``,
     graphed beside eager (the full-width cells are phase 13 (b)'s);
-19. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
+19. the port's seven examples (``examples/torch_*.py``), each one's
+    ``main`` in this process at the reference example's printed sizes
+    (``EXAMPLE_ARGS``), counters zeroed just before each: its wall
+    seconds, the rows it prints and each C entry's launches; an example
+    that raises, or an accuracy not finite in [0, 1], fails;
+20. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
     dtypes in ``shape``).  Each row's launches are that entry's own, as
     its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
     U=1 rows ``LAUNCHES_U1_BY_ENTRY``): ``launches`` on the row's main
@@ -273,8 +288,9 @@ line):
     5), ``serve`` (7), ``sim_sync`` and ``sim_async`` (10, 11),
     ``strategies`` (12: its ten runs, its async run and its two stacked
     runs), ``serve_models`` (13), ``lm`` (14 (a) and (b)), ``obs`` (15's
-    traced runs), ``precision`` (16 (a), (c) and (d)) and ``compiled``
-    (18's graphed runs, warm-up runs included); then the last
+    traced runs), ``precision`` (16 (a), (c) and (d)), ``compiled``
+    (18's graphed runs, warm-up runs included) and ``examples`` (19);
+    then the last
     line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
     "count": ...}}``.
 
@@ -321,6 +337,11 @@ SERVE_CPU_TOL = 1e-4
 # rounded to fp16 (2^-11 relative) through three layers
 SERVE_FP16_TOL = 2.0 ** -8
 FULL_WIDTH_ARCHS = ("gemma3-1b", "mamba2-1.3b")
+# the full-width archs whose cell adds a second store on the same model:
+# mamba2-1.3b's second pool (21.5 GB) beside its first, its capture's 12.94
+# GiB and the ~8 GiB earlier phases hold leave no room for a miss's decode
+# on an NVIDIA H100 80GB HBM3 (out of memory there); gemma3-1b's fits
+TWO_STORE_ARCHS = ("gemma3-1b",)
 FULL_WIDTH_PROMPT = 2048
 LM_ARGS = ["lm", "--clients", "2", "--rounds", "2", "--steps", "4", "--seq",
            "64", "--batch-size", "2", "--tokens-per-client", "4096"]
@@ -1080,6 +1101,9 @@ def main() -> int:
     dryrun_path(torch, {"fp32": lm_fp32, "bf16": prec["lm_bf16"]})
     log(f"dry-run phase: {time.perf_counter() - t_dry:.1f} s")
 
+    # 19. the port's seven examples at the reference's sizes
+    examples_launches = examples_path(torch, counters)
+
     # every row's launches are its own C entry's (the U=1 rows the U=1
     # wrapper's), as the wrappers counted them on each path: ``launches`` on
     # the row's main path, ``launches_<path>`` on every other counted path
@@ -1088,7 +1112,8 @@ def main() -> int:
              "sim_sync": sync_launches, "sim_async": async_launches,
              "strategies": strat_launches, "serve_models": models_launches,
              "lm": lm_launches, "obs": obs_launches,
-             "precision": prec["launches"], "compiled": compiled_launches}
+             "precision": prec["launches"], "compiled": compiled_launches,
+             "examples": examples_launches}
 
     def row(name, source, replaces, entry, main, shape, r):
         timed = {key: r[key] for key in (
@@ -1187,6 +1212,68 @@ def main() -> int:
 SCALE_ARGS = ["simulate", "--scale", "--model", "resnet18", "--hw", "32",
               "--clients", "4", "--rounds", "2", "--local-epochs", "1",
               "--samples-per-class", "20"]
+
+
+EXAMPLES = ("quickstart", "custom_strategy", "heterogeneous_clients",
+            "async_gossip", "scale_mesh", "serve_personalized", "train_e2e")
+# each example's arguments here (none: the reference example's sizes)
+EXAMPLE_ARGS = {}
+
+
+def _example_accuracies(name, out):
+    """The accuracies an example reports, from what its ``main`` returns."""
+    if name == "quickstart":
+        return [a for r in out.values() for a in r.acc_history + r.final_accs]
+    if name == "custom_strategy":
+        return out.acc_history + out.final_accs
+    if name == "heterogeneous_clients":
+        return [a for r in out.values() for a in r.acc_history + r.final_accs]
+    if name == "async_gossip":
+        return [a for e in out["engines"].values() for _, a in e.acc_trace]
+    if name == "scale_mesh":
+        return out["accs"]
+    return []
+
+
+def examples_path(torch, counters):
+    """Phase 19: each port example's ``main`` in this process at the
+    reference example's printed sizes, on the card: its wall seconds, its
+    rows (it prints them) and each C entry's launches, counters zeroed
+    just before each.  An example that raises, or an accuracy that is not
+    finite in [0, 1], fails the phase.  Returns the launches summed."""
+    import importlib.util
+
+    runs, t_phase = [], time.perf_counter()
+    for name in EXAMPLES:
+        path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = EXAMPLE_ARGS.get(name, [])
+        log(f"example {name} {' '.join(argv)}:")
+        _zero(counters)
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        la = _launches(counters)
+        accs = _example_accuracies(name, out)
+        if not all(a == a and 0.0 <= a <= 1.0 for a in accs):
+            raise AssertionError(f"example {name}: accuracy not finite in "
+                                 f"[0, 1]: {accs}")
+        if name == "serve_personalized" and not all(
+                r["requests"] > 0 for r in out.values()):
+            raise AssertionError(f"example {name}: served nothing: {out}")
+        if name == "train_e2e" and not isinstance(out.get("improved"), bool):
+            raise AssertionError(f"example {name}: summary {out}")
+        ran = {k: v for k, v in la.items() if v and k not in KERNEL_TOTALS}
+        log(f"example {name}: {wall:.1f} s wall, {len(accs)} accuracies in "
+            f"[0, 1]; launches by C entry {ran}")
+        runs.append(la)
+        del out, mod
+        _release()           # what the finished example left, graphs too
+    log(f"examples phase: {time.perf_counter() - t_phase:.1f} s")
+    return _sum_launches(runs)
 
 
 def scale_path(torch, train, counters, loop_out):
@@ -1943,12 +2030,15 @@ def serve_smoke_model(torch, counters, name):
     if any(launches.values()):
         raise AssertionError(f"{name}: a kernel launched while serving "
                              f"through vmap: {launches}")
-    # a model of its own: a model serves one store (its capture reads
-    # that store's pool in place)
-    solo = cli.build_model(args.model, args.rows)
-    alone = ServeEngine(cli.build_store(args, solo, dev), solo,
+    # a second store of the same users on the same model, as the
+    # reference serves two (``tests/test_serve.py``): its warmup takes a
+    # capture for its own pool
+    alone = ServeEngine(cli.build_store(args, model, dev), model,
                         backend="vmap", max_batch=args.max_batch)
     alone.warmup()
+    caps = [g.captures for g in model.graphs()]
+    if caps != [2]:
+        raise AssertionError(f"{name}: captures {caps} for two stores")
     reqs = RequestStream(n_users=args.users, n_requests=args.requests,
                          seed=args.seed, rate=args.rate).requests()
     # in the order the batched run served them, so the LRU gives each
@@ -2052,6 +2142,33 @@ def serve_full_width(torch, counters, cfg):
                 raise AssertionError(
                     f"{cfg.name} {mode}: captures {warm_caps} in warmup, "
                     f"{[g.captures for g in graphs]} after serving")
+            # a second store of the same shapes (the same base and
+            # frames, a pool of its own) on the same model, served after
+            # the first and before it again: A, B, A
+            two, eng_b, other, res_b, res_a2 = None, None, None, None, None
+            if cfg.name in TWO_STORE_ARCHS:
+                other = ModelStore(store.base, cache_size=2)
+                other._frames = dict(store._frames)
+                other._nnz = dict(store._nnz)
+                eng_b = ServeEngine(other, model, backend="vmap",
+                                    max_batch=2)
+                eng_b.warmup()
+                res_b = eng_b.serve(reqs, warmup=False)
+                res_a2 = engine.serve(reqs, warmup=False)
+                two = dict(caps=[g.captures for g in graphs],
+                           pool_bytes=[g.pool_bytes() for g in graphs]
+                           if mode == "graphed" else [],
+                           outs=(res_b.outputs, res_a2.outputs),
+                           stats=(other.stats(), store.stats()))
+                if mode == "graphed" and two["caps"] != [2]:
+                    raise AssertionError(f"{cfg.name}: captures "
+                                         f"{two['caps']} for two stores")
+                if any(not np.array_equal(y.view(np.int32),
+                                          res.outputs[rid].view(np.int32))
+                       for rid, y in res_b.outputs.items()):
+                    raise AssertionError(f"{cfg.name} {mode}: store B (the "
+                                         "same frames) serves other bits "
+                                         "than A")
             if mode == "graphed":
                 alone = ServeEngine(store, model, backend="vmap",
                                     max_batch=2)
@@ -2082,9 +2199,10 @@ def serve_full_width(torch, counters, cfg):
             caps=[(g.captures, g.replays) for g in graphs],
             capture_s=sum(g.capture_s for g in graphs),
             at_rest=store.total_bytes_at_rest(), n_params=n_params,
-            hold=_graph_hold(torch, graphs))
+            two=two, hold=_graph_hold(torch, graphs))
         users = (store.base, store._frames, store._nnz)
-        del engine, store, model, xs, res, box, graphs
+        del engine, store, model, xs, res, box, graphs, eng_b, other, res_b
+        del res_a2
         gc.collect()
         torch.cuda.empty_cache()
     g, e = runs["graphed"], runs["eager"]
@@ -2096,6 +2214,17 @@ def serve_full_width(torch, counters, cfg):
     if g["stats"] != e["stats"]:
         raise AssertionError(f"{cfg.name}: cache counters graphed "
                              f"{g['stats']} against eager {e['stats']}")
+    for outs_g, outs_e in zip(*(r["two"]["outs"] if r["two"] else ()
+                                for r in (g, e))):
+        for rid, y in outs_g.items():
+            if not np.array_equal(y.view(np.int32),
+                                  outs_e[rid].view(np.int32)):
+                raise AssertionError(f"{cfg.name}: stores B, A graphed "
+                                     f"differ from eager at request {rid}")
+    if g["two"] and g["two"]["stats"] != e["two"]["stats"]:
+        raise AssertionError(f"{cfg.name}: two stores' counters graphed "
+                             f"{g['two']['stats']} against eager "
+                             f"{e['two']['stats']}")
     s = g["res"].summary
     log(f"full width {cfg.name}: {g['n_params']} parameters, store built in "
         f"{g['build_s']:.2f} s (from its frames {e['build_s']:.2f} s), "
@@ -2120,7 +2249,16 @@ def serve_full_width(torch, counters, cfg):
             f"run: service_s {r['psvc']} (profiler on), device busy "
             f"{_share(r['prof'][1], r['psvc'])} of it, {r['prof'][2]} host "
             f"launches")
-    log(f"  graphed: the forward's capture held {_hold_figs(g['hold'])}")
+    if g["two"]:
+        (per_store,) = g["two"]["pool_bytes"]
+        log(f"  two stores on one model (A, B, A; B holds A's frames over "
+            f"the same base): bit-equal to eager A, B, A, B to A's first "
+            f"pass; captures {g['two']['caps']}, graph-pool bytes each "
+            f"capture reserved: store A {per_store[0]} "
+            f"({per_store[0] / 2 ** 30:.3f} GiB), store B {per_store[1]} "
+            f"({per_store[1] / 2 ** 30:.3f} GiB; the captures share one "
+            f"pool)")
+    log(f"  graphed: the forward's captures held {_hold_figs(g['hold'])}")
     return launches
 
 
@@ -2889,7 +3027,8 @@ def precision_store(torch, counters, serve_args):
     """Phase 16 (d): ``serve --backend kernel`` with ``serve_args`` from an
     fp16 store and from the fp32 store of the same users: bytes at rest
     the analytic figure at 2 and 4 bytes a value, launches as predicted
-    (the masked matmul 3 x (batches + 2) each; the flat fold's fp16 entry
+    (the masked matmul 3 x (batches + 2), the second store 3 x (batches +
+    1): its capture needs no eager warm-up; the flat fold's fp16 entry
     once per leaf per miss of the fp16 store, none for the fp32 one), the
     outputs within ``SERVE_FP16_TOL`` of each other, and the fp16 pool
     equal to the fp32 pool rounded to fp16."""
@@ -2919,10 +3058,10 @@ def precision_store(torch, counters, serve_args):
         return store
 
     runs = {}
+    # one model serves both stores, each from a capture of its own pool
+    model = cli.build_model(args.model, args.rows)
     for name, make in (("fp16", fp16_store),
                        ("fp32", lambda m: cli.build_store(args, m, device))):
-        # a model for each store: a model serves one store
-        model = cli.build_model(args.model, args.rows)
         store = make(model)
         _zero(counters)
         res = cli.run_serve(args, model, store)
@@ -2937,7 +3076,10 @@ def precision_store(torch, counters, serve_args):
             raise AssertionError(f"{name} store: bytes_at_rest "
                                  f"{st.total_bytes_at_rest()} != {want}")
         folds = w_leaves * st.misses if name == "fp16" else 0
-        mm = 3 * (res.summary["batches"] + 2)
+        # the first store's capturing call runs the forward eagerly and
+        # replays it; the second store's capture, of the same signature,
+        # only replays
+        mm = 3 * (res.summary["batches"] + (2 if name == "fp16" else 1))
         if (la["masked_matmul"], la["packed_accum"]) != (mm, folds):
             raise AssertionError(f"{name} store launches {la}: expected "
                                  f"{mm} masked matmuls, {folds} folds")
@@ -2960,6 +3102,10 @@ def precision_store(torch, counters, serve_args):
         if not all(torch.equal(a, b) for a, b in
                    zip(tree_leaves(m16), tree_leaves(m32))):
             raise AssertionError(f"fp16 store: user {user}'s mask differs")
+    caps = [(g.captures, len(g.pool_bytes())) for g in model.graphs()]
+    if caps != [(2, 2)]:
+        raise AssertionError(f"fp16 and fp32 stores on one model: captures "
+                             f"{caps}")
     out["store_launches"] = {name: la for name, (_, _, la) in runs.items()}
     out["store"] = {name: (res.summary, st.total_bytes_at_rest())
                     for name, (res, st, _) in runs.items()}

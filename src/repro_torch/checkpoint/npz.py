@@ -87,3 +87,11 @@ def save_clients(dirpath: str, states: list[dict]) -> None:
     for k, st in enumerate(states):
         save_pytree(os.path.join(dirpath, f"client_{k:04d}.npz"), st)
 
+
+def load_clients(dirpath: str, device="cpu") -> list[PyTree]:
+    """The per-client trees ``save_clients`` (either package's) wrote to
+    ``dirpath``, in client order, as tensors on ``device``."""
+    files = sorted(f for f in os.listdir(dirpath) if f.endswith(".npz"))
+    return [tree_from_numpy(load_pytree(os.path.join(dirpath, f)), device)
+            for f in files]
+

@@ -113,6 +113,35 @@ def init_mask(
     return tree_map_with_path(one, params)
 
 
+def init_client_masks(
+    gen: torch.Generator,
+    params: PyTree,
+    capacities: list[float],
+    sparsifiable: Callable[[str, Any], bool] = default_sparsifiable,
+    dtype=torch.float32,
+) -> list[PyTree]:
+    """Personalized masks m_{k,0}, one per client, density = capacity c_k,
+    drawn from ``gen`` client after client."""
+    return [tree_map(lambda m: m.to(dtype),
+                     init_mask(gen, params, c, sparsifiable))
+            for c in capacities]
+
+
+def mask_density(
+    mask: PyTree,
+    params: PyTree | None = None,
+    sparsifiable: Callable[[str, Any], bool] = default_sparsifiable,
+) -> float:
+    """Achieved density over sparsifiable leaves (one read back)."""
+    ref = params if params is not None else mask
+    flags = {p: sparsifiable(p, x) for p, x in tree_leaves_with_path(ref)}
+    held = [m for p, m in tree_leaves_with_path(mask) if flags.get(p, True)]
+    if not held:
+        return 0.0
+    nnz = int(torch.stack([(m != 0).sum() for m in held]).sum())
+    return nnz / max(sum(m.numel() for m in held), 1)
+
+
 def apply_mask(params: PyTree, mask: PyTree) -> PyTree:
     """w ⊙ m (Hadamard product over the tree)."""
     return tree_map(lambda w, m: w * m.to(w.dtype), params, mask)

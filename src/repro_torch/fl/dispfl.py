@@ -67,18 +67,13 @@ class DisPFLStrategy(StrategyBase):
         match the reference restores a reference archive instead)."""
         super().init_state(task, clients, cfg)
         k_clients = len(clients)
-        params = [task.init_fn(init_generator(cfg.seed, k, 0))
-                  for k in range(k_clients)]
+        params, masks = _draw_state(task, cfg, k_clients)
         self.densities = [
             erk_densities_for_params(params[k], cfg.client_density(k))
             for k in range(k_clients)]
-        masks = [init_mask(init_generator(cfg.seed, k, 1), params[k],
-                           cfg.client_density(k))
-                 for k in range(k_clients)]
         self.budgets = [layer_nnz_budgets(params[k], self.densities[k])
                         for k in range(k_clients)]
         self.n_coords = tree_size(params[0])
-        params = [apply_mask(p, m) for p, m in zip(params, masks)]
         return {"params": params, "masks": masks}
 
     def mix(self, state: dict, ctx: RoundCtx) -> None:
@@ -209,3 +204,21 @@ def run_dispfl(task: Task, clients, cfg: FLConfig, targets=(0.5,),
     """Engine run -> FLResult."""
     return run_strategy("dispfl", task, clients, cfg, targets=targets,
                         **engine_kw)
+
+
+def _draw_state(task: Task, cfg: FLConfig, k_clients: int):
+    """K clients' ``w ⊙ m`` and Bernoulli ERK masks, each client's params
+    and mask drawn from its own generator (``init_generator``)."""
+    params = [task.init_fn(init_generator(cfg.seed, k, 0))
+              for k in range(k_clients)]
+    masks = [init_mask(init_generator(cfg.seed, k, 1), params[k],
+                       cfg.client_density(k))
+             for k in range(k_clients)]
+    return [apply_mask(p, m) for p, m in zip(params, masks)], masks
+
+
+def dispfl_state(task: Task, cfg: FLConfig):
+    """Expose (params, masks) init for tests/examples: the state a dispfl
+    run of ``cfg`` starts from, drawn from torch generators seeded by
+    ``cfg.seed`` (the reference's draws are ``jax.random``'s)."""
+    return _draw_state(task, cfg, cfg.n_clients)

@@ -167,6 +167,20 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def block_mask_from_mask(mask: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
+    """(K, N) coordinate mask -> (K/bk, N/bn) int32 block occupancy (1
+    where the tile holds a non-zero); the shape must tile evenly."""
+    return batched_block_mask(mask[None], bk, bn)[0]
+
+
+def batched_block_mask(mask: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
+    """(U, K, N) coordinate masks -> (U, K/bk, N/bn) int32 block
+    occupancy."""
+    u, k, n = mask.shape
+    mb = mask.reshape(u, k // bk, bk, n // bn, bn)
+    return ((mb != 0).sum(dim=(2, 4)) > 0).to(torch.int32)
+
+
 def block_occupancy(mask: torch.Tensor, bk: int = 128, bn: int = 128) -> float:
     """Share of (bk, bn) tiles of a (..., K, N) mask that hold a non-zero
     (reference ``kernels.ops.block_occupancy``, which takes one (K, N)
@@ -175,6 +189,5 @@ def block_occupancy(mask: torch.Tensor, bk: int = 128, bn: int = 128) -> float:
     (``TILE_K``, ``TILE_N``) tiles."""
     k, n = mask.shape[-2:]
     nz = F.pad((mask != 0).to(torch.float32), (0, (-n) % bn, 0, (-k) % bk))
-    lead = nz.shape[:-2]
-    blocks = nz.reshape(*lead, nz.shape[-2] // bk, bk, nz.shape[-1] // bn, bn)
-    return float(blocks.amax(dim=(-3, -1)).mean())
+    blocks = batched_block_mask(nz.reshape(-1, *nz.shape[-2:]), bk, bn)
+    return float(blocks.to(torch.float32).mean())

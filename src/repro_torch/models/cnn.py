@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import groupnorm, groupnorm_init, lecun_init
+from repro_torch.utils.tree import tree_leaves
 
 PyTree = Any
 
@@ -226,3 +227,7 @@ def smallcnn_fwd_flops(num_classes: int, hw: int = 32, width: int = 16,
     out["conv2/w"] = conv_flops(3, 3, 2 * width, 4 * width, h, h)
     out["fc/w"] = 2.0 * 4 * width * num_classes
     return out
+
+
+def count_params(tree: PyTree) -> int:
+    return int(sum(x.numel() for x in tree_leaves(tree)))

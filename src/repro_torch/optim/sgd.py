@@ -77,3 +77,7 @@ def masked_sgd_step(params: PyTree, grads: PyTree, mask: PyTree,
     new_params, new_mu = tree_unzip(
         tree_map(upd, params, grads, mask, state["mu"]))
     return new_params, {"mu": new_mu}
+
+
+def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
+    return tree_map(torch.add, params, updates)

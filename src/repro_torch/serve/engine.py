@@ -16,8 +16,8 @@ measured end to end — slot acquisition (miss decodes included), input
 placement and copy, the batched forward, a device synchronise and the copy
 of the outputs back to the host.  The forward is compiled
 (``utils.graph.graphed``: a CUDA graph on the card, as the reference
-jits it); ``warmup()`` takes its capture, so none lands in a request's
-service time.  A request's reported latency is its
+jits it); ``warmup()`` takes its capture for the store's pool, so none
+lands in a request's service time.  A request's reported latency is its
 virtual queue wait plus the wall service time of its launch.  p50/p99
 latency and requests/s stream as JSON lines through
 ``sim.report.MetricsStream``.
@@ -35,6 +35,7 @@ from repro_torch.device import synchronize
 from repro_torch.obs import VIRTUAL, LogHistogram, SeriesSet, get_tracer, span
 from repro_torch.serve.batcher import MicroBatcher, Request, RequestStream
 from repro_torch.serve.store import ModelStore
+from repro_torch.utils.graph import new_pools
 
 
 @dataclasses.dataclass
@@ -123,13 +124,15 @@ class ServeEngine:
     def warmup(self) -> float:
         """One throwaway pool-wide launch (zero inputs, current pool) so
         first-call costs (kernel build and load, allocator growth, on the
-        card the forward's capture) never land in a request's latency.
-        Touches no slots and no counters.  Returns its seconds."""
+        card the forward's capture for this store's pool) never land in a
+        request's latency.  Touches no slots and no counters.  Returns its
+        seconds."""
         x0 = self.model.make_input(0)
         x_pool = np.zeros((self.store.cache_size,) + x0.shape,
                           dtype=x0.dtype)
         t0 = time.perf_counter()
-        self._forward(x_pool)
+        with new_pools():
+            self._forward(x_pool)
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------------

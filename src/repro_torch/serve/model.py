@@ -22,14 +22,16 @@ Every pool-wide forward is compiled as the reference jits it: through
 ``utils.graph.graphed``, built at first use (``MLPModel`` one per backend),
 so on the card it is a CUDA graph captured by the engine's ``warmup()``
 and replayed for every batch (eager on CPU tensors and under
-``graph.disabled()``).  The pool's params and masks are donated: the
-capture reads the store's pool in place, never copies it, and so a model
-serves one store (on the card, another store's pool of the same shapes
-raises ``ValueError``); the request inputs are copied into the capture's
-own buffer.  Until ``release()`` each capture keeps its store's pool and
-its own memory pool (the forward's activations) alive.  ``graphs()``
+``graph.disabled()``).  The pool's params and masks are donated: a
+capture reads its store's pool in place, never copies it, and is keyed by
+that pool, so one model serves any number of stores of the same shapes,
+each store's ``warmup()`` taking a capture of its own (on the card, a
+pool no capture holds raises ``ValueError`` outside a warm-up); the
+request inputs are copied into the capture's own buffer.  Until
+``release()`` each capture keeps its store's pool alive, and a model's
+captures share one memory pool (the forward's activations).  ``graphs()``
 lists a model's compiled forwards (captures, replays, ``capture_s``,
-``release()``).
+``pool_bytes()``, ``release()``).
 
 Params are plain nested dicts of tensors keyed as the reference's.  A
 reference tree (numpy leaves, ``np.asarray`` of its jax arrays) becomes a

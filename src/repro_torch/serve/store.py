@@ -32,12 +32,12 @@ pool, with no entry buffer and no slot write (the reference's
 buffer-donating jit writes a decoded tree into its slot; ``PERF.md`` §6
 times that write, compiled and as a per-leaf ``copy_``, against none).
 The pool is never rebuilt.  The LRU order and the ``hits`` / ``misses``
-/ ``evictions`` counters follow the reference's step for step.  A frame
-that fails ``codec.check_frame`` (header, length) raises before any slot
-changes, as the reference's decode does; one whose bitmap disagrees with
-its value count is found only while it decodes into its slot, which is
-then left free: the user it was taken from is no longer resident, and no
-eviction is counted.
+/ ``evictions`` counters follow the reference's step for step.  A miss
+checks its frame before it picks a slot (``codec.check_bitmap``: the
+header, the length, and a host popcount of the bitmap against the
+header's value count), so a frame that fails to decode raises with the
+store as it was, as the reference's decode-first miss leaves it (the
+miss counted, every resident user still resident).
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ import torch
 from repro_torch.obs import CounterSet, SeriesSet, get_tracer, span
 from repro_torch.sparse.codec import (
     TreeSpec,
-    check_frame,
+    check_bitmap,
     decode,
     decode_dense,
     encode,
@@ -172,23 +172,17 @@ class ModelStore:
         with span("store.miss_decode", track="store", user=user) as sp:
             frame = self._frames.get(user)
             if frame is not None:
-                # a malformed frame raises here, the store as it was
-                check_frame(frame, self.spec)
-            evicted = not self._free
-            if evicted:
-                _, slot = self._slot_of.popitem(last=False)
-            else:
-                slot = self._free.pop()
-            self._end_residency(slot)
-            try:
-                self._load(slot, frame)
-            except BaseException:
-                self._free.append(slot)
-                raise
-            if evicted:
-                self._c_evictions.inc()
-            if frame is not None:
+                # a frame that fails to decode raises here, the store as
+                # it was
+                check_bitmap(frame, self.spec)
                 sp.attrs["nbytes"] = len(frame)
+            if self._free:
+                slot = self._free.pop()
+            else:
+                _, slot = self._slot_of.popitem(last=False)
+                self._c_evictions.inc()
+            self._end_residency(slot)
+            self._load(slot, frame)
             self._slot_of[user] = slot
             self._begin_residency(slot, user)
         self._h_miss_s.add(time.perf_counter() - t0)

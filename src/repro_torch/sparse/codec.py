@@ -24,7 +24,8 @@ Frames are host bytes, so encoding reads each leaf's bitmap and values back
 to the host once and joins the leaf bitmaps word by word (a shift per
 leaf, never a pass per bit).  ``decode_dense`` unpacks on the device it
 decodes to, so a serving miss moves the frame's bytes once and scatters
-there.
+there; ``check_bitmap`` refuses, on the host and before anything is
+written, a frame whose bitmap disagrees with its header.
 """
 from __future__ import annotations
 
@@ -216,6 +217,24 @@ def check_frame(data: bytes, spec: TreeSpec) -> tuple[Any, int]:
         raise ValueError(f"frame holds {len(data)} bytes, its header and "
                          f"schema need {need}")
     return dtype, nnz
+
+
+def check_bitmap(data: bytes, spec: TreeSpec) -> int:
+    """The header's nnz, after ``check_frame`` and after counting the
+    bitmap's set bits over the schema's coordinates against it (a host
+    popcount of the frame's words, read in place, no copy): a frame that
+    passes decodes.  A serving store runs it before it gives a slot up."""
+    _, nnz = check_frame(data, spec)
+    n = spec.n_coords
+    words = np.frombuffer(data, dtype="<u4", count=n_words(n),
+                          offset=HEADER_NBYTES)
+    held = int(np.bitwise_count(words).sum(dtype=np.int64))
+    tail = n % BITS_PER_WORD
+    if tail:                     # bits past the last coordinate
+        held -= int(np.bitwise_count(words[-1] >> np.uint32(tail)))
+    if held != nnz:
+        raise ValueError(f"frame carries {nnz} values, schema holds {held}")
+    return nnz
 
 
 def _frame_words(data: bytes, spec: TreeSpec):

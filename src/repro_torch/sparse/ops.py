@@ -29,7 +29,9 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.core.gossip import _intersection_avg
-from repro_torch.kernels.packed_accum import packed_accum_all
+# the module, not the name: the kernel module imports ``sparse.packed``,
+# whose package imports this module
+from repro_torch.kernels import packed_accum as _fold_kernel
 from repro_torch.obs import CounterSet, span
 from repro_torch.sparse import packed as _packed
 from repro_torch.sparse.packed import PackedSparse, is_packed
@@ -57,8 +59,9 @@ def _fold(folds: list) -> None:
     the reference's ``accumulate`` counts, with one read-back for all."""
     COUNTERS["accum_calls"] += len(folds)
     COUNTERS["accum_values"] += sum(ps.nnz for _, _, ps, _ in folds)
-    packed_accum_all([(num.view(-1), den.view(-1), ps.bitmap, ps.values,
-                       alpha) for num, den, ps, alpha in folds])
+    _fold_kernel.packed_accum_all([
+        (num.view(-1), den.view(-1), ps.bitmap, ps.values, alpha)
+        for num, den, ps, alpha in folds])
 
 
 def accumulate(num: torch.Tensor, den: torch.Tensor, ps: PackedSparse,
@@ -75,9 +78,9 @@ def decode_into(decodes) -> None:
     starts at -0.0, so the fold's ``num + 1 * v`` keeps every held value's
     bits, a held -0.0 included, and an empty coordinate ends at +0.0
     (-0 + +0 = +0): bit for bit the reference's scatter into zeros."""
-    packed_accum_all([(num.view(-1).fill_(-0.0), den.view(-1).zero_(),
-                       ps.bitmap, ps.values, 1.0)
-                      for ps, num, den in decodes])
+    _fold_kernel.packed_accum_all([
+        (num.view(-1).fill_(-0.0), den.view(-1).zero_(), ps.bitmap,
+         ps.values, 1.0) for ps, num, den in decodes])
 
 
 def _accumulators(ps: PackedSparse):

@@ -186,6 +186,11 @@ def unpack_mask_tree(packed: PyTree, dtype=torch.float32) -> PyTree:
     return tree_map(lambda p: unpack_mask(p, dtype), packed, is_leaf=is_packed)
 
 
+def tree_packed_coords(packed: PyTree) -> int:
+    """Total dense coordinate count across a packed tree."""
+    return sum(p.n_coords for p in tree_leaves(packed, is_leaf=is_packed))
+
+
 def tree_packed_nnz(packed: PyTree) -> int:
     """Total transmitted values across a packed tree."""
     return sum(p.nnz for p in tree_leaves(packed, is_leaf=is_packed))

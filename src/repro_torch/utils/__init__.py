@@ -1,1 +1,2 @@
 """Tree helpers keyed by the reference's leaf paths."""
+from repro_torch.utils import tree  # noqa: F401

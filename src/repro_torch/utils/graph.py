@@ -24,15 +24,23 @@ output, or an element of a tuple output, with the argument's tree
 structure, shapes and dtypes), so the caller's state is updated in place
 and held once, as XLA reuses a donated buffer.  A donated argument with no
 matching output is read in place, never copied (read-only state: the
-masks of a train step, the params of a decode, a serving pool): every
-call of its signature must pass the capture's own tensors there, and
-other tensors raise ``ValueError``, since copying them in would overwrite
-tensors their owner still reads.  A donated argument with a matching
+masks of a train step, the params of a decode, a serving pool): a
+capture is keyed by those tensors (their ``data_ptr`` and strides) beside
+the signature, so a call that passes them replays it.  Other tensors are
+never copied in, which would overwrite tensors their owner still reads:
+inside ``new_pools()`` (a serving engine's ``warmup()``) they take a
+capture of their own (captured and replayed, with no eager warm-up: the
+signature's first capture ran it), so one model serves any number of
+stores, and anywhere else they raise ``ValueError``.  The first call of a
+signature always captures.  A donated argument with a matching
 output costs no copy when it is passed the same tensors again; other
 tensors are copied into those buffers.  Other outputs are returned as
 fresh tensors, so a later replay never overwrites a result the caller
-holds.  A capture keeps its donated tensors and its memory pool alive
-until ``release()``.
+holds.  A capture keeps its donated tensors alive until ``release()``;
+the captures of one ``Graphed`` share one graph memory pool, which is safe
+because each replay's outputs are cloned (or written back into donated
+tensors) before another replay runs, and ``pool_bytes()`` gives the device
+memory each capture added to it.
 
 The kernel wrappers count a launch in Python where they call their C
 entry, which a capture runs once and a replay not at all.  So ``graphed``
@@ -77,6 +85,20 @@ def disabled():
 
 def is_disabled() -> bool:
     return getattr(_STATE, "disabled", False)
+
+
+@contextlib.contextmanager
+def new_pools():
+    """Within it, a graphed step of this thread whose read-in-place
+    arguments are given tensors that no capture of its signature holds
+    takes a capture for them (a serving model's second store), where
+    outside it they raise ``ValueError``."""
+    before = getattr(_STATE, "new_pools", False)
+    _STATE.new_pools = True
+    try:
+        yield
+    finally:
+        _STATE.new_pools = before
 
 
 # ---------------------------------------------------------------------------
@@ -128,13 +150,18 @@ def _same_layout(a: list, b: list) -> bool:
         for x, y in zip(a, b))
 
 
+def _place(x: torch.Tensor) -> tuple:
+    return x.data_ptr(), x.stride()
+
+
 class _Capture:
-    """One input signature's graph: static inputs and which of them are
-    donated with no matching output, the outputs it writes, which of them
-    alias a donated argument, and its counter delta."""
+    """One input signature's graph for one set of read-in-place tensors:
+    static inputs and which of them are donated with no matching output,
+    the outputs it writes, which of them alias a donated argument, its
+    counter delta and the bytes its capture added to the graph pool."""
 
     def __init__(self, graph, inputs, read_only, out_spec, outputs, aliased,
-                 delta):
+                 delta, pool_bytes):
         self.graph = graph
         self.inputs = inputs
         self.read_only = read_only
@@ -142,6 +169,14 @@ class _Capture:
         self.outputs = outputs
         self.aliased = aliased
         self.delta = delta
+        self.pool_bytes = pool_bytes
+
+    def reads(self, leaves) -> bool:
+        """Whether ``leaves`` pass this capture's own tensors wherever it
+        reads an argument in place."""
+        return all(_place(x) == _place(leaves[i])
+                   for i, (x, ro) in enumerate(zip(self.inputs,
+                                                   self.read_only)) if ro)
 
 
 class Graphed:
@@ -155,11 +190,23 @@ class Graphed:
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
-        self._graphs: dict[tuple, _Capture] = {}
+        self._graphs: dict[tuple, list[_Capture]] = {}
+        self._mempool = None
+
+    def captured(self) -> list[_Capture]:
+        """Every capture, in the order they were taken."""
+        return [c for caps in self._graphs.values() for c in caps]
+
+    def pool_bytes(self) -> list[int]:
+        """Per capture, the device bytes its capture reserved in the graph
+        memory pool the captures share (what it holds until
+        ``release()``)."""
+        return [c.pool_bytes for c in self.captured()]
 
     def release(self) -> None:
-        """Drop every captured graph and its memory pool."""
+        """Drop every captured graph and their memory pool."""
         self._graphs.clear()
+        self._mempool = None
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
@@ -173,21 +220,20 @@ class Graphed:
         if len(devices) != 1:
             raise ValueError(f"a graphed step's tensors must share one "
                              f"device, got {sorted(map(str, devices))}")
-        key = _signature(leaves, spec)
-        cap = self._graphs.get(key)
+        caps = self._graphs.setdefault(_signature(leaves, spec), [])
+        cap = next((c for c in caps if c.reads(leaves)), None)
         if cap is None:
-            cap = self._capture(args, leaves, spec)
-            self._graphs[key] = cap
-        else:
-            moved = [i for i, (static, x) in enumerate(zip(cap.inputs, leaves))
-                     if x is not static]         # None is static
-            if any(cap.read_only[i] for i in moved):
+            if caps and not getattr(_STATE, "new_pools", False):
                 raise ValueError(
                     "a donated argument with no matching output is read in "
                     "place: pass its capture's own tensors (copying others "
                     "in would overwrite them)")
-            for i in moved:
-                cap.inputs[i].copy_(leaves[i])
+            cap = self._capture(args, leaves, spec, warm_up=not caps)
+            caps.append(cap)
+        else:
+            for i, (static, x) in enumerate(zip(cap.inputs, leaves)):
+                if x is not static and not cap.read_only[i]:
+                    cap.inputs[i].copy_(x)       # None is static
         cap.graph.replay()
         self.replays += 1
         build.add_launch_counts(cap.delta)
@@ -230,19 +276,26 @@ class Graphed:
                     break
         return targets
 
-    def _capture(self, args, leaves, spec) -> _Capture:
+    def _capture(self, args, leaves, spec, warm_up: bool) -> _Capture:
         t0 = time.perf_counter()
         device = next(x.device for x in leaves if x is not None)
         static = self._static_inputs(args, leaves)
         static_args = tree_unflatten(static, spec)
-        # warm up on a side stream: first kernel builds, library handles
-        # and cuBLAS workspaces are made outside the capture
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            warm = self.fn(*static_args)
-        torch.cuda.current_stream(device).wait_stream(side)
-        del warm     # torch.cuda.graph synchronises and empties the cache
+        if warm_up:
+            # on a side stream: first kernel builds, library handles and
+            # cuBLAS workspaces are made outside the capture (a signature's
+            # later captures, of other pools, run what its first ran)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                warm = self.fn(*static_args)
+            torch.cuda.current_stream(device).wait_stream(side)
+            del warm
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        if self._mempool is None:
+            self._mempool = torch.cuda.graph_pool_handle()
         before = build.launch_counts()
         graph = torch.cuda.CUDAGraph()
         # no cyclic collection inside the capture: a collected object that
@@ -251,7 +304,7 @@ class Graphed:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=self._mempool):
                 out = _sorted(self.fn(*static_args))
                 targets = self._donated_targets(static_args, out)
                 out_leaves, out_spec = tree_flatten(out)
@@ -264,6 +317,7 @@ class Graphed:
             delta = build.launch_count_delta(before, build.launch_counts())
             build.add_launch_counts(delta, -1)      # recorded, not run
         build.check_counted(delta)
+        pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         outputs = [o if d is None else d for o, d in zip(out_leaves, targets)]
@@ -271,7 +325,7 @@ class Graphed:
         read_only = [x is not None and x is leaf and id(x) not in written
                      for x, leaf in zip(static, leaves)]
         return _Capture(graph, static, read_only, out_spec, outputs,
-                        [d is not None for d in targets], delta)
+                        [d is not None for d in targets], delta, pool_bytes)
 
 
 def graphed(fn: Callable, donate: Sequence[int] = ()) -> Graphed:

@@ -8,11 +8,29 @@ packages.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Optional
 
 import torch
 
 PyTree = Any
+
+
+def path_str(path) -> str:
+    """Render a key path as 'a/b/0/c': its keys (strings, indices, or the
+    reference's jax key entries, which carry ``key`` or ``idx``) joined by
+    '/'.  The port's tree functions already hand out such strings."""
+    if isinstance(path, str):
+        return path
+    parts = []
+    for p in path:
+        if hasattr(p, "key"):
+            parts.append(str(p.key))
+        elif hasattr(p, "idx"):
+            parts.append(str(p.idx))
+        else:
+            parts.append(str(p))
+    return "/".join(parts)
 
 
 def _join(prefix: str, key) -> str:
@@ -98,8 +116,83 @@ def tree_nnz_each(trees: list[PyTree]) -> list[int]:
     return [int(c) for c in counts.tolist()]
 
 
+def tree_bytes(tree: PyTree) -> int:
+    """Total bytes of the leaves' elements."""
+    return int(sum(x.numel() * x.element_size() for x in tree_leaves(tree)))
+
+
+def tree_zeros_like(tree: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, tree)
+
+
 def tree_ones_like(tree: PyTree) -> PyTree:
     return tree_map(torch.ones_like, tree)
+
+
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_mul(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.mul, a, b)
+
+
+def tree_scale(a: PyTree, s) -> PyTree:
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_dot(a: PyTree, b: PyTree) -> torch.Tensor:
+    """Sum over the leaves of each leaf pair's dot product (0-d, on the
+    leaves' device)."""
+    return sum(torch.dot(x.reshape(-1), y.reshape(-1))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_l2(a: PyTree) -> torch.Tensor:
+    """The L2 norm of all the leaves' elements together (0-d)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x))
+                          for x in tree_leaves(a)))
+
+
+def tree_cast(tree: PyTree, dtype: torch.dtype) -> PyTree:
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def split_like(gen: torch.Generator, tree: PyTree) -> PyTree:
+    """One ``torch.Generator`` per leaf (on ``gen``'s device), same
+    structure as ``tree``, each seeded by a draw from ``gen`` in leaf
+    order (the reference splits a jax key; its draws cannot be
+    replayed)."""
+    seeds = torch.randint(0, 2 ** 62, (len(tree_leaves(tree)),),
+                          generator=gen, device=gen.device).tolist()
+    return tree_unflatten_like(tree, [
+        torch.Generator(device=gen.device).manual_seed(s) for s in seeds])
+
+
+def select_by_path(tree: PyTree, pattern: str) -> PyTree:
+    """Boolean tree: True where the leaf's path matches regex
+    ``pattern``."""
+    rx = re.compile(pattern)
+    return tree_map_with_path(lambda p, x: bool(rx.search(p)), tree)
+
+
+def count_params(tree: PyTree) -> dict[str, int]:
+    """Per-path parameter counts plus 'TOTAL'."""
+    out = {p: x.numel() for p, x in tree_leaves_with_path(tree)}
+    out["TOTAL"] = sum(out.values())
+    return out
+
+
+def check_finite(tree: PyTree) -> bool:
+    """Whether every floating leaf holds only finite values (one read
+    back)."""
+    flags = [torch.isfinite(x).all() for x in tree_leaves(tree)
+             if x.is_floating_point()]
+    return bool(torch.stack(flags).all()) if flags else True
 
 
 def tree_index(tree: PyTree, i) -> PyTree:

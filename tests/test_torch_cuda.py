@@ -24,6 +24,8 @@ the card agrees with the same round on the CPU up to the convolutions' fp32
 rounding: masks on all but a 1e-3 share of coordinates, parameters within
 1e-3 where the masks agree.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1257,16 +1259,18 @@ SERVE_GRAPH_CASES = [("mlp", "vmap"), ("mlp", "ref"), ("mlp", "kernel"),
                      ("seamless-m4t-large-v2", "vmap")]
 
 
-def _serve_world(cuda_device, name):
-    """A fresh model and store on the card (users drawn on the CPU from
-    seeds, as the serving CLI draws them): 6 users, 3 slots."""
+def _serve_world(cuda_device, name, seed=0, model=None):
+    """A fresh model (or ``model``) and a store on the card (users drawn on
+    the CPU from seeds, as the serving CLI draws them): 6 users, 3 slots."""
     from repro_torch.configs import SMOKE_ARCHS
     from repro_torch.core.masks import apply_mask, init_mask
     from repro_torch.fl.base import make_cnn_task
     from repro_torch.serve import ArchModel, MLPModel, ModelStore, TaskModel
     from repro_torch.utils.tree import tree_map
 
-    if name == "mlp":
+    if model is not None:
+        pass
+    elif name == "mlp":
         model = MLPModel(d_in=64, widths=(128, 128), n_out=32, rows=4)
     elif name == "smallcnn":
         model = TaskModel(make_cnn_task("smallcnn", 10, 8, width=4,
@@ -1274,9 +1278,9 @@ def _serve_world(cuda_device, name):
     else:
         model = ArchModel(SMOKE_ARCHS[name], prompt_len=4)
     to = lambda t: tree_map(lambda x: x.to(cuda_device), t)  # noqa: E731
-    store = ModelStore(to(model.init(torch.Generator().manual_seed(0))),
+    store = ModelStore(to(model.init(torch.Generator().manual_seed(seed))),
                        cache_size=3)
-    gen = torch.Generator().manual_seed(1)
+    gen = torch.Generator().manual_seed(seed + 1)
     for u in range(6):
         p = model.init(gen)
         m = init_mask(gen, p, 0.5)
@@ -1339,36 +1343,175 @@ def test_serving_graphed_equals_eager_on_card(cuda_device, name, backend):
 def test_serving_graph_reads_the_store_pool_in_place(cuda_device, name,
                                                      backend):
     """The forward's capture takes the store's own pool tensors as its
-    static inputs (``data_ptr`` equal), and the request inputs as a copy;
-    a second store's pool, which a replay would have to copy over the
-    first's, is refused, and the first store's pool stays as it was."""
+    static inputs (``data_ptr`` equal), and the request inputs as a copy.
+    A second store of the same shapes on the same model, as the
+    reference's ``tests/test_serve.py`` serves two, gets a capture of its
+    own in its ``warmup()``, reading its own pool in place, and both
+    stores serve on, interleaved, bit-equal to ``graph.disabled()``; the
+    first store's pool is never written."""
     from repro_torch.serve import RequestStream, ServeEngine
+    from repro_torch.utils import graph
     from repro_torch.utils.tree import tree_leaves, tree_map
 
     res, store, model, _, _ = _serve_on_card(cuda_device, name, backend,
                                              eager=False)
     (fwd,) = model.graphs()
-    (cap,) = fwd._graphs.values()
-    pool = tree_leaves(store.pool_params)
-    if name == "mlp":
-        pool += tree_leaves(store.pool_masks)
-    static = [x for x in cap.inputs if x is not None]
-    # the arguments' leaves in order: the pool's, then the inputs' one
-    assert len(static) == len(pool) + 1
-    assert {x.data_ptr() for x in static[:-1]} == {
-        x.data_ptr() for x in pool}
-    assert static[-1].data_ptr() not in {x.data_ptr() for x in pool}
-    before = tree_map(torch.clone, store._pool)
-    _, other = _serve_world(cuda_device, name)
-    engine = ServeEngine(other, model, backend=backend, max_batch=3)
+    (cap,) = fwd.captured()
+
+    def pool_of(st):
+        pool = tree_leaves(st.pool_params)
+        return pool + (tree_leaves(st.pool_masks) if name == "mlp" else [])
+
+    def reads_in_place(cap, st):
+        static = [x for x in cap.inputs if x is not None]
+        # the arguments' leaves in order: the pool's, then the inputs' one
+        pool = pool_of(st)
+        return (len(static) == len(pool) + 1
+                and [x.data_ptr() for x in static[:-1]]
+                == [x.data_ptr() for x in pool]
+                and static[-1].data_ptr() not in
+                {x.data_ptr() for x in pool})
+
+    assert reads_in_place(cap, store)
     reqs = RequestStream(n_users=6, n_requests=8, seed=4).requests()
+    stores = {"A": store, "B": _serve_world(cuda_device, name, seed=7,
+                                            model=model)[1]}
+    engines = {k: ServeEngine(st, model, backend=backend, max_batch=3)
+               for k, st in stores.items()}
+    got = []
+    for k in "ABA":
+        before = {o: tree_map(torch.clone, st._pool)
+                  for o, st in stores.items() if o != k}
+        got.append(engines[k].serve(reqs).outputs)
+        torch.cuda.synchronize()
+        for o, pool in before.items():
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(stores[o]._pool), tree_leaves(pool)))
+    assert fwd.captures == 2 and len(fwd.captured()) == 2
+    assert reads_in_place(fwd.captured()[1], stores["B"])
+    with graph.disabled():
+        solo = {k: ServeEngine(_serve_world(cuda_device, name, seed=s)[1],
+                               model, backend=backend, max_batch=3)
+                for k, s in (("A", 0), ("B", 7))}
+        solo["A"].serve(RequestStream(n_users=6, n_requests=24,
+                                      seed=3).requests())
+        want = [solo[k].serve(reqs).outputs for k in "ABA"]
+    for outs, ref in zip(got, want):
+        assert sorted(outs) == sorted(ref)
+        for rid, y in outs.items():
+            assert np.isfinite(y).all()
+            assert np.array_equal(y.view(np.int32), ref[rid].view(np.int32))
+
+
+@pytest.mark.parametrize("name,backend", [("mlp", "kernel"), ("mlp", "vmap"),
+                                          ("gemma3-1b", "vmap")])
+def test_serving_two_stores_on_one_model_equal_eager(cuda_device, name,
+                                                     backend):
+    """Two stores of the same shapes on one model (``MLPModel`` on the
+    kernel and vmap backends, an ``ArchModel``), served A, B, A: one
+    capture a store, taken in its ``warmup()`` (the second with no eager
+    warm-up), none while serving, each capture's graph-pool bytes
+    recorded, and every output bit-equal to the same stores served A, B,
+    A under ``graph.disabled()``."""
+    from repro_torch.serve import RequestStream, ServeEngine
+    from repro_torch.utils import graph
+
+    reqs = RequestStream(n_users=6, n_requests=16, seed=3).requests()
+    runs = {}
+    for mode in ("graphed", "eager"):
+        model, a = _serve_world(cuda_device, name, seed=0)
+        b = _serve_world(cuda_device, name, seed=7, model=model)[1]
+        engines = {"A": ServeEngine(a, model, backend=backend, max_batch=3),
+                   "B": ServeEngine(b, model, backend=backend, max_batch=3)}
+        with graph.disabled() if mode == "eager" else contextlib.nullcontext():
+            engines["A"].warmup()
+            launches = mmk.LAUNCHES
+            engines["B"].warmup()
+            if backend == "kernel" and mode == "graphed":
+                # B's capture runs no eager warm-up: one replay, 3 layers
+                assert mmk.LAUNCHES - launches == 3
+            warm = [g.captures for g in model.graphs()]
+            runs[mode] = [engines[k].serve(reqs, warmup=False).outputs
+                          for k in "ABA"]
+        torch.cuda.synchronize()
+        assert [g.captures for g in model.graphs()] == warm
+        if mode == "graphed":
+            (fwd,) = model.graphs()
+            assert fwd.captures == 2 and len(fwd.pool_bytes()) == 2
+            assert all(n >= 0 for n in fwd.pool_bytes())
+            fwd.release()
+    for outs, ref in zip(runs["graphed"], runs["eager"]):
+        assert sorted(outs) == sorted(ref)
+        for rid, y in outs.items():
+            assert np.array_equal(y.view(np.int32), ref[rid].view(np.int32))
+    assert not np.array_equal(runs["graphed"][0][0], runs["graphed"][1][0])
+
+
+def test_serving_refuses_a_pool_no_capture_holds(cuda_device):
+    """Outside a warm-up, a forward given a pool of the captured shapes
+    that no capture holds raises with the read-in-place message, takes no
+    capture and writes neither pool."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    model, a = _serve_world(cuda_device, "mlp", seed=0)
+    b = _serve_world(cuda_device, "mlp", seed=7, model=model)[1]
+    ServeEngine(a, model, backend="kernel", max_batch=3).warmup()
+    (fwd,) = model.graphs()
+    for u in range(3):
+        b.acquire(u)
+    before = tree_map(torch.clone, b._pool)
+    xs = torch.from_numpy(np.stack([model.make_input(u) for u in range(3)]
+                                   )).to(cuda_device)
     with pytest.raises(ValueError, match="read in place"):
-        engine.serve(reqs)
+        model.batched_forward(b.pool_params, b.pool_masks, xs,
+                              backend="kernel")
     torch.cuda.synchronize()
-    assert fwd.captures == 1 and len(fwd._graphs) == 1
-    for a, b in zip(tree_leaves(store._pool), tree_leaves(before)):
-        assert torch.equal(a, b)
-    again = ServeEngine(store, model, backend=backend, max_batch=3).serve(
-        reqs)
     assert fwd.captures == 1
-    assert all(np.isfinite(y).all() for y in again.outputs.values())
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(b._pool),
+                                                 tree_leaves(before)))
+    y = model.batched_forward(a.pool_params, a.pool_masks, xs,
+                              backend="kernel")
+    assert fwd.captures == 1 and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("payload", [np.float32, np.float16])
+def test_serving_store_refuses_a_miscounted_frame_on_card(cuda_device,
+                                                           payload):
+    """A frame whose bitmap holds one bit fewer than its header's nnz
+    raises in the miss's scan on the card, before a slot is chosen:
+    ``stats()`` gains the miss only, every user's residency and every
+    slot's contents stay as they were, and the good frame then serves."""
+    from repro_torch.core.accounting import HEADER_NBYTES
+    from repro_torch.core.masks import apply_mask, init_mask
+    from repro_torch.serve import MLPModel, ModelStore
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    model = MLPModel(d_in=64, widths=(128, 128), n_out=32, rows=4)
+    to = lambda t: tree_map(lambda x: x.to(cuda_device), t)  # noqa: E731
+    store = ModelStore(to(model.init(torch.Generator().manual_seed(0))),
+                       cache_size=2, payload_dtype=payload)
+    gen = torch.Generator().manual_seed(1)
+    for u in range(3):
+        p = model.init(gen)
+        m = init_mask(gen, p, 0.5)
+        store.put(u, to(apply_mask(p, m)), to(m))
+    store.acquire(0), store.acquire(1)
+    good = bytearray(store.frame(2))
+    i = next(i for i in range(HEADER_NBYTES, len(good)) if good[i])
+    bad = bytearray(good)
+    bad[i] &= bad[i] - 1
+    store._frames[2] = bytes(bad)
+    before, pool = store.stats(), tree_map(torch.clone, store._pool)
+    with pytest.raises(ValueError, match="frame carries"):
+        store.acquire(2)
+    torch.cuda.synchronize()
+    after = store.stats()
+    assert after == {**before, "misses": before["misses"] + 1}
+    assert [store.resident(u) for u in range(3)] == [True, True, False]
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(store._pool),
+                                                 tree_leaves(pool)))
+    store._frames[2] = bytes(good)
+    slot = store.acquire(2)
+    assert store.evictions == 1 and store.resident(2)
+    assert bool(torch.isfinite(store.pool_params["layer0"]["w"][slot]).all())

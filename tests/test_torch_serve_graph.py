@@ -18,12 +18,14 @@
   its slot, held once (no decoded copy of a leaf is made), each slot
   equal to the user's decoded model bit for bit (fp32 and fp16 frames, a
   planted -0.0 kept), and the engine's ``warmup()`` changes no slot and
-  no counter.  A malformed frame raises before the store changes; one
-  whose bitmap disagrees with its value count leaves its slot free.
+  no counter.  A frame that fails to decode (cut short, or a bitmap that
+  disagrees with its value count) raises before the store changes, as
+  the reference's store leaves it.
 
 The card's side (captures taken in ``warmup()``, replays bit-equal to
 eager, launch counts, the pool read in place) is in
-``tests/test_torch_cuda.py``.  This file imports no jax.
+``tests/test_torch_cuda.py``.  Only the failed-decode test imports jax
+(the reference's store).
 """
 import numpy as np
 import pytest
@@ -252,6 +254,37 @@ def test_miss_decodes_each_slot_its_model(payload):
     assert store.evictions == 5
 
 
+@pytest.mark.parametrize("name,backend", [("mlp", "kernel"), ("mlp", "vmap"),
+                                          ("gemma3-1b", "vmap")])
+def test_one_model_serves_two_stores_interleaved(name, backend):
+    """The reference's pattern: one model, two stores of the same shapes,
+    an engine on each, served A, B, A; every output bit-equal to the same
+    store served under ``graph.disabled()`` by a model of its own."""
+    model = _model(name)
+    reqs = RequestStream(n_users=6, n_requests=12, seed=3).requests()
+
+    def stores():
+        return {"A": _store(model, users=6, cache=3, seed=0),
+                "B": _store(model, users=6, cache=3, seed=5)}
+
+    shared = stores()
+    engines = {k: ServeEngine(st, model, backend=backend, max_batch=3)
+               for k, st in shared.items()}
+    got = [(k, engines[k].serve(reqs).outputs) for k in "ABA"]
+    alone = stores()
+    with graph.disabled():
+        solo = {k: ServeEngine(st, _model(name), backend=backend,
+                               max_batch=3) for k, st in alone.items()}
+        want = [solo[k].serve(reqs).outputs for k in "ABA"]
+    for (k, outs), ref in zip(got, want):
+        assert sorted(outs) == sorted(ref)
+        for rid, y in outs.items():
+            assert np.array_equal(y.view(np.int32), ref[rid].view(np.int32))
+    assert not np.array_equal(got[0][1][0], got[1][1][0])
+    for k in "AB":
+        assert shared[k].stats() == alone[k].stats()
+
+
 def _bad_frame(frame: bytes, fault: str) -> bytes:
     if fault == "truncated":
         return frame[:-2]
@@ -265,35 +298,45 @@ def _bad_frame(frame: bytes, fault: str) -> bytes:
 @pytest.mark.parametrize("payload", [np.float32, np.float16])
 @pytest.mark.parametrize("fault", ["truncated", "bitmap"])
 def test_a_frame_that_fails_to_decode(fault, payload):
-    """A frame cut short raises before any slot changes, the store as the
-    reference's leaves it (a miss counted, nothing evicted).  A frame whose
-    bitmap holds fewer bits than its values is found only as it decodes
-    into the slot of the least recently served user: that user is no
-    longer resident, the slot is free, no eviction is counted, and the
-    store serves on, every slot its user's decoded model."""
+    """A frame cut short, or one whose bitmap holds fewer bits than its
+    values, raises before any slot changes, and leaves the store as the
+    reference's ``ModelStore`` leaves it for the same frames: equal
+    ``stats()`` (a miss counted, nothing evicted) and every user resident
+    as there.  The store then serves on, every slot its user's decoded
+    model."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.serve import ModelStore as RefStore
+
     model = _model("mlp")
     store = _store(model, users=3, cache=2, payload=payload)
-    store.acquire(0), store.acquire(1)
+    ref = RefStore(jax.tree.map(lambda x: jnp.asarray(x.numpy()), store.base),
+                   cache_size=2, payload_dtype=payload)
     good = store.frame(2)
-    store._frames[2] = _bad_frame(good, fault)
+    for s in (store, ref):
+        s._frames, s._nnz = dict(store._frames), dict(store._nnz)
+        s.acquire(0), s.acquire(1)
+        s._frames[2] = _bad_frame(good, fault)
     before = store.stats()
-    with pytest.raises(ValueError):
-        store.acquire(2)
+    for s in (store, ref):
+        with pytest.raises(ValueError):
+            s.acquire(2)
     after = store.stats()
+    assert after == ref.stats()
     assert after["misses"] == before["misses"] + 1
     assert after["evictions"] == before["evictions"] == 0
-    assert after["hits"] == before["hits"]
-    assert store.resident(1) and not store.resident(2)
-    assert store.resident(0) == (fault == "truncated")
-    assert after["resident"] == (2 if fault == "truncated" else 1)
+    assert after["resident"] == 2
+    assert [store.resident(u) for u in range(3)] == [
+        ref.resident(u) for u in range(3)] == [True, True, False]
     store._frames[2] = good
     for user in (2, 0, 1):
         slot = store.acquire(user)
         got = [x[slot] for x in tree_leaves(store._pool)]
         fresh = _store(model, users=3, cache=2, payload=payload)
-        ref = [x[fresh.acquire(user)] for x in tree_leaves(fresh._pool)]
+        want = [x[fresh.acquire(user)] for x in tree_leaves(fresh._pool)]
         assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                   for a, b in zip(got, ref))
+                   for a, b in zip(got, want))
 
 
 class _Made(TorchDispatchMode):

@@ -120,6 +120,9 @@ def test_port_imports_neither_jax_nor_reference():
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "src" / "repro_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
+    examples = sorted((root / "examples").glob("torch_*.py"))
+    assert len(examples) == 7
+    files += examples
     assert len(files) > 20
     bad = []
     for f in files:

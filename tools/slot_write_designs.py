@@ -1,4 +1,5 @@
-"""Time the slot write designs the serving store does without, per miss.
+"""Time, per serving miss, the slot write designs the serving store does
+without and the two designs of its frame check.
 
 A cache miss of ``repro_torch.serve.ModelStore`` decodes the user's frame
 straight into its pool slot, so no decoded tree is written afterwards.
@@ -15,7 +16,23 @@ each write leaves the pool as it was):
 For each: host microseconds a call (no synchronise), ms a call (CUDA
 events) and host and device ms a call (a synchronise after each), at the
 serving CLI's MLP store (256 slots) and at gemma3-1b's published width
-(2 slots).  Needs a CUDA GPU:
+(2 slots).
+
+A miss checks its frame's bitmap against the header's value count before
+it gives a slot up.  The two designs, each timed alone and as the whole
+miss (check, then decode into the slot, a synchronise after each; one
+user's frame at density 0.5):
+
+* ``host popcount`` (the store's, ``codec.check_bitmap``): the frame's
+  words read in place on the host, their set bits counted
+  (``np.bitwise_count``) against the header, then ``codec.decode_dense``
+  (words and values to the device, one read-back a leaf for its count);
+* ``device scan``: the frame's words and values to the device, a popcount
+  and prefix sum there, every leaf's count read back in one transfer
+  before anything is written, then the same decode with those counts
+  (no read-back a leaf for them).
+
+Needs a CUDA GPU:
 
     PYTHONPATH=src python3 tools/slot_write_designs.py
 """
@@ -86,6 +103,106 @@ def designs(torch, pool, iters):
     return out
 
 
+def _popcount(x):
+    """Set bits of each word of an int64 tensor holding uint32 words."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def _device_scan(torch, frame, spec, device):
+    """The device design's check: (words, values, per-leaf counts), the
+    words and values on ``device``, the counts read back in one transfer;
+    raises on a bitmap that disagrees with the header."""
+    import numpy as np
+
+    from repro_torch.sparse.codec import _frame_words
+    from repro_torch.sparse.packed import BITS_PER_WORD, words_from_numpy
+
+    words, values, nnz = _frame_words(frame, spec)
+    words = words_from_numpy(words, device)
+    sizes = np.cumsum([0] + [int(np.prod(s)) for s in spec.shapes])
+    w64 = words.to(torch.int64) & 0xFFFFFFFF
+    cum = torch.cumsum(torch.cat([w64.new_zeros(1), _popcount(w64)]), 0)
+    bounds = torch.from_numpy(sizes).to(device)
+    q, r = bounds // BITS_PER_WORD, bounds % BITS_PER_WORD
+    part = w64[q.clamp(max=w64.numel() - 1)] & ((1 << r) - 1)
+    prefix = cum[q] + _popcount(part)
+    counts = (prefix[1:] - prefix[:-1]).tolist()
+    if sum(counts) != nnz:
+        raise ValueError(f"frame carries {nnz} values, schema holds "
+                         f"{sum(counts)}")
+    return words, torch.from_numpy(values).to(device), counts
+
+
+def _scanned_decode(torch, scanned, spec, out):
+    """``codec.decode_dense`` into ``out`` from the device scan's words,
+    values and per-leaf counts."""
+    import numpy as np
+
+    from repro_torch.sparse.packed import BITS_PER_WORD, n_words, unpack_bits
+    from repro_torch.utils.tree import tree_leaves
+
+    words, values, counts = scanned
+    into = [tree_leaves(t) for t in out]
+    pos = vpos = 0
+    for i, shape in enumerate(spec.shapes):
+        n = int(np.prod(shape))
+        w0, w1 = pos // BITS_PER_WORD, n_words(pos + n)
+        lo = pos - w0 * BITS_PER_WORD
+        flags = unpack_bits(words[w0:w1], lo + n)[lo:]
+        dense = into[0][i].view(-1).zero_()
+        into[1][i].view(-1).copy_(flags)
+        dense[flags] = values[vpos:vpos + counts[i]].to(dense.dtype)
+        pos += n
+        vpos += counts[i]
+
+
+def check_designs(torch, store, user, iters):
+    """The two frame-check designs, alone and as a whole miss into slot
+    0, ms a call with a synchronise after each (two passes each, A, B, B,
+    A); both misses must leave slot 0 bit-equal."""
+    from repro_torch.sparse.codec import check_bitmap, decode_dense
+    from repro_torch.utils.tree import tree_index, tree_leaves
+
+    frame, spec, dev = store.frame(user), store.spec, store.device
+    slot = tuple(tree_index(store._pool[k], 0) for k in ("params", "masks"))
+    fns = {
+        "host popcount": lambda: check_bitmap(frame, spec),
+        "device scan": lambda: _device_scan(torch, frame, spec, dev),
+        "host popcount miss": lambda: (
+            check_bitmap(frame, spec),
+            decode_dense(frame, spec, device=dev, out=slot)),
+        "device scan miss": lambda: _scanned_decode(
+            torch, _device_scan(torch, frame, spec, dev), spec, slot),
+    }
+    out, pools = {}, {}
+    # each design twice, in the order A, B, B, A, so neither gains from
+    # going second
+    order = ["host popcount", "device scan", "device scan", "host popcount",
+             "host popcount miss", "device scan miss", "device scan miss",
+             "host popcount miss"]
+    for name in order:
+        fn = fns[name]
+        fn()
+        torch.cuda.synchronize()
+        if name.endswith("miss"):
+            pools[name] = [x.clone() for x in tree_leaves(slot)]
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+            torch.cuda.synchronize()
+        out.setdefault(name, {"sync_ms": []})["sync_ms"].append(
+            (time.perf_counter() - t0) / iters * 1e3)
+    a, b = pools.values()
+    if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b)):
+        raise AssertionError("the two misses decoded different slots")
+    return {"frame_bytes": len(frame), "words": (spec.n_coords + 31) // 32,
+            **out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -99,6 +216,8 @@ def main() -> int:
     card = os.popen("nvidia-smi --query-gpu=name,power.limit "
                     "--format=csv,noheader").read().strip()
     print(card)
+    from repro_torch.core.masks import apply_mask, init_mask
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, model, slots, iters in (
             ("mlp", build_model("mlp", 4), 256, 200),
@@ -108,6 +227,13 @@ def main() -> int:
         row = designs(torch, tree_leaves(store._pool), iters)
         print(json.dumps({"store": name, "slots": slots, "iters": iters,
                           **row}), flush=True)
+        p = model.init(gen)
+        m = init_mask(gen, p, 0.5)
+        store.put(0, apply_mask(p, m), m)
+        del p, m
+        row = check_designs(torch, store, 0, iters)
+        print(json.dumps({"store": name, "frame_check": True,
+                          "iters": iters, **row}), flush=True)
         del store
         torch.cuda.empty_cache()
     return 0
