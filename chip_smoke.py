@@ -223,10 +223,12 @@ line):
     and in this phase's own run, each ratio within ``DRYRUN_PEAK_BAND``;
     the ``RooflineReport`` row of each step and the achieved ``mfu``
     (``model_flops`` over phase 14's / 16 (a)'s warm train-step time x the
-    dtype's peak); then ``python -m repro_torch.launch.dryrun`` over every
-    arch at ``DRYRUN_SWEEP_SHAPE`` (train_4k) at published width (bf16,
-    K=2 x 1) into a temporary directory, every artifact ``ok`` or
-    ``skipped``, which of them fit the card, and ``python -m
+    dtype's peak); then the sweep, ``python -m repro_torch.launch.dryrun``
+    over every arch at ``DRYRUN_SWEEP_SHAPE`` (train_4k) at published
+    width (bf16, K=2 x 1) into a temporary directory (started in the
+    background after phase 3, as host-only tracing beside phases 15 and
+    4-12, and awaited before phase 13's full-width stores), every artifact
+    ``ok`` or ``skipped``, which of them fit the card, and ``python -m
     repro_torch.launch.report`` over them;
 18. compiled steps (``repro_torch.utils.graph.graphed``, CUDA graphs), run
     after phase 16 (a) and before phase 17, so that phase 17's counts are
@@ -279,7 +281,24 @@ line):
     (``EXAMPLE_ARGS``), counters zeroed just before each: its wall
     seconds, the rows it prints and each C entry's launches; an example
     that raises, or an accuracy not finite in [0, 1], fails;
-20. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
+20. the client-sharded scale round (``simulate --scale --mesh-shape``
+    through the CLI's entry functions, ``ordered`` and ``einsum``, each
+    from an archive the unsharded engine wrote): (a) phase 5's cell on a
+    world of one NCCL rank (mesh 1x1, started in this process; the round
+    one graph with its gather inside), bit-equal (``ordered``) and within
+    ``SCALE_EINSUM_ATOL`` (``einsum``) of the unsharded run, round walls
+    side by side; (b) ``MESH_B_ARGS`` (K=8) on four gloo ranks sharing
+    the card (NCCL refuses two ranks on one device; each rank a process
+    of its own, ``chip_smoke.py --mesh-child``; the round two graphed
+    segments around the eager gather), meshes 4x1 and 2x2, each bit-equal
+    to the unsharded K=8 run at its ranks' vmap width (K_local clients a
+    vmapped call; at full width 4x1 is not, an open fault: cuDNN may
+    choose a grouped convolution's algorithm by its group count); per
+    rank its clients, round walls, gather seconds and bytes a round and
+    ``gossip_avg_f32`` launches, (rounds + 1) x K_local x leaves (the
+    first round's eager warm-up counts); a rank that fails fails the
+    phase with its exit code and stderr tail;
+21. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
     dtypes in ``shape``).  Each row's launches are that entry's own, as
     its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
     U=1 rows ``LAUNCHES_U1_BY_ENTRY``): ``launches`` on the row's main
@@ -289,7 +308,8 @@ line):
     ``strategies`` (12: its ten runs, its async run and its two stacked
     runs), ``serve_models`` (13), ``lm`` (14 (a) and (b)), ``obs`` (15's
     traced runs), ``precision`` (16 (a), (c) and (d)), ``compiled``
-    (18's graphed runs, warm-up runs included) and ``examples`` (19);
+    (18's graphed runs, warm-up runs included), ``examples`` (19) and
+    ``mesh`` (20: (a)'s runs and every (b) rank's);
     then the last
     line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
     "count": ...}}``.
@@ -372,8 +392,9 @@ OBS_SPAN_RTOL = 0.02
 # allocator rounds each block and keeps cuBLAS workspaces)
 DRYRUN_PEAK_BAND = (0.5, 2.0)
 # the sweep: every arch at train_4k (its largest trace).  Every arch and
-# shape took 278.3 s on the H100's host (40 combinations), above the
-# 180 s this phase may spend on it; train_4k's ten traces took ~127 s of it
+# shape took 278.3 s on the H100's host (40 combinations); train_4k's ten
+# traces 132.5-177.6 s, so they run in a process of their own beside the
+# small-card phases
 DRYRUN_SWEEP_SHAPE = "train_4k"
 DRYRUN_SWEEP_TIMEOUT_S = 600
 
@@ -965,6 +986,9 @@ def main() -> int:
         + _library(mm1, "torch.mm"))
     mm_bf16 = bf16_matmul_checks(torch, mmk, dev)
 
+    # 17's sweep: host-only tracing in a process of its own from here on
+    sweep = DryrunSweep()
+
     # 15. the observability plane, while no other engine is alive
     t_obs = time.perf_counter()
     obs_launches = obs_path(torch, train, counters)
@@ -1070,6 +1094,10 @@ def main() -> int:
     log(f"strategy phase: {time.perf_counter() - t_strat:.1f} s; launches "
         f"{strat_launches}")
 
+    # (phase 13 (b)'s stores need the card's memory: the sweep's process,
+    # which holds a CUDA context, ends first)
+    sweep.wait()
+
     # 13. the serving CLI's other families: smallcnn and the smoke archs,
     # then two archs at their published widths
     t_models = time.perf_counter()
@@ -1098,11 +1126,15 @@ def main() -> int:
     # 17. the single-card dry run against phase 14's and 16 (a)'s steps,
     # then its sweep (every arch at train_4k) and report
     t_dry = time.perf_counter()
-    dryrun_path(torch, {"fp32": lm_fp32, "bf16": prec["lm_bf16"]})
+    dryrun_path(torch, {"fp32": lm_fp32, "bf16": prec["lm_bf16"]}, sweep)
     log(f"dry-run phase: {time.perf_counter() - t_dry:.1f} s")
 
     # 19. the port's seven examples at the reference's sizes
     examples_launches = examples_path(torch, counters)
+
+    # 20. the client-sharded scale round: a world of one NCCL rank, then
+    # four gloo ranks sharing the card
+    mesh_launches = mesh_path(torch, train, counters, card)
 
     # every row's launches are its own C entry's (the U=1 rows the U=1
     # wrapper's), as the wrappers counted them on each path: ``launches`` on
@@ -1113,7 +1145,7 @@ def main() -> int:
              "strategies": strat_launches, "serve_models": models_launches,
              "lm": lm_launches, "obs": obs_launches,
              "precision": prec["launches"], "compiled": compiled_launches,
-             "examples": examples_launches}
+             "examples": examples_launches, "mesh": mesh_launches}
 
     def row(name, source, replaces, entry, main, shape, r):
         timed = {key: r[key] for key in (
@@ -2864,15 +2896,101 @@ def precision_path(torch, counters, lm_fp32):
     return out
 
 
-def dryrun_path(torch, measured):
+class DryrunSweep:
+    """Phase 17's sweep, ``python -m repro_torch.launch.dryrun`` over
+    every arch at ``DRYRUN_SWEEP_SHAPE``, started at construction in a
+    process of its own (its output in a temporary directory); ``wait``
+    ends it, ``report`` checks it.  The process is killed and the
+    directory removed at exit."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        self.out = os.path.join(self.dir, "artifacts")
+        self.log = open(os.path.join(self.dir, "stdout"), "w+")
+        self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.t0 = time.perf_counter()
+        self.seconds = None
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape",
+             DRYRUN_SWEEP_SHAPE, "--out", self.out],
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+            stdout=self.log, stderr=self.err, cwd=ROOT)
+        atexit.register(self.close)
+
+    def wait(self):
+        if self.seconds is not None:
+            return
+        t_wait = time.perf_counter()
+        left = DRYRUN_SWEEP_TIMEOUT_S - (t_wait - self.t0)
+        try:
+            code = self.proc.wait(timeout=max(1.0, left))
+        except subprocess.TimeoutExpired:
+            self.close()
+            raise AssertionError(f"dry-run sweep: over "
+                                 f"{DRYRUN_SWEEP_TIMEOUT_S} s")
+        self.seconds = time.perf_counter() - self.t0
+        log(f"dry-run sweep (phase 17) ended after {self.seconds:.1f} s, "
+            f"{time.perf_counter() - t_wait:.1f} s of them waited for")
+        if code != 0:
+            self.err.seek(0)
+            raise AssertionError(f"dry-run sweep exited {code}: "
+                                 f"{self.err.read()[-3000:]}")
+
+    def close(self):
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def report(self, n_archs):
+        """Logs the sweep's output, checks its artifacts (``n_archs``, each
+        ``ok`` or ``skipped``) and logs their report."""
+        self.wait()
+        self.log.seek(0)
+        for line in self.log.read().splitlines():
+            log(f"  {line}")
+        recs = []
+        for name in sorted(os.listdir(self.out)):
+            with open(os.path.join(self.out, name)) as f:
+                recs.append(json.load(f))
+        bad = [r["tag"] for r in recs if r["status"] not in ("ok", "skipped")]
+        if bad or len(recs) != n_archs:
+            raise AssertionError(f"dry-run sweep: {len(recs)} artifacts, "
+                                 f"not ok or skipped: {bad}")
+        ok = [r for r in recs if r["status"] == "ok"]
+        log(f"dry-run sweep at {DRYRUN_SWEEP_SHAPE}: {len(recs)} "
+            f"combinations in {self.seconds:.1f} s, beside phases 15 and "
+            f"4-12 ({len(ok)} traced, {len(recs) - len(ok)} skipped); fit "
+            f"{ok[0]['device_memory_bytes']} bytes "
+            f"({ok[0]['device_memory_source']}): "
+            + ", ".join(f"{r['arch']}/{r['shape']}" for r in ok if r["fits"])
+            + "; do not fit: "
+            + ", ".join(f"{r['arch']}/{r['shape']} "
+                        f"{r['peak_live_bytes'] / 2 ** 30:.1f} GiB"
+                        for r in ok if not r["fits"]))
+        tables = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.report", "--dir",
+             self.out], env={**os.environ,
+                             "PYTHONPATH": os.path.join(ROOT, "src")},
+            capture_output=True, text=True, timeout=300, check=True)
+        for line in tables.stdout.splitlines():
+            log(line)
+        self.close()
+
+
+def dryrun_path(torch, measured, sweep):
     """Phase 17: ``measured`` holds phase 14's (``fp32``) and 16 (a)'s
     (``bf16``) full-width figures.  For each dtype, gemma3-1b at their
     plan traced on ``cuda`` fake tensors, then the same step run for real
     under the same counters: FLOPs and bytes accessed equal; the predicted
     peak against the measured ones; the roofline row and the achieved
-    ``mfu``.  Then the sweep and its report."""
+    ``mfu``.  Then ``sweep`` (a ``DryrunSweep``) and its report."""
     import gc
-    import tempfile
 
     from repro_torch.configs import ARCHS, InputShape
     from repro_torch.launch import dryrun, roofline
@@ -2937,44 +3055,7 @@ def dryrun_path(torch, measured):
 
     # the sweep at published width, every arch at DRYRUN_SWEEP_SHAPE, then
     # its report
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    with tempfile.TemporaryDirectory() as out:
-        t0 = time.perf_counter()
-        sweep = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape",
-             DRYRUN_SWEEP_SHAPE, "--out", out],
-            env=env, capture_output=True, text=True,
-            timeout=DRYRUN_SWEEP_TIMEOUT_S)
-        sweep_s = time.perf_counter() - t0
-        for line in sweep.stdout.splitlines():
-            log(f"  {line}")
-        if sweep.returncode != 0:
-            raise AssertionError(f"dry-run sweep exited {sweep.returncode}: "
-                                 f"{sweep.stderr[-3000:]}")
-        recs = []
-        for name in sorted(os.listdir(out)):
-            with open(os.path.join(out, name)) as f:
-                recs.append(json.load(f))
-        bad = [r["tag"] for r in recs if r["status"] not in ("ok", "skipped")]
-        if bad or len(recs) != len(ARCHS):
-            raise AssertionError(f"dry-run sweep: {len(recs)} artifacts, "
-                                 f"not ok or skipped: {bad}")
-        ok = [r for r in recs if r["status"] == "ok"]
-        log(f"dry-run sweep at {DRYRUN_SWEEP_SHAPE}: {len(recs)} "
-            f"combinations in {sweep_s:.1f} s "
-            f"({len(ok)} traced, {len(recs) - len(ok)} skipped); fit "
-            f"{ok[0]['device_memory_bytes']} bytes "
-            f"({ok[0]['device_memory_source']}): "
-            + ", ".join(f"{r['arch']}/{r['shape']}" for r in ok if r["fits"])
-            + "; do not fit: "
-            + ", ".join(f"{r['arch']}/{r['shape']} "
-                        f"{r['peak_live_bytes'] / 2 ** 30:.1f} GiB"
-                        for r in ok if not r["fits"]))
-        tables = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.report", "--dir", out],
-            env=env, capture_output=True, text=True, timeout=300, check=True)
-        for line in tables.stdout.splitlines():
-            log(line)
+    sweep.report(len(ARCHS))
 
 
 def precision_fold(torch, counters, dev, gen):
@@ -4167,5 +4248,259 @@ def compiled_path(torch, train, counters, lm_fp32, lm_bf16):
     return _sum_launches(runs), figs
 
 
+# phase 20: the client-sharded scale round.  (a) phase 5's cell on a world
+# of one NCCL rank (mesh 1x1); (b) K=8 (a batch of 8, which every client of
+# the 8-way split holds) on four gloo ranks sharing the card, meshes 4x1
+# and 2x2, ``ordered``.  Each (b) mesh is held bit for bit to the unsharded
+# K=8 run at its ranks' vmap width (K_local clients a vmapped call: the
+# calls its ranks make; at full width 4x1 differs, ROADMAP Queue C)
+MESH_A_SHAPE = "1x1"
+MESH_B_ARGS = SCALE_ARGS + ["--clients", "8", "--batch-size", "8",
+                            "--scale-reduction", "ordered"]
+MESH_B_SHAPES = ("4x1", "2x2")
+MESH_B_WORLD = 4
+MESH_CHILD_TIMEOUT_S = 400
+MESH_DIR = os.path.join(ROOT, "runs", "chip_smoke_mesh")
+
+
+def _mesh_dims(shape):
+    return [int(x) for x in shape.split("x")]
+
+
+def _cpu_state(torch, engine):
+    """The engine's whole stacked state as CPU tensors (meshed: gathered)."""
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda x: x.detach().cpu(), engine._full_state())
+
+
+def _state_cmp(torch, a, b):
+    """(bit-equal, max abs parameter difference, mask entries that differ)
+    of two stacked states; bits compare each float32 leaf as int32, so
+    -0.0 is not 0.0."""
+    from repro_torch.utils.tree import tree_leaves_with_path
+    la, lb = dict(tree_leaves_with_path(a)), dict(tree_leaves_with_path(b))
+    if la.keys() != lb.keys():
+        raise AssertionError("states differ in structure")
+    same, diff, flips = True, 0.0, 0
+    for p, x in la.items():
+        y = lb[p]
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{p}: {x.shape} {x.dtype} vs {y.shape} "
+                                 f"{y.dtype}")
+        same &= torch.equal(x.view(torch.int32), y.view(torch.int32))
+        if p.startswith("masks"):
+            flips += int((x != y).sum())
+        else:
+            diff = max(diff, float((x - y).abs().max()))
+    return same, diff, flips
+
+
+def _mesh_run(torch, train, counters, argv, card, label, width=None):
+    """``simulate`` ``argv`` through the CLI's entry functions (a meshed
+    run's world already up); ``width`` sets the engine's ``_vmap_width``
+    (clients a vmapped call).
+    Returns the summary, the launches, the engine's figures and its final
+    state on the CPU; the engine's graphs are released."""
+    import gc
+    args = train.parse_args(argv)
+    engine = train.build_engine(args)
+    engine._vmap_width = width
+    _zero(counters)
+    out = train.run_engine(args, engine)
+    launches = _launches(counters)
+    figs = {"round_wall_s": out["round_wall_s"], "phase_s": out["phase_s"],
+            "step_compiles": engine.step_compiles, "capture": engine.capture,
+            "gather_bytes": engine.gather_bytes,
+            "gossip_avg_f32": launches["gossip_avg_f32"]}
+    log(f"mesh {label}: capture {engine.capture}, step_compiles "
+        f"{engine.step_compiles}, round walls {out['round_wall_s']} s, "
+        f"gossip_avg_f32 launches {launches['gossip_avg_f32']} ({card})")
+    state = _cpu_state(torch, engine)
+    steps = engine._round_step
+    for g in steps if isinstance(steps, tuple) else (steps,):
+        g.release()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches, figs, state
+
+
+def mesh_path(torch, train, counters, card):
+    """Phase 20 (a), then (b).  Returns the launches of the meshed runs:
+    (a)'s and every (b) rank's, summed."""
+    import shutil
+
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    runs = []
+    # (a) a world of one NCCL rank: ``--mesh-shape 1x1`` starts it here;
+    # both reductions from one archive
+    start = os.path.join(MESH_DIR, "a-start.npz")
+    train.build_engine(train.parse_args(SCALE_ARGS)).save(start)
+    for reduction in ("ordered", "einsum"):
+        base = SCALE_ARGS + ["--scale-reduction", reduction]
+        plain, _, _, plain_state = _mesh_run(
+            torch, train, counters, base + ["--resume", start], card,
+            f"(a) {reduction} unsharded")
+        meshed, la, figs, state = _mesh_run(
+            torch, train, counters,
+            base + ["--mesh-shape", MESH_A_SHAPE, "--resume", start], card,
+            f"(a) {reduction} {MESH_A_SHAPE}")
+        runs.append(la)
+        if (figs["capture"] != "whole" or figs["step_compiles"] != 1
+                or meshed["mesh"]["backend"] != "nccl"):
+            raise AssertionError(f"(a) {reduction}: {figs} {meshed['mesh']}")
+        same, diff, flips = _state_cmp(torch, plain_state, state)
+        log(f"mesh (a) {reduction}: {MESH_A_SHAPE} NCCL world of one vs "
+            f"unsharded: bit-equal {same}, max abs param diff {diff}, mask "
+            f"entries differing {flips}; round walls "
+            f"{meshed['round_wall_s']} s vs {plain['round_wall_s']} s "
+            f"({card})")
+        if reduction == "ordered" and not same:
+            raise AssertionError("(a) ordered: not bit-equal to unsharded")
+        if diff > SCALE_EINSUM_ATOL or flips:
+            raise AssertionError(f"(a) {reduction}: {diff} > "
+                                 f"{SCALE_EINSUM_ATOL}")
+        if (meshed["comm"], meshed["acc_history"]) != (
+                plain["comm"], plain["acc_history"]) and same:
+            raise AssertionError(f"(a) {reduction}: rows differ")
+    dist.destroy_process_group()
+    log(f"mesh (a): {time.perf_counter() - t0:.1f} s ({card})")
+
+    # (b) the unsharded K=8 runs here, then the four gloo ranks
+    t_b = time.perf_counter()
+    start = os.path.join(MESH_DIR, "b-start.npz")
+    b_args = train.parse_args(MESH_B_ARGS)
+    train.build_engine(b_args).save(start)
+    k = b_args.clients
+    widths = sorted({k // _mesh_dims(s)[0] for s in MESH_B_SHAPES})
+    plain = {}
+    for w in widths:
+        plain[w] = _mesh_run(torch, train, counters, MESH_B_ARGS + [
+            "--resume", start], card, f"(b) unsharded K={k} vmap width {w}",
+            width=w)
+    procs = []
+    store = os.path.join(MESH_DIR, "store")
+    for rank in range(MESH_B_WORLD):
+        err = open(os.path.join(MESH_DIR, f"rank{rank}.err"), "w")
+        outf = open(os.path.join(MESH_DIR, f"rank{rank}.out"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-child",
+             str(rank), str(MESH_B_WORLD), store, start, MESH_DIR],
+            stdout=outf, stderr=err, cwd=ROOT), err, outf))
+    failed = []
+    deadline = time.time() + MESH_CHILD_TIMEOUT_S
+    try:
+        for rank, (proc, err, outf) in enumerate(procs):
+            try:
+                code = proc.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                code = "timeout"
+            if code != 0:
+                failed.append((rank, code))
+    finally:
+        for proc, err, outf in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+            outf.close()
+    if failed:
+        for rank, code in failed:
+            with open(os.path.join(MESH_DIR, f"rank{rank}.err")) as f:
+                tail = f.read()[-3000:]
+            log(f"mesh (b) rank {rank} exited {code}; stderr tail:\n{tail}")
+        raise AssertionError(f"mesh (b): ranks failed: {failed}")
+    log(f"mesh (b): four gloo ranks sharing the card, "
+        f"{time.perf_counter() - t_b:.1f} s with the unsharded runs ({card})")
+    for shape in MESH_B_SHAPES:
+        w = k // _mesh_dims(shape)[0]
+        for rank in range(MESH_B_WORLD):
+            with open(os.path.join(MESH_DIR, f"rank{rank}-{shape}.json")) as f:
+                r = json.load(f)
+            runs.append(r["launches"])
+            # a graphed run counts its first round's eager warm-up too
+            per_round = r["gossip_avg_f32"] / (len(r["round_wall_s"]) + 1)
+            log(f"mesh (b) {shape} rank {rank}: clients {r['k0']}:{r['k1']}, "
+                f"capture {r['capture']}, step_compiles {r['step_compiles']}, "
+                f"round walls {r['round_wall_s']} s, gather "
+                f"{[p['gather'] for p in r['phase_s']]} s and "
+                f"{r['gather_bytes']} bytes a round, gossip_avg_f32 launches "
+                f"{r['gossip_avg_f32']} ({per_round:g} a round) ({card})")
+            if (r["capture"] != "segments" or r["step_compiles"] != 1
+                    or per_round != w * r["n_leaves"]):
+                raise AssertionError(f"mesh (b) {shape} rank {rank}: {r}")
+            if rank == 0:
+                rows = (r["acc_history"], r["comm"])
+        check = train.build_engine(b_args).restore(
+            os.path.join(MESH_DIR, f"b-{shape}.npz"))
+        got = _cpu_state(torch, check)
+        del check
+        same = _state_cmp(torch, plain[w][3], got)[0]
+        log(f"mesh (b) {shape}: bit-equal to unsharded K={k} at vmap width "
+            f"{w}: {same}")
+        if not same or rows != (plain[w][0]["acc_history"],
+                                plain[w][0]["comm"]):
+            raise AssertionError(f"mesh (b) {shape}: not bit-equal to the "
+                                 f"unsharded run at vmap width {w}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)     # ~3 GB of archives
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s ({card})")
+    return _sum_launches(runs)
+
+
+def mesh_child(argv):
+    """One rank of phase 20 (b): a gloo world over a file store, each
+    ``MESH_B_SHAPES`` mesh through the CLI's entry functions from
+    ``start``; rank 0 writes each mesh's final archive.  Writes its
+    figures as ``rank<r>-<shape>.json``."""
+    rank, world, store, start, out_dir = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import setup_device
+    from repro_torch.kernels import gossip_avg as ga
+    from repro_torch.kernels import masked_matmul as mmk
+    from repro_torch.kernels import packed_accum as pa
+    from repro_torch.kernels import prune_regrow as pr
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_leaves
+    setup_device("cuda")
+    counters = (ga, pa, mmk, pr)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    for shape in MESH_B_SHAPES:
+        args = train.parse_args(MESH_B_ARGS + [
+            "--mesh-shape", shape, "--resume", start])
+        engine = train.build_engine(args)
+        _zero(counters)
+        out = train.run_engine(args, engine)
+        launches = _launches(counters)
+        engine.save(os.path.join(out_dir, f"b-{shape}.npz"))
+        figs = {"k0": engine.shard.k0, "k1": engine.shard.k1,
+                "capture": engine.capture,
+                "step_compiles": engine.step_compiles,
+                "round_wall_s": out["round_wall_s"],
+                "phase_s": out["phase_s"],
+                "acc_history": out["acc_history"], "comm": out["comm"],
+                "gather_bytes": engine.gather_bytes,
+                "gossip_avg_f32": launches["gossip_avg_f32"],
+                "n_leaves": len(tree_leaves(engine.state["params"])),
+                "launches": launches}
+        with open(os.path.join(out_dir, f"rank{rank}-{shape}.json"),
+                  "w") as f:
+            json.dump(figs, f)
+        for g in engine._round_step:
+            g.release()
+        del engine
+    dist.destroy_process_group()
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2:]))
     sys.exit(main())

@@ -9,11 +9,14 @@ one captured CUDA graph: 256 personalized sparse models train per round,
 where the loop engine would launch per client.
 
 The reference shards the client dim over a mesh of 8 host devices it forces
-before jax starts.  The port has no mesh (README, ROADMAP A13d): it runs on
-one H100, where a multi-card mesh cannot be verified, so ``ScaleEngine``
-holds all K clients on the one card and nothing is forced.
+before jax starts.  By default the port holds all K clients on the one
+card; ``--mesh-shape DxM`` shards them over a ``DeviceMesh`` of that
+shape, one process per position, started by ``torchrun`` (rank 0
+prints):
 
     PYTHONPATH=src python examples/torch_scale_mesh.py [--device cpu]
+    PYTHONPATH=src torchrun --standalone --nproc_per_node 8 \
+        examples/torch_scale_mesh.py --device cpu --mesh-shape 8x1
 """
 import argparse
 import os
@@ -40,6 +43,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--epochs", type=int, default=1)
     ap.add_argument("--samples-per-class", type=int, default=512)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--mesh-shape", default="",
+                    help="DATAxMODEL: shard the clients over a DeviceMesh "
+                         "(under torchrun, one process per position)")
     args = ap.parse_args(argv)
 
     k, rounds = args.clients, args.rounds
@@ -53,23 +59,38 @@ def main(argv=None) -> dict:
                          device=args.device)
     cfg = FLConfig(n_clients=k, rounds=rounds, local_epochs=args.epochs,
                    batch_size=8, degree=8, density=0.5, eval_every=rounds)
-    print(f"one {task.device.type} device -> {k} clients, stacked")
+    mesh, say = None, print
+    if args.mesh_shape:
+        from repro_torch.launch.mesh import make_test_mesh
 
-    engine = ScaleEngine(make_strategy("dispfl"), task, clients, cfg)
+        data, model = (int(x) for x in args.mesh_shape.split("x"))
+        mesh = make_test_mesh(data, model, device_type=args.device)
+        if mesh.get_rank():
+            say = lambda *a: None  # noqa: E731
+        say(f"mesh {args.mesh_shape} -> {k} clients, {k // data} per "
+            "client shard")
+    else:
+        say(f"one {task.device.type} device -> {k} clients, stacked")
+
+    engine = ScaleEngine(make_strategy("dispfl"), task, clients, cfg,
+                         mesh=mesh)
     accs = []
     for m in engine.rounds():
         if m.acc_mean is not None:
             accs.append(m.acc_mean)
         acc = f" acc={m.acc_mean:.3f}±{m.acc_std:.3f}" if m.acc_mean else ""
-        print(f"round {m.round + 1}/{rounds}: busiest-node "
-              f"{m.comm_busiest_mb:.2f} MB, lr={m.lr:.3f}, "
-              f"wall {m.wall_s:.1f}s{acc}")
+        say(f"round {m.round + 1}/{rounds}: busiest-node "
+            f"{m.comm_busiest_mb:.2f} MB, lr={m.lr:.3f}, "
+            f"wall {m.wall_s:.1f}s{acc}")
 
     frames = [encoded_nbytes(msg["packed"])
               for msg in engine.snapshot_messages()]
-    print(f"per-message codec frame: mean {np.mean(frames) / 1e3:.1f} kB "
-          f"(density {cfg.density}); {k} models mixed per round, one "
-          f"graph replay")
+    say(f"per-message codec frame: mean {np.mean(frames) / 1e3:.1f} kB "
+        f"(density {cfg.density}); {k} models mixed per round, one "
+        f"graph replay")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return {"engine": engine, "frames": frames, "accs": accs}
 
 

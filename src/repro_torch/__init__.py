@@ -1,4 +1,4 @@
-"""repro_torch — the PyTorch/CUDA port of ``repro`` (DisPFL), for one H100.
+"""repro_torch — the PyTorch/CUDA port of ``repro`` (DisPFL), for H100s.
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 names (``utils/tree.py``, ``core/gossip.py``, ``fl/engine.py``, ...) so a
@@ -8,7 +8,9 @@ NHWC, masks are float32 {0,1}.  The package imports torch and numpy only —
 never jax and nothing of ``repro``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``
-(``repro_torch.device.setup_device``).  The gossip mix runs through two
+(``repro_torch.device.setup_device``).  The stacked engine also runs over
+a ``torch.distributed`` ``DeviceMesh``, one process per position
+(``launch.mesh``, ``sharding``, ``ScaleEngine(mesh=...)``).  The gossip mix runs through two
 hand-written CUDA kernels (``repro_torch.kernels``); on CPU tensors their
 plain PyTorch versions run instead.
 """

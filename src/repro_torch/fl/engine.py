@@ -669,12 +669,14 @@ class RoundEngine:
         return True, ""
 
     def _stacked_batches(self, ctx: RoundCtx, active: Sequence[int],
-                         epochs: int):
+                         epochs: int, keep: Optional[range] = None):
         """(bx, by, live) of the stacked local phase of ``active`` on the
         device: one permutation per epoch from each client's ``(seed,
         round, k)`` generator — the loop's draws — padded to the longest
         schedule with recycled batches, ``live`` marking the real steps
-        (padded steps are exact no-ops)."""
+        (padded steps are exact no-ops).  ``keep`` (positions in
+        ``active``) takes only those clients' batches to the device, after
+        every client's draws."""
         bs = min(self.cfg.batch_size,
                  min(self.clients[k].n_train for k in active))
         orders = []
@@ -684,18 +686,21 @@ class RoundEngine:
                 [_pad_order(self.clients[k].n_train, bs, rng)
                  for _ in range(epochs)]))
         s_max = max(len(o) // bs for o in orders)
+        keep = range(len(active)) if keep is None else keep
+        own = [active[i] for i in keep]
+        orders = [orders[i] for i in keep]
         # every client's padded order in one copy, its batches gathered on
         # the device from its own train set
         idx = self.task.as_tensor(
             np.stack([np.resize(o, s_max * bs) for o in orders]))
         xb = torch.stack([self.clients[k].train_x[i]
-                          for k, i in zip(active, idx)])
+                          for k, i in zip(own, idx)])
         yb = torch.stack([self.clients[k].train_y[i]
-                          for k, i in zip(active, idx)])
+                          for k, i in zip(own, idx)])
         live = self.task.as_tensor(np.stack(
             [np.arange(s_max) < len(o) // bs for o in orders]))
-        return (xb.reshape((len(active), s_max, bs) + xb.shape[2:]),
-                yb.reshape(len(active), s_max, bs), live)
+        return (xb.reshape((len(own), s_max, bs) + xb.shape[2:]),
+                yb.reshape(len(own), s_max, bs), live)
 
     def _vmap_local_phase(self, ctx: RoundCtx, active: list[int]) -> None:
         strat = self.strategy

@@ -62,15 +62,16 @@ DEFAULT_CLIENTS, DEFAULT_ROWS = 2, 1
 # the card's memory where no card is present: the H100 SXM data sheet's
 # 80 GB, taken as 80 GiB
 DATA_SHEET_MEMORY = 80 * 2 ** 30
-# the reference's refusals: one card has no mesh to pick, and eager steps
-# have no layer scan or rematerialisation policy
+# the reference's refusals: the dry run plans one card (its multi-pod form
+# over a DeviceMesh is not ported yet), and eager steps have no layer scan
+# or rematerialisation policy
 REFUSED = {
-    "--multi-pod": "the port's dry run plans one H100 (mesh h100x1): a "
-                   "multi-card DeviceMesh cannot be verified on the one card "
-                   "available; set --clients and --per-client-batch",
-    "--both-meshes": "the port's dry run plans one H100 (mesh h100x1): a "
-                     "multi-card DeviceMesh cannot be verified on the one "
-                     "card available; set --clients and --per-client-batch",
+    "--multi-pod": "the port's dry run plans one H100 (mesh h100x1); its "
+                   "multi-pod form over a DeviceMesh is not ported yet "
+                   "(ROADMAP Queue A); set --clients and --per-client-batch",
+    "--both-meshes": "the port's dry run plans one H100 (mesh h100x1); its "
+                     "multi-pod form over a DeviceMesh is not ported yet "
+                     "(ROADMAP Queue A); set --clients and --per-client-batch",
     "--unroll": "the port's steps run eagerly: every layer's ops are "
                 "dispatched and counted, so there is no layer scan to unroll",
     "--remat": "the port's models have no rematerialisation policy: the "

@@ -14,11 +14,14 @@ runs on float32 or bf16 state (``ScalePlan.dtype``) with int8 masks; bf16
 params take SGD's update in fp32 and are cast back, as in the
 reference.  ``gossip="ppermute"`` is the reference's ring gossip
 (``launch.gossip_opt``), a roll over the client dim.  The reference's
-``plan_for``, ``lower_*`` and ``state_shardings`` lower these steps onto a
-TPU mesh.  The port runs on one H100, where a multi-card mesh cannot be
-verified: ``launch.dryrun`` plans K clients on the card and traces these
-steps on fake tensors in place of lowering them (ROADMAP A13d).  A
-``ScalePlan`` therefore carries no mesh.
+``plan_for`` and ``lower_*`` lower these steps onto a TPU mesh; the port
+plans K clients on one card (``launch.dryrun.make_plan``) and traces the
+steps on fake tensors in place of lowering them, so a ``ScalePlan``
+carries no mesh.  ``state_shardings`` gives, over a ``DeviceMesh`` the
+caller names, the placements the reference's layout puts each stacked
+leaf at (``sharding.rules``: client axes, tensor-parallel 'model',
+FSDP 'data' for ``FSDP2D_ARCHS``), and ``adjacency_spec`` the round's
+(K, K) input; nothing is lowered or distributed with them yet.
 
 The steps are plain functions, as the reference's are; a caller compiles
 one with ``utils.graph.graphed`` (the reference's callers ``jax.jit``
@@ -48,6 +51,8 @@ PyTree = Any
 
 WEIGHT_DECAY = 5e-4
 GOSSIP_MODES = ("einsum", "einsum_bf16", "einsum_noopt", "ppermute", "none")
+#: archs whose K=1 plan shards its weights 2-D (FSDP over 'data' + TP)
+FSDP2D_ARCHS = ("jamba-1.5-large-398b",)
 
 
 @dataclasses.dataclass
@@ -106,6 +111,27 @@ def input_specs(api: ModelAPI, plan: ScalePlan) -> PyTree:
     if plan.shape.mode == "decode":
         stacked["pos"] = meta_spec((plan.n_clients,), torch.int32)
     return stacked
+
+
+def adjacency_spec(plan: ScalePlan) -> torch.Tensor:
+    """The round's (K, K) float32 adjacency as a ``meta`` tensor."""
+    return meta_spec((plan.n_clients, plan.n_clients), torch.float32)
+
+
+def state_shardings(api: ModelAPI, plan: ScalePlan, mesh,
+                    fsdp2d: bool | None = None):
+    """``(params_spec, param_placements, mask_placements)``: the plan's
+    stacked params as ``meta`` tensors and, per leaf, the DTensor
+    placements of ``sharding.rules.param_spec`` on ``mesh`` (masks mirror
+    their params).  ``fsdp2d`` defaults as the reference's ``plan_for``
+    sets it: an ``FSDP2D_ARCHS`` arch, or a single client."""
+    from repro_torch.sharding.rules import tree_param_shardings
+
+    if fsdp2d is None:
+        fsdp2d = plan.arch.name in FSDP2D_ARCHS or plan.n_clients == 1
+    params_spec = abstract_params(api, plan)
+    p_sh = tree_param_shardings(params_spec, mesh, fsdp2d)
+    return params_spec, p_sh, p_sh
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,16 @@
            --scale-reduction ordered --strategy dispfl
        PYTHONPATH=src python -m repro_torch.launch.train simulate --sim \
            --async --staleness 2 --compute-hetero --bandwidth-skew 10
+       torchrun --nproc_per_node 4 -m repro_torch.launch.train simulate \
+           --scale --mesh-shape 4x1 --device cpu
+
+   ``--mesh-shape DxM`` (or ``PxDxM``) shards ``--scale``'s stacked clients
+   over a ``DeviceMesh`` of that shape (``launch.mesh``), one process per
+   position, started by ``torchrun``: NCCL on the card, gloo on the CPU.
+   Rank 0 prints what an unsharded run prints (its JSON gains a ``mesh``
+   row: shape, world, backend, capture, clients per rank, gather bytes);
+   the other ranks print nothing, and rank 0 alone writes checkpoints,
+   traces and archives.
 
    Prints one line per evaluated round, then a JSON object with the run's
    results, per-round wall times and per-phase times (mix, local, evolve,
@@ -59,6 +69,7 @@ def build_engine(args):
         make_strategy,
     )
 
+    mesh = build_mesh(args) if args.scale else None
     task = make_cnn_task(args.model, n_classes=10, hw=args.hw,
                          width=args.width, device=args.device)
     clients, _ = build_federated_image_task(
@@ -77,7 +88,7 @@ def build_engine(args):
         drop_prob=args.drop_prob, eval_every=args.eval_every)
 
     callbacks = []
-    if args.log_jsonl:
+    if args.log_jsonl and (mesh is None or mesh.get_rank() == 0):
         callbacks.append(JsonlLogger(args.log_jsonl))
     if args.checkpoint:
         callbacks.append(Checkpointer(args.checkpoint,
@@ -88,7 +99,7 @@ def build_engine(args):
         from repro_torch.scale import ScaleEngine
 
         engine = ScaleEngine(make_strategy(args.strategy), task, clients, cfg,
-                             callbacks=callbacks,
+                             callbacks=callbacks, mesh=mesh,
                              reduction=args.scale_reduction)
     elif args.sim:
         from repro_torch.sim import (
@@ -132,8 +143,47 @@ def build_engine(args):
                              local_exec=args.local_exec)
     if args.resume:
         engine.restore(args.resume)
-        print(f"resumed from {args.resume} at round {engine._next_round}")
+        if _lead(engine):
+            print(f"resumed from {args.resume} at round "
+                  f"{engine._next_round}")
     return engine
+
+
+def _mesh_dims(text: str) -> list[int]:
+    try:
+        dims = [int(x) for x in text.lower().split("x")]
+    except ValueError:
+        dims = []
+    return dims if len(dims) in (2, 3) and min(dims) > 0 else []
+
+
+def build_mesh(args):
+    """``--mesh-shape``'s ``DeviceMesh`` on ``--device`` (None without
+    it), as the reference's ``train.py`` builds its mesh; a world of
+    another size exits with the ``torchrun`` line that fits it."""
+    if not args.mesh_shape:
+        return None
+    from repro_torch.launch.mesh import make_test_mesh
+
+    dims = _mesh_dims(args.mesh_shape)
+    try:
+        if len(dims) == 2:
+            return make_test_mesh(data=dims[0], model=dims[1],
+                                  device_type=args.device)
+        return make_test_mesh(pods=dims[0], data=dims[1], model=dims[2],
+                              device_type=args.device)
+    except ValueError as e:
+        raise SystemExit(f"cannot build mesh {args.mesh_shape}: {e}")
+
+
+def _lead(engine) -> bool:
+    """Whether this process prints and writes: always, but on a mesh
+    global rank 0 only."""
+    if getattr(engine, "mesh", None) is None:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
 
 
 def run_engine(args, engine) -> dict:
@@ -150,9 +200,10 @@ def run_engine(args, engine) -> dict:
     cfg = engine.cfg
     t0 = time.time()
     walls = []
+    lead = _lead(engine)
     for m in engine.rounds():
         walls.append(m.wall_s)
-        if m.acc_mean is not None:
+        if m.acc_mean is not None and lead:
             sim_note = (f" t_sim={m.sim_time_s:.1f}s"
                         if hasattr(m, "sim_time_s") else "")
             print(f"[round {m.round + 1}/{cfg.rounds}] "
@@ -171,6 +222,10 @@ def run_engine(args, engine) -> dict:
     if args.sim:
         targets = (args.target,) if args.target > 0 else ()
         out["sim"] = engine.report(targets=targets).row()
+    if getattr(engine, "mesh", None) is not None:
+        out["mesh"] = mesh_row(args, engine)
+    if not lead:
+        return out
     print(json.dumps(out, indent=2))
     if args.trace:
         from repro_torch.obs import write_trace
@@ -190,6 +245,19 @@ def run_engine(args, engine) -> dict:
                                  for a in res.final_accs])
         print(f"saved per-client results to {args.save}")
     return out
+
+
+def mesh_row(args, engine) -> dict:
+    """What a meshed run adds to the summary: the mesh, the world and its
+    backend, how the round was compiled, this rank's clients and the
+    bytes each round's gather brought it."""
+    import torch.distributed as dist
+
+    shard = engine.shard
+    return {"shape": args.mesh_shape, "world": dist.get_world_size(),
+            "backend": shard.backend, "capture": engine.capture,
+            "clients_per_rank": shard.k_local,
+            "gather_bytes": engine.gather_bytes}
 
 
 def save_run_archive(args, kind: str, report: dict, density=None) -> None:
@@ -228,7 +296,18 @@ def save_run_archive(args, kind: str, report: dict, density=None) -> None:
 
 
 def run_simulate(args) -> dict:
-    return run_engine(args, build_engine(args))
+    """``build_engine`` then ``run_engine``; a world that ``--mesh-shape``
+    started here ends with the run."""
+    if not args.mesh_shape:
+        return run_engine(args, build_engine(args))
+    import torch.distributed as dist
+
+    started = not dist.is_initialized()
+    try:
+        return run_engine(args, build_engine(args))
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -393,14 +472,6 @@ def run_lm(args) -> dict:
     return lm_loop(args, cfg, params, masks, device)[0]
 
 
-# the reference shards the stacked client dim over a device mesh; the port
-# runs on one card
-MESH_SHAPE_REFUSED = (
-    "sharding the stacked client dim over a multi-card DeviceMesh is not "
-    "ported: the port runs on one H100, where a multi-card mesh cannot be "
-    "verified (ROADMAP A13d); run --scale without it")
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -465,7 +536,10 @@ def build_parser() -> argparse.ArgumentParser:
                           "once over client-stacked state (dispfl, "
                           "dispfl_anneal, dpsgd)")
     sim.add_argument("--mesh-shape", default="", dest="mesh_shape",
-                     help="refused: " + MESH_SHAPE_REFUSED)
+                     help="DATAxMODEL or PODSxDATAxMODEL: shard --scale's "
+                          "clients over a DeviceMesh of that shape, one "
+                          "process per position (torchrun --nproc_per_node "
+                          "<product>)")
     sim.add_argument("--scale-reduction", default="einsum",
                      dest="scale_reduction", choices=["einsum", "ordered"],
                      help="gossip fold: einsum = matmul (default), ordered = "
@@ -548,8 +622,11 @@ def check_args(ap: argparse.ArgumentParser, args) -> None:
         except ValueError as e:
             ap.error(str(e))
         return
-    if args.mesh_shape:
-        ap.error(f"--mesh-shape: {MESH_SHAPE_REFUSED}")
+    if args.mesh_shape and not args.scale:
+        ap.error("--mesh-shape require(s) --scale")
+    if args.mesh_shape and not _mesh_dims(args.mesh_shape):
+        ap.error(f"--mesh-shape wants DATAxMODEL or PODSxDATAxMODEL, got "
+                 f"{args.mesh_shape!r}")
     if args.scale and args.sim:
         ap.error("--scale and --sim are mutually exclusive engines")
     if args.trace_mode is not None and not (args.trace or args.run_dir):

@@ -17,10 +17,16 @@ functions over the engine's state.  Checkpoints use the per-client list layout, 
 archives move freely between this engine, ``RoundEngine`` and the
 reference's engines.
 
+``ScaleEngine(mesh=...)`` shards the stacked client dim over a
+``torch.distributed`` ``DeviceMesh`` (``launch.mesh``): each rank holds
+its ``ClientShard`` of the clients and the mix gathers the senders over
+the client axes.
+
 Entry points: ``ScaleEngine``; ``python -m repro_torch.launch.train
-simulate --scale [--scale-reduction {einsum,ordered}]``.
+simulate --scale [--scale-reduction {einsum,ordered}]``, and under
+``torchrun`` with ``--mesh-shape DxM``.
 """
-from repro_torch.scale.engine import ScaleEngine  # noqa: F401
+from repro_torch.scale.engine import ClientShard, ScaleEngine  # noqa: F401
 from repro_torch.scale.stacked import (  # noqa: F401
     StackedPacked,
     fold_stacked,

@@ -121,7 +121,9 @@ def in_neighbour_index(adjacency, width: Optional[int] = None,
 
 def masked_gossip_stacked(params: PyTree, masks: PyTree, adjacency,
                           reduction: str = "einsum",
-                          accum_dtype: torch.dtype = torch.float32) -> PyTree:
+                          accum_dtype: torch.dtype = torch.float32,
+                          receivers: Optional[tuple[int, int]] = None
+                          ) -> PyTree:
     """Intersection-weighted gossip over the stacked client dim.
 
     ``adjacency`` is the (K, K) receive matrix with unit diagonal (numpy or
@@ -138,17 +140,26 @@ def masked_gossip_stacked(params: PyTree, masks: PyTree, adjacency,
     the device, the index's pad slots reading a row of -0.0, and launches
     the gossip kernel once per receiver over its J rows.  ``x + -0.0 ==
     x`` for every x, so the pads leave each sum's bits as the real rows
-    alone give them."""
+    alone give them.
+
+    ``receivers=(k0, k1)`` mixes receivers ``k0:k1`` only, over all K
+    senders, and returns their (k1 - k0, ...) rows: a client-sharded round
+    gathers the K senders and mixes its own clients.  ``ordered`` reads
+    rows ``k0:k1`` of the global index, so each receiver's launch, and its
+    bits, are the unsharded round's; ``einsum`` multiplies rows ``k0:k1``
+    of the adjacency, a GEMM of another M, equal to the unsharded mix
+    within fp32 rounding."""
     check_reduction(reduction)
+    k0, k1 = receivers or (0, tree_leaves(params)[0].shape[0])
     if reduction == "einsum":
-        a = _on_device(adjacency, accum_dtype, params)
+        a = _on_device(adjacency, accum_dtype, params)[k0:k1]
 
         def one(w, m):
             mf = m.to(accum_dtype)
             num = torch.einsum("kj,j...->k...", a, w.to(accum_dtype) * mf)
             den = torch.einsum("kj,j...->k...", a, mf)
             mix = num.float() / torch.clamp_min(den.float(), 1.0)
-            return (mix * mf.float()).to(w.dtype)
+            return (mix * mf[k0:k1].float()).to(w.dtype)
 
         return tree_map(one, params, masks)
 
@@ -156,8 +167,8 @@ def masked_gossip_stacked(params: PyTree, masks: PyTree, adjacency,
              and adjacency.dtype == torch.int64 else
              in_neighbour_index(adjacency,
                                 device=tree_leaves(params)[0].device))
-    k, j = index.shape
-    flat = index.reshape(-1)
+    k, j = k1 - k0, index.shape[1]
+    flat = index[k0:k1].reshape(-1)
 
     def one(w, m):
         pad = w.new_full((1, *w.shape[1:]), -0.0)
@@ -165,26 +176,29 @@ def masked_gossip_stacked(params: PyTree, masks: PyTree, adjacency,
         mp = torch.cat([m.to(w.dtype), pad])
         gw = wp.index_select(0, flat).reshape(k, j, *w.shape[1:])
         gm = mp.index_select(0, flat).reshape(k, j, *w.shape[1:])
-        return torch.stack([gossip_avg(list(gw[r]), list(gm[r]), mp[r])
+        return torch.stack([gossip_avg(list(gw[r]), list(gm[r]), mp[k0 + r])
                             for r in range(k)])
 
     return tree_map(one, params, masks)
 
 
-def plain_mix_stacked(params: PyTree, mixing,
-                      reduction: str = "einsum") -> PyTree:
+def plain_mix_stacked(params: PyTree, mixing, reduction: str = "einsum",
+                      receivers: Optional[tuple[int, int]] = None) -> PyTree:
     """Row-stochastic mixing ``w_k <- sum_j W[k, j] w_j`` over the K dim
     (D-PSGD / Metropolis).  ``"ordered"`` adds the terms in ascending
-    sender index, one rounded multiply and add each."""
+    sender index, one rounded multiply and add each.  ``receivers=(k0,
+    k1)`` mixes rows ``k0:k1`` only, as in ``masked_gossip_stacked``."""
     check_reduction(reduction)
     mix = _on_device(mixing, torch.float32, params)
+    if receivers is not None:
+        mix = mix[receivers[0]:receivers[1]]
 
     def one(w):
         wm = mix.to(w.dtype)
         if reduction == "einsum":
             return torch.einsum("kj,j...->k...", wm, w)
-        bshape = (w.shape[0],) + (1,) * (w.dim() - 1)
-        acc = torch.zeros_like(w)
+        bshape = (wm.shape[0],) + (1,) * (w.dim() - 1)
+        acc = w.new_zeros((wm.shape[0], *w.shape[1:]))
         for j in range(w.shape[0]):
             acc = acc + wm[:, j].reshape(bshape) * w[j]
         return acc

@@ -7,7 +7,10 @@ engine drives — and re-expresses its phases on stacked (K-leading) state:
     stack_state / unstack_state   per-client lists <-> stacked trees
     mix_matrix(ctx)               (K, K) host matrix for the mix
     mix_input(ctx, device)        the mix's device input for the round step
-    stacked_mix(state, mix)       the communication phase
+    stacked_mix(state, mix, full, receivers)
+                                  the communication phase (``full``: the
+                                  K senders, when ``state`` holds only
+                                  receivers ``k0:k1`` of a sharded round)
     stacked_masks(state)          masks for the local phase
     stacked_evolve(state, grads, counts)   the mask search
     evolve_counts(ctx)            per-round host counts for the search
@@ -120,7 +123,11 @@ class StackedStrategyBase:
         return torch.as_tensor(self.mix_matrix(ctx), dtype=torch.float32,
                                device=device)
 
-    def stacked_mix(self, state: dict, mix) -> dict:
+    def stacked_mix(self, state: dict, mix, full: Optional[dict] = None,
+                    receivers: Optional[tuple[int, int]] = None) -> dict:
+        """The mix of ``state``'s clients.  A client-sharded round passes
+        ``full``, the gathered K senders' state, and ``receivers``, the
+        (k0, k1) rows ``state`` holds."""
         raise NotImplementedError
 
     def stacked_masks(self, state: dict) -> Optional[PyTree]:
@@ -143,7 +150,10 @@ class StackedStrategyBase:
         models as ``eval_params``, without the unstack."""
         return state["params"]
 
-    def round_comm(self, state: dict, ctx: RoundCtx):
+    def round_comm(self, state: dict, ctx: RoundCtx,
+                   nnz: Optional[list[int]] = None):
+        """The round's ``CommReport``; ``nnz``, each client's message nnz
+        (all K), when ``state`` holds a shard of them."""
         raise NotImplementedError
 
     def round_flops(self, ctx: RoundCtx):
@@ -184,9 +194,12 @@ class StackedDisPFL(StackedStrategyBase):
                 1 + max_in_degree(cfg.topology, k, cfg.degree), device)
         return super().mix_input(ctx, device)
 
-    def stacked_mix(self, state: dict, mix) -> dict:
-        params = masked_gossip_stacked(state["params"], state["masks"], mix,
-                                       reduction=self.reduction)
+    def stacked_mix(self, state: dict, mix, full: Optional[dict] = None,
+                    receivers: Optional[tuple[int, int]] = None) -> dict:
+        src = state if full is None else full
+        params = masked_gossip_stacked(src["params"], src["masks"], mix,
+                                       reduction=self.reduction,
+                                       receivers=receivers)
         return {**state, "params": params}
 
     def stacked_masks(self, state: dict) -> PyTree:
@@ -203,8 +216,10 @@ class StackedDisPFL(StackedStrategyBase):
         return evolve_counts_for(self.base.budgets_at(ctx.t, 0),
                                  ctx.prune_rate)
 
-    def round_comm(self, state: dict, ctx: RoundCtx):
-        nnz = stacked_nnz_per_client(state["masks"])
+    def round_comm(self, state: dict, ctx: RoundCtx,
+                   nnz: Optional[list[int]] = None):
+        if nnz is None:
+            nnz = stacked_nnz_per_client(state["masks"])
         return decentralized_comm(ctx.adjacency, nnz, self.base.n_coords)
 
 
@@ -229,12 +244,16 @@ class StackedDPSGD(StackedStrategyBase):
     def mix_matrix(self, ctx: RoundCtx) -> np.ndarray:
         return metropolis_weights(ctx.adjacency).astype(np.float32)
 
-    def stacked_mix(self, state: dict, mix) -> dict:
+    def stacked_mix(self, state: dict, mix, full: Optional[dict] = None,
+                    receivers: Optional[tuple[int, int]] = None) -> dict:
+        src = state if full is None else full
         return {**state,
-                "params": plain_mix_stacked(state["params"], mix,
-                                            reduction=self.reduction)}
+                "params": plain_mix_stacked(src["params"], mix,
+                                            reduction=self.reduction,
+                                            receivers=receivers)}
 
-    def round_comm(self, state: dict, ctx: RoundCtx):
+    def round_comm(self, state: dict, ctx: RoundCtx,
+                   nnz: Optional[list[int]] = None):
         n = len(self.base.clients)
         return decentralized_comm(ctx.adjacency, [self.base.n_coords] * n,
                                   self.base.n_coords)

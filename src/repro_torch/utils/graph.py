@@ -49,6 +49,16 @@ wrapper module that joined its registry) back out and adds them on every
 replay: each wrapper's counts stay the launches the card ran.  A capture
 that launched a C entry no registered wrapper counted raises.
 
+A step may hold a collective (``graphed(fn, collectives=True)``, a
+client-sharded round's gather).  NCCL's can be captured once the
+communicator has run one collective eagerly, which the signature's eager
+warm-up does before its capture; the capture then records in
+``thread_local`` error mode, so another thread's CUDA calls (the process
+group's watchdog) do not invalidate it.  Gloo's run on the host and cannot
+be captured: a step that holds one is built as graphed segments around the
+eager collective.  ``collective_capture(backend)`` says which, from the
+backend alone; nothing tries a capture and falls back.
+
 ``check_capturable()`` is the CPU check that a step can be captured: a
 dispatch mode that refuses host reads, data-dependent shapes and tensors
 built from host data inside the step.  It cannot see a Python number that
@@ -69,6 +79,16 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from repro_torch.kernels import build
 
 _STATE = threading.local()
+
+#: process-group backends whose collectives a CUDA graph records
+CAPTURABLE_BACKENDS = ("nccl",)
+
+
+def collective_capture(backend: str) -> str:
+    """How a step holding a collective of ``backend`` is compiled on the
+    card: ``"whole"``, one graph with the collective inside (NCCL), or
+    ``"segments"``, graphs around an eager collective (gloo)."""
+    return "whole" if backend in CAPTURABLE_BACKENDS else "segments"
 
 
 @contextlib.contextmanager
@@ -184,9 +204,11 @@ class Graphed:
     ``captures`` and ``replays`` count this callable's own, ``capture_s``
     the host seconds its captures took (warm-up run included)."""
 
-    def __init__(self, fn: Callable, donate: Sequence[int] = ()):
+    def __init__(self, fn: Callable, donate: Sequence[int] = (),
+                 collectives: bool = False):
         self.fn = fn
         self.donate = tuple(donate)
+        self.collectives = collectives
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
@@ -304,7 +326,9 @@ class Graphed:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._mempool):
+            mode = "thread_local" if self.collectives else "global"
+            with torch.cuda.graph(graph, pool=self._mempool,
+                                  capture_error_mode=mode):
                 out = _sorted(self.fn(*static_args))
                 targets = self._donated_targets(static_args, out)
                 out_leaves, out_spec = tree_flatten(out)
@@ -328,11 +352,13 @@ class Graphed:
                         [d is not None for d in targets], delta, pool_bytes)
 
 
-def graphed(fn: Callable, donate: Sequence[int] = ()) -> Graphed:
+def graphed(fn: Callable, donate: Sequence[int] = (),
+            collectives: bool = False) -> Graphed:
     """``fn`` as a compiled step: eager on CPU tensors, a CUDA graph per
     input signature on the card; ``donate`` lists the argument indices
-    whose tensors the step may update in place."""
-    return Graphed(fn, donate)
+    whose tensors the step may update in place; ``collectives`` says the
+    step holds a collective of a capturable backend (NCCL)."""
+    return Graphed(fn, donate, collectives)
 
 
 # ---------------------------------------------------------------------------

@@ -239,9 +239,20 @@ def test_dryrun_refuses_mesh_flags_with_reasons(capsys):
         with pytest.raises(SystemExit):
             dryrun.parse_args(argv)
         assert reason in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        train.parse_args(["simulate", "--scale", "--mesh-shape", "8x1"])
-    assert "DeviceMesh" in capsys.readouterr().err
+    # a mesh larger than the world (no torchrun here: a world of one) is
+    # refused with the torchrun line that gives it one, before any world
+    with pytest.raises(SystemExit) as refused:
+        train.main(["simulate", "--scale", "--mesh-shape", "8x1", "--device",
+                    "cpu"])
+    assert "torchrun --nproc_per_node 8" in str(refused.value)
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    for argv, reason in ((["--scale", "--mesh-shape", "8"], "DATAxMODEL"),
+                         (["--scale", "--mesh-shape", "2x0"], "DATAxMODEL"),
+                         (["--mesh-shape", "2x1"], "require(s) --scale")):
+        with pytest.raises(SystemExit):
+            train.parse_args(["simulate"] + argv)
+        assert reason in capsys.readouterr().err
 
 
 def test_dryrun_refuses_missing_gpu(monkeypatch, tmp_path):

@@ -586,7 +586,7 @@ def test_scale_engine_refusals():
                                   train_y=clients[0].train_y[:8])]
     with pytest.raises(ValueError, match="effective batch size"):
         ScaleEngine(make_strategy("dispfl"), task, ragged + clients[1:], cfg)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ScaleEngine(make_strategy("dispfl"), task, clients, cfg, mesh=object())
 
 

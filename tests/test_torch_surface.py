@@ -69,16 +69,15 @@ RENAMED = {
         "one card: K clients x rows, no mesh to plan for (README A13d)"),
 }
 
-_MESH = "one H100: no multi-card mesh can be verified (README A13d)"
+_MESH = ("the multi-pod dry run over a DeviceMesh is not ported yet "
+         "(ROADMAP Queue A, README A13d)")
 _TPU_TILE = "the Pallas kernel's TPU tile; the CUDA tile is in csrc"
 _ALIAS = "a type alias the reference module defines and never uses"
 
 #: reference module or name -> why the port has none
 NOT_PORTED = {
-    "repro.launch.mesh": _MESH,
-    "repro.sharding": _MESH,
-    "repro.sharding.ctx": _MESH,
-    "repro.sharding.rules": _MESH,
+    "repro.launch.mesh.AxisType": "jax's mesh axis kind (Auto); a "
+                                  "DeviceMesh has none",
     "repro.utils.hlo": "no HLO on the card; utils/trace_cost.py counts "
                        "bytes and aten ops, collectives are 0 on one card",
     "repro.kernels.ops": "the port's kernel wrappers pad nothing and "
@@ -96,9 +95,6 @@ NOT_PORTED = {
                                "is its module docstring",
     "repro.launch.dryrun.analytic_state_bytes_per_device": _MESH,
     "repro.launch.report.UNROLL_DIR": "--unroll is refused (README A13d)",
-    "repro.launch.steps.FSDP2D_ARCHS": _MESH,
-    "repro.launch.steps.adjacency_spec": _MESH,
-    "repro.launch.steps.state_shardings": _MESH,
     "repro.launch.steps.lower_for": "nothing is lowered: the dry run "
                                     "traces on fake tensors",
     "repro.launch.steps.lower_serve": "nothing is lowered: the dry run "
