@@ -109,9 +109,12 @@ line):
     CPU; dpsgd under the async arguments of phase 10 (fold launches =
     mixed messages x 62 > 0, no gossip; one ``mix_one`` bit-equal to the
     CPU); ``--scale --strategy dpsgd`` per reduction (no kernel; rows equal
-    to the loop engine's; params against the vmap ``RoundEngine`` run,
-    whose local phase is the same: ``ordered`` bit-equal, ``einsum``
-    within ``SCALE_EINSUM_ATOL``; against an ``--exec loop`` run within
+    to the loop engine's; the ``ordered`` mix of the vmap ``RoundEngine``'s
+    state bit-equal to that engine's mix of it; ``einsum`` within
+    ``SCALE_EINSUM_ATOL`` of ``ordered``, whose local phase is the same;
+    each run against the vmap
+    ``RoundEngine`` run and an ``--exec loop`` run, whose convolutions are
+    other cuDNN calls than the engine's one client a call, within
     ``LOOP_GAP_FACTOR`` times that loop run's card-vs-CPU gap);
     the vmap local phase against the loop for dpsgd, local and fedavg; and
     phase 6's smallcnn cross-check, rows included, for every one of the
@@ -291,14 +294,28 @@ line):
     the card (NCCL refuses two ranks on one device; each rank a process
     of its own, ``chip_smoke.py --mesh-child``; the round two graphed
     segments around the eager gather), meshes 4x1 and 2x2, each bit-equal
-    to the unsharded K=8 run at its ranks' vmap width (K_local clients a
-    vmapped call; at full width 4x1 is not, an open fault: cuDNN may
-    choose a grouped convolution's algorithm by its group count); per
+    to the unsharded K=8 run (the engine vmaps one client a call on every
+    mesh, so cuDNN, which picks a grouped convolution's algorithm by its
+    group count, sees the same calls); per
     rank its clients, round walls, gather seconds and bytes a round and
     ``gossip_avg_f32`` launches, (rounds + 1) x K_local x leaves (the
     first round's eager warm-up counts); a rank that fails fails the
     phase with its exit code and stderr tail;
-21. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
+21. the LM steps over a ``DeviceMesh`` (``launch.steps.plan_for`` and
+    ``lower_train``/``lower_serve``, ``DTensor`` placements): (a)
+    gemma3-1b at its published width, fp32, one 1024-token row a client,
+    on a world of one NCCL rank (mesh 1x1): the placed train, prefill and
+    decode steps bit-equal to the unsharded steps of the same plan, each
+    timed beside it; (b) the qwen3-8b smoke arch on four gloo ranks
+    sharing the card (``chip_smoke.py --steps-child``), mesh 2x2 (K=2 of
+    2 rows): the train step (``einsum``, ``ppermute``: the sharded ring),
+    prefill and decode within ``STEPS_REL_TOL`` of the unsharded steps,
+    per rank its clients and the collective kinds and bytes
+    ``utils.collectives`` counts; (c) the dry run's ``--multi-pod``
+    records of gemma3-1b train_4k (``einsum``, ``ppermute``), traced by
+    phase 17's background process: ok, collective bytes, the ring's
+    collective-permutes;
+22. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
     dtypes in ``shape``).  Each row's launches are that entry's own, as
     its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
     U=1 rows ``LAUNCHES_U1_BY_ENTRY``): ``launches`` on the row's main
@@ -308,8 +325,9 @@ line):
     ``strategies`` (12: its ten runs, its async run and its two stacked
     runs), ``serve_models`` (13), ``lm`` (14 (a) and (b)), ``obs`` (15's
     traced runs), ``precision`` (16 (a), (c) and (d)), ``compiled``
-    (18's graphed runs, warm-up runs included), ``examples`` (19) and
-    ``mesh`` (20: (a)'s runs and every (b) rank's);
+    (18's graphed runs, warm-up runs included), ``examples`` (19),
+    ``mesh`` (20: (a)'s runs and every (b) rank's) and ``mesh_steps``
+    (21: (a)'s and every (b) rank's; no kernel is on this path);
     then the last
     line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
     "count": ...}}``.
@@ -339,9 +357,11 @@ PTXAS_LINES = ("entry function", "registers", "spill")  # logged at build
 # measure no gap at their width and hold vmap to the loop's bits)
 VMAP_PARAM_ATOL = 1e-3
 # Stacked dpsgd at ResNet18-GN, 2 rounds (H100 80GB HBM3, 700 W): the einsum
-# mix against the vmap RoundEngine measured 1.12e-4; the stacked run against
-# the card's loop 3.61e-3, 1.16 times the 3.11e-3 between the same loop run
-# on the card and on the CPU.
+# mix against the ordered one measured 1.96e-4 (1.12e-4 against the vmap
+# RoundEngine when it vmapped all K clients a call too); the stacked run,
+# one client a call, against the vmap run 5.35e-3 and against the card's
+# loop 4.47e-3, below 2 x the 3.11e-3 between the same loop run on the
+# card and on the CPU.
 SCALE_EINSUM_ATOL = 3e-4
 LOOP_GAP_FACTOR = 2.0
 SERVE_ARGS = ["--users", "1024", "--cache-size", "256", "--max-batch", "256",
@@ -1136,6 +1156,11 @@ def main() -> int:
     # four gloo ranks sharing the card
     mesh_launches = mesh_path(torch, train, counters, card)
 
+    # 21. the LM steps over a DeviceMesh: gemma3-1b on a world of one NCCL
+    # rank, the qwen3-8b smoke arch on four gloo ranks, the multi-pod dry
+    # run's records
+    steps_launches = steps_mesh_path(torch, counters, card, sweep)
+
     # every row's launches are its own C entry's (the U=1 rows the U=1
     # wrapper's), as the wrappers counted them on each path: ``launches`` on
     # the row's main path, ``launches_<path>`` on every other counted path
@@ -1145,7 +1170,8 @@ def main() -> int:
              "strategies": strat_launches, "serve_models": models_launches,
              "lm": lm_launches, "obs": obs_launches,
              "precision": prec["launches"], "compiled": compiled_launches,
-             "examples": examples_launches, "mesh": mesh_launches}
+             "examples": examples_launches, "mesh": mesh_launches,
+             "mesh_steps": steps_launches}
 
     def row(name, source, replaces, entry, main, shape, r):
         timed = {key: r[key] for key in (
@@ -1854,16 +1880,20 @@ def strategy_async_dpsgd(torch, train, counters, n_leaves):
 def strategy_scale_dpsgd(torch, train, counters, vmap_run):
     """Phase 12 (c): ``simulate --scale --strategy dpsgd`` once per
     reduction: no kernel may launch (the Metropolis mix is a matmul or an
-    ordered sum), the comm and FLOP rows must equal the loop engine's, and
-    the parameters are held against the ``RoundEngine`` run whose local
-    phase is the same stacked one (``--exec auto``, vmap: ``vmap_run``):
-    ``ordered`` adds the loop's terms in the loop's order, so it must be
-    bit-equal; ``einsum`` sums in another order, a gap the two local
-    phases amplify, so within ``SCALE_EINSUM_ATOL``.  Against an ``--exec
-    loop`` run on the card the gap is the vmap-vs-loop gap compounded over
-    two local phases: held within ``LOOP_GAP_FACTOR`` times what the same
-    loop run differs by between the card and the CPU from one initial
-    state.  Returns each reduction's launches."""
+    ordered sum), the comm and FLOP rows must equal the loop engine's.
+    ``ordered`` adds the loop's terms in the loop's order: its mix, fed
+    the vmap ``RoundEngine``'s final state, must be bit-equal to that
+    engine's mix of it (``_ordered_mix_bit_equal``).  ``einsum`` sums the
+    mix in another order than ``ordered``, whose local phase is the same,
+    a gap the two local phases amplify: within ``SCALE_EINSUM_ATOL`` of
+    the ``ordered`` run.  The ``RoundEngine``
+    runs make other cuDNN calls than the engine's one client a call (the
+    vmap run, ``vmap_run``, vmaps all K; an ``--exec loop`` run calls each
+    client unvmapped), and cuDNN picks a grouped convolution's algorithm
+    by its group count: against each the gap is that choice compounded
+    over two local phases, held within ``LOOP_GAP_FACTOR`` times what the
+    same loop run differs by between the card and the CPU from one
+    initial state.  Returns each reduction's launches."""
     loop_args = train.parse_args(RESNET_ARGS + ["--strategy", "dpsgd",
                                                 "--exec", "loop"])
     loop = train.build_engine(loop_args)
@@ -1876,8 +1906,8 @@ def strategy_scale_dpsgd(torch, train, counters, vmap_run):
     train.run_engine(cpu_args, cpu)
     d_dev = _max_state_diff(torch, cpu.state, loop.state)
     vmap_engine, vmap_out, _ = vmap_run
-    runs = {}
-    for reduction in ("einsum", "ordered"):
+    runs, states = {}, {}
+    for reduction in ("ordered", "einsum"):
         args = train.parse_args(SCALE_ARGS + ["--strategy", "dpsgd",
                                               "--scale-reduction", reduction])
         engine = train.build_engine(args)
@@ -1885,11 +1915,14 @@ def strategy_scale_dpsgd(torch, train, counters, vmap_run):
         out = train.run_engine(args, engine)
         launches = _launches(counters)
         params = engine.adapter.unstack_state(engine.state)
+        states[reduction] = params
         d_vmap = _max_state_diff(torch, params, vmap_engine.state)
         d_loop = _max_state_diff(torch, params, loop.state)
+        d_ordered = _max_state_diff(torch, params, states["ordered"])
         log(f"scale dpsgd {reduction}: launches {launches}; params vs the "
-            f"vmap RoundEngine {d_vmap}, vs the loop {d_loop} (the loop on "
-            f"the CPU vs on the card {d_dev}); accs "
+            f"ordered run {d_ordered}, vs the vmap RoundEngine {d_vmap}, vs "
+            f"the loop {d_loop} (the loop on the CPU vs on the card "
+            f"{d_dev}); accs "
             f"{out['acc_history']} (vmap {vmap_out['acc_history']}, loop "
             f"{loop_out['acc_history']}); warm round wall "
             f"{out['round_wall_s'][-1]:.4f} s")
@@ -1898,17 +1931,40 @@ def strategy_scale_dpsgd(torch, train, counters, vmap_run):
         if (out["comm"], out["flops"]) != (loop_out["comm"],
                                            loop_out["flops"]):
             raise AssertionError("scale dpsgd rows != the loop engine's")
-        if not d_vmap <= (0.0 if reduction == "ordered"
-                          else SCALE_EINSUM_ATOL):
+        if reduction == "ordered" and not _ordered_mix_bit_equal(
+                torch, engine, vmap_engine):
+            raise AssertionError("scale dpsgd ordered: its mix of the vmap "
+                                 "RoundEngine's state != that engine's mix")
+        if not d_ordered <= SCALE_EINSUM_ATOL:
             raise AssertionError(f"scale dpsgd {reduction}: params differ "
-                                 f"from the vmap RoundEngine's by {d_vmap}")
-        if not d_loop <= LOOP_GAP_FACTOR * d_dev:
-            raise AssertionError(f"scale dpsgd {reduction}: params differ "
-                                 f"from the loop's by {d_loop}, over "
-                                 f"{LOOP_GAP_FACTOR} x the card-vs-CPU gap "
-                                 f"{d_dev}")
+                                 f"from the ordered run's by {d_ordered}")
+        for partner, d in (("vmap RoundEngine", d_vmap), ("loop", d_loop)):
+            if not d <= LOOP_GAP_FACTOR * d_dev:
+                raise AssertionError(
+                    f"scale dpsgd {reduction}: params differ from the "
+                    f"{partner}'s by {d}, over {LOOP_GAP_FACTOR} x the "
+                    f"card-vs-CPU gap {d_dev}")
         runs[reduction] = launches
     return runs
+
+
+def _ordered_mix_bit_equal(torch, engine, round_engine):
+    """The ``ScaleEngine``'s ``ordered`` mix and the ``RoundEngine``'s
+    dpsgd mix on one state (``round_engine``'s, round 0's adjacency):
+    bit-equal, whatever either engine's local phase did."""
+    from repro_torch.utils.tree import tree_map
+    ctx = round_engine._make_ctx(0)
+    src = {"params": [tree_map(torch.clone, p)
+                      for p in round_engine.state["params"]]}
+    first = next(iter(_tensors(torch, src)))
+    mixed = engine.adapter.unstack_state(engine.adapter.stacked_mix(
+        engine.adapter.stack_state(src),
+        engine.adapter.mix_input(ctx, first.device)))
+    round_engine.strategy.mix(src, ctx)
+    same = _bit_equal(torch, mixed["params"], src["params"])
+    log(f"scale dpsgd ordered: mix of the vmap RoundEngine's state bit-equal "
+        f"to its own mix: {same}")
+    return same
 
 
 def _serve_arg(flag):
@@ -2897,24 +2953,34 @@ def precision_path(torch, counters, lm_fp32):
 
 
 class DryrunSweep:
-    """Phase 17's sweep, ``python -m repro_torch.launch.dryrun`` over
-    every arch at ``DRYRUN_SWEEP_SHAPE``, started at construction in a
-    process of its own (its output in a temporary directory); ``wait``
-    ends it, ``report`` checks it.  The process is killed and the
-    directory removed at exit."""
+    """Phase 17's sweep, ``repro_torch.launch.dryrun``'s ``main`` over
+    every arch at ``DRYRUN_SWEEP_SHAPE``, then phase 21 (c)'s multi-pod
+    records (``STEPS_DRYRUN``, fake tensors on the CPU of a fake world),
+    started at construction in a process of its own (its output in a
+    temporary directory); ``wait`` ends it, ``report`` checks the sweep
+    and keeps the multi-pod records in ``mesh_records``.  The process is
+    killed and the directory removed at exit."""
 
     def __init__(self):
         import atexit
         import tempfile
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
         self.out = os.path.join(self.dir, "artifacts")
+        self.mesh_out = os.path.join(self.dir, "mesh")
+        self.mesh_records = []
         self.log = open(os.path.join(self.dir, "stdout"), "w+")
         self.err = open(os.path.join(self.dir, "stderr"), "w+")
         self.t0 = time.perf_counter()
         self.seconds = None
+        runs = [["--shape", DRYRUN_SWEEP_SHAPE, "--out", self.out]] + [
+            ["--multi-pod", "--arch", a, "--shape", s, "--gossip", g,
+             "--device", "cpu", "--out", self.mesh_out]
+            for a, s, g in STEPS_DRYRUN]
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape",
-             DRYRUN_SWEEP_SHAPE, "--out", self.out],
+            [sys.executable, "-c", "import json, sys\n"
+             "from repro_torch.launch import dryrun\n"
+             "for argv in json.loads(sys.argv[1]):\n"
+             "    dryrun.main(argv)\n", json.dumps(runs)],
             env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
             stdout=self.log, stderr=self.err, cwd=ROOT)
         atexit.register(self.close)
@@ -2980,6 +3046,12 @@ class DryrunSweep:
             capture_output=True, text=True, timeout=300, check=True)
         for line in tables.stdout.splitlines():
             log(line)
+        for name in sorted(os.listdir(self.mesh_out)):
+            with open(os.path.join(self.mesh_out, name)) as f:
+                self.mesh_records.append(json.load(f))
+        if len(self.mesh_records) != len(STEPS_DRYRUN):
+            raise AssertionError(f"dry-run mesh records: "
+                                 f"{len(self.mesh_records)}")
         self.close()
 
 
@@ -4252,8 +4324,7 @@ def compiled_path(torch, train, counters, lm_fp32, lm_bf16):
 # of one NCCL rank (mesh 1x1); (b) K=8 (a batch of 8, which every client of
 # the 8-way split holds) on four gloo ranks sharing the card, meshes 4x1
 # and 2x2, ``ordered``.  Each (b) mesh is held bit for bit to the unsharded
-# K=8 run at its ranks' vmap width (K_local clients a vmapped call: the
-# calls its ranks make; at full width 4x1 differs, ROADMAP Queue C)
+# K=8 run
 MESH_A_SHAPE = "1x1"
 MESH_B_ARGS = SCALE_ARGS + ["--clients", "8", "--batch-size", "8",
                             "--scale-reduction", "ordered"]
@@ -4295,16 +4366,14 @@ def _state_cmp(torch, a, b):
     return same, diff, flips
 
 
-def _mesh_run(torch, train, counters, argv, card, label, width=None):
+def _mesh_run(torch, train, counters, argv, card, label):
     """``simulate`` ``argv`` through the CLI's entry functions (a meshed
-    run's world already up); ``width`` sets the engine's ``_vmap_width``
-    (clients a vmapped call).
+    run's world already up).
     Returns the summary, the launches, the engine's figures and its final
     state on the CPU; the engine's graphs are released."""
     import gc
     args = train.parse_args(argv)
     engine = train.build_engine(args)
-    engine._vmap_width = width
     _zero(counters)
     out = train.run_engine(args, engine)
     launches = _launches(counters)
@@ -4369,18 +4438,14 @@ def mesh_path(torch, train, counters, card):
     dist.destroy_process_group()
     log(f"mesh (a): {time.perf_counter() - t0:.1f} s ({card})")
 
-    # (b) the unsharded K=8 runs here, then the four gloo ranks
+    # (b) the unsharded K=8 run here, then the four gloo ranks
     t_b = time.perf_counter()
     start = os.path.join(MESH_DIR, "b-start.npz")
     b_args = train.parse_args(MESH_B_ARGS)
     train.build_engine(b_args).save(start)
     k = b_args.clients
-    widths = sorted({k // _mesh_dims(s)[0] for s in MESH_B_SHAPES})
-    plain = {}
-    for w in widths:
-        plain[w] = _mesh_run(torch, train, counters, MESH_B_ARGS + [
-            "--resume", start], card, f"(b) unsharded K={k} vmap width {w}",
-            width=w)
+    plain = _mesh_run(torch, train, counters, MESH_B_ARGS + [
+        "--resume", start], card, f"(b) unsharded K={k}")
     procs = []
     store = os.path.join(MESH_DIR, "store")
     for rank in range(MESH_B_WORLD):
@@ -4390,8 +4455,299 @@ def mesh_path(torch, train, counters, card):
             [sys.executable, os.path.abspath(__file__), "--mesh-child",
              str(rank), str(MESH_B_WORLD), store, start, MESH_DIR],
             stdout=outf, stderr=err, cwd=ROOT), err, outf))
+    failed = _wait_children(procs, MESH_CHILD_TIMEOUT_S)
+    if failed:
+        for rank, code in failed:
+            with open(os.path.join(MESH_DIR, f"rank{rank}.err")) as f:
+                tail = f.read()[-3000:]
+            log(f"mesh (b) rank {rank} exited {code}; stderr tail:\n{tail}")
+        raise AssertionError(f"mesh (b): ranks failed: {failed}")
+    log(f"mesh (b): four gloo ranks sharing the card, "
+        f"{time.perf_counter() - t_b:.1f} s with the unsharded run ({card})")
+    for shape in MESH_B_SHAPES:
+        k_local = k // _mesh_dims(shape)[0]
+        for rank in range(MESH_B_WORLD):
+            with open(os.path.join(MESH_DIR, f"rank{rank}-{shape}.json")) as f:
+                r = json.load(f)
+            runs.append(r["launches"])
+            # a graphed run counts its first round's eager warm-up too
+            per_round = r["gossip_avg_f32"] / (len(r["round_wall_s"]) + 1)
+            log(f"mesh (b) {shape} rank {rank}: clients {r['k0']}:{r['k1']}, "
+                f"capture {r['capture']}, step_compiles {r['step_compiles']}, "
+                f"round walls {r['round_wall_s']} s, gather "
+                f"{[p['gather'] for p in r['phase_s']]} s and "
+                f"{r['gather_bytes']} bytes a round, gossip_avg_f32 launches "
+                f"{r['gossip_avg_f32']} ({per_round:g} a round) ({card})")
+            if (r["capture"] != "segments" or r["step_compiles"] != 1
+                    or per_round != k_local * r["n_leaves"]):
+                raise AssertionError(f"mesh (b) {shape} rank {rank}: {r}")
+            if rank == 0:
+                rows = (r["acc_history"], r["comm"])
+        check = train.build_engine(b_args).restore(
+            os.path.join(MESH_DIR, f"b-{shape}.npz"))
+        got = _cpu_state(torch, check)
+        del check
+        same = _state_cmp(torch, plain[3], got)[0]
+        log(f"mesh (b) {shape}: bit-equal to unsharded K={k}: {same}")
+        if not same or rows != (plain[0]["acc_history"], plain[0]["comm"]):
+            raise AssertionError(f"mesh (b) {shape}: not bit-equal to the "
+                                 f"unsharded K={k} run")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)     # ~3 GB of archives
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s ({card})")
+    return _sum_launches(runs)
+
+
+# phase 21: the LM steps over a DeviceMesh.  (a) gemma3-1b at its
+# published width, fp32, on a world of one NCCL rank (mesh 1x1), one
+# 1024-token row a client as phase 14's plan: the placed train, prefill and
+# decode steps held bit for bit to the unsharded steps; (b) the qwen3-8b
+# smoke arch on four gloo ranks sharing the card, mesh 2x2 (K=2 of 2 rows
+# by plan_for), the train step (einsum, ppermute), prefill and decode within
+# fp32 rounding of the unsharded steps, each rank's collectives; (c) the
+# dry run's multi-pod records (gemma3-1b train_4k, einsum and ppermute),
+# traced by phase 17's background process after its sweep
+STEPS_A_ARCH = "gemma3-1b"
+STEPS_SEQ = 1024
+STEPS_B_ARCH = "qwen3-8b"
+STEPS_B_SEQ, STEPS_B_BATCH = 64, 4
+STEPS_B_MESH = (2, 2)
+STEPS_B_WORLD = 4
+# (b): max|meshed - plain| <= STEPS_REL_TOL * max(1, max|plain|), the
+# port's LM tests' criterion (a rank's matmuls take its K_local clients)
+STEPS_REL_TOL = 1e-5
+STEPS_CHILD_TIMEOUT_S = 300
+# timed calls of each step and its unsharded twin, interleaved: median and
+# range
+STEPS_TIMED_CALLS = 5
+STEPS_DIR = os.path.join(ROOT, "runs", "chip_smoke_steps")
+STEPS_DRYRUN = [("gemma3-1b", "train_4k", g) for g in ("einsum", "ppermute")]
+
+
+def _steps_inputs(torch, step, gen, init=None):
+    """A meshed step's arguments, the same global tensors on every rank
+    (drawn from ``gen``): ``init`` params (else N(0, 0.05^2)) masked by 0/1
+    int8 masks, tokens in the vocabulary, an all-ones adjacency, lr 0.1, a
+    zero cache, decode positions near the cache's end."""
+    from repro_torch.launch.dryrun import materialize
+    from repro_torch.utils.tree import tree_map
+    dev = gen.device
+    args = list(materialize(step.args, step.plan.arch.vocab, dev, gen))
+    if init is not None:
+        args[0] = init
+    elif step.mode != "train":
+        args[0] = tree_map(lambda w: w * 0.05, args[0])
+    if step.mode == "train":
+        scale = 1.0 if init is not None else 0.05
+        args[0] = tree_map(lambda w, m: w * scale * m.to(w.dtype), args[0],
+                           args[1])
+        args[3] = torch.ones_like(args[3])
+        args[4] = 0.1
+    else:
+        args[2] = tree_map(torch.zeros_like, args[2])
+        if step.mode == "decode":
+            k = step.plan.n_clients
+            args[1]["pos"] = torch.arange(
+                step.plan.max_cache_len - k, step.plan.max_cache_len,
+                dtype=torch.int32, device=dev)
+    return args
+
+
+def _steps_plain(steps, api, plan, gossip):
+    import dataclasses
+    single = dataclasses.replace(plan, mesh=None)
+    if plan.shape.mode == "train":
+        return steps.make_train_step(api, single, gossip)
+    return (steps.make_prefill_step if plan.shape.mode == "prefill"
+            else steps.make_decode_step)(api, single)
+
+
+def _steps_cmp(torch, got, want):
+    """(bit-equal, max abs difference, max |want|, every value finite)
+    between a meshed step's outputs (``DTensor``s, gathered whole) and the
+    plain step's."""
+    from repro_torch.launch.steps import gather_shards
+    from repro_torch.utils.tree import tree_leaves
+    same, diff, scale, finite = True, 0.0, 0.0, True
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a = gather_shards(a)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{a.shape} {a.dtype} vs {b.shape} "
+                                 f"{b.dtype}")
+        if a.is_floating_point():
+            same &= torch.equal(a.view(torch.int32) if a.element_size() == 4
+                                else a, b.view(torch.int32)
+                                if b.element_size() == 4 else b)
+            diff = max(diff, float((a.double() - b.double()).abs().max()))
+            scale = max(scale, float(b.double().abs().max()))
+            finite &= bool(torch.isfinite(a).all())
+        else:
+            same &= torch.equal(a, b)
+    return same, diff, scale, finite
+
+
+def _steps_case(torch, steps, api, plan, gossip, args):
+    """The meshed step and the plain one on ``args``, each once to warm,
+    then ``STEPS_TIMED_CALLS`` timed calls of each, interleaved
+    (synchronised); returns the meshed outputs, the plain ones, each
+    one's sorted seconds, the meshed call's collectives and this rank's
+    clients ``(k0, k1)``."""
+    from repro_torch.utils.collectives import collective_bytes
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    step = (steps.lower_train(api, plan, gossip) if plan.shape.mode == "train"
+            else steps.lower_serve(api, plan))
+    plain = _steps_plain(steps, api, plan, gossip)
+    placed = step.place(*args)
+    clone = [tree_map(torch.clone, a) if not isinstance(a, float) else a
+             for a in args]
+    calls = (("plain", plain, clone), ("meshed", step, placed))
+    times = {name: [] for name, _, _ in calls}
+    for name, fn, a in calls:
+        fn(*a)
+    for _ in range(STEPS_TIMED_CALLS):
+        for name, fn, a in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            if name == "plain":
+                want = out
+            del out
+    times = {name: sorted(t) for name, t in times.items()}
+    got, stats = collective_bytes(step, *placed)
+    return (got, want, times, stats,
+            steps.client_range(tree_leaves(placed[0])[0]))
+
+
+def _median(xs):
+    return xs[len(xs) // 2]
+
+
+def _median_range(xs):
+    """``xs`` (sorted seconds) as its median and range."""
+    return f"median {_median(xs):.4f} s [{xs[0]:.4f}, {xs[-1]:.4f}]"
+
+
+def steps_mesh_path(torch, counters, card, sweep):
+    """Phase 21 (a), (b), then (c)'s records from ``sweep``.  Returns the
+    launches of (a) and every (b) rank, summed."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import bind
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    runs = []
+    # (a) a world of one NCCL rank
+    mesh = make_test_mesh(1, 1, device_type="cuda")
+    cfg = ARCHS[STEPS_A_ARCH]
+    api = bind(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    init = api.init(gen, torch.float32)
+    n_params = sum(x.numel() for x in tree_leaves(init))
+    _zero(counters)
+    cache = None
+    for mode in ("train", "prefill", "decode"):
+        plan = steps.plan_for(cfg, InputShape(f"mesh_{mode}", STEPS_SEQ, 1,
+                                              mode), mesh, torch.float32)
+        stacked = tree_map(lambda x: x.unsqueeze(0), init)
+        step = (steps.lower_train(api, plan, "einsum") if mode == "train"
+                else steps.lower_serve(api, plan))
+        args = _steps_inputs(torch, step, gen, init=stacked)
+        if mode == "decode" and cache is not None:
+            args[2] = cache
+        got, want, times, stats, _ = _steps_case(torch, steps, api, plan,
+                                                 "einsum", args)
+        same, diff, scale, finite = _steps_cmp(torch, got, want)
+        if mode == "prefill":
+            cache = tree_map(steps.gather_shards, got[1])
+        log(f"mesh steps (a) {STEPS_A_ARCH} {mode} ({n_params} params, fp32, "
+            f"K={plan.n_clients} x {plan.per_client_batch} x {STEPS_SEQ}, "
+            f"fsdp2d {plan.fsdp2d}) 1x1 NCCL DTensor vs unsharded: "
+            f"bit-equal {same}, max abs diff {diff}, finite {finite}; "
+            f"{_median_range(times['meshed'])} vs unsharded "
+            f"{_median_range(times['plain'])} ({STEPS_TIMED_CALLS} calls "
+            f"each, interleaved), median ratio "
+            f"{_median(times['meshed']) / _median(times['plain']):.4f}; "
+            f"collectives {stats.row()} ({card})")
+        if not (same and finite):
+            raise AssertionError(f"mesh steps (a) {mode}: not bit-equal")
+        del got, want, args, stacked
+        torch.cuda.empty_cache()
+    runs.append(_launches(counters))
+    del init
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"mesh steps (a): {time.perf_counter() - t0:.1f} s ({card})")
+
+    # (b) four gloo ranks sharing the card
+    t_b = time.perf_counter()
+    shutil.rmtree(STEPS_DIR, ignore_errors=True)
+    os.makedirs(STEPS_DIR)
+    store = os.path.join(STEPS_DIR, "store")
+    procs = []
+    for rank in range(STEPS_B_WORLD):
+        err = open(os.path.join(STEPS_DIR, f"rank{rank}.err"), "w")
+        outf = open(os.path.join(STEPS_DIR, f"rank{rank}.out"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--steps-child",
+             str(rank), str(STEPS_B_WORLD), store, STEPS_DIR],
+            stdout=outf, stderr=err, cwd=ROOT), err, outf))
+    failed = _wait_children(procs, STEPS_CHILD_TIMEOUT_S)
+    if failed:
+        for rank, code in failed:
+            with open(os.path.join(STEPS_DIR, f"rank{rank}.err")) as f:
+                tail = f.read()[-3000:]
+            log(f"mesh steps (b) rank {rank} exited {code}; stderr tail:\n"
+                f"{tail}")
+        raise AssertionError(f"mesh steps (b): ranks failed: {failed}")
+    bad = []
+    for rank in range(STEPS_B_WORLD):
+        with open(os.path.join(STEPS_DIR, f"rank{rank}.json")) as f:
+            r = json.load(f)
+        runs.append(r["launches"])
+        for case, c in r["cases"].items():
+            ok = (c["max_abs"] <= STEPS_REL_TOL * max(1.0, c["scale"])
+                  and c["finite"])
+            log(f"mesh steps (b) {case} rank {rank}: clients "
+                f"{c['clients']}, max abs diff {c['max_abs']} (scale "
+                f"{c['scale']}), finite {c['finite']}, collectives "
+                f"{c['collectives']} ({card})")
+            if not ok:
+                bad.append((rank, case))
+    if bad:
+        raise AssertionError(f"mesh steps (b): outside fp32 rounding: {bad}")
+    log(f"mesh steps (b): four gloo ranks sharing the card, mesh "
+        f"{STEPS_B_MESH[0]}x{STEPS_B_MESH[1]}, "
+        f"{time.perf_counter() - t_b:.1f} s ({card})")
+    shutil.rmtree(STEPS_DIR, ignore_errors=True)
+
+    # (c) the multi-pod dry run, traced beside phases 15 and 4-12
+    for rec in sweep.mesh_records:
+        log(f"mesh steps (c) {rec['tag']}: {rec['status']}, chips "
+            f"{rec.get('chips')}, K {rec.get('n_clients')} x "
+            f"{rec.get('per_client_batch')}, trace {rec.get('trace_s')} s, "
+            f"coll {rec.get('coll_bytes_per_device')} bytes/rank "
+            f"{rec.get('collectives')}, roofline {rec.get('roofline')}")
+        if rec["status"] != "ok" or not rec["coll_bytes_per_device"] > 0:
+            raise AssertionError(f"mesh steps (c): {rec['tag']}")
+        if rec["gossip"] == "ppermute" and not rec["collectives"][
+                "counts"].get("collective-permute"):
+            raise AssertionError(f"mesh steps (c): {rec['tag']}: no ring")
+    log(f"mesh steps phase: {time.perf_counter() - t0:.1f} s ({card})")
+    return _sum_launches(runs)
+
+
+def _wait_children(procs, timeout_s):
+    """Waits for the child processes ``(proc, err, out)`` until a shared
+    deadline, kills any left, closes their files; returns the ranks that
+    failed, with their exit codes."""
     failed = []
-    deadline = time.time() + MESH_CHILD_TIMEOUT_S
+    deadline = time.time() + timeout_s
     try:
         for rank, (proc, err, outf) in enumerate(procs):
             try:
@@ -4407,47 +4763,67 @@ def mesh_path(torch, train, counters, card):
                 proc.wait()
             err.close()
             outf.close()
-    if failed:
-        for rank, code in failed:
-            with open(os.path.join(MESH_DIR, f"rank{rank}.err")) as f:
-                tail = f.read()[-3000:]
-            log(f"mesh (b) rank {rank} exited {code}; stderr tail:\n{tail}")
-        raise AssertionError(f"mesh (b): ranks failed: {failed}")
-    log(f"mesh (b): four gloo ranks sharing the card, "
-        f"{time.perf_counter() - t_b:.1f} s with the unsharded runs ({card})")
-    for shape in MESH_B_SHAPES:
-        w = k // _mesh_dims(shape)[0]
-        for rank in range(MESH_B_WORLD):
-            with open(os.path.join(MESH_DIR, f"rank{rank}-{shape}.json")) as f:
-                r = json.load(f)
-            runs.append(r["launches"])
-            # a graphed run counts its first round's eager warm-up too
-            per_round = r["gossip_avg_f32"] / (len(r["round_wall_s"]) + 1)
-            log(f"mesh (b) {shape} rank {rank}: clients {r['k0']}:{r['k1']}, "
-                f"capture {r['capture']}, step_compiles {r['step_compiles']}, "
-                f"round walls {r['round_wall_s']} s, gather "
-                f"{[p['gather'] for p in r['phase_s']]} s and "
-                f"{r['gather_bytes']} bytes a round, gossip_avg_f32 launches "
-                f"{r['gossip_avg_f32']} ({per_round:g} a round) ({card})")
-            if (r["capture"] != "segments" or r["step_compiles"] != 1
-                    or per_round != w * r["n_leaves"]):
-                raise AssertionError(f"mesh (b) {shape} rank {rank}: {r}")
-            if rank == 0:
-                rows = (r["acc_history"], r["comm"])
-        check = train.build_engine(b_args).restore(
-            os.path.join(MESH_DIR, f"b-{shape}.npz"))
-        got = _cpu_state(torch, check)
-        del check
-        same = _state_cmp(torch, plain[w][3], got)[0]
-        log(f"mesh (b) {shape}: bit-equal to unsharded K={k} at vmap width "
-            f"{w}: {same}")
-        if not same or rows != (plain[w][0]["acc_history"],
-                                plain[w][0]["comm"]):
-            raise AssertionError(f"mesh (b) {shape}: not bit-equal to the "
-                                 f"unsharded run at vmap width {w}")
-    shutil.rmtree(MESH_DIR, ignore_errors=True)     # ~3 GB of archives
-    log(f"mesh phase: {time.perf_counter() - t0:.1f} s ({card})")
-    return _sum_launches(runs)
+    return failed
+
+
+def steps_child(argv):
+    """One rank of phase 21 (b): a gloo world over a file store, the
+    ``STEPS_B_MESH`` mesh on the card; each step meshed and unsharded on
+    the same inputs.  Writes ``rank<r>.json``."""
+    import dataclasses
+    import faulthandler
+    faulthandler.enable()       # a crash in a collective prints its stack
+    rank, world, store, out_dir = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import INPUT_SHAPES, SMOKE_ARCHS
+    from repro_torch.device import setup_device
+    from repro_torch.kernels import gossip_avg as ga
+    from repro_torch.kernels import masked_matmul as mmk
+    from repro_torch.kernels import packed_accum as pa
+    from repro_torch.kernels import prune_regrow as pr
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import bind
+    setup_device("cuda")
+    torch.cuda.set_device(0)    # every rank shares the one card
+    counters = (ga, pa, mmk, pr)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    mesh = make_test_mesh(*STEPS_B_MESH, device_type="cuda", backend="gloo")
+    cfg = SMOKE_ARCHS[STEPS_B_ARCH]
+    api = bind(cfg)
+    cases = {}
+    _zero(counters)
+    for mode, name in (("train", "train_4k"), ("prefill", "prefill_32k"),
+                       ("decode", "decode_32k")):
+        shape = dataclasses.replace(INPUT_SHAPES[name], seq_len=STEPS_B_SEQ,
+                                    global_batch=STEPS_B_BATCH)
+        plan = steps.plan_for(cfg, shape, mesh, torch.float32)
+        for gossip in (("einsum", "ppermute") if mode == "train" else
+                       ("einsum",)):
+            gen = torch.Generator(device="cuda").manual_seed(len(cases))
+            step = (steps.lower_train(api, plan, gossip) if mode == "train"
+                    else steps.lower_serve(api, plan))
+            args = _steps_inputs(torch, step, gen)
+            print(f"rank {rank}: {mode} {gossip}", flush=True)
+            got, want, times, stats, (k0, k1) = _steps_case(
+                torch, steps, api, plan, gossip, args)
+            same, diff, scale, finite = _steps_cmp(torch, got, want)
+            cases[f"{mode}-{gossip}" if mode == "train" else mode] = {
+                "clients": f"{k0}:{k1} of {plan.n_clients} x "
+                           f"{plan.per_client_batch}",
+                "bit_equal": same, "max_abs": diff, "scale": scale,
+                "finite": finite, "seconds": times,
+                "collectives": stats.row()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"cases": cases, "launches": _launches(counters)}, f)
+    dist.destroy_process_group()
+    return 0
 
 
 def mesh_child(argv):
@@ -4503,4 +4879,6 @@ def mesh_child(argv):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         sys.exit(mesh_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--steps-child"]:
+        sys.exit(steps_child(sys.argv[2:]))
     sys.exit(main())

@@ -1,10 +1,19 @@
-"""Single-card dry run: trace every (arch x input-shape) step on fake
-tensors and say whether it fits one H100, and what it costs (reference
-``repro.launch.dryrun``, which lowers and compiles each step on a
-512-device host mesh).
+"""Dry run: trace every (arch x input-shape) step on fake tensors and say
+whether it fits, and what it costs (reference ``repro.launch.dryrun``,
+which lowers and compiles each step on a 512-device host mesh).  Two
+kinds of plan:
+
+* one H100 (mesh ``h100x1``, the default): K clients on the card;
+* the reference's meshes (``--multi-pod``: ``pod2x16x16``;
+  ``--both-meshes``: ``pod16x16`` then ``pod2x16x16``), on a fake world
+  of 256 or 512 ranks (``launch.mesh``, ``backend="fake"``):
+  ``steps.lower_for``'s plan and meshed step, traced for rank 0 on fake
+  ``DTensor`` shards.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --smoke --multi-pod \
+        --device cpu
 
 For each combination this script
   1. plans K = ``--clients`` clients of ``--per-client-batch`` rows each
@@ -26,6 +35,22 @@ Nothing is compiled (the steps run eagerly), so ``compile_s`` is 0;
 ``trace_s`` is the trace's own time.  On one card there are no
 collectives: ``collectives`` holds empty counts, and
 ``coll_bytes_per_device`` is 0.
+
+A mesh record is the reference's: ``chips``, ``n_clients``,
+``per_client_batch``, ``fsdp2d``, ``seq_data``, ``collectives`` (per kind,
+``utils.collectives``' counts of the ops rank 0 dispatched) and
+``coll_bytes_per_device``, whose roofline term is over
+``roofline.LINK_BW``; FLOPs, bytes and the peak are rank 0's, ``fits``
+against one card's memory, and ``analytic_state_bytes_per_device`` the
+bytes of the arguments' local shards.  ``--smoke`` takes the reduced
+archs, the reference's reduced shapes (``seq_len = max(64, seq_len //
+4096)``, ``global_batch = min(gb, 8)``) and its 2x2(x2) test meshes
+(``testpod16x16``, ``testpod2x16x16``).  Each rank computes whole clients
+(``launch.steps``): a mesh's FLOPs, bytes and peak per rank are its
+clients' whole ones, replicated over 'model', where the reference splits
+them by tensor parallelism and FSDP.  So a mesh record says ``"tp":
+false``, and ``launch.report`` tables it apart from the reference's
+records of the same mesh.
 """
 from __future__ import annotations
 
@@ -62,16 +87,9 @@ DEFAULT_CLIENTS, DEFAULT_ROWS = 2, 1
 # the card's memory where no card is present: the H100 SXM data sheet's
 # 80 GB, taken as 80 GiB
 DATA_SHEET_MEMORY = 80 * 2 ** 30
-# the reference's refusals: the dry run plans one card (its multi-pod form
-# over a DeviceMesh is not ported yet), and eager steps have no layer scan
-# or rematerialisation policy
+# the reference's refusals: eager steps have no layer scan or
+# rematerialisation policy
 REFUSED = {
-    "--multi-pod": "the port's dry run plans one H100 (mesh h100x1); its "
-                   "multi-pod form over a DeviceMesh is not ported yet "
-                   "(ROADMAP Queue A); set --clients and --per-client-batch",
-    "--both-meshes": "the port's dry run plans one H100 (mesh h100x1); its "
-                     "multi-pod form over a DeviceMesh is not ported yet "
-                     "(ROADMAP Queue A); set --clients and --per-client-batch",
     "--unroll": "the port's steps run eagerly: every layer's ops are "
                 "dispatched and counted, so there is no layer scan to unroll",
     "--remat": "the port's models have no rematerialisation policy: the "
@@ -159,19 +177,72 @@ def make_plan(arch, shape: InputShape, n_clients: int, per_client_batch: int,
         n_clients, per_client_batch, DTYPES[dtype])
 
 
-def _tag(arch_name, shape_name, mesh, gossip, dtype, k, rows) -> str:
+def _mesh_name(smoke: bool, multi_pod: bool | None) -> str:
+    """``h100x1`` for one card (``multi_pod`` None), else the reference's
+    mesh names; ``test`` before either under ``--smoke``."""
+    return ("test" if smoke else "") + (
+        MESH if multi_pod is None else
+        "pod2x16x16" if multi_pod else "pod16x16")
+
+
+def _tag(arch_name, shape_name, mesh, gossip, dtype, k=None,
+         rows=None) -> str:
+    """The artifact's name; a one-card plan's K x rows where they are not
+    the default (a mesh's ``plan_for`` sets them: ``k`` None)."""
     return (f"{arch_name}__{shape_name}__{mesh}"
             + (f"__{gossip}" if gossip != "einsum" else "")
             + (f"__{dtype}" if dtype != "bf16" else "")
-            + (f"__k{k}x{rows}" if (k, rows) != (DEFAULT_CLIENTS, DEFAULT_ROWS)
-               else ""))
+            + (f"__k{k}x{rows}" if k is not None and (k, rows) != (
+                DEFAULT_CLIENTS, DEFAULT_ROWS) else ""))
+
+
+def analytic_state_bytes_per_device(plan, args) -> int:
+    """The bytes one rank holds of a meshed step's arguments: each
+    ``DTensor``'s local shard (the reference's argument bytes of the
+    partitioned program)."""
+    del plan
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_flatten
+
+    return sum(t.to_local().numel() * t.element_size()
+               for t in tree_flatten(args)[0] if isinstance(t, DTensor))
+
+
+def trace_meshed(arch, shape, multi_pod: bool, gossip: str, smoke: bool,
+                 dtype: str, device: str):
+    """``lower_for``'s plan on the fake world's mesh (the 2x2(x2) test
+    mesh for ``smoke``) and one call of its ``MeshedStep`` for rank 0, on
+    fake ``DTensor`` shards of ``device``.  Returns the plan, the mesh's
+    size, the step's ``StepCost`` and ``CollectiveStats``, the state
+    bytes a rank holds and the trace's seconds."""
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    from repro_torch.utils.collectives import collective_bytes
+
+    if smoke:
+        mesh = make_test_mesh(2, 2, pods=2 if multi_pod else 0,
+                              device_type=device, backend="fake")
+    else:
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type=device,
+                                    backend="fake")
+    plan, step = steps.lower_for(arch, shape, mesh, gossip, DTYPES[dtype])
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        args = step.abstract_args(device)
+        (_, cost), coll = collective_bytes(step_cost, step, *args)
+    return (plan, mesh.size(), cost, coll,
+            analytic_state_bytes_per_device(plan, args),
+            time.perf_counter() - t0)
 
 
 def run_one(arch_name: str, shape_name: str, gossip: str = "einsum",
             out_dir: str = OUT_DIR, verbose: bool = True, smoke: bool = False,
             n_clients: int = DEFAULT_CLIENTS,
             per_client_batch: int = DEFAULT_ROWS, dtype: str = "bf16",
-            device: str = "cuda") -> dict:
+            device: str = "cuda", multi_pod: bool | None = None) -> dict:
+    """One combination's record.  ``multi_pod`` None plans one card (mesh
+    ``h100x1``, K = ``n_clients``); False and True the reference's
+    single-pod and multi-pod mesh on a fake world (``plan_for`` sets K)."""
+    meshed = multi_pod is not None
     arch = ARCHS[arch_name]
     shape = INPUT_SHAPES[shape_name]
     if smoke:
@@ -180,13 +251,17 @@ def run_one(arch_name: str, shape_name: str, gossip: str = "einsum",
         arch = SMOKE_ARCHS[arch_name]
         shape = dataclasses.replace(shape, seq_len=max(64,
                                                        shape.seq_len // 4096))
-    mesh = ("test" if smoke else "") + MESH
-    tag = _tag(arch_name, shape_name, mesh, gossip, dtype, n_clients,
-               per_client_batch)
+        if meshed:
+            shape = dataclasses.replace(
+                shape, global_batch=min(shape.global_batch, 8))
+    mesh = _mesh_name(smoke, multi_pod)
+    tag = _tag(arch_name, shape_name, mesh, gossip, dtype,
+               *(() if meshed else (n_clients, per_client_batch)))
     record: dict = {"arch": arch_name, "shape": shape_name, "mesh": mesh,
                     "gossip": gossip, "tag": tag, "dtype": dtype,
-                    "n_clients": n_clients,
-                    "per_client_batch": per_client_batch, "smoke": smoke}
+                    "smoke": smoke}
+    if not meshed:
+        record.update(n_clients=n_clients, per_client_batch=per_client_batch)
     skip = should_skip(arch_name, shape_name)
     if skip and not smoke:
         record.update(status="skipped", reason=skip)
@@ -195,16 +270,28 @@ def run_one(arch_name: str, shape_name: str, gossip: str = "einsum",
             print(f"[dryrun] SKIP {tag}: {skip}")
         return record
 
-    plan = make_plan(arch, shape, n_clients, per_client_batch, dtype)
-    cost, trace_s = trace_plan(plan, gossip, device)
+    coll_row, coll_bytes, extra = {"total_GB": 0.0, "counts": {}}, 0.0, {}
+    if meshed:
+        plan, chips, cost, coll, state_bytes, trace_s = trace_meshed(
+            arch, shape, multi_pod, gossip, smoke, dtype, device)
+        coll_row, coll_bytes = coll.row(), coll.total_bytes
+        extra = {"tp": False, "n_clients": plan.n_clients,
+                 "per_client_batch": plan.per_client_batch,
+                 "fsdp2d": plan.fsdp2d, "seq_data": plan.seq_data,
+                 "analytic_state_bytes_per_device": state_bytes}
+    else:
+        chips = 1
+        plan = make_plan(arch, shape, n_clients, per_client_batch, dtype)
+        cost, trace_s = trace_plan(plan, gossip, device)
     mem_bytes, mem_source = device_memory()
     cost_row = {"flops": float(cost.flops),
                 "bytes accessed": float(cost.bytes_accessed)}
-    report = build_report(arch, plan.shape, mesh, 1, cost_row, 0.0,
-                          dtype=dtype)
+    report = build_report(arch, plan.shape, mesh, chips, cost_row,
+                          coll_bytes, dtype=dtype)
     record.update(
         status="ok",
-        chips=1,
+        chips=chips,
+        **extra,
         device=device,
         seq_len=plan.shape.seq_len,
         global_batch=plan.shape.global_batch,
@@ -220,19 +307,21 @@ def run_one(arch_name: str, shape_name: str, gossip: str = "einsum",
         fits=cost.peak_live_bytes <= mem_bytes,
         cost=cost_row,
         flops_counted_by=FLOPS_COUNTED_BY,
-        collectives={"total_GB": 0.0, "counts": {}},
-        coll_bytes_per_device=0.0,
+        collectives=coll_row,
+        coll_bytes_per_device=coll_bytes,
         total_params=total_params(arch),
         roofline=report.row(),
         aten_ops=cost.aten_ops,
     )
     _write(out_dir, tag, record)
     if verbose:
-        print(f"[dryrun] OK {tag}: K={n_clients}x{per_client_batch} "
+        print(f"[dryrun] OK {tag}: K={plan.n_clients}x{plan.per_client_batch} "
               f"trace={trace_s:.1f}s peak={cost.peak_live_bytes / 2 ** 30:.2f}"
               f" GiB fits={record['fits']} bottleneck={report.bottleneck} "
               f"terms(ms)=({report.compute_s * 1e3:.2f}, "
-              f"{report.memory_s * 1e3:.2f}, {report.collective_s * 1e3:.2f})")
+              f"{report.memory_s * 1e3:.2f}, {report.collective_s * 1e3:.2f})"
+              + (f" coll={coll_bytes / 1e9:.4f} GB/dev {coll_row['counts']}"
+                 if meshed else ""))
     return record
 
 
@@ -251,17 +340,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced archs + tiny shapes")
-    ap.add_argument("--clients", type=int, default=DEFAULT_CLIENTS,
+    ap.add_argument("--clients", type=int, default=None,
                     help="K clients on the card (default 2: the least K "
-                         "with a gossip)")
-    ap.add_argument("--per-client-batch", type=int, default=DEFAULT_ROWS,
-                    dest="per_client_batch", help="rows per client")
+                         "with a gossip; h100x1 only)")
+    ap.add_argument("--per-client-batch", type=int, default=None,
+                    dest="per_client_batch",
+                    help="rows per client (default 1; h100x1 only)")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the fake tensors' device: cuda (default; raises "
                          "without a GPU) or cpu")
-    ap.add_argument("--multi-pod", action="store_true", dest="multi_pod")
-    ap.add_argument("--both-meshes", action="store_true", dest="both_meshes")
+    ap.add_argument("--multi-pod", action="store_true", dest="multi_pod",
+                    help="the reference's multi-pod mesh on a fake world")
+    ap.add_argument("--both-meshes", action="store_true", dest="both_meshes",
+                    help="the single-pod mesh, then the multi-pod one")
     ap.add_argument("--unroll", action="store_true")
     ap.add_argument("--remat", default=None)
     return ap
@@ -270,11 +362,19 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    used = {"--multi-pod": args.multi_pod, "--both-meshes": args.both_meshes,
-            "--unroll": args.unroll, "--remat": args.remat is not None}
+    used = {"--unroll": args.unroll, "--remat": args.remat is not None}
     for flag, on in used.items():
         if on:
             ap.error(f"{flag}: {REFUSED[flag]}")
+    args.meshes = ([False, True] if args.both_meshes else
+                   [True] if args.multi_pod else [None])
+    if args.meshes != [None] and (args.clients, args.per_client_batch) != (
+            None, None):
+        ap.error("--clients and --per-client-batch plan one card: on a "
+                 "mesh plan_for sets K and the rows")
+    args.clients = DEFAULT_CLIENTS if args.clients is None else args.clients
+    args.per_client_batch = (DEFAULT_ROWS if args.per_client_batch is None
+                             else args.per_client_batch)
     if args.clients < 1 or args.per_client_batch < 1:
         ap.error("--clients and --per-client-batch must be >= 1")
     return args
@@ -285,30 +385,33 @@ def main(argv=None) -> None:
     setup_device(args.device)
     archs = [args.arch] if args.arch else list(ARCHS)
     shapes = [args.shape] if args.shape else list(INPUT_SHAPES)
-    mesh = ("test" if args.smoke else "") + MESH
     failures = []
-    for a in archs:
-        for s in shapes:
-            tag = _tag(a, s, mesh, args.gossip, args.dtype, args.clients,
-                       args.per_client_batch)
-            path = os.path.join(args.out, tag + ".json")
-            if args.skip_existing and os.path.exists(path):
-                with open(path) as f:
-                    if json.load(f).get("status") in ("ok", "skipped"):
-                        print(f"[dryrun] cached {tag}")
-                        continue
-            try:
-                run_one(a, s, gossip=args.gossip, out_dir=args.out,
-                        smoke=args.smoke, n_clients=args.clients,
-                        per_client_batch=args.per_client_batch,
-                        dtype=args.dtype, device=args.device)
-            except Exception:
-                traceback.print_exc()
-                failures.append(tag)
-                _write(args.out, tag,
-                       {"arch": a, "shape": s, "mesh": mesh, "tag": tag,
-                        "gossip": args.gossip, "status": "failed",
-                        "error": traceback.format_exc()[-2000:]})
+    for mp in args.meshes:
+        mesh = _mesh_name(args.smoke, mp)
+        for a in archs:
+            for s in shapes:
+                tag = _tag(a, s, mesh, args.gossip, args.dtype,
+                           *(() if mp is not None else
+                             (args.clients, args.per_client_batch)))
+                path = os.path.join(args.out, tag + ".json")
+                if args.skip_existing and os.path.exists(path):
+                    with open(path) as f:
+                        if json.load(f).get("status") in ("ok", "skipped"):
+                            print(f"[dryrun] cached {tag}")
+                            continue
+                try:
+                    run_one(a, s, gossip=args.gossip, out_dir=args.out,
+                            smoke=args.smoke, n_clients=args.clients,
+                            per_client_batch=args.per_client_batch,
+                            dtype=args.dtype, device=args.device,
+                            multi_pod=mp)
+                except Exception:
+                    traceback.print_exc()
+                    failures.append(tag)
+                    _write(args.out, tag,
+                           {"arch": a, "shape": s, "mesh": mesh, "tag": tag,
+                            "gossip": args.gossip, "status": "failed",
+                            "error": traceback.format_exc()[-2000:]})
     if failures:
         print(f"[dryrun] FAILURES ({len(failures)}):")
         for f in failures:

@@ -10,6 +10,13 @@ this process.  NCCL is the backend for ``cuda`` and gloo for ``cpu``; a
 caller may name gloo for ``cuda`` (several processes sharing one card,
 which NCCL refuses).  A mesh whose size is not the world's raises, with the
 ``torchrun`` line that gives it one (the reference's ``XLA_FLAGS`` hint).
+
+``backend="fake"`` is the dry run's world (the reference's
+``--xla_force_host_platform_device_count``): one process stands for rank
+0 of a world of the mesh's size over ``FakeStore``, whose collectives
+return at once without moving data, so a step over the mesh can be traced
+on fake tensors for one rank.  A fake world of another size is torn down
+and started anew; real worlds are never touched.
 """
 from __future__ import annotations
 
@@ -27,6 +34,9 @@ def _world(size: int, device_type: str, backend: Optional[str]):
     import torch.distributed as dist
 
     backend = backend or BACKENDS[device_type]
+    if backend == "fake":
+        _fake_world(size)
+        return
     hint = (f"a mesh of {size} devices needs a world of {size} processes: "
             f"launch with torchrun --nproc_per_node {size} (one process per "
             "mesh position)")
@@ -46,6 +56,23 @@ def _world(size: int, device_type: str, backend: Optional[str]):
         raise ValueError(f"{hint}; this world has {dist.get_world_size()}")
 
 
+def _fake_world(size: int) -> None:
+    """Rank 0 of a fake world of ``size`` ranks, started in process (a fake
+    world of another size is destroyed first)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise ValueError("a fake mesh needs this process's own world; "
+                             f"a {dist.get_backend()} world is running")
+        if dist.get_world_size() == size:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+
+
 def _make_mesh(shape: tuple, axes: tuple, device_type: str,
                backend: Optional[str]):
     from torch.distributed.device_mesh import init_device_mesh
@@ -61,7 +88,7 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda",
                          backend: Optional[str] = None):
     """Single pod: 256 devices as (data=16, model=16).  Multi-pod: 2 pods
     of 256 as (pod=2, data=16, model=16); the 'pod' axis carries pod-level
-    DisPFL clients."""
+    DisPFL clients.  ``backend="fake"``: on a fake world (the dry run)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _make_mesh(shape, axes, device_type, backend)

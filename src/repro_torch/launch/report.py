@@ -2,9 +2,14 @@
 (reference ``repro.launch.report``).  Roofline terms are recomputed from
 the stored cost/collective numbers with the current hardware model
 (``launch.roofline``), so the artifacts don't go stale when the roofline
-code improves.  It reads the port's artifacts (mesh ``h100x1``) and the
-reference's (``pod16x16``, ``pod2x16x16``) alike; on one card the
-collective columns read 0.
+code improves.  It reads the port's artifacts (mesh ``h100x1``, and its
+fake-world ``pod16x16`` and ``pod2x16x16`` records) and the reference's
+(``pod16x16``, ``pod2x16x16``) alike; on one card the collective columns
+read 0.  A port mesh record says ``"tp": false``: its ranks compute whole
+clients, replicated over 'model', where the reference's split them, so it
+is tabled under a mesh heading of its own (``table_mesh``), never beside
+the reference's records.  A port record of either kind also gets the fit
+table: rank 0's peak live bytes against one card's memory.
 
     PYTHONPATH=src python -m repro_torch.launch.report [--dir D]
 
@@ -28,6 +33,14 @@ ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "torch_dryrun")
 MESHES = ("h100x1", "pod16x16", "pod2x16x16")
 SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+#: the heading suffix of the port's mesh records (``"tp": false``)
+REPLICATED = " (port: whole clients a rank, no tensor parallelism)"
+
+
+def table_mesh(rec: dict) -> str:
+    """The mesh a record is tabled under: its own, or for a port mesh
+    record (no tensor parallelism) its own with ``REPLICATED``."""
+    return rec["mesh"] + (REPLICATED if rec.get("tp") is False else "")
 
 
 def load_records(art_dir: str = ART_DIR, gossip: str = "einsum") -> list[dict]:
@@ -41,8 +54,9 @@ def load_records(art_dir: str = ART_DIR, gossip: str = "einsum") -> list[dict]:
             continue
         if "test" in rec.get("mesh", ""):
             continue
-        if rec.get("status") == "ok" or rec["tag"] not in by_tag:
-            by_tag[rec["tag"]] = rec
+        key = table_mesh(rec) + rec["tag"]
+        if rec.get("status") == "ok" or key not in by_tag:
+            by_tag[key] = rec
     return list(by_tag.values())
 
 
@@ -67,7 +81,7 @@ def roofline_table(records: list[dict], mesh: str) -> str:
            "|---|---|--:|---|--:|--:|--:|---|--:|--:|\n")
     lines = []
     for rec in records:
-        if rec["mesh"] != mesh:
+        if table_mesh(rec) != mesh:
             continue
         if rec["status"] == "skipped":
             lines.append((rec["arch"], rec["shape"],
@@ -96,7 +110,7 @@ def dryrun_table(records: list[dict], mesh: str) -> str:
            "|---|---|--:|--:|--:|--:|--:|---|\n")
     lines = []
     for rec in records:
-        if rec["mesh"] != mesh or rec["status"] != "ok":
+        if table_mesh(rec) != mesh or rec["status"] != "ok":
             continue
         counts = rec["collectives"].get("counts", {})
         top = ", ".join(f"{k}x{v}" for k, v in
@@ -112,12 +126,14 @@ def dryrun_table(records: list[dict], mesh: str) -> str:
 
 def fit_table(records: list[dict], mesh: str = "h100x1") -> str:
     """The port's own columns: the dtype, the trace's seconds, the peak
-    live bytes against the card's memory, and whether the step fits."""
+    live bytes (on a mesh, rank 0's) against the card's memory, and whether
+    the step fits.  Reference records (no peak) are left out."""
     hdr = ("| arch | shape | K x rows | dtype | trace (s) | peak GiB "
            "| card GiB | fits |\n|---|---|--:|---|--:|--:|--:|---|\n")
     lines = []
     for rec in records:
-        if rec["mesh"] != mesh or rec["status"] != "ok":
+        if (table_mesh(rec) != mesh or rec["status"] != "ok"
+                or "peak_live_bytes" not in rec):
             continue
         lines.append((rec["arch"], rec["shape"], (
             f"| {rec['arch']} | {rec['shape']} "
@@ -164,13 +180,14 @@ def main(argv=None) -> None:
         write_experiments(args.write_experiments, args.dir)
         return
     records = load_records(args.dir, args.gossip)
-    for mesh in sorted({r["mesh"] for r in records},
+    for mesh in sorted({table_mesh(r) for r in records},
                        key=lambda m: (m not in MESHES, m)):
         print(f"\n### Dry-run — {mesh}\n")
         print(dryrun_table(records, mesh))
         print(f"\n### Roofline — {mesh}\n")
         print(roofline_table(records, mesh))
-        if mesh == "h100x1":
+        if any("peak_live_bytes" in r for r in records
+               if table_mesh(r) == mesh):
             print(f"\n### Fit on one card — {mesh}\n")
             print(fit_table(records, mesh))
 

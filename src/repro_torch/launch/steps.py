@@ -13,15 +13,30 @@ per sparsifiable leaf on the GPU, on the leaf's own dtype.  Every step
 runs on float32 or bf16 state (``ScalePlan.dtype``) with int8 masks; bf16
 params take SGD's update in fp32 and are cast back, as in the
 reference.  ``gossip="ppermute"`` is the reference's ring gossip
-(``launch.gossip_opt``), a roll over the client dim.  The reference's
-``plan_for`` and ``lower_*`` lower these steps onto a TPU mesh; the port
-plans K clients on one card (``launch.dryrun.make_plan``) and traces the
-steps on fake tensors in place of lowering them, so a ``ScalePlan``
-carries no mesh.  ``state_shardings`` gives, over a ``DeviceMesh`` the
-caller names, the placements the reference's layout puts each stacked
-leaf at (``sharding.rules``: client axes, tensor-parallel 'model',
-FSDP 'data' for ``FSDP2D_ARCHS``), and ``adjacency_spec`` the round's
-(K, K) input; nothing is lowered or distributed with them yet.
+(``launch.gossip_opt``), a roll over the client dim.
+
+``plan_for`` maps (arch x input shape x mesh) to K clients, as the
+reference's does: the mesh's client capacity, one or two clients with 2-D
+weights for ``FSDP2D_ARCHS``, and a single client whose KV cache is
+sequence-sharded (``seq_data``) for long-context decode.  ``lower_train``,
+``lower_serve`` and ``lower_for`` take the names of the reference's
+lowering onto that mesh, over a ``torch.distributed`` ``DeviceMesh``: they
+place params, int8 masks, batch and cache as ``DTensor``s
+(``state_shardings``, the ``sharding.rules`` tree placements) and return
+a ``MeshedStep`` on those ``DTensor``s.  The split of the work is not the
+reference's.  A meshed step computes whole clients on each rank: it
+all-gathers each of its clients' leaves over the mesh dims that shard
+their bodies ('model', FSDP 'data', the cache's sequence), runs the
+single-card step on its own clients, and keeps its shard of the result
+(a local chunk, no traffic).  So only the client dim splits the compute;
+'model' holds replicas of a client's compute where the reference splits
+it (tensor parallelism and FSDP), and the models' sharding constraints
+have nothing to act on.  The ``einsum`` gossip all-gathers the K clients,
+as GSPMD's einsum does in the reference; ``ppermute`` sends ring
+neighbours the boundary rows only.  The same step runs on real tensors in
+a gloo or NCCL world and on fake tensors over a fake process group
+(``launch.dryrun``'s mesh modes).
+``launch.dryrun.make_plan`` stays the single-card plan (no mesh).
 
 The steps are plain functions, as the reference's are; a caller compiles
 one with ``utils.graph.graphed`` (the reference's callers ``jax.jit``
@@ -37,6 +52,7 @@ from typing import Any, Callable
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch.gossip_opt import ppermute_gossip
@@ -45,7 +61,7 @@ from repro_torch.scale.stacked import (
     masked_gossip_stacked,
     stacked_prune_regrow_threshold,
 )
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -57,19 +73,56 @@ FSDP2D_ARCHS = ("jamba-1.5-large-398b",)
 
 @dataclasses.dataclass
 class ScalePlan:
-    """K clients of ``arch`` on one card, each taking ``per_client_batch``
-    rows of ``shape``.  ``dtype`` types the params, the caches and the
-    float inputs (prefix, frames), as in the reference
-    (``abstract_params``, ``abstract_cache``, ``input_specs``).  The
-    default is float32, where the reference's is bf16: the reference's
-    default serves its TPU dry run, the port's callers (the ``lm`` loop,
-    the tests, ``chip_smoke.py``'s fp32 phase) compute in float32, and
-    bf16 is asked for by name (``launch.dryrun`` names it by default)."""
+    """K clients of ``arch``, each taking ``per_client_batch`` rows of
+    ``shape``.  ``dtype`` types the params, the caches and the float
+    inputs (prefix, frames), as in the reference (``abstract_params``,
+    ``abstract_cache``, ``input_specs``).  The default is float32, where
+    the reference's is bf16: the reference's default serves its TPU dry
+    run, the port's callers (the ``lm`` loop, the tests, ``chip_smoke.py``'s
+    fp32 phase) compute in float32, and bf16 is asked for by name
+    (``plan_for`` and ``launch.dryrun`` name it by default).  ``mesh`` is
+    the ``DeviceMesh`` (or a fake mesh with ``axis_names`` and a ``shape``
+    dict) that ``plan_for`` planned for, None for one card; ``fsdp2d``
+    (weights 2-D sharded) and ``seq_data`` (context-parallel KV cache) are
+    the plan's layout over it."""
     arch: ModelConfig
     shape: InputShape
     n_clients: int
     per_client_batch: int
     dtype: torch.dtype = torch.float32
+    mesh: Any = None
+    fsdp2d: bool = False
+    seq_data: bool = False
+
+    @property
+    def max_cache_len(self) -> int:
+        return self.shape.seq_len
+
+
+def plan_for(arch: ModelConfig, shape: InputShape, mesh,
+             dtype: torch.dtype = torch.bfloat16) -> ScalePlan:
+    """The reference's client mapping on ``mesh``: K = the mesh's client
+    capacity (one client when the global batch does not split into it);
+    ``FSDP2D_ARCHS`` take one client a pod; a single client shards its
+    weights 2-D, and its long-context (>= 65536) decode cache by
+    sequence."""
+    from repro_torch.launch.mesh import client_capacity
+    from repro_torch.sharding.rules import axis_names
+
+    gb = shape.global_batch
+    big = arch.name in FSDP2D_ARCHS
+    if big:
+        k = 2 if "pod" in axis_names(mesh) else 1
+        k = min(k, gb)
+    else:
+        k = client_capacity(mesh)
+        if gb < k or gb % k:
+            k = 1                      # long_500k path: single sharded client
+    fsdp2d = big or k == 1
+    seq_data = shape.mode == "decode" and k == 1 and shape.seq_len >= 65536
+    return ScalePlan(arch=arch, shape=shape, n_clients=k,
+                     per_client_batch=gb // k, dtype=dtype, mesh=mesh,
+                     fsdp2d=fsdp2d, seq_data=seq_data)
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +147,7 @@ def abstract_cache(api: ModelAPI, plan: ScalePlan) -> PyTree:
     """The stacked (K, ...) caches of ``plan.dtype`` for the plan's
     per-client batch and ``shape.seq_len`` slots, as ``meta`` tensors."""
     with FakeTensorMode():
-        shapes = api.init_cache(plan.per_client_batch, plan.shape.seq_len,
+        shapes = api.init_cache(plan.per_client_batch, plan.max_cache_len,
                                 plan.dtype)
     return _stack_specs(shapes, plan.n_clients)
 
@@ -118,17 +171,20 @@ def adjacency_spec(plan: ScalePlan) -> torch.Tensor:
     return meta_spec((plan.n_clients, plan.n_clients), torch.float32)
 
 
-def state_shardings(api: ModelAPI, plan: ScalePlan, mesh,
+def state_shardings(api: ModelAPI, plan: ScalePlan, mesh=None,
                     fsdp2d: bool | None = None):
     """``(params_spec, param_placements, mask_placements)``: the plan's
     stacked params as ``meta`` tensors and, per leaf, the DTensor
-    placements of ``sharding.rules.param_spec`` on ``mesh`` (masks mirror
-    their params).  ``fsdp2d`` defaults as the reference's ``plan_for``
-    sets it: an ``FSDP2D_ARCHS`` arch, or a single client."""
+    placements of ``sharding.rules.param_spec`` on ``mesh`` (default: the
+    plan's; masks mirror their params).  ``fsdp2d`` defaults to the plan's
+    where ``plan_for`` made it, else as ``plan_for`` sets it: an
+    ``FSDP2D_ARCHS`` arch, or a single client."""
     from repro_torch.sharding.rules import tree_param_shardings
 
+    mesh = plan.mesh if mesh is None else mesh
     if fsdp2d is None:
-        fsdp2d = plan.arch.name in FSDP2D_ARCHS or plan.n_clients == 1
+        fsdp2d = (plan.fsdp2d if plan.mesh is not None else
+                  plan.arch.name in FSDP2D_ARCHS or plan.n_clients == 1)
     params_spec = abstract_params(api, plan)
     p_sh = tree_param_shardings(params_spec, mesh, fsdp2d)
     return params_spec, p_sh, p_sh
@@ -165,19 +221,39 @@ def make_train_step(api: ModelAPI, plan: ScalePlan, gossip: str = "einsum"):
     if gossip not in GOSSIP_MODES:
         raise ValueError(f"gossip must be one of {GOSSIP_MODES}, got "
                          f"{gossip!r}")
+    update = masked_sgd_update(api)
+
+    def train_step(params, masks, batch, adjacency, lr):
+        if gossip == "ppermute":
+            params = ppermute_gossip(params, masks, plan)
+        elif _einsum_mixes(gossip, plan.n_clients):
+            params = masked_gossip_stacked(params, masks, adjacency,
+                                           reduction="einsum",
+                                           accum_dtype=_ACCUM[gossip])
+        return update(params, masks, batch, lr)
+
+    return train_step
+
+
+_ACCUM = {"einsum": torch.float32, "einsum_noopt": torch.float32,
+          "einsum_bf16": torch.bfloat16}
+
+
+def _einsum_mixes(gossip: str, k: int) -> bool:
+    """Whether the train step mixes by einsum: not at K=1 for ``einsum`` and
+    ``einsum_bf16``, where the 1x1 identity mix returns w (already
+    masked); ``einsum_noopt`` keeps it."""
+    return gossip in _ACCUM and (k > 1 or gossip == "einsum_noopt")
+
+
+def masked_sgd_update(api: ModelAPI) -> Callable:
+    """``(params, masks, batch, lr) -> (params, losses)``: each client's
+    gradient on its batch, then ``w <- (w - lr (g + wd w) m) m`` in fp32,
+    cast back to the leaf's dtype."""
     grads_fn = stacked_loss_grads(api)
     wd = WEIGHT_DECAY
 
-    def train_step(params, masks, batch, adjacency, lr):
-        if gossip in ("einsum", "einsum_bf16") and plan.n_clients == 1:
-            pass    # the 1x1 identity mix returns w (already masked)
-        elif gossip == "ppermute":
-            params = ppermute_gossip(params, masks, plan)
-        elif gossip != "none":
-            acc = torch.bfloat16 if gossip == "einsum_bf16" else torch.float32
-            params = masked_gossip_stacked(params, masks, adjacency,
-                                           reduction="einsum",
-                                           accum_dtype=acc)
+    def update(params, masks, batch, lr):
         grads, losses = grads_fn(params, batch)
         lr_t = torch.as_tensor(lr, dtype=torch.float32, device=losses.device)
 
@@ -187,7 +263,7 @@ def make_train_step(api: ModelAPI, plan: ScalePlan, gossip: str = "einsum"):
 
         return tree_map(upd, params, grads, masks), losses
 
-    return train_step
+    return update
 
 
 def make_mask_update_step(api: ModelAPI, plan: ScalePlan,
@@ -228,3 +304,258 @@ def make_decode_step(api: ModelAPI, plan: ScalePlan):
         return next_tok, cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# The steps over a mesh (the reference's lowering)
+# ---------------------------------------------------------------------------
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def client_placements(placements) -> tuple:
+    """``placements`` with only the client dim's sharding kept: every mesh
+    dim that does not shard tensor dim 0 replicated."""
+    return tuple(p if p == Shard(0) else Replicate() for p in placements)
+
+
+def client_range(x: DTensor) -> tuple[int, int]:
+    """The clients ``k0:k1`` of the stacked ``DTensor`` ``x`` this rank
+    holds (all K where the client dim is not sharded).  The client axes
+    divide K (``sharding.rules`` trims them until they do); DTensor splits
+    over them left to right, in the mesh's order."""
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    k0, n = 0, x.shape[0]
+    for i, p in enumerate(x.placements):
+        if p == Shard(0):
+            n //= mesh.size(i)
+            k0 += coord[i] * n
+    return k0, k0 + n
+
+
+def gather_shards(x: DTensor, keep_clients: bool = False) -> torch.Tensor:
+    """``x``'s local shard all-gathered over every mesh dim that shards it
+    (or every one but those that shard the client dim, dim 0), as a plain
+    tensor: one ``all_gather_into_tensor`` on each such mesh dim's group,
+    the last mesh dim first (DTensor splits a dim over its mesh dims left
+    to right; a mesh dim of size 1 holds the whole dim).  The port's
+    explicit form of ``DTensor.redistribute`` to ``Replicate`` (and of
+    ``full_tensor``): c10d's all-gather is carried by NCCL, by gloo for CPU
+    and CUDA tensors and by a fake process group, where the functional
+    all-gather that ``redistribute`` issues crashes in its wait under
+    gloo with CUDA tensors.  Shards are even (``sharding.rules`` shards a
+    dim only where its mesh axes divide it)."""
+    import torch.distributed as dist
+
+    mesh, t = x.device_mesh, x.to_local()
+    for i in reversed(range(mesh.ndim)):
+        p = x.placements[i]
+        if (not isinstance(p, Shard) or mesh.size(i) == 1
+                or (keep_clients and p.dim == 0)):
+            continue
+        src = t.movedim(p.dim, 0).contiguous()
+        out = torch.empty((mesh.size(i) * src.shape[0],) + src.shape[1:],
+                          dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src, group=mesh.get_group(i))
+        t = out.movedim(0, p.dim)
+    return t.contiguous()
+
+
+def _replicated(mesh) -> tuple:
+    return (Replicate(),) * mesh.ndim
+
+
+def _own(x):
+    """This rank's clients of a stacked ``DTensor``, whole (all-gathered
+    over the mesh dims that shard its body), as a plain tensor; a plain
+    tensor or number passes through."""
+    if not isinstance(x, DTensor):
+        return x
+    return gather_shards(x, keep_clients=True)
+
+
+def _whole(x):
+    """The whole ``DTensor`` (all-gathered over every mesh dim) as a plain
+    tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    return gather_shards(x)
+
+
+def _at_clients(own: torch.Tensor, like: DTensor) -> DTensor:
+    """This rank's whole clients' rows ``own`` as a ``DTensor`` split over
+    ``like``'s client axes only (K leading, as ``like``'s)."""
+    shape = (like.shape[0],) + tuple(own.shape[1:])
+    return DTensor.from_local(own, like.device_mesh,
+                              client_placements(like.placements),
+                              run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _like(own: torch.Tensor, like: DTensor) -> DTensor:
+    """This rank's whole clients ``own`` back at ``like``'s placements: a
+    replicated dim becomes a shard by a local chunk, with no traffic."""
+    return _at_clients(own, like).redistribute(like.device_mesh,
+                                               like.placements)
+
+
+def _gathered(own: torch.Tensor, like: DTensor) -> DTensor:
+    """This rank's clients' rows of an output, all-gathered over the client
+    axes into the whole (K, ...) output, replicated (the reference's
+    ``P()`` out-sharding for losses, logits and tokens)."""
+    mesh = like.device_mesh
+    return DTensor.from_local(gather_shards(_at_clients(own, like)), mesh,
+                              _replicated(mesh), run_check=False)
+
+
+@dataclasses.dataclass
+class MeshedStep:
+    """A step of ``plan`` placed on ``plan.mesh`` (the reference's
+    ``Lowered``).  ``fn`` takes ``DTensor`` arguments at ``placements``
+    and returns ``DTensor``s; ``args`` are the arguments' global shapes and
+    dtypes as ``meta`` tensors (a train step's learning rate a 0-d float32
+    one).  ``place`` distributes real arguments, the same global tensors on
+    every rank, each rank keeping its shard (no collective);
+    ``abstract_args`` makes ``DTensor``s over empty local shards (fake
+    ones under ``FakeTensorMode``: the dry run)."""
+    plan: ScalePlan
+    mode: str
+    fn: Callable
+    args: tuple
+    placements: tuple
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+    def place(self, *args) -> tuple:
+        from torch.distributed.tensor import distribute_tensor
+
+        mesh = self.plan.mesh
+
+        def one(x, pl):
+            if not isinstance(x, torch.Tensor):
+                return x
+            # every rank holds the global tensor: each keeps its own
+            # shard, and nothing travels
+            return distribute_tensor(x, mesh, pl, src_data_rank=None)
+
+        return tuple(tree_map(one, a, pl)
+                     for a, pl in zip(args, self.placements))
+
+    def abstract_args(self, device) -> tuple:
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset,
+        )
+
+        mesh = self.plan.mesh
+
+        def one(spec, pl):
+            local, _ = compute_local_shape_and_global_offset(
+                tuple(spec.shape), mesh, pl, skip_offset=True)
+            return DTensor.from_local(
+                torch.empty(local, dtype=spec.dtype, device=device), mesh,
+                pl, run_check=False, shape=spec.shape,
+                stride=_contiguous_stride(spec.shape))
+
+        return tuple(tree_map(one, a, pl)
+                     for a, pl in zip(self.args, self.placements))
+
+
+def lower_train(api: ModelAPI, plan: ScalePlan,
+                gossip: str = "einsum") -> MeshedStep:
+    """The train step over ``plan.mesh``: params and masks at
+    ``state_shardings``' placements, the batch at ``tree_batch_shardings``',
+    adjacency and learning rate replicated; returns the params at their
+    placements and the K losses replicated.  ``ppermute`` runs the sharded
+    ring on the placed leaves; an ``einsum`` mix all-gathers the K clients'
+    params and masks and mixes this rank's receivers."""
+    if gossip not in GOSSIP_MODES:
+        raise ValueError(f"gossip must be one of {GOSSIP_MODES}, got "
+                         f"{gossip!r}")
+    from repro_torch.sharding.rules import tree_batch_shardings
+
+    mesh = plan.mesh
+    params_spec, p_sh, m_sh = state_shardings(api, plan)
+    batch_spec = input_specs(api, plan)
+    b_sh = tree_batch_shardings(batch_spec, mesh, plan.fsdp2d)
+    repl = _replicated(mesh)
+    update = masked_sgd_update(api)
+    mixes = _einsum_mixes(gossip, plan.n_clients)
+
+    def train_step(params, masks, batch, adjacency, lr):
+        first = tree_leaves(params)[0]
+        if gossip == "ppermute":
+            params = ppermute_gossip(params, masks, plan)
+        if mixes:
+            k0, k1 = client_range(first)
+            full_m = tree_map(_whole, masks)
+            own_p = masked_gossip_stacked(
+                tree_map(_whole, params), full_m, _whole(adjacency),
+                reduction="einsum", accum_dtype=_ACCUM[gossip],
+                receivers=(k0, k1))
+            own_m = tree_map(lambda m: m[k0:k1], full_m)
+        else:
+            own_p, own_m = tree_map(_own, params), tree_map(_own, masks)
+        new, losses = update(own_p, own_m, tree_map(_own, batch),
+                             _whole(lr))
+        return tree_map(_like, new, params), _gathered(losses, first)
+
+    args = (params_spec, abstract_masks(params_spec), batch_spec,
+            adjacency_spec(plan), meta_spec((), torch.float32))
+    return MeshedStep(plan, "train", train_step, args,
+                      (p_sh, m_sh, b_sh, repl, repl))
+
+
+def lower_serve(api: ModelAPI, plan: ScalePlan) -> MeshedStep:
+    """The prefill or decode step over ``plan.mesh``: params at
+    ``state_shardings``' placements, batch and cache at
+    ``tree_batch_shardings``' and ``tree_cache_shardings``' (the cache's
+    sequence over 'data' where ``plan.seq_data``); returns the logits
+    (prefill) or next tokens (decode) replicated and the cache at its
+    placements."""
+    from repro_torch.sharding.rules import (
+        tree_batch_shardings,
+        tree_cache_shardings,
+    )
+
+    mesh = plan.mesh
+    params_spec, p_sh, _ = state_shardings(api, plan)
+    cache_spec = abstract_cache(api, plan)
+    c_sh = tree_cache_shardings(cache_spec, mesh, plan.seq_data,
+                                fsdp2d=plan.fsdp2d)
+    batch_spec = input_specs(api, plan)
+    b_sh = tree_batch_shardings(batch_spec, mesh, plan.fsdp2d)
+    mode = plan.shape.mode
+    inner = (make_prefill_step if mode == "prefill" else
+             make_decode_step)(api, plan)
+
+    def serve_step(params, batch, cache):
+        out, new_cache = inner(tree_map(_own, params), tree_map(_own, batch),
+                               tree_map(_own, cache))
+        return (_gathered(out, tree_leaves(params)[0]),
+                tree_map(_like, new_cache, cache))
+
+    return MeshedStep(plan, mode, serve_step,
+                      (params_spec, batch_spec, cache_spec),
+                      (p_sh, b_sh, c_sh))
+
+
+def lower_for(arch: ModelConfig, shape: InputShape, mesh,
+              gossip: str = "einsum", dtype: torch.dtype = torch.bfloat16):
+    """``(plan, step)``: ``plan_for``'s plan and its train step (train
+    shapes) or serve step (prefill and decode shapes) over ``mesh``.  The
+    reference's ``remat``/``unroll`` options change how XLA lowers the same
+    numbers and have no counterpart in the port's eager steps."""
+    from repro_torch.models.registry import bind
+
+    plan = plan_for(arch, shape, mesh, dtype)
+    api = bind(arch)
+    if shape.mode == "train":
+        return plan, lower_train(api, plan, gossip)
+    return plan, lower_serve(api, plan)

@@ -2,9 +2,9 @@
 ``repro.scale.engine``).
 
 A ``RoundEngine`` subclass whose round — gossip mix, local SGD phase, mask
-evolution — runs on client-stacked state: one vmapped call per local step
-and one stacked call per phase, where the loop engine walks the clients in
-Python.
+evolution — runs on client-stacked state: vmapped calls per local step
+(``CLIENTS_PER_CALL`` clients each) and one stacked call per phase, where
+the loop engine walks the clients in Python.
 
 Semantics contract (``tests/test_torch_scale.py``):
 
@@ -89,6 +89,9 @@ from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 PyTree = Any
 
+#: clients a vmapped call of the local phase, the evolve gradients and eval:
+#: one, so no mesh splits a call and a client's bits do not depend on it
+CLIENTS_PER_CALL = 1
 #: the state key the mesh's gather phase hands the mix its (K, N) buffers in
 _GATHERED = "_gathered"
 # torch 2.13 renames all_gather_into_tensor (same arguments); older has one
@@ -222,11 +225,13 @@ class ScaleEngine(RoundEngine):
     (the CPU), ``"whole"`` (one graph) or ``"segments"`` (gloo: graphs
     around the eager gather).
 
-    The local phase, the evolve gradients and eval vmap all the engine's
-    clients in one call, so a meshed rank vmaps its K_local.  A
-    convolution vmapped over K clients is one grouped convolution of K
-    groups, and cuDNN may choose its algorithm by the group count: on the
-    card a client's bits can depend on K_local (ROADMAP Queue C).
+    The local phase, the evolve gradients and eval take
+    ``CLIENTS_PER_CALL`` clients a vmapped call, whatever the mesh: a
+    convolution vmapped over n clients is one grouped convolution of n
+    groups, and cuDNN chooses its algorithm by the group count, so a
+    call's width that followed the rank's client count would make a
+    client's bits on the card depend on the mesh.  Every call stays inside
+    the one compiled round, so the calls add launches and no host time.
     """
 
     def __init__(self, strategy: StrategyBase, task: Task, clients, cfg,
@@ -241,9 +246,6 @@ class ScaleEngine(RoundEngine):
         self.adapter = make_stacked(strategy, reduction=reduction)
         self.adapter.validate(cfg)
         self._validate_clients()
-        # clients a vmapped call, None for all: a hook that lets an unsharded
-        # reference make a meshed rank's calls (K_local at a time)
-        self._vmap_width = None
         self.mesh = mesh
         self.shard = (None if mesh is None else
                       ClientShard(mesh, len(self.clients)))
@@ -377,16 +379,15 @@ class ScaleEngine(RoundEngine):
         return phases, graphed(lambda state, inp: run(state, inp, phases),
                                donate=(0,), collectives=shard is not None)
 
-    def _by_blocks(self, fn, *trees):
-        """``fn`` over the stacked trees' clients, ``_vmap_width`` at a
-        time, the results concatenated (one call when the width is not set
-        or covers them all)."""
+    @staticmethod
+    def _by_blocks(fn, *trees):
+        """``fn`` over the stacked trees' clients, ``CLIENTS_PER_CALL`` at
+        a time, the results concatenated: every call is the same call on an
+        unsharded engine and on every mesh."""
         k = tree_leaves(trees[0])[0].shape[0]
-        width = self._vmap_width or k
-        if width >= k:
-            return fn(*trees)
-        outs = [fn(*(tree_map(lambda t: t[a:a + width], x) for x in trees))
-                for a in range(0, k, width)]
+        outs = [fn(*(tree_map(lambda t: t[a:a + CLIENTS_PER_CALL], x)
+                     for x in trees))
+                for a in range(0, k, CLIENTS_PER_CALL)]
         return tree_map(lambda *ys: torch.cat(ys), *outs)
 
     def _count_tensor(self, counts: dict):
@@ -498,8 +499,9 @@ class ScaleEngine(RoundEngine):
         return self._stacked_eval()
 
     def _stacked_eval(self) -> list[float]:
-        """Personalized eval in one vmapped call over the stacked params
-        (equal to the per-client ``evaluate_clients`` loop).  A meshed rank
+        """Personalized eval, vmapped over the stacked params
+        ``CLIENTS_PER_CALL`` clients a call (equal to the per-client
+        ``evaluate_clients`` loop).  A meshed rank
         evaluates its own clients on their rows of the K clients' padded
         test arrays and gathers all K accuracies."""
         if self._eval_arrays is None:

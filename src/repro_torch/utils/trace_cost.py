@@ -15,7 +15,8 @@ step on the card), with the same counts either way:
 * peak live bytes: each storage is counted once when an op first returns
   it (views share it) and freed when its last tensor dies; the
   arguments' storages are live throughout;
-* ``aten_ops``: a histogram of the ops counted for bytes (not views);
+* ``aten_ops``: a histogram of the ops counted for bytes (not views, not
+  the collectives of a meshed step, which ``utils.collectives`` books);
 * ``flops``: ``FlopCounterMode``'s, which counts matmul, convolution and
   attention FLOPs only (``FLOPS_COUNTED_BY``).
 
@@ -37,13 +38,19 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
+#: ops that move data between ranks: ``utils.collectives`` books them, and
+#: their buffers are not the step's memory traffic
+COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
 FLOPS_COUNTED_BY = ("torch.utils.flop_counter.FlopCounterMode: matmul, "
                     "convolution and attention FLOPs only")
 TOP_OPS = 12
 
 
 def _tensors(tree) -> list:
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+    """The tensors of ``tree``; a ``DTensor`` stands for this rank's local
+    shard, the storage it holds."""
+    return [getattr(t, "_local_tensor", t) for t in tree_flatten(tree)[0]
+            if isinstance(t, torch.Tensor)]
 
 
 class TraceCost(TorchDispatchMode):
@@ -103,7 +110,7 @@ class TraceCost(TorchDispatchMode):
         if func.namespace == "prim":
             return out
         outs = _tensors(out)
-        if not func.is_view:
+        if not func.is_view and func.namespace not in COLLECTIVE_NAMESPACES:
             self.ops[str(func.overloadpacket)] += 1
             self.bytes_accessed += sum(
                 t.numel() * t.element_size()

@@ -232,13 +232,17 @@ def test_gemma3_published_width_flops_near_model_flops():
 
 
 def test_dryrun_refuses_mesh_flags_with_reasons(capsys):
-    for argv, reason in ((["--multi-pod"], "DeviceMesh"),
-                         (["--both-meshes"], "DeviceMesh"),
-                         (["--unroll"], "eagerly"),
-                         (["--remat", "full"], "rematerialisation")):
+    """--unroll and --remat stay refused; the mesh flags now plan the
+    reference's meshes, and refuse the single-card plan's flags."""
+    for argv, reason in ((["--unroll"], "eagerly"),
+                         (["--remat", "full"], "rematerialisation"),
+                         (["--multi-pod", "--clients", "4"], "plan_for")):
         with pytest.raises(SystemExit):
             dryrun.parse_args(argv)
         assert reason in capsys.readouterr().err
+    for argv, meshes in (([], [None]), (["--multi-pod"], [True]),
+                         (["--both-meshes"], [False, True])):
+        assert dryrun.parse_args(argv).meshes == meshes
     # a mesh larger than the world (no torchrun here: a world of one) is
     # refused with the torchrun line that gives it one, before any world
     with pytest.raises(SystemExit) as refused:
@@ -364,3 +368,19 @@ def test_port_roofline_prices_the_traced_batch(tmp_path):
     assert rec["roofline"]["useful_ratio"] == round(want, 3)
     assert ref_report.fresh_report(rec).useful_ratio == pytest.approx(
         64 * want, rel=1e-12)
+
+
+def test_port_mesh_records_table_apart_from_the_reference(tmp_path):
+    """A port mesh record (``"tp": false``: whole clients a rank) is
+    tabled under a heading of its own, never in the reference's table of
+    the same mesh, and both load from one directory."""
+    port = {**REF_RECORD, "tp": False, "unroll": False}
+    assert report.table_mesh(REF_RECORD) == "pod16x16"
+    assert report.table_mesh(port) == "pod16x16" + report.REPLICATED
+    only_ref = report.dryrun_table([REF_RECORD], "pod16x16")
+    assert report.dryrun_table([REF_RECORD, port], "pod16x16") == only_ref
+    assert report.dryrun_table([port], report.table_mesh(port)) == \
+        only_ref
+    for i, rec in enumerate((REF_RECORD, port)):
+        (tmp_path / f"{i}.json").write_text(json.dumps(rec))
+    assert len(report.load_records(str(tmp_path))) == 2

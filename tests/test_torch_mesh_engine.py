@@ -338,24 +338,19 @@ def test_world_of_one_nccl_round_on_card(cuda_device, tmp_path):
 @pytest.mark.cuda
 def test_gloo_ranks_sharing_the_card(cuda_device, tmp_path):
     """Four gloo ranks on the one card, meshes 4x1 and 2x2, ``ordered``:
-    each mesh's final archive bit-equal to the unsharded run at its ranks'
-    vmap width; the round two graphed segments around the gather."""
+    each mesh's final archive bit-equal to the unsharded K=8 run; the round
+    two graphed segments around the gather."""
     d = str(tmp_path)
     eng = world.engine("ordered", device="cuda")
     eng.save(os.path.join(d, "start.npz"))
-    plain = {}
-    for shape in world.SHAPES:
-        width = 8 // shape[0]
-        e = world.engine("ordered", device="cuda").restore(
-            os.path.join(d, "start.npz"))
-        e._vmap_width = width
-        e.run()
-        plain[f"{shape[0]}x{shape[1]}"] = e.state
+    plain = world.engine("ordered", device="cuda").restore(
+        os.path.join(d, "start.npz"))
+    plain.run()
     mp.spawn(world.run_card_rank, args=(world.WORLD, d), nprocs=world.WORLD)
-    for name, want in plain.items():
+    for name in (f"{s[0]}x{s[1]}" for s in world.SHAPES):
         got = world.engine("ordered", device="cuda").restore(
             os.path.join(d, f"card-{name}.npz"))
-        assert world.bits_equal(want, got.state), name
+        assert world.bits_equal(plain.state, got.state), name
         for r in range(world.WORLD):
             rank = json.load(open(os.path.join(d, f"card-rank{r}.json")))
             assert (rank[name]["capture"], rank[name]["step_compiles"]) == (

@@ -64,13 +64,19 @@ RENAMED = {
     "repro.launch.roofline.ICI_BW": (
         "repro_torch.launch.roofline.LINK_BW",
         "NVLink stands where the TPU's inter-chip link stood"),
-    "repro.launch.steps.plan_for": (
-        "repro_torch.launch.dryrun.make_plan",
-        "one card: K clients x rows, no mesh to plan for (README A13d)"),
+    "repro.utils.hlo.op_histogram": (
+        "repro_torch.utils.trace_cost.step_cost",
+        "the aten-op histogram is StepCost.aten_ops, counted in the pass "
+        "that counts the step's bytes"),
 }
 
-_MESH = ("the multi-pod dry run over a DeviceMesh is not ported yet "
-         "(ROADMAP Queue A, README A13d)")
+#: reference module -> (the port's module in its role, why it differs)
+RENAMED_MODULES = {
+    "repro.utils.hlo": (
+        "repro_torch.utils.collectives",
+        "no HLO: a meshed step's collectives are counted from the c10d and "
+        "functional-collective ops one rank dispatches"),
+}
 _TPU_TILE = "the Pallas kernel's TPU tile; the CUDA tile is in csrc"
 _ALIAS = "a type alias the reference module defines and never uses"
 
@@ -78,8 +84,6 @@ _ALIAS = "a type alias the reference module defines and never uses"
 NOT_PORTED = {
     "repro.launch.mesh.AxisType": "jax's mesh axis kind (Auto); a "
                                   "DeviceMesh has none",
-    "repro.utils.hlo": "no HLO on the card; utils/trace_cost.py counts "
-                       "bytes and aten ops, collectives are 0 on one card",
     "repro.kernels.ops": "the port's kernel wrappers pad nothing and "
                          "stand in its place",
     "repro.kernels.ref": "each kernel module's *_plain functions are the "
@@ -93,14 +97,7 @@ NOT_PORTED = {
                                             "name; torch has no such event",
     "repro.launch.dryrun.DOC": "the multi-pod dry run's help; the port's "
                                "is its module docstring",
-    "repro.launch.dryrun.analytic_state_bytes_per_device": _MESH,
     "repro.launch.report.UNROLL_DIR": "--unroll is refused (README A13d)",
-    "repro.launch.steps.lower_for": "nothing is lowered: the dry run "
-                                    "traces on fake tensors",
-    "repro.launch.steps.lower_serve": "nothing is lowered: the dry run "
-                                      "traces on fake tensors",
-    "repro.launch.steps.lower_train": "nothing is lowered: the dry run "
-                                      "traces on fake tensors",
     "repro.core.accounting.PyTree": _ALIAS,
     "repro.models.common.PyTree": _ALIAS,
     "repro.models.registry.PyTree": _ALIAS,
@@ -181,7 +178,8 @@ def test_the_walk_covers_every_reference_module():
 
 @pytest.mark.parametrize("name", MODULES)
 def test_reference_module_surface_in_the_port(name):
-    port_name = "repro_torch" + name[len("repro"):]
+    port_name = RENAMED_MODULES.get(name, ("repro_torch" + name[len("repro"):],
+                                           None))[0]
     if name in NOT_PORTED:
         assert NOT_PORTED[name]
         with pytest.raises(ModuleNotFoundError):
@@ -204,6 +202,9 @@ def test_reference_module_surface_in_the_port(name):
 
 def test_exception_tables_name_reference_names():
     """Every table entry is a reference module or a public name of one."""
+    for _, reason in RENAMED_MODULES.values():
+        assert reason
+    assert set(RENAMED_MODULES) <= set(MODULES)
     for key in list(RENAMED) + list(NOT_PORTED):
         assert (RENAMED.get(key) or (None, NOT_PORTED.get(key)))[1]
         if key in MODULES:

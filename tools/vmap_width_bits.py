@@ -1,11 +1,12 @@
 """Whether a client's bits on the card depend on how many clients share
 its vmapped call, at ResNet18-GN's shapes (32x32 inputs, a batch of 8).
 
-``ScaleEngine`` vmaps its clients' local phase, evolve gradients and eval;
-a convolution vmapped over K clients is one grouped convolution of K
-groups.  This script compares, for K=8 stacked clients, the result of one
-call over all 8 with the same clients taken ``width`` at a time (4, 2, 1),
-bit for bit:
+``ScaleEngine`` vmaps its clients' local phase, evolve gradients and eval
+(one client a call, ``scale.engine.CLIENTS_PER_CALL``, because of what
+this script shows); a convolution vmapped over K clients is one grouped
+convolution of K groups.  This script compares, for K=8 stacked clients,
+the result of one call over all 8 with the same clients taken ``width``
+at a time (4, 2, 1), bit for bit:
 
 * each op of the model alone, forward and backward (``torch.func.vjp``
   with a fixed cotangent): every distinct convolution shape of
