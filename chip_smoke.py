@@ -302,19 +302,27 @@ line):
     first round's eager warm-up counts); a rank that fails fails the
     phase with its exit code and stderr tail;
 21. the LM steps over a ``DeviceMesh`` (``launch.steps.plan_for`` and
-    ``lower_train``/``lower_serve``, ``DTensor`` placements): (a)
-    gemma3-1b at its published width, fp32, one 1024-token row a client,
-    on a world of one NCCL rank (mesh 1x1): the placed train, prefill and
-    decode steps bit-equal to the unsharded steps of the same plan, each
-    timed beside it; (b) the qwen3-8b smoke arch on four gloo ranks
-    sharing the card (``chip_smoke.py --steps-child``), mesh 2x2 (K=2 of
-    2 rows): the train step (``einsum``, ``ppermute``: the sharded ring),
-    prefill and decode within ``STEPS_REL_TOL`` of the unsharded steps,
-    per rank its clients and the collective kinds and bytes
-    ``utils.collectives`` counts; (c) the dry run's ``--multi-pod``
-    records of gemma3-1b train_4k (``einsum``, ``ppermute``), traced by
-    phase 17's background process: ok, collective bytes, the ring's
-    collective-permutes;
+    ``lower_train``/``lower_serve``, ``DTensor`` placements; each client
+    split over 'model' by ``sharding.tp``): (a) gemma3-1b at its
+    published width, fp32, one 1024-token row a client, on a world of one
+    NCCL rank (mesh 1x1): the placed train, prefill and decode steps
+    bit-equal to the unsharded steps of the same plan, each timed beside
+    it; (b) four gloo ranks sharing the card (``chip_smoke.py
+    --steps-child``): the qwen3-8b smoke arch on meshes 2x2 (K=2 of 2
+    rows) and 1x4 (K=1 of 4 rows), the deepseek-moe-16b and mamba2-1.3b
+    smoke archs and jamba's FSDP2D plan (one client of 4 rows, weights
+    2-D sharded) on 2x2: the train step (``einsum``, ``ppermute``: the
+    sharded ring), prefill and decode within ``STEPS_REL_TOL`` of the
+    unsharded steps, per rank its clients, the collective kinds and bytes
+    ``utils.collectives`` counts, the all-reduces over 'model', the inputs
+    gathered whole where the reference splits them, and no all-gather
+    sending a 'model'-sharded weight's shard (the fingerprints of
+    ``tests/_torch_mesh_steps_world.py``'s ``SentSums``); (c) the dry run's
+    ``--multi-pod`` records of gemma3-1b train_4k (``einsum``,
+    ``ppermute``) and qwen3-8b train_4k, traced by phase 17's background
+    process: ok, ``"tp": true``, collective bytes, the ring's
+    collective-permutes, rank 0's FLOPs beside the parent tree's
+    whole-client records (qwen3-8b's at most 1.25/16 of it);
 22. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
     dtypes in ``shape``).  Each row's launches are that entry's own, as
     its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
@@ -1157,8 +1165,8 @@ def main() -> int:
     mesh_launches = mesh_path(torch, train, counters, card)
 
     # 21. the LM steps over a DeviceMesh: gemma3-1b on a world of one NCCL
-    # rank, the qwen3-8b smoke arch on four gloo ranks, the multi-pod dry
-    # run's records
+    # rank, four smoke archs on four gloo ranks, the multi-pod dry run's
+    # records
     steps_launches = steps_mesh_path(torch, counters, card, sweep)
 
     # every row's launches are its own C entry's (the U=1 rows the U=1
@@ -4497,30 +4505,57 @@ def mesh_path(torch, train, counters, card):
     return _sum_launches(runs)
 
 
-# phase 21: the LM steps over a DeviceMesh.  (a) gemma3-1b at its
-# published width, fp32, on a world of one NCCL rank (mesh 1x1), one
-# 1024-token row a client as phase 14's plan: the placed train, prefill and
-# decode steps held bit for bit to the unsharded steps; (b) the qwen3-8b
-# smoke arch on four gloo ranks sharing the card, mesh 2x2 (K=2 of 2 rows
-# by plan_for), the train step (einsum, ppermute), prefill and decode within
-# fp32 rounding of the unsharded steps, each rank's collectives; (c) the
-# dry run's multi-pod records (gemma3-1b train_4k, einsum and ppermute),
-# traced by phase 17's background process after its sweep
+# phase 21: the LM steps over a DeviceMesh, split over 'model' by
+# tensor parallelism (sharding.tp).  (a) gemma3-1b at its published width,
+# fp32, on a world of one NCCL rank (mesh 1x1: every collective of size 1),
+# one 1024-token row a client as phase 14's plan: the placed train, prefill
+# and decode steps held bit for bit to the unsharded steps; (b) four gloo
+# ranks sharing the card: the qwen3-8b smoke arch on meshes 2x2 (K=2 of 2
+# rows by plan_for; its 4 q and 2 kv heads split whole over 'model' of 2)
+# and 1x4 (K=1 of 4 rows; one q head a rank, the k/v columns cut a kv head
+# and are gathered), the deepseek-moe-16b (experts split) and mamba2-1.3b
+# (SSM projections, conv channels and scan heads split) smoke archs and
+# jamba's FSDP2D plan (weights' 'data' shards gathered before use) on 2x2:
+# the train step (einsum, ppermute), prefill and decode within fp32
+# rounding of the unsharded steps, each rank's collectives by kind, none
+# sending a 'model'-sharded weight's shard to gather it whole; (c) the dry
+# run's multi-pod records (gemma3-1b train_4k,
+# einsum and ppermute; qwen3-8b train_4k), traced by phase 17's background
+# process after its sweep, rank 0's FLOPs beside the parent tree's
+# ("tp": false: a rank computed whole clients)
 STEPS_A_ARCH = "gemma3-1b"
 STEPS_SEQ = 1024
-STEPS_B_ARCH = "qwen3-8b"
+# (b): each mesh (data, model) and the smoke archs run on it
+STEPS_B_CASES = (((2, 2), ("qwen3-8b", "deepseek-moe-16b", "mamba2-1.3b",
+                           "jamba-1.5-large-398b")),
+                 ((1, 4), ("qwen3-8b",)))
+# planned as plan_for plans the published arch: one client, weights 2-D
+# sharded (FSDP over 'data' + 'model')
+STEPS_B_FSDP2D = ("jamba-1.5-large-398b",)
 STEPS_B_SEQ, STEPS_B_BATCH = 64, 4
-STEPS_B_MESH = (2, 2)
 STEPS_B_WORLD = 4
 # (b): max|meshed - plain| <= STEPS_REL_TOL * max(1, max|plain|), the
 # port's LM tests' criterion (a rank's matmuls take its K_local clients)
 STEPS_REL_TOL = 1e-5
 STEPS_CHILD_TIMEOUT_S = 300
 # timed calls of each step and its unsharded twin, interleaved: median and
-# range
+# range ((a); (b) fewer, it times smoke shapes)
 STEPS_TIMED_CALLS = 5
+STEPS_B_TIMED_CALLS = 3
 STEPS_DIR = os.path.join(ROOT, "runs", "chip_smoke_steps")
-STEPS_DRYRUN = [("gemma3-1b", "train_4k", g) for g in ("einsum", "ppermute")]
+STEPS_DRYRUN = ([("gemma3-1b", "train_4k", g) for g in ("einsum", "ppermute")]
+                + [("qwen3-8b", "train_4k", "einsum")])
+# rank 0's FLOPs of the parent tree's multi-pod records ("tp": false), by
+# (arch, shape, gossip): tools/mesh_dryrun_flops.py --src <parent's src>,
+# as PERF.md records them
+PARENT_TP_FALSE_FLOPS = {
+    ("gemma3-1b", "train_4k", "einsum"): 221426165956608.0,
+    ("gemma3-1b", "train_4k", "ppermute"): 221298189926400.0,
+    ("qwen3-8b", "train_4k", "einsum"): 1726491395751936.0,
+}
+# qwen3-8b's 32 q heads split over 'model' of 16: rank 0's FLOPs at most
+# 1.25/16 of the parent's
+TP_FLOPS_SHARE = {"qwen3-8b": 1.25 / 16}
 
 
 def _steps_inputs(torch, step, gen, init=None):
@@ -4585,13 +4620,20 @@ def _steps_cmp(torch, got, want):
     return same, diff, scale, finite
 
 
-def _steps_case(torch, steps, api, plan, gossip, args):
+def _steps_case(torch, steps, api, plan, gossip, args, calls):
     """The meshed step and the plain one on ``args``, each once to warm,
-    then ``STEPS_TIMED_CALLS`` timed calls of each, interleaved
-    (synchronised); returns the meshed outputs, the plain ones, each
-    one's sorted seconds, the meshed call's collectives and this rank's
-    clients ``(k0, k1)``."""
-    from repro_torch.utils.collectives import collective_bytes
+    then ``calls`` timed calls of each, interleaved (synchronised);
+    returns the meshed outputs, the plain ones, each one's sorted
+    seconds, the meshed call's collectives, this rank's clients ``(k0,
+    k1)``, the all-gathers over 'model' that sent a 'model'-sharded weight
+    leaf's shard (``weight_shard_gathers`` of
+    ``tests/_torch_mesh_steps_world.py``: none, where no weight is gathered
+    whole) and the ops and inputs it noted as replicated or gathered
+    whole."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_mesh_steps_world import SentSums, weight_shard_gathers
+
+    from repro_torch.sharding.tp import record_replicated
     from repro_torch.utils.tree import tree_leaves, tree_map
     step = (steps.lower_train(api, plan, gossip) if plan.shape.mode == "train"
             else steps.lower_serve(api, plan))
@@ -4599,12 +4641,12 @@ def _steps_case(torch, steps, api, plan, gossip, args):
     placed = step.place(*args)
     clone = [tree_map(torch.clone, a) if not isinstance(a, float) else a
              for a in args]
-    calls = (("plain", plain, clone), ("meshed", step, placed))
-    times = {name: [] for name, _, _ in calls}
-    for name, fn, a in calls:
+    fns = (("plain", plain, clone), ("meshed", step, placed))
+    times = {name: [] for name, _, _ in fns}
+    for name, fn, a in fns:
         fn(*a)
-    for _ in range(STEPS_TIMED_CALLS):
-        for name, fn, a in calls:
+    for _ in range(calls):
+        for name, fn, a in fns:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a)
@@ -4614,9 +4656,29 @@ def _steps_case(torch, steps, api, plan, gossip, args):
                 want = out
             del out
     times = {name: sorted(t) for name, t in times.items()}
-    got, stats = collective_bytes(step, *placed)
-    return (got, want, times, stats,
-            steps.client_range(tree_leaves(placed[0])[0]))
+    counter = SentSums()
+    with counter, record_replicated() as rep:
+        got = step(*placed)
+    gathers = []
+    if counter.sent:
+        gathers = weight_shard_gathers(counter.sent, placed[0], args[0],
+                                       *_steps_mixed(plan, gossip, args))
+    return (got, want, times, counter.stats,
+            steps.client_range(tree_leaves(placed[0])[0]), gathers,
+            sorted(rep))
+
+
+def _steps_mixed(plan, gossip, args):
+    """A train step's params after its gossip on the whole stack (what its
+    models read), for ``weight_shard_gathers``; none for serve steps."""
+    from repro_torch.launch.gossip_opt import ppermute_gossip
+    from repro_torch.scale.stacked import masked_gossip_stacked
+    if plan.shape.mode != "train":
+        return []
+    if gossip == "ppermute":
+        return [ppermute_gossip(args[0], args[1])]
+    return [masked_gossip_stacked(args[0], args[1], args[3],
+                                  reduction="einsum")]
 
 
 def _median(xs):
@@ -4660,14 +4722,15 @@ def steps_mesh_path(torch, counters, card, sweep):
         args = _steps_inputs(torch, step, gen, init=stacked)
         if mode == "decode" and cache is not None:
             args[2] = cache
-        got, want, times, stats, _ = _steps_case(torch, steps, api, plan,
-                                                 "einsum", args)
+        got, want, times, stats, _, _, _ = _steps_case(
+            torch, steps, api, plan, "einsum", args, STEPS_TIMED_CALLS)
         same, diff, scale, finite = _steps_cmp(torch, got, want)
         if mode == "prefill":
             cache = tree_map(steps.gather_shards, got[1])
         log(f"mesh steps (a) {STEPS_A_ARCH} {mode} ({n_params} params, fp32, "
             f"K={plan.n_clients} x {plan.per_client_batch} x {STEPS_SEQ}, "
-            f"fsdp2d {plan.fsdp2d}) 1x1 NCCL DTensor vs unsharded: "
+            f"fsdp2d {plan.fsdp2d}) 1x1 NCCL, tensor-parallel path, vs "
+            f"unsharded: "
             f"bit-equal {same}, max abs diff {diff}, finite {finite}; "
             f"{_median_range(times['meshed'])} vs unsharded "
             f"{_median_range(times['plain'])} ({STEPS_TIMED_CALLS} calls "
@@ -4712,29 +4775,54 @@ def steps_mesh_path(torch, counters, card, sweep):
         runs.append(r["launches"])
         for case, c in r["cases"].items():
             ok = (c["max_abs"] <= STEPS_REL_TOL * max(1.0, c["scale"])
-                  and c["finite"])
+                  and c["finite"] and not c["weight_gathers"]
+                  and c["whole"] == c["whole_want"]
+                  and c["model_counts"].get("all-reduce", 0) > 0)
             log(f"mesh steps (b) {case} rank {rank}: clients "
                 f"{c['clients']}, max abs diff {c['max_abs']} (scale "
-                f"{c['scale']}), finite {c['finite']}, collectives "
-                f"{c['collectives']} ({card})")
+                f"{c['scale']}), finite {c['finite']}, "
+                f"{_median_range(c['seconds']['meshed'])} vs unsharded "
+                f"{_median_range(c['seconds']['plain'])}; collectives "
+                f"{c['collectives']}, over 'model' {c['model_counts']}, "
+                f"'model'-sharded weights gathered whole: "
+                f"{len(c['weight_gathers'])}, left replicated or gathered "
+                f"whole {c['replicated']} ({card})")
             if not ok:
                 bad.append((rank, case))
     if bad:
-        raise AssertionError(f"mesh steps (b): outside fp32 rounding: {bad}")
-    log(f"mesh steps (b): four gloo ranks sharing the card, mesh "
-        f"{STEPS_B_MESH[0]}x{STEPS_B_MESH[1]}, "
-        f"{time.perf_counter() - t_b:.1f} s ({card})")
+        raise AssertionError(f"mesh steps (b): outside fp32 rounding, a "
+                             f"weight gathered whole, no all-reduce over "
+                             f"'model' or an input gathered whole unnamed: "
+                             f"{bad}")
+    log(f"mesh steps (b): four gloo ranks sharing the card, "
+        + ", ".join(f"{d}x{m} {' '.join(archs)}"
+                    for (d, m), archs in STEPS_B_CASES)
+        + f", {time.perf_counter() - t_b:.1f} s ({card})")
     shutil.rmtree(STEPS_DIR, ignore_errors=True)
 
     # (c) the multi-pod dry run, traced beside phases 15 and 4-12
     for rec in sweep.mesh_records:
+        key = (rec["arch"], rec["shape"], rec["gossip"])
+        parent = PARENT_TP_FALSE_FLOPS.get(key)
+        flops = rec.get("cost", {}).get("flops")
         log(f"mesh steps (c) {rec['tag']}: {rec['status']}, chips "
             f"{rec.get('chips')}, K {rec.get('n_clients')} x "
-            f"{rec.get('per_client_batch')}, trace {rec.get('trace_s')} s, "
-            f"coll {rec.get('coll_bytes_per_device')} bytes/rank "
+            f"{rec.get('per_client_batch')}, tp {rec.get('tp')}, left "
+            f"replicated {rec.get('replicated')}, rank 0's FLOPs {flops} "
+            f"(the parent's \"tp\": false record {parent}: "
+            f"{flops / parent if flops and parent else None} of it), peak "
+            f"{rec.get('peak_live_bytes')} bytes, fits {rec.get('fits')}, "
+            f"trace {rec.get('trace_s')} s, coll "
+            f"{rec.get('coll_bytes_per_device')} bytes/rank "
             f"{rec.get('collectives')}, roofline {rec.get('roofline')}")
-        if rec["status"] != "ok" or not rec["coll_bytes_per_device"] > 0:
+        if (rec["status"] != "ok" or not rec["coll_bytes_per_device"] > 0
+                or rec["tp"] is not True):
             raise AssertionError(f"mesh steps (c): {rec['tag']}")
+        share = TP_FLOPS_SHARE.get(rec["arch"])
+        if parent and share and flops > share * parent:
+            raise AssertionError(f"mesh steps (c): {rec['tag']}: rank 0's "
+                                 f"FLOPs {flops} above {share} of the "
+                                 f"parent's {parent}")
         if rec["gossip"] == "ppermute" and not rec["collectives"][
                 "counts"].get("collective-permute"):
             raise AssertionError(f"mesh steps (c): {rec['tag']}: no ring")
@@ -4767,11 +4855,12 @@ def _wait_children(procs, timeout_s):
 
 
 def steps_child(argv):
-    """One rank of phase 21 (b): a gloo world over a file store, the
-    ``STEPS_B_MESH`` mesh on the card; each step meshed and unsharded on
-    the same inputs.  Writes ``rank<r>.json``."""
+    """One rank of phase 21 (b): a gloo world over a file store, each
+    ``STEPS_B_CASES`` mesh and arch on the card; each step meshed and
+    unsharded on the same inputs.  Writes ``rank<r>.json``."""
     import dataclasses
     import faulthandler
+    import itertools
     faulthandler.enable()       # a crash in a collective prints its stack
     rank, world, store, out_dir = argv
     rank, world = int(rank), int(world)
@@ -4789,37 +4878,62 @@ def steps_child(argv):
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import bind
+    from repro_torch.sharding.tp import WHOLE_INPUTS
     setup_device("cuda")
     torch.cuda.set_device(0)    # every rank shares the one card
     counters = (ga, pa, mmk, pr)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
-    mesh = make_test_mesh(*STEPS_B_MESH, device_type="cuda", backend="gloo")
-    cfg = SMOKE_ARCHS[STEPS_B_ARCH]
-    api = bind(cfg)
     cases = {}
     _zero(counters)
-    for mode, name in (("train", "train_4k"), ("prefill", "prefill_32k"),
-                       ("decode", "decode_32k")):
-        shape = dataclasses.replace(INPUT_SHAPES[name], seq_len=STEPS_B_SEQ,
-                                    global_batch=STEPS_B_BATCH)
-        plan = steps.plan_for(cfg, shape, mesh, torch.float32)
-        for gossip in (("einsum", "ppermute") if mode == "train" else
-                       ("einsum",)):
-            gen = torch.Generator(device="cuda").manual_seed(len(cases))
-            step = (steps.lower_train(api, plan, gossip) if mode == "train"
-                    else steps.lower_serve(api, plan))
-            args = _steps_inputs(torch, step, gen)
-            print(f"rank {rank}: {mode} {gossip}", flush=True)
-            got, want, times, stats, (k0, k1) = _steps_case(
-                torch, steps, api, plan, gossip, args)
-            same, diff, scale, finite = _steps_cmp(torch, got, want)
-            cases[f"{mode}-{gossip}" if mode == "train" else mode] = {
-                "clients": f"{k0}:{k1} of {plan.n_clients} x "
-                           f"{plan.per_client_batch}",
-                "bit_equal": same, "max_abs": diff, "scale": scale,
-                "finite": finite, "seconds": times,
-                "collectives": stats.row()}
+    for (data, model), archs in STEPS_B_CASES:
+        mesh = make_test_mesh(data, model, device_type="cuda",
+                              backend="gloo")
+        for arch, (mode, name) in itertools.product(archs, (
+                ("train", "train_4k"), ("prefill", "prefill_32k"),
+                ("decode", "decode_32k"))):
+            cfg = SMOKE_ARCHS[arch]
+            api = bind(cfg)
+            shape = dataclasses.replace(INPUT_SHAPES[name],
+                                        seq_len=STEPS_B_SEQ,
+                                        global_batch=STEPS_B_BATCH)
+            plan = steps.plan_for(cfg, shape, mesh, torch.float32)
+            if arch in STEPS_B_FSDP2D:
+                plan = dataclasses.replace(plan, n_clients=1,
+                                           per_client_batch=STEPS_B_BATCH,
+                                           fsdp2d=True)
+            for gossip in (("einsum", "ppermute") if mode == "train" else
+                           ("einsum",)):
+                gen = torch.Generator(device="cuda").manual_seed(len(cases))
+                step = (steps.lower_train(api, plan, gossip)
+                        if mode == "train" else steps.lower_serve(api, plan))
+                args = _steps_inputs(torch, step, gen)
+                print(f"rank {rank}: {data}x{model} {arch} {mode} "
+                      f"{gossip}", flush=True)
+                (got, want, times, stats, (k0, k1), gathers,
+                 replicated) = _steps_case(torch, steps, api, plan, gossip,
+                                           args, STEPS_B_TIMED_CALLS)
+                same, diff, scale, finite = _steps_cmp(torch, got, want)
+                counts = {}
+                for kind, axis, _ in stats.ops:
+                    if axis == "model":
+                        counts[kind] = counts.get(kind, 0) + 1
+                case = f"{mode}-{gossip}" if mode == "train" else mode
+                cases[f"{data}x{model} {arch} {case}"] = {
+                    "clients": f"{k0}:{k1} of {plan.n_clients} x "
+                               f"{plan.per_client_batch}",
+                    "bit_equal": same, "max_abs": diff, "scale": scale,
+                    "finite": finite, "seconds": times,
+                    "collectives": stats.row(), "model_counts": counts,
+                    "weight_gathers": gathers, "replicated": replicated,
+                    # the inputs gathered whole where the reference splits
+                    # them, and those this step should name
+                    "whole": sorted(set(replicated) & set(WHOLE_INPUTS)),
+                    "whole_want": sorted(
+                        ({"serve cache"} if mode != "train" else set())
+                        | ({"fsdp2d batch"} if arch in STEPS_B_FSDP2D
+                           else set()))}
+                del got, want, args, step
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump({"cases": cases, "launches": _launches(counters)}, f)
     dist.destroy_process_group()

@@ -45,12 +45,19 @@ against one card's memory, and ``analytic_state_bytes_per_device`` the
 bytes of the arguments' local shards.  ``--smoke`` takes the reduced
 archs, the reference's reduced shapes (``seq_len = max(64, seq_len //
 4096)``, ``global_batch = min(gb, 8)``) and its 2x2(x2) test meshes
-(``testpod16x16``, ``testpod2x16x16``).  Each rank computes whole clients
-(``launch.steps``): a mesh's FLOPs, bytes and peak per rank are its
-clients' whole ones, replicated over 'model', where the reference splits
-them by tensor parallelism and FSDP.  So a mesh record says ``"tp":
-false``, and ``launch.report`` tables it apart from the reference's
-records of the same mesh.
+(``testpod16x16``, ``testpod2x16x16``).  A meshed step splits each of a
+rank's clients over 'model' (``launch.steps``, ``sharding.tp``), as the
+reference's GSPMD program does, so a mesh record says ``"tp": true``, its
+FLOPs, bytes and peak are a rank's share, and ``launch.report`` tables it
+beside the reference's record of the same mesh.  ``replicated`` names the
+ops the models computed replicated over 'model' because |model| does not
+divide the dim they would split (``sharding.tp.replicated``), and the
+inputs the step gathered whole where the reference splits them
+(``sharding.tp.WHOLE_INPUTS``): ``"serve cache"`` (a prefill or decode
+step's cache, gathered over 'model' and, for long-context decode, over
+'data') and ``"fsdp2d batch"`` (the 'data' ranks of an FSDP2D plan
+compute their client's whole batch).  Such a record prices that gather
+and that compute, and ``launch.report`` marks its row.
 """
 from __future__ import annotations
 
@@ -214,7 +221,8 @@ def trace_meshed(arch, shape, multi_pod: bool, gossip: str, smoke: bool,
     mesh for ``smoke``) and one call of its ``MeshedStep`` for rank 0, on
     fake ``DTensor`` shards of ``device``.  Returns the plan, the mesh's
     size, the step's ``StepCost`` and ``CollectiveStats``, the state
-    bytes a rank holds and the trace's seconds."""
+    bytes a rank holds, the ops the models left replicated over 'model'
+    and the trace's seconds."""
     from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
     from repro_torch.utils.collectives import collective_bytes
 
@@ -224,13 +232,15 @@ def trace_meshed(arch, shape, multi_pod: bool, gossip: str, smoke: bool,
     else:
         mesh = make_production_mesh(multi_pod=multi_pod, device_type=device,
                                     backend="fake")
+    from repro_torch.sharding.tp import record_replicated
+
     plan, step = steps.lower_for(arch, shape, mesh, gossip, DTYPES[dtype])
     t0 = time.perf_counter()
-    with FakeTensorMode():
+    with FakeTensorMode(), record_replicated() as replicated:
         args = step.abstract_args(device)
         (_, cost), coll = collective_bytes(step_cost, step, *args)
     return (plan, mesh.size(), cost, coll,
-            analytic_state_bytes_per_device(plan, args),
+            analytic_state_bytes_per_device(plan, args), sorted(replicated),
             time.perf_counter() - t0)
 
 
@@ -272,10 +282,11 @@ def run_one(arch_name: str, shape_name: str, gossip: str = "einsum",
 
     coll_row, coll_bytes, extra = {"total_GB": 0.0, "counts": {}}, 0.0, {}
     if meshed:
-        plan, chips, cost, coll, state_bytes, trace_s = trace_meshed(
+        plan, chips, cost, coll, state_bytes, repl, trace_s = trace_meshed(
             arch, shape, multi_pod, gossip, smoke, dtype, device)
         coll_row, coll_bytes = coll.row(), coll.total_bytes
-        extra = {"tp": False, "n_clients": plan.n_clients,
+        extra = {"tp": True, "replicated": repl,
+                 "n_clients": plan.n_clients,
                  "per_client_batch": plan.per_client_batch,
                  "fsdp2d": plan.fsdp2d, "seq_data": plan.seq_data,
                  "analytic_state_bytes_per_device": state_bytes}

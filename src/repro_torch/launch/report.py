@@ -5,10 +5,18 @@ the stored cost/collective numbers with the current hardware model
 code improves.  It reads the port's artifacts (mesh ``h100x1``, and its
 fake-world ``pod16x16`` and ``pod2x16x16`` records) and the reference's
 (``pod16x16``, ``pod2x16x16``) alike; on one card the collective columns
-read 0.  A port mesh record says ``"tp": false``: its ranks compute whole
-clients, replicated over 'model', where the reference's split them, so it
-is tabled under a mesh heading of its own (``table_mesh``), never beside
-the reference's records.  A port record of either kind also gets the fit
+read 0.  A port mesh record says ``"tp": true``: its ranks split each
+client over 'model', as the reference's do, so it is tabled beside the
+reference's record of the same mesh, its row marked ``PORT_ROW``.  Where
+its ranks also gathered an input whole that the reference splits (its
+``replicated`` field names one of ``sharding.tp.WHOLE_INPUTS``: a serve
+step's cache, an FSDP2D plan's batch), its FLOPs, bytes and peak price
+that gather and the compute on the whole input, and its row is marked
+``WHOLE_ROW`` with their names instead.  A
+record that says ``"tp": false`` (a rank computed whole clients,
+replicated over 'model': the port before tensor parallelism) is tabled
+under a mesh heading of its own (``table_mesh``), never beside the
+reference's records.  A port record of either kind also gets the fit
 table: rank 0's peak live bytes against one card's memory.
 
     PYTHONPATH=src python -m repro_torch.launch.report [--dir D]
@@ -28,19 +36,36 @@ import os
 
 from repro_torch.configs import ARCHS, INPUT_SHAPES, SMOKE_ARCHS
 from repro_torch.launch.roofline import build_report
+from repro_torch.sharding.tp import WHOLE_INPUTS
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "torch_dryrun")
 MESHES = ("h100x1", "pod16x16", "pod2x16x16")
 SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
-#: the heading suffix of the port's mesh records (``"tp": false``)
+#: the heading suffix of a port mesh record that says ``"tp": false``
 REPLICATED = " (port: whole clients a rank, no tensor parallelism)"
+#: the arch cell's suffix of a port mesh record that says ``"tp": true``,
+#: tabled beside the reference's row of the same arch and shape
+PORT_ROW = " (port)"
+#: the suffix of such a record whose ranks gathered inputs whole where
+#: the reference splits them (their names filled in)
+WHOLE_ROW = " (port, whole: {})"
 
 
 def table_mesh(rec: dict) -> str:
     """The mesh a record is tabled under: its own, or for a port mesh
     record (no tensor parallelism) its own with ``REPLICATED``."""
     return rec["mesh"] + (REPLICATED if rec.get("tp") is False else "")
+
+
+def _source(rec: dict) -> str:
+    """For a port mesh record tabled beside the reference's (``"tp":
+    true``), ``PORT_ROW``, or ``WHOLE_ROW`` naming the inputs its ranks
+    gathered whole; else nothing."""
+    if rec.get("tp") is not True:
+        return ""
+    whole = [op for op in rec.get("replicated", ()) if op in WHOLE_INPUTS]
+    return WHOLE_ROW.format(", ".join(whole)) if whole else PORT_ROW
 
 
 def load_records(art_dir: str = ART_DIR, gossip: str = "einsum") -> list[dict]:
@@ -54,7 +79,7 @@ def load_records(art_dir: str = ART_DIR, gossip: str = "einsum") -> list[dict]:
             continue
         if "test" in rec.get("mesh", ""):
             continue
-        key = table_mesh(rec) + rec["tag"]
+        key = table_mesh(rec) + rec["tag"] + _source(rec)
         if rec.get("status") == "ok" or key not in by_tag:
             by_tag[key] = rec
     return list(by_tag.values())
@@ -71,8 +96,16 @@ def fresh_report(rec: dict):
                         dtype=rec.get("dtype", "bf16"))
 
 
-def _order(arch: str, shape: str) -> tuple[int, int]:
-    return list(ARCHS).index(arch), SHAPE_ORDER.index(shape)
+def _arch(rec: dict) -> str:
+    """The table's arch cell: the arch, marked (``_source``) for a port
+    mesh record tabled beside the reference's."""
+    return rec["arch"] + _source(rec)
+
+
+def _order(arch: str, shape: str) -> tuple[int, int, bool]:
+    """Arch, then shape, then a port row after the reference's."""
+    name = arch.split(" (port")[0]
+    return list(ARCHS).index(name), SHAPE_ORDER.index(shape), name != arch
 
 
 def roofline_table(records: list[dict], mesh: str) -> str:
@@ -84,19 +117,19 @@ def roofline_table(records: list[dict], mesh: str) -> str:
         if table_mesh(rec) != mesh:
             continue
         if rec["status"] == "skipped":
-            lines.append((rec["arch"], rec["shape"],
-                          f"| {rec['arch']} | {rec['shape']} | — | — | — | — "
+            lines.append((_arch(rec), rec["shape"],
+                          f"| {_arch(rec)} | {rec['shape']} | — | — | — | — "
                           f"| — | skipped | — | — |"))
             continue
         if rec["status"] != "ok":
-            lines.append((rec["arch"], rec["shape"],
-                          f"| {rec['arch']} | {rec['shape']} | — | FAILED | | | | | | |"))
+            lines.append((_arch(rec), rec["shape"],
+                          f"| {_arch(rec)} | {rec['shape']} | — | FAILED | | | | | | |"))
             continue
         r = fresh_report(rec)
         arg_gb = rec.get("memory", {}).get("argument_size_in_bytes", 0) / 1e9
         mode = "u" if rec.get("unroll") else "s"
-        lines.append((rec["arch"], rec["shape"], (
-            f"| {rec['arch']} | {rec['shape']} | {rec['n_clients']} | {mode} "
+        lines.append((_arch(rec), rec["shape"], (
+            f"| {_arch(rec)} | {rec['shape']} | {rec['n_clients']} | {mode} "
             f"| {r.compute_s*1e3:.2f} | {r.memory_s*1e3:.2f} "
             f"| {r.collective_s*1e3:.2f} | **{r.bottleneck}** "
             f"| {r.useful_ratio:.2f} | {arg_gb:.2f} |")))
@@ -115,8 +148,8 @@ def dryrun_table(records: list[dict], mesh: str) -> str:
         counts = rec["collectives"].get("counts", {})
         top = ", ".join(f"{k}x{v}" for k, v in
                         sorted(counts.items(), key=lambda kv: -kv[1])[:3])
-        lines.append((rec["arch"], rec["shape"], (
-            f"| {rec['arch']} | {rec['shape']} | {rec['n_clients']} "
+        lines.append((_arch(rec), rec["shape"], (
+            f"| {_arch(rec)} | {rec['shape']} | {rec['n_clients']} "
             f"| {rec['compile_s']:.0f} | {rec['cost']['flops']/1e9:.1f} "
             f"| {rec['cost']['bytes accessed']/1e9:.1f} "
             f"| {rec['coll_bytes_per_device']/1e9:.2f} | {top} |")))
@@ -135,8 +168,8 @@ def fit_table(records: list[dict], mesh: str = "h100x1") -> str:
         if (table_mesh(rec) != mesh or rec["status"] != "ok"
                 or "peak_live_bytes" not in rec):
             continue
-        lines.append((rec["arch"], rec["shape"], (
-            f"| {rec['arch']} | {rec['shape']} "
+        lines.append((_arch(rec), rec["shape"], (
+            f"| {_arch(rec)} | {rec['shape']} "
             f"| {rec['n_clients']} x {rec['per_client_batch']} "
             f"| {rec['dtype']} | {rec['trace_s']:.1f} "
             f"| {rec['peak_live_bytes'] / 2 ** 30:.2f} "

@@ -23,19 +23,30 @@ sequence-sharded (``seq_data``) for long-context decode.  ``lower_train``,
 lowering onto that mesh, over a ``torch.distributed`` ``DeviceMesh``: they
 place params, int8 masks, batch and cache as ``DTensor``s
 (``state_shardings``, the ``sharding.rules`` tree placements) and return
-a ``MeshedStep`` on those ``DTensor``s.  The split of the work is not the
-reference's.  A meshed step computes whole clients on each rank: it
-all-gathers each of its clients' leaves over the mesh dims that shard
-their bodies ('model', FSDP 'data', the cache's sequence), runs the
-single-card step on its own clients, and keeps its shard of the result
-(a local chunk, no traffic).  So only the client dim splits the compute;
-'model' holds replicas of a client's compute where the reference splits
-it (tensor parallelism and FSDP), and the models' sharding constraints
-have nothing to act on.  The ``einsum`` gossip all-gathers the K clients,
-as GSPMD's einsum does in the reference; ``ppermute`` sends ring
-neighbours the boundary rows only.  The same step runs on real tensors in
-a gloo or NCCL world and on fake tensors over a fake process group
-(``launch.dryrun``'s mesh modes).
+a ``MeshedStep`` on those ``DTensor``s.  A meshed step hands the models
+each rank's local shards of the params under ``sharding.ctx.
+use_mesh_rules``, as the reference traces its step under it: the models
+split a client's compute over 'model' (heads, ffn hidden, vocabulary,
+experts, SSM projections) and gather a weight's FSDP shard over 'data'
+just before its use, with the collectives of ``sharding.tp``; no weight
+is all-gathered whole over 'model'.  The gradient of a 'model'-sharded
+leaf is that shard's, and the masked SGD update runs on the shard.  The
+``einsum`` gossip all-gathers the K clients over the client axes only
+(each rank's 'model' and FSDP shards of them), as GSPMD's einsum does in
+the reference; ``ppermute`` sends ring neighbours the boundary rows only.
+Two inputs are still gathered whole over their non-client mesh dims
+(``_own``), where the reference's GSPMD program splits them: an FSDP2D
+plan's per-client batch (the port's 'data' ranks compute their client's
+whole batch: the MoE's dispatch and capacity and the loss's mean are
+functions of it), and the serving cache, at every prefill and decode
+step (its placements split ``head_dim`` over 'model', and the sequence
+over 'data' for long-context decode, where the port's attention splits
+heads; so the reference's context parallelism is not ported).  Each
+gather is noted as ``sharding.tp.WHOLE_INPUTS``' ``"fsdp2d batch"`` or
+``"serve cache"`` (the dry run's ``replicated`` field; ROADMAP A16's
+rest).  The same step runs on real tensors in a gloo or NCCL world and
+on fake tensors over a fake process group (``launch.dryrun``'s mesh
+modes).
 ``launch.dryrun.make_plan`` stays the single-card plan (no mesh).
 
 The steps are plain functions, as the reference's are; a caller compiles
@@ -339,10 +350,11 @@ def client_range(x: DTensor) -> tuple[int, int]:
     return k0, k0 + n
 
 
-def gather_shards(x: DTensor, keep_clients: bool = False) -> torch.Tensor:
+def gather_shards(x: DTensor, dims: str = "all") -> torch.Tensor:
     """``x``'s local shard all-gathered over every mesh dim that shards it
-    (or every one but those that shard the client dim, dim 0), as a plain
-    tensor: one ``all_gather_into_tensor`` on each such mesh dim's group,
+    (``dims="all"``), every one but those that shard the client dim, dim 0
+    (``"body"``), or only those (``"clients"``), as a plain tensor: one
+    ``all_gather_into_tensor`` on each such mesh dim's group,
     the last mesh dim first (DTensor splits a dim over its mesh dims left
     to right; a mesh dim of size 1 holds the whole dim).  The port's
     explicit form of ``DTensor.redistribute`` to ``Replicate`` (and of
@@ -353,16 +365,20 @@ def gather_shards(x: DTensor, keep_clients: bool = False) -> torch.Tensor:
     dim only where its mesh axes divide it)."""
     import torch.distributed as dist
 
+    from repro_torch.utils.collectives import on_axis
+
     mesh, t = x.device_mesh, x.to_local()
     for i in reversed(range(mesh.ndim)):
         p = x.placements[i]
         if (not isinstance(p, Shard) or mesh.size(i) == 1
-                or (keep_clients and p.dim == 0)):
+                or (dims == "body" and p.dim == 0)
+                or (dims == "clients" and p.dim != 0)):
             continue
         src = t.movedim(p.dim, 0).contiguous()
         out = torch.empty((mesh.size(i) * src.shape[0],) + src.shape[1:],
                           dtype=src.dtype, device=src.device)
-        dist.all_gather_into_tensor(out, src, group=mesh.get_group(i))
+        with on_axis(mesh.mesh_dim_names[i]):
+            dist.all_gather_into_tensor(out, src, group=mesh.get_group(i))
         t = out.movedim(0, p.dim)
     return t.contiguous()
 
@@ -371,18 +387,47 @@ def _replicated(mesh) -> tuple:
     return (Replicate(),) * mesh.ndim
 
 
-def _own(x):
+def _own(x, what: str):
     """This rank's clients of a stacked ``DTensor``, whole (all-gathered
     over the mesh dims that shard its body), as a plain tensor; a plain
-    tensor or number passes through."""
+    tensor or number passes through.  Only for the inputs the port
+    computes whole where the reference splits them (the module's
+    docstring), ``what`` naming one of ``sharding.tp.WHOLE_INPUTS``, which
+    is noted where a mesh dim of more than one rank shards its body."""
+    from repro_torch.sharding.tp import replicated
+
     if not isinstance(x, DTensor):
         return x
-    return gather_shards(x, keep_clients=True)
+    for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+        if isinstance(p, Shard) and p.dim != 0:
+            replicated(what, name)
+    return gather_shards(x, "body")
+
+
+def _local(x):
+    """This rank's shard of a ``DTensor`` as a plain tensor (no traffic);
+    a plain tensor or number passes through."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _clients(x: DTensor) -> torch.Tensor:
+    """The K clients of a stacked ``DTensor``, all-gathered over the client
+    axes only: this rank's 'model' and FSDP shard of every client."""
+    return gather_shards(x, "clients")
+
+
+def _placed(local: torch.Tensor, like: DTensor) -> DTensor:
+    """This rank's shard ``local`` as a ``DTensor`` at ``like``'s
+    placements (no traffic)."""
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
 
 
 def _whole(x):
     """The whole ``DTensor`` (all-gathered over every mesh dim) as a plain
-    tensor."""
+    tensor: the step's replicated arguments (adjacency, learning rate),
+    whose gather moves nothing."""
     if not isinstance(x, DTensor):
         return x
     return gather_shards(x)
@@ -474,10 +519,13 @@ def lower_train(api: ModelAPI, plan: ScalePlan,
     adjacency and learning rate replicated; returns the params at their
     placements and the K losses replicated.  ``ppermute`` runs the sharded
     ring on the placed leaves; an ``einsum`` mix all-gathers the K clients'
-    params and masks and mixes this rank's receivers."""
+    shards of params and masks over the client axes and mixes this rank's
+    receivers.  The masked SGD step then runs on this rank's shards, the
+    models splitting each client over 'model' (``sharding.tp``)."""
     if gossip not in GOSSIP_MODES:
         raise ValueError(f"gossip must be one of {GOSSIP_MODES}, got "
                          f"{gossip!r}")
+    from repro_torch.sharding.ctx import use_mesh_rules
     from repro_torch.sharding.rules import tree_batch_shardings
 
     mesh = plan.mesh
@@ -492,19 +540,20 @@ def lower_train(api: ModelAPI, plan: ScalePlan,
         first = tree_leaves(params)[0]
         if gossip == "ppermute":
             params = ppermute_gossip(params, masks, plan)
+        own_m = tree_map(_local, masks)
         if mixes:
-            k0, k1 = client_range(first)
-            full_m = tree_map(_whole, masks)
             own_p = masked_gossip_stacked(
-                tree_map(_whole, params), full_m, _whole(adjacency),
-                reduction="einsum", accum_dtype=_ACCUM[gossip],
-                receivers=(k0, k1))
-            own_m = tree_map(lambda m: m[k0:k1], full_m)
+                tree_map(_clients, params), tree_map(_clients, masks),
+                _whole(adjacency), reduction="einsum",
+                accum_dtype=_ACCUM[gossip], receivers=client_range(first))
         else:
-            own_p, own_m = tree_map(_own, params), tree_map(_own, masks)
-        new, losses = update(own_p, own_m, tree_map(_own, batch),
-                             _whole(lr))
-        return tree_map(_like, new, params), _gathered(losses, first)
+            own_p = tree_map(_local, params)
+        with use_mesh_rules(mesh):
+            new, losses = update(
+                own_p, own_m,
+                tree_map(lambda x: _own(x, "fsdp2d batch"), batch),
+                _whole(lr))
+        return tree_map(_placed, new, params), _gathered(losses, first)
 
     args = (params_spec, abstract_masks(params_spec), batch_spec,
             adjacency_spec(plan), meta_spec((), torch.float32))
@@ -518,7 +567,11 @@ def lower_serve(api: ModelAPI, plan: ScalePlan) -> MeshedStep:
     ``tree_batch_shardings``' and ``tree_cache_shardings``' (the cache's
     sequence over 'data' where ``plan.seq_data``); returns the logits
     (prefill) or next tokens (decode) replicated and the cache at its
-    placements."""
+    placements.  The models split each client over 'model' on this rank's
+    shards of the params (``sharding.tp``); the cache is gathered whole
+    (the module's docstring) and this rank keeps its shard of the new
+    one."""
+    from repro_torch.sharding.ctx import use_mesh_rules
     from repro_torch.sharding.rules import (
         tree_batch_shardings,
         tree_cache_shardings,
@@ -536,8 +589,11 @@ def lower_serve(api: ModelAPI, plan: ScalePlan) -> MeshedStep:
              make_decode_step)(api, plan)
 
     def serve_step(params, batch, cache):
-        out, new_cache = inner(tree_map(_own, params), tree_map(_own, batch),
-                               tree_map(_own, cache))
+        with use_mesh_rules(mesh):
+            out, new_cache = inner(
+                tree_map(_local, params),
+                tree_map(lambda x: _own(x, "fsdp2d batch"), batch),
+                tree_map(lambda x: _own(x, "serve cache"), cache))
         return (_gathered(out, tree_leaves(params)[0]),
                 tree_map(_like, new_cache, cache))
 

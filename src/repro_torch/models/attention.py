@@ -15,6 +15,18 @@ prefill and the decode return a new cache built functionally (a
 concatenation; a ``torch.where`` over the write position), never written
 in place, so the forward runs under ``torch.func.vmap`` with a batched
 ``pos``.
+
+Over a mesh (a ``sharding.ctx.use_mesh_rules`` context: the weights are a
+rank's local shards) ``attention`` gathers the weights' FSDP shards over
+'data' and, where 'model' has more than one rank, runs
+``_attention_split``: the core split over q heads where |model| divides
+``n_heads`` (a rank takes its heads and the kv heads of their GQA groups;
+the k/v columns are gathered over 'model' where their split cuts a kv
+head), else the core replicated on gathered q/k/v; then the o-proj's row
+slice and an all-reduce (``sharding.tp``).  The KV cache a meshed step
+hands in is whole (``launch.steps.lower_serve``); the new tokens' k/v are
+gathered over 'model' to write it.  On one card, and on a 1-rank 'model'
+axis, the code below ``_attention_split`` runs unchanged.
 """
 from __future__ import annotations
 
@@ -24,11 +36,14 @@ import torch
 
 from repro_torch.models.common import (
     apply_rope,
+    column_dense,
     dense,
     dense_init,
     rmsnorm,
     rmsnorm_init,
+    whole_columns,
 )
+from repro_torch.sharding import tp
 
 NEG_INF = -1e30
 
@@ -142,10 +157,125 @@ def causal_mask(sq: int, sk: int, offset: int = 0, window: int = 0,
     return m
 
 
+def _whole_weights(params, d: int) -> dict:
+    """The attention weights whole over 'data' (FSDP2D plans shard the
+    rows of wq/wk/wv and the columns of wo there)."""
+    out = dict(params)
+    for name in ("wq", "wk", "wv"):
+        out[name] = {**params[name], "w": tp.whole(params[name]["w"], 0, d)}
+    out["wo"] = {**params["wo"], "w": tp.whole(params["wo"]["w"], 1, d)}
+    return out
+
+
+def _split_norm(norm_params, split: bool) -> dict:
+    """A replicated norm scale applied to this rank's heads only: through
+    ``copy_to``, so its gradient sums every rank's heads."""
+    if not split:
+        return norm_params
+    return {"scale": tp.copy_to(norm_params["scale"])}
+
+
+def _attention_split(params, x, positions, cfg, window, cache, pos, cross_kv,
+                     bidirectional):
+    """``attention`` with 'model' of size m > 1 (see the module's
+    docstring).  Heads split where m divides ``n_heads`` and a rank's
+    ``hl`` heads hold whole GQA groups or lie in one (``hl % g == 0`` or
+    ``g % hl == 0``); a rank's heads are ``r*hl:(r+1)*hl`` and its kv heads
+    ``kv0:kv1``, those of their groups."""
+    b, s, _ = x.shape
+    dh, h, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    m, r = tp.axis_size("model"), tp.axis_rank("model")
+    g, hl = h // hkv, h // m
+    core = h % m == 0 and (hl % g == 0 or g % hl == 0)
+    kv0, kv1 = (r * hl // g, (r * hl + hl - 1) // g + 1) if core else (0, hkv)
+    eps, theta = cfg.norm_eps, cfg.rope_theta
+    if not core:
+        tp.replicated("attention core")
+
+    # a split core's q columns are its heads (m divides h * dh)
+    q = (column_dense(params["wq"], x, h * dh)[0] if core else
+         whole_columns(params["wq"], x, h * dh)).reshape(b, s, -1, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(_split_norm(params["q_norm"], core), q, eps)
+
+    k_rep = v_rep = None
+    if cross_kv is not None:
+        k_rep, v_rep = cross_kv
+    elif core and hkv % m == 0:
+        # this rank's k/v columns are its heads' kv heads
+        q = apply_rope(q, positions, theta)
+        k = column_dense(params["wk"], x, hkv * dh)[0].reshape(b, s, -1, dh)
+        v = column_dense(params["wv"], x, hkv * dh)[0].reshape(b, s, -1, dh)
+        if cfg.qk_norm:
+            k = rmsnorm(_split_norm(params["k_norm"], True), k, eps)
+        k = apply_rope(k, positions, theta)
+        if cache is not None:
+            k_rep, v_rep = tp.gather_from(k, dim=2), tp.gather_from(v, dim=2)
+    else:
+        q = apply_rope(q, positions, theta)
+        k = whole_columns(params["wk"], x, hkv * dh).reshape(b, s, hkv, dh)
+        v = whole_columns(params["wv"], x, hkv * dh).reshape(b, s, hkv, dh)
+        if cfg.qk_norm:
+            k = rmsnorm(params["k_norm"], k, eps)
+        k_rep, v_rep = apply_rope(k, positions, theta), v
+        k, v = _kv_heads(k_rep, v_rep, core, kv0, kv1)
+
+    if cross_kv is not None:
+        k, v = _kv_heads(k_rep, v_rep, core, kv0, kv1)
+        out = _sdpa(q, k, v, cfg, torch.ones((s, k.shape[1]),
+                                             dtype=torch.bool,
+                                             device=x.device))
+    elif cache is None:
+        if bidirectional:
+            out = _sdpa(q, k, v, cfg, torch.ones((s, s), dtype=torch.bool,
+                                                 device=x.device))
+        elif window > 0 and s % window == 0 and s > window:
+            out = _local_attention(q, k, v, cfg, window)
+        else:
+            out = _sdpa(q, k, v, cfg, causal_mask(s, s, 0, window, x.device))
+    elif pos is None:
+        ck, cv = cache["k"], cache["v"]
+        cache = {"k": torch.cat([k_rep.to(ck.dtype), ck[:, s:]], 1),
+                 "v": torch.cat([v_rep.to(cv.dtype), cv[:, s:]], 1)}
+        out = _sdpa(q, k, v, cfg, causal_mask(s, s, 0, window, x.device))
+    else:
+        sk = cache["k"].shape[1]
+        kpos = torch.arange(sk, device=x.device)
+        at = (kpos == torch.clamp(pos, 0, sk - 1))[None, :, None, None]
+        ck = torch.where(at, k_rep.to(cache["k"].dtype), cache["k"])
+        cv = torch.where(at, v_rep.to(cache["v"].dtype), cache["v"])
+        cache = {"k": ck, "v": cv}
+        mk = kpos <= pos
+        if window > 0:
+            mk = mk & (kpos > pos - window)
+        out = _sdpa(q, ck[:, :, kv0:kv1], cv[:, :, kv0:kv1], cfg,
+                    mk.expand(b, 1, sk))
+
+    out = out.reshape(b, s, -1)
+    wo = params["wo"]
+    if tp.split(wo["w"].shape[0], h * dh):
+        y = tp.reduce_from((out if core else tp.split_to(out)) @ wo["w"])
+        if "b" in wo:
+            y = y + wo["b"]
+    else:
+        tp.replicated("attention o-proj")
+        y = dense(wo, out)
+    return y, cache
+
+
+def _kv_heads(k, v, core: bool, kv0: int, kv1: int):
+    """The kv heads ``kv0:kv1`` of replicated ``k``/``v`` where the core is
+    split (through ``copy_to``: several ranks' heads may read one kv
+    head), else ``k``/``v``."""
+    if not core:
+        return k, v
+    return (tp.copy_to(k)[:, :, kv0:kv1], tp.copy_to(v)[:, :, kv0:kv1])
+
+
 def attention(params, x: torch.Tensor, positions: torch.Tensor, cfg,
               window: int = 0, cache: Optional[dict] = None,
               pos: Optional[torch.Tensor] = None,
-              cross_kv: Optional[tuple] = None):
+              cross_kv: Optional[tuple] = None, bidirectional: bool = False):
     """Returns (y, new_cache).
 
     * full-sequence training pass: ``cache=None`` — the banded
@@ -157,9 +287,15 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, cfg,
       written at ``pos`` (clamped into the cache, as
       ``dynamic_update_slice`` clamps), attention to positions ``<= pos``
       (within the window if any).
-    * bidirectional/cross-attention: ``cross_kv = (k, v)`` precomputed from
-      the encoder; the cache and positions are bypassed.
+    * cross-attention: ``cross_kv = (k, v)`` precomputed from the
+      encoder; the cache and positions are bypassed.
+    * bidirectional (the encoder's): ``bidirectional=True``, no cache;
+      every query sees every key.
     """
+    params = _whole_weights(params, x.shape[-1])
+    if tp.axis_size("model") > 1:
+        return _attention_split(params, x, positions, cfg, window, cache,
+                                pos, cross_kv, bidirectional)
     b, s, _ = x.shape
     if cross_kv is not None:
         dh = cfg.resolved_head_dim
@@ -172,7 +308,10 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, cfg,
         return dense(params["wo"], out.reshape(b, s, -1)), cache
 
     q, k, v = _qkv(params, x, cfg, positions)
-    if cache is None:
+    if bidirectional:
+        out = _sdpa(q, k, v, cfg, torch.ones((s, s), dtype=torch.bool,
+                                             device=x.device))
+    elif cache is None:
         if window > 0 and s % window == 0 and s > window:
             out = _local_attention(q, k, v, cfg, window)
         else:
@@ -198,11 +337,15 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, cfg,
 
 
 def cross_kv_from_encoder(params, enc_out: torch.Tensor, cfg):
-    """Precompute cross-attention K/V from encoder outputs (no RoPE)."""
+    """Precompute cross-attention K/V from encoder outputs (no RoPE);
+    over a mesh, whole (their 'model' columns gathered)."""
     b, s, _ = enc_out.shape
     dh = cfg.resolved_head_dim
-    k = dense(params["wk"], enc_out).reshape(b, s, cfg.n_kv_heads, dh)
-    v = dense(params["wv"], enc_out).reshape(b, s, cfg.n_kv_heads, dh)
+    params = _whole_weights(params, enc_out.shape[-1])
+    k = whole_columns(params["wk"], enc_out, cfg.n_kv_heads * dh).reshape(
+        b, s, cfg.n_kv_heads, dh)
+    v = whole_columns(params["wv"], enc_out, cfg.n_kv_heads * dh).reshape(
+        b, s, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
     return k, v

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import tp
+
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
@@ -146,8 +148,66 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids.long()]
+def column_dense(params: dict, x: torch.Tensor, d_out: int):
+    """``(y, split)``: a replicated ``x`` through a column weight of
+    ``d_out`` columns.  Where a meshed step split the columns over 'model'
+    (``split``), ``y`` is this rank's columns: ``x`` enters through
+    ``sharding.tp.copy_to`` and the replicated bias through ``split_to``;
+    else ``dense(params, x)``."""
+    if not tp.split(params["w"].shape[-1], d_out):
+        tp.replicated(f"{d_out}-column projection")
+        return dense(params, x), False
+    y = tp.copy_to(x) @ params["w"]
+    if "b" in params:
+        y = y + tp.split_to(params["b"], dim=0)
+    return y, True
+
+
+def whole_columns(params: dict, x: torch.Tensor, d_out: int) -> torch.Tensor:
+    """``column_dense``'s output whole: its 'model' columns gathered where
+    they are split."""
+    y, split = column_dense(params, x, d_out)
+    return tp.gather_from(y) if split else y
+
+
+def mlp_split(p: dict, x: torch.Tensor, act, d_ff: int, note: str):
+    """``(p, y)``: the MLP weights ``p`` (``w_up``,
+    ``w_down``, and ``w_gate`` where gated) whole over 'data' (FSDP shards
+    the rows of ``w_up``/``w_gate`` and the columns of ``w_down``), and,
+    where 'model' splits the ``d_ff`` hidden (the reference's
+    ``constrain(h, (..., 'ffn'))``), the MLP's output: ``x`` through
+    ``copy_to`` into the columns, the rows' partial sums all-reduced.
+    ``y`` is None where the hidden is whole (``note`` names the op left
+    replicated)."""
+    d = x.shape[-1]
+    p = {k: tp.whole(w, 1 if k == "w_down" else 0, d) for k, w in p.items()}
+    if not tp.split(p["w_up"].shape[-1], d_ff):
+        tp.replicated(note)
+        return p, None
+    x = tp.copy_to(x)
+    h = x @ p["w_up"]
+    h = act(x @ p["w_gate"]) * h if "w_gate" in p else act(h)
+    return p, tp.reduce_from(h @ p["w_down"])
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int,
+                 d_model: int) -> torch.Tensor:
+    """``table[ids]`` of a ``vocab`` x ``d_model`` table.  Over a mesh (the
+    table a rank's shard), its FSDP columns are gathered over 'data'; a
+    vocabulary split over 'model' is a masked lookup of this rank's rows
+    (zero elsewhere) summed over 'model' by ``sharding.tp.reduce_from``:
+    exactly one rank adds a non-zero row, so the sum is exact."""
+    table = tp.whole(table, 1, d_model)
+    if not tp.split(table.shape[0], vocab):
+        tp.replicated("embedding")
+        return table[ids.long()]
+    n = table.shape[0]
+    local = ids.long() - tp.axis_rank("model") * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return tp.reduce_from(torch.where(mine[..., None], rows,
+                                      torch.zeros((), dtype=rows.dtype,
+                                                  device=rows.device)))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ as loops over it in order.
 ``decode_train`` is the teacher-forced training pass.  ``prefill``
 computes the cross-attention K/V once and returns them in the cache beside
 the self-attention KV cache; ``decode_step`` reads both and writes one
-token's self-attention K/V at ``pos``.
+token's self-attention K/V at ``pos``.  Over a mesh the layers split as
+``models.attention`` and ``models.lm``'s MLP and head do; the cross K/V
+are whole.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (
-    dense,
     embed_init,
     embed_lookup,
     rmsnorm,
@@ -90,12 +91,11 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dev = frames.device
     x = frames + _sinusoidal_pos(s, cfg.d_model, dev).to(frames.dtype)[None]
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
-    mask = torch.ones((s, s), dtype=torch.bool, device=dev)  # bidirectional
     for p in tree_unstack(params["encoder"], cfg.enc_layers):
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        q, k, v = attn_mod._qkv(p["attn"], h, cfg, positions)
-        y = attn_mod._sdpa(q, k, v, cfg, mask)
-        x = x + dense(p["attn"]["wo"], y.reshape(b, s, -1))
+        y, _ = attn_mod.attention(p["attn"], h, positions, cfg,
+                                  bidirectional=True)
+        x = x + y
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + _mlp_apply(p["mlp"], h, cfg)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
@@ -131,7 +131,8 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_train(params, frames, tokens, cfg: ModelConfig):
     """Teacher-forced training pass.  Returns (logits (B, S, V), aux=0)."""
     enc_out = encode(params, frames, cfg)
-    x = embed_lookup(params["embed"]["table"], tokens)
+    x = embed_lookup(params["embed"]["table"], tokens, cfg.vocab,
+                     cfg.d_model)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for p in tree_unstack(params["decoder"], cfg.n_layers):
@@ -145,7 +146,8 @@ def prefill(params, frames, tokens, cfg: ModelConfig, cache):
     """Encode + teacher-forced decoder prefill; fills self+cross caches.
     Returns (last-position logits (B, 1, V), cache)."""
     enc_out = encode(params, frames, cfg)
-    x = embed_lookup(params["embed"]["table"], tokens)
+    x = embed_lookup(params["embed"]["table"], tokens, cfg.vocab,
+                     cfg.d_model)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     self_c, cross_c = [], []
@@ -164,7 +166,8 @@ def decode_step(params, tokens, pos, cfg: ModelConfig, cache):
     """One-token decode using the cached self K/V and cross K/V.  tokens:
     (B, 1); pos: 0-dim integer tensor.  Returns (logits (B, 1, V),
     cache)."""
-    x = embed_lookup(params["embed"]["table"], tokens)
+    x = embed_lookup(params["embed"]["table"], tokens, cfg.vocab,
+                     cfg.d_model)
     b = x.shape[0]
     positions = pos.reshape(1, 1).expand(b, 1)
     self_c = []

@@ -38,13 +38,14 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     activation,
-    dense,
     embed_init,
     embed_lookup,
     lecun_init,
+    mlp_split,
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.sharding import tp
 from repro_torch.utils.tree import tree_index, tree_stack, tree_unstack
 
 PyTree = Any
@@ -99,8 +100,13 @@ def _mlp_init(gen, cfg, d_ff, dtype=torch.float32):
     }
 
 
-def _mlp_apply(p, x, cfg):
+def _mlp_apply(p, x, cfg, d_ff=None):
+    """The MLP of ``d_ff`` hidden units (default ``cfg.d_ff``); over a
+    mesh split as ``common.mlp_split`` says."""
     act = activation(cfg.act)
+    p, y = mlp_split(p, x, act, d_ff or cfg.d_ff, "mlp")
+    if y is not None:
+        return y
     h = x @ p["w_up"]
     if "w_gate" in p:
         h = act(x @ p["w_gate"]) * h
@@ -150,7 +156,7 @@ def layer_apply(p, x, sub: SubLayer, cfg: ModelConfig, positions,
     x = x + y
     if sub.ffn == "mlp":
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + _mlp_apply(p["mlp"], h, cfg)
+        x = x + _mlp_apply(p["mlp"], h, cfg, sub.d_ff_override or cfg.d_ff)
     elif sub.ffn == "moe":
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
         moe_fn = moe_mod.moe_dense_ref if moe_dense else moe_mod.moe_apply
@@ -222,18 +228,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _embed(params, tokens, cfg, prefix=None):
-    x = embed_lookup(params["embed"]["table"], tokens)
+    x = embed_lookup(params["embed"]["table"], tokens, cfg.vocab, cfg.d_model)
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
     return x
 
 
+def _logits(params, x, cfg):
+    """Whole logits: ``x`` through the tied table or the untied
+    ``head/w``.  Over a mesh a vocabulary split over 'model' (the tied
+    table's rows) gives each rank its logits' columns, gathered over
+    'model'; the untied ``head/w``'s rows (``d_model``) split over 'model'
+    take this rank's slice of ``x`` and all-reduce the partial logits.
+    FSDP shards are gathered over 'data' first."""
+    d, v = cfg.d_model, cfg.vocab
+    if cfg.tie_embeddings:
+        table = tp.whole(params["embed"]["table"], 1, d)
+        if tp.split(table.shape[0], v):
+            return tp.gather_from(tp.copy_to(x) @ table.T)
+        tp.replicated("logits")
+        return x @ table.T
+    w = tp.whole(params["head"]["w"], 1, v)
+    if tp.split(w.shape[0], d):
+        return tp.reduce_from(tp.split_to(x) @ w)
+    tp.replicated("logits")
+    return x @ w
+
+
 def _head(params, x, cfg):
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].T
-    else:
-        logits = dense(params["head"], x)
+    logits = _logits(params, x, cfg)
     if cfg.logit_softcap > 0:
         lf = logits.float()
         logits = (torch.tanh(lf / cfg.logit_softcap)
@@ -330,7 +354,8 @@ def forward_decode(params, tokens, pos, cfg: ModelConfig, cache,
     """One-token decode.  tokens: (B, 1); pos: 0-dim integer tensor (the
     write position, == number of tokens already in the cache).  Returns
     (logits (B, 1, V), cache)."""
-    x = embed_lookup(params["embed"]["table"], tokens)
+    x = embed_lookup(params["embed"]["table"], tokens, cfg.vocab,
+                     cfg.d_model)
     b = x.shape[0]
     positions = pos.reshape(1, 1).expand(b, 1)
     x, new_cache = _run_cached(params, x, cfg, cache, positions, pos,

@@ -22,6 +22,16 @@ deterministic (``index_add_`` on CUDA is atomic), so a user's output does
 not depend on who shares the launch, and gradients flow through the
 gathers.  Top-k breaks ties toward the lower expert index, as
 ``lax.top_k`` does: a stable descending sort.
+
+Over a mesh (``sharding.ctx.use_mesh_rules``; the weights a rank's
+shards) the expert weights' FSDP shards are gathered over 'data'.  Where
+'model' splits the expert dim (the reference's ``constrain(xb, ('expert',
+...))``), the router, top-k, sort and dispatch stay replicated (a client's
+tokens are not split over 'model'), each rank runs its own experts' FFN on
+its rows of the (E, C, d) buffer (``split_to``), and the expert outputs are
+gathered over 'model' before the combine, which then adds each token's k
+terms in the same order as on one card.  The shared experts split as an
+MLP (columns, then rows all-reduced).
 """
 from __future__ import annotations
 
@@ -29,7 +39,8 @@ import math
 
 import torch
 
-from repro_torch.models.common import activation, lecun_init
+from repro_torch.models.common import activation, lecun_init, mlp_split
+from repro_torch.sharding import tp
 
 
 def moe_init(gen: torch.Generator, d_model: int, spec,
@@ -60,9 +71,24 @@ def _expert_ffn(p, xb, act):
     return torch.einsum("ecf,efd->ecd", h, p["w_down"])
 
 
-def _shared_ffn(p, x, act):
+def _shared_ffn(p, x, act, ds: int):
+    """The shared experts' gated FFN (``ds`` hidden units); over a mesh
+    split as ``common.mlp_split`` says."""
+    p, y = mlp_split(p, x, act, ds, "shared experts")
+    if y is not None:
+        return y
     h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def _expert_weights(p, spec, d: int):
+    """``(weights, split)``: the expert FFN's weights whole over 'data'
+    (their middle dim), and whether 'model' splits the expert dim."""
+    e, de = spec.n_experts, spec.d_expert
+    w = {"w_gate": tp.whole(p["w_gate"], 1, d),
+         "w_up": tp.whole(p["w_up"], 1, d),
+         "w_down": tp.whole(p["w_down"], 1, de)}
+    return w, tp.split(w["w_gate"].shape[0], e)
 
 
 def _route(params, xf, spec):
@@ -136,7 +162,14 @@ def moe_apply(params, x: torch.Tensor, spec, act_name: str = "silu"):
     src = torch.clamp_max(offsets[:, None] + c_idx[None, :], n * k - 1)
     xb = torch.where(filled[..., None], xf[tt_s[src]],
                      torch.zeros((), dtype=x.dtype, device=x.device))
-    yb = _expert_ffn(params, xb, act).reshape(e * cap, d)
+    experts, split = _expert_weights(params, spec, d)
+    if split:
+        yb = tp.gather_from(_expert_ffn(experts, tp.split_to(xb, dim=0),
+                                        act), dim=0)
+    else:
+        tp.replicated("experts")
+        yb = _expert_ffn(experts, xb, act)
+    yb = yb.reshape(e * cap, d)
 
     # combine: sorted entry i reads its slot, gated; kept entries only
     slot = ee_s * cap + torch.clamp_max(pos_in_e, cap - 1)
@@ -146,7 +179,8 @@ def moe_apply(params, x: torch.Tensor, spec, act_name: str = "silu"):
     y = _combine(contrib_s * gg_s[:, None], order, n, k)
 
     if spec.n_shared > 0:
-        y = y + _shared_ffn(params["shared"], xf, act)
+        y = y + _shared_ffn(params["shared"], xf, act,
+                            spec.d_expert * spec.n_shared)
     aux = aux_load_balance_loss(probs, eids, e) * spec.router_aux_coef
     return y.reshape(b, s, d), aux
 
@@ -165,7 +199,8 @@ def moe_dense_ref(params, x: torch.Tensor, spec, act_name: str = "silu"):
     w = (onehot * gates[..., None].to(x.dtype)).sum(1)           # (N, E)
     y = torch.einsum("ne,end->nd", w, ye)
     if spec.n_shared > 0:
-        y = y + _shared_ffn(params["shared"], xf, act)
+        y = y + _shared_ffn(params["shared"], xf, act,
+                            spec.d_expert * spec.n_shared)
     aux = (aux_load_balance_loss(probs, eids, spec.n_experts)
            * spec.router_aux_coef)
     return y.reshape(b, s, d), aux

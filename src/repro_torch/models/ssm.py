@@ -14,6 +14,17 @@ chunk, as the reference's ``lax.scan`` emits it.  Softplus is the reference's
 ``logaddexp(x, 0)`` (``F.softplus`` turns into the identity above its
 threshold).  The three-operand einsums are contracted pairwise, each in
 the order stated at its line.
+
+Over a mesh (``sharding.ctx.use_mesh_rules``; the weights a rank's
+shards) ``in_proj``'s FSDP rows and ``out_proj``'s FSDP columns are
+gathered over 'data'.  Where 'model' splits them: ``in_proj``'s columns
+(split evenly across the z/x/B/C/dt segments) give this rank's part of
+the projection, gathered over 'model' before ``_split_proj``; the
+depthwise conv runs on this rank's ``conv_w`` channels and is gathered;
+the scan runs on this rank's heads where |model| divides them (the
+reference's ``constrain(xh, (..., 'heads', ...))``), B and C through
+``copy_to``, and its output is gathered for the gated norm; then
+``out_proj``'s row slice and an all-reduce (``sharding.tp``).
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import lecun_init, rmsnorm_init
+from repro_torch.sharding import tp
 
 
 def _dims(cfg):
@@ -168,6 +180,59 @@ def _ssd_chunked(xh, dt, a, Bm, Cm, chunk):
     return y, carry
 
 
+def _proj_in(params, x, cfg):
+    """``x @ in_proj``, whole; over a mesh the weight's FSDP rows are
+    gathered over 'data' and its 'model' columns' outputs over 'model'."""
+    spec, d_inner, n_heads, _ = _dims(cfg)
+    w = tp.whole(params["in_proj"], 0, x.shape[-1])
+    if tp.split(w.shape[-1], 2 * d_inner + 2 * spec.d_state + n_heads):
+        return tp.gather_from(tp.copy_to(x) @ w)
+    tp.replicated("ssm in_proj")
+    return x @ w
+
+
+def _conv_params(params, cfg):
+    """``(conv params, split)``: the conv over this rank's channels where
+    'model' splits ``conv_w``'s (the replicated bias sliced by
+    ``split_to``), else the whole conv."""
+    _, _, _, conv_dim = _dims(cfg)
+    if not tp.split(params["conv_w"].shape[-1], conv_dim):
+        tp.replicated("ssm conv")
+        return params, False
+    return {"conv_w": params["conv_w"],
+            "conv_b": tp.split_to(params["conv_b"], dim=0)}, True
+
+
+def _heads_split(cfg) -> bool:
+    _, _, n_heads, _ = _dims(cfg)
+    m = tp.axis_size("model")
+    if m > 1 and n_heads % m:
+        tp.replicated("ssm scan")
+    return m > 1 and n_heads % m == 0
+
+
+def _proj_out(params, y, x_dtype, cfg):
+    """``y @ out_proj``; over a mesh the weight's FSDP columns are gathered
+    over 'data', and 'model'-split rows take this rank's slice of ``y``
+    and all-reduce the partial sums."""
+    _, d_inner, _, _ = _dims(cfg)
+    w = tp.whole(params["out_proj"], 1, cfg.d_model)
+    if tp.split(w.shape[0], d_inner):
+        return tp.reduce_from(tp.split_to(y.to(x_dtype)) @ w)
+    tp.replicated("ssm out_proj")
+    return y.to(x_dtype) @ w
+
+
+def _scan_split(xh, dtv, a, Bm, Cm, D, spec):
+    """The chunked scan and D skip on this rank's heads, gathered over
+    'model': (y (B, L, H, P) float32, final state (B, H, P, N))."""
+    xh = tp.split_to(xh, dim=2)
+    y, state = _ssd_chunked(xh, tp.split_to(dtv), tp.split_to(a, dim=0),
+                            tp.copy_to(Bm), tp.copy_to(Cm), spec.chunk)
+    y = y + tp.split_to(D, dim=0)[None, None, :, None] * xh
+    return tp.gather_from(y, dim=2), tp.gather_from(state, dim=1)
+
+
 def ssm_apply(params, x: torch.Tensor, cfg, cache=None):
     """Full-sequence Mamba-2 block.  Returns (y, new_cache).
 
@@ -176,20 +241,28 @@ def ssm_apply(params, x: torch.Tensor, cfg, cache=None):
     """
     spec, d_inner, n_heads, conv_dim = _dims(cfg)
     b, l, _ = x.shape
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = _proj_in(params, x, cfg)
     z, xbc, dt = _split_proj(cfg, zxbcdt)
-    xbc_conv = _conv_full(params, xbc)
+    conv, conv_split = _conv_params(params, cfg)
+    if conv_split:
+        xbc_conv = tp.gather_from(_conv_full(conv, tp.split_to(xbc)))
+    else:
+        xbc_conv = _conv_full(conv, xbc)
     xs = xbc_conv[..., :d_inner]
     Bm = xbc_conv[..., d_inner: d_inner + spec.d_state]
     Cm = xbc_conv[..., d_inner + spec.d_state:]
     dtv = softplus(dt.float() + params["dt_bias"])
     a = -torch.exp(params["A_log"])
     xh = xs.reshape(b, l, n_heads, spec.head_dim)
-    y, final_state = _ssd_chunked(xh.float(), dtv, a, Bm, Cm, spec.chunk)
-    y = y + params["D"][None, None, :, None] * xh.float()
+    if _heads_split(cfg):
+        y, final_state = _scan_split(xh.float(), dtv, a, Bm, Cm,
+                                     params["D"], spec)
+    else:
+        y, final_state = _ssd_chunked(xh.float(), dtv, a, Bm, Cm, spec.chunk)
+        y = y + params["D"][None, None, :, None] * xh.float()
     y = y.reshape(b, l, d_inner)
     y = _gated_norm(params["norm"], y, z, cfg.norm_eps)
-    out = y.to(x.dtype) @ params["out_proj"]
+    out = _proj_out(params, y, x.dtype, cfg)
     if cache is not None:
         tail = xbc[:, -(spec.conv_width - 1):, :]
         cache = {"ssm_state": final_state,
@@ -202,16 +275,20 @@ def ssm_decode_step(params, x: torch.Tensor, cfg, cache: dict):
     new cache)."""
     spec, d_inner, n_heads, conv_dim = _dims(cfg)
     b = x.shape[0]
-    zxbcdt = x[:, 0, :] @ params["in_proj"]      # (B, d_in_proj)
+    zxbcdt = _proj_in(params, x[:, 0, :], cfg)   # (B, d_in_proj)
     z, xbc, dt = _split_proj(cfg, zxbcdt)
 
     # depthwise conv via the cached tail
     conv_state = cache["conv_state"]             # (B, W-1, conv_dim)
     window = torch.cat([conv_state.float(), xbc.float()[:, None, :]], 1)
-    w = params["conv_w"].float()                 # (W, conv_dim)
-    conv_out = (torch.einsum("bwc,wc->bc", window, w)
-                + params["conv_b"].float())
+    conv, conv_split = _conv_params(params, cfg)
+    w = conv["conv_w"].float()                   # (W, conv_dim)
+    conv_out = (torch.einsum("bwc,wc->bc",
+                             tp.split_to(window) if conv_split else window, w)
+                + conv["conv_b"].float())
     xbc_c = F.silu(conv_out)
+    if conv_split:
+        xbc_c = tp.gather_from(xbc_c)
     new_conv_state = window[:, 1:, :].to(conv_state.dtype)
 
     xs = xbc_c[..., :d_inner]
@@ -223,12 +300,21 @@ def ssm_decode_step(params, x: torch.Tensor, cfg, cache: dict):
     xh = xs.reshape(b, n_heads, spec.head_dim).float()
 
     st = cache["ssm_state"]                      # (B, H, P, N)
+    D = params["D"]
+    split = _heads_split(cfg)
+    if split:
+        # this rank's heads; the new state and y are gathered over 'model'
+        st, dA, dtv, xh, D = (tp.split_to(st, dim=1), tp.split_to(dA),
+                              tp.split_to(dtv), tp.split_to(xh, dim=1),
+                              tp.split_to(D, dim=0))
     # dt x B x x as an outer product: (dt ⊙ x) first, then with B
     st = (st * dA[..., None, None]
           + (dtv[..., None] * xh)[..., None] * Bm.float()[:, None, None, :])
     y = torch.einsum("bn,bhpn->bhp", Cm.float(), st)
-    y = y + params["D"][None, :, None] * xh
+    y = y + D[None, :, None] * xh
+    if split:
+        y, st = tp.gather_from(y, dim=1), tp.gather_from(st, dim=1)
     y = y.reshape(b, d_inner)
     y = _gated_norm(params["norm"], y, z, cfg.norm_eps)
-    out = y.to(x.dtype) @ params["out_proj"]
+    out = _proj_out(params, y, x.dtype, cfg)
     return out[:, None, :], {"ssm_state": st, "conv_state": new_conv_state}

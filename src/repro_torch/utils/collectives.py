@@ -17,8 +17,12 @@ device), under the reference's kind names:
   all-to-all        : input bytes
   collective-permute: input bytes (one neighbour send/recv)
 
-A point-to-point send is a ``collective-permute``; its receive is the
-same bytes arriving and is not booked again.  Code may book its ops under
+Each booked op is also logged in ``CollectiveStats.ops`` as ``(kind,
+mesh axis, shape)``: the axis its caller named (``on_axis``; None where
+none did, as for the ring's client axes) and the shape of the booked
+tensor (an all-gather's output).  A point-to-point send is a
+``collective-permute``; its receive is the same bytes arriving and is not
+booked again.  Code may book its ops under
 another kind (``booked_as``): the ring gossip's ``all_to_all_single``,
 whose splits reach only ring neighbours, is a ``collective-permute``.
 ``broadcast`` and ``scatter`` (placing a tensor from one rank) keep their
@@ -83,6 +87,18 @@ def booked_as(kind: str):
         _booking.kind = prev
 
 
+@contextlib.contextmanager
+def on_axis(name: str):
+    """Inside it, a counter logs every collective as one over the mesh
+    axis ``name``."""
+    prev = getattr(_booking, "axis", None)
+    _booking.axis = name
+    try:
+        yield
+    finally:
+        _booking.axis = prev
+
+
 def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0]
                if isinstance(t, torch.Tensor))
@@ -92,6 +108,7 @@ def _nbytes(tree) -> int:
 class CollectiveStats:
     bytes_by_kind: dict = field(default_factory=dict)
     count_by_kind: dict = field(default_factory=dict)
+    ops: list = field(default_factory=list)
 
     @property
     def total_bytes(self) -> float:
@@ -131,9 +148,16 @@ class CollectiveCounter(TorchDispatchMode):
                                       "convention in utils.collectives")
         kind, arg = _OPS[name]
         kind = getattr(_booking, "kind", None) or kind
-        nbytes = _nbytes(out if arg is None else args[arg])
-        self.stats.book(kind, nbytes * _FACTOR.get(kind, 1.0))
+        booked = out if arg is None else args[arg]
+        self.stats.book(kind, _nbytes(booked) * _FACTOR.get(kind, 1.0))
+        self.stats.ops.append((kind, getattr(_booking, "axis", None),
+                               tuple(_first(booked).shape)))
         return out
+
+
+def _first(tree) -> torch.Tensor:
+    return next(t for t in tree_flatten(tree)[0]
+                if isinstance(t, torch.Tensor))
 
 
 def collective_bytes(fn, *args, **kwargs):

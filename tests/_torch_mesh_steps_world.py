@@ -1,38 +1,59 @@
 """One rank of the gloo world ``test_torch_mesh_steps.py`` spawns on the CPU
 (a module of its own, so a spawned rank imports torch and the port, not
-jax).  ``run_rank`` runs every case and writes ``rank<r>.json``: per
-meshed step its gap to the unsharded step on the same inputs and the
-collectives it dispatched and the placements its state comes back at, the
-sharded ring against the roll of the whole stack, and the client widths of
-the ``ScaleEngine``'s vmapped calls."""
+jax).  ``run_rank`` runs every case and writes ``rank<r>.json``: on the
+2x2 and 1x4 meshes, ``sharding.tp``'s ops under ``vmap(grad)`` and
+``grad(vmap)`` against the one-process function, and per arch and meshed
+step its gap to the unsharded step on the same inputs, the collectives it
+dispatched (by kind, and the 'model' all-gathers that sent a shard of a
+'model'-sharded weight leaf: ``SentSums``, ``weight_shard_gathers``, which
+``chip_smoke.py`` imports too), the ops and inputs it noted as computed
+replicated or gathered whole (``sharding.tp.record_replicated``) and the
+placements its state comes back at; the sharded ring against the roll of
+the whole stack; and the client widths of the ``ScaleEngine``'s vmapped
+calls."""
 import dataclasses
 import json
 import os
 
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_flatten
+
+from repro_torch.utils.collectives import CollectiveCounter
 
 ARCH = "qwen3-8b"
 SEQ, GLOBAL_BATCH = 64, 4
 WORLD = 4
 SHAPES = {"train": "train_4k", "prefill": "prefill_32k",
           "decode": "decode_32k"}
+#: mesh -> (data, model) and the smoke archs whose steps run on it
+MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+MESH_ARCHS = {"2x2": ("qwen3-8b", "deepseek-moe-16b", "mamba2-1.3b",
+                      "jamba-1.5-large-398b"),
+              "1x4": ("qwen3-8b", "deepseek-moe-16b", "mamba2-1.3b")}
+#: the smoke archs planned as ``plan_for`` plans the published one: one
+#: client, weights 2-D sharded (FSDP over 'data' + 'model')
+FSDP2D = ("jamba-1.5-large-398b",)
 
 
-def _plan(mesh, mode):
+def _plan(mesh, mode, arch=ARCH):
     from repro_torch.configs import INPUT_SHAPES, SMOKE_ARCHS
     from repro_torch.launch import steps
 
     shape = dataclasses.replace(INPUT_SHAPES[SHAPES[mode]], seq_len=SEQ,
                                 global_batch=GLOBAL_BATCH)
-    return steps.plan_for(SMOKE_ARCHS[ARCH], shape, mesh, torch.float32)
+    plan = steps.plan_for(SMOKE_ARCHS[arch], shape, mesh, torch.float32)
+    if arch in FSDP2D:
+        plan = dataclasses.replace(plan, n_clients=1,
+                                   per_client_batch=GLOBAL_BATCH, fsdp2d=True)
+    return plan
 
 
 def _inputs(step, seed):
     """The step's arguments, the same global tensors on every rank: params
     ~ N(0, 0.05^2) and masked (DisPFL state is), masks 0/1, tokens in the
     vocabulary, an all-ones adjacency, lr 0.1, a zero cache, decode
-    positions 3 and 5."""
+    positions 3, 5, ... (one a client)."""
     from repro_torch.launch.dryrun import materialize
     from repro_torch.utils.tree import tree_map
 
@@ -47,7 +68,8 @@ def _inputs(step, seed):
         args[0] = tree_map(lambda w: w * 0.05, args[0])
         args[2] = tree_map(torch.zeros_like, args[2])
         if step.mode == "decode":
-            args[1]["pos"] = torch.tensor([3, 5], dtype=torch.int32)
+            args[1]["pos"] = (3 + 2 * torch.arange(step.plan.n_clients)).to(
+                torch.int32)
     return args
 
 
@@ -60,15 +82,122 @@ def _gap(got, want) -> dict:
             "n_leaves": len(a)}
 
 
-def _step_cases(mesh) -> dict:
+class SentSums(CollectiveCounter):
+    """``utils.collectives.CollectiveCounter`` that also keeps, in
+    ``sent``, the shape and float64 sum of the tensor this rank sent in
+    each all-gather over 'model': a fingerprint of what travelled (real
+    tensors only; an output is not read, the op may still be filling
+    it)."""
+
+    def __init__(self):
+        super().__init__()
+        self.sent = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        n = len(self.stats.ops)
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if (len(self.stats.ops) > n
+                and self.stats.ops[-1][:2] == ("all-gather", "model")):
+            # c10d's all-gathers take (outputs, input), the functional
+            # ones (input, ...)
+            src = args[0] if func.namespace == "_c10d_functional" else args[1]
+            t = next(t for t in tree_flatten(src)[0]
+                     if isinstance(t, torch.Tensor))
+            self.sent.append((tuple(t.shape), float(t.double().sum())))
+        return out
+
+
+def weight_shard_gathers(sent, params, *wholes) -> list:
+    """The sends of ``sent`` (a ``SentSums``' fingerprints of the
+    all-gathers over 'model') that carried this rank's shard of a
+    'model'-sharded weight leaf: what gathering such a leaf whole over
+    'model' sends.  ``params`` are the step's placed ``DTensor`` params,
+    each of ``wholes`` global values they may hold (those placed, those a
+    train step's gossip mixed).  A shard is matched by shape and by its
+    values' sum (1e-6 relative): the shard of the rank's clients, or of
+    one client, one block of a stacked leaf, or both; its 'model' dim
+    leading, as c10d gathers along dim 0; its FSDP dim this rank's or
+    whole.  Returns the matching ``(shape, sum)``s."""
+    import itertools
+
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch.steps import client_range
+
+    def own(t, dim, sub):
+        n = t.shape[dim] // sub.size()
+        return t.narrow(dim, sub.get_local_rank() * n, n)
+
+    shards = []
+    for x, *ws in zip(tree_flatten(params)[0],
+                      *[tree_flatten(w)[0] for w in wholes]):
+        mesh = x.device_mesh
+        dims = {name: p.dim for name, p in zip(mesh.mesh_dim_names,
+                                               x.placements)
+                if isinstance(p, Shard)}
+        if "model" not in dims or mesh["model"].size() == 1:
+            continue
+        k0, k1 = client_range(x)
+        dm = dims["model"]
+        mine = [own(w[k0:k1], dm, mesh["model"]) for w in ws]
+        if dims.get("data", 0) != 0:
+            mine += [own(t, dims["data"], mesh["data"]) for t in mine]
+        # the stacked dims (clients, blocks) each kept whole or indexed
+        lead = range(min(dm, x.dim() - 2))
+        for t in mine:
+            for pick in itertools.product(*[[None] + list(range(t.shape[d]))
+                                            for d in lead]):
+                u, g = t, dm
+                for d in reversed(lead):
+                    if pick[d] is not None:
+                        u, g = u.select(d, pick[d]), g - 1
+                sh = list(u.shape)
+                shards.append((tuple([sh[g]] + sh[:g] + sh[g + 1:]),
+                               float(u.double().sum())))
+    return [(shape, total) for shape, total in sent
+            if any(shape == sh and abs(total - s) <= 1e-6 * max(1.0, abs(s))
+                   for sh, s in shards)]
+
+
+def model_counts(stats) -> dict:
+    """The collectives over 'model' in ``stats``, by kind."""
+    counts = {}
+    for kind, axis, _ in stats.ops:
+        if axis == "model":
+            counts[kind] = counts.get(kind, 0) + 1
+    return counts
+
+
+def _model_ops(counter, params, *wholes) -> dict:
+    """The 'model'-axis collectives of one step by kind, and its 'model'
+    all-gathers that sent a 'model'-sharded weight leaf's shard of any of
+    ``wholes`` (``weight_shard_gathers``)."""
+    return {"model_counts": model_counts(counter.stats),
+            "whole_weight_gathers": weight_shard_gathers(counter.sent, params,
+                                                         *wholes)}
+
+
+def _mixed(gossip, args) -> list:
+    """A train step's params after its gossip, on the whole stack (the
+    values its meshed step's models read); none for serve steps."""
+    from repro_torch.launch.gossip_opt import ppermute_gossip
+    from repro_torch.scale.stacked import masked_gossip_stacked
+
+    if gossip == "einsum":
+        return [masked_gossip_stacked(args[0], args[1], args[3],
+                                      reduction="einsum")]
+    return [ppermute_gossip(args[0], args[1])] if gossip else []
+
+
+def _step_cases(mesh, arch=ARCH) -> dict:
     from repro_torch.launch import steps
     from repro_torch.models import bind
-    from repro_torch.utils.collectives import collective_bytes
+    from repro_torch.sharding.tp import record_replicated
     from repro_torch.utils.tree import tree_leaves, tree_map
 
     out = {}
     for mode in SHAPES:
-        plan = _plan(mesh, mode)
+        plan = _plan(mesh, mode, arch)
         api = bind(plan.arch)
         single = dataclasses.replace(plan, mesh=None)
         for gossip in (("einsum", "ppermute") if mode == "train" else
@@ -83,7 +212,10 @@ def _step_cases(mesh) -> dict:
             want = plain(*[tree_map(torch.clone, a)
                            if not isinstance(a, float) else a for a in args])
             placed = step.place(*args)
-            got, stats = collective_bytes(step, *placed)
+            counter = SentSums()
+            with counter, record_replicated() as rep:
+                got = step(*placed)
+            stats = counter.stats
             # the state a step returns: train's params, serve's cache
             state_in, state_out = placed[0 if gossip else 2], got[
                 0 if gossip else 1]
@@ -91,13 +223,77 @@ def _step_cases(mesh) -> dict:
                     for x in tree_leaves(state_out)]
             got = tree_map(lambda x: x.full_tensor(), got)
             out[f"{mode}-{gossip}" if gossip else mode] = {
-                **_gap(got, want), "n_clients": plan.n_clients,
+                **_gap(got, want),
+                **_model_ops(counter, placed[0], args[0],
+                             *_mixed(gossip, args)),
+                "n_clients": plan.n_clients,
                 "placements_in": [[str(p) for p in x.placements]
                                   for x in tree_leaves(state_in)],
                 "placements_out": kept,
                 "per_client_batch": plan.per_client_batch,
+                "replicated": sorted(rep),
                 "bytes": stats.bytes_by_kind, "counts": stats.count_by_kind}
     return out
+
+
+def _tp_case(mesh) -> dict:
+    """``sharding.tp``'s four ops and ``whole`` in one function of K=3
+    clients' weights (a column weight, FSDP-sharded over 'data' on its
+    rows and split over 'model' on its columns; a row weight split over
+    'model') under
+    ``vmap(grad)``, ``grad(vmap)`` and ``vmap`` with ``backward()`` called
+    outside the mesh context, against the one-process function on the
+    whole weights: the largest gap of the value and of each gradient
+    (this rank's slice), relative to ``max(1, max|ref|)``."""
+    from repro_torch.sharding import tp
+    from repro_torch.sharding.ctx import use_mesh_rules
+
+    gen = torch.Generator().manual_seed(11)
+    k, b, d, f = 3, 4, 8, 8
+    w1, w2 = torch.randn(k, d, f, generator=gen), torch.randn(
+        k, f, d, generator=gen)
+    x = torch.randn(k, b, d, generator=gen)
+    m, r = mesh["model"].size(), mesh["model"].get_local_rank()
+    nd, rd = mesh["data"].size(), mesh["data"].get_local_rank()
+    cols, rows = slice(r * f // m, (r + 1) * f // m), slice(
+        rd * d // nd, (rd + 1) * d // nd)
+
+    def plain(w1, w2, x):
+        h = torch.tanh(x @ w1)
+        return (torch.square(h @ w2).sum() + (torch.sin(h) * h).sum())
+
+    def split(w1, w2, x):
+        h = torch.tanh(tp.copy_to(x) @ tp.whole(w1, 0, d))
+        z = tp.split_to(torch.sin(tp.gather_from(h)))
+        return (torch.square(tp.reduce_from(h @ w2)).sum()
+                + tp.reduce_from((z * h).sum()))
+
+    def total(fn):
+        return lambda *a: torch.func.vmap(fn)(*a).sum()
+
+    want_v = torch.func.vmap(plain)(w1, w2, x)
+    want_g = torch.func.grad(total(plain), argnums=(0, 1, 2))(w1, w2, x)
+    want_g = (want_g[0][:, rows, cols], want_g[1][:, cols], want_g[2])
+    local = (w1[:, rows, cols].contiguous(), w2[:, cols].contiguous(), x)
+    with use_mesh_rules(mesh):
+        got_v = torch.func.vmap(split)(*local)
+        grads = {"grad(vmap)": torch.func.grad(
+                     total(split), argnums=(0, 1, 2))(*local),
+                 "vmap(grad)": torch.func.vmap(torch.func.grad(
+                     split, argnums=(0, 1, 2)))(*local)}
+        leaves = [t.clone().requires_grad_() for t in local]
+        loss = total(split)(*leaves)
+    # the backward outside the context, as autograd's device thread runs
+    # it on the GPU
+    loss.backward()
+    grads["backward()"] = [t.grad for t in leaves]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    return {"value": rel(got_v, want_v),
+            **{f"{order} d{name}": rel(g, w) for order, gs in grads.items()
+               for name, g, w in zip(("w1", "w2", "x"), gs, want_g)}}
 
 
 def _bits(x) -> torch.Tensor:
@@ -191,12 +387,17 @@ def run_rank(rank, world_size, d):
         world_size=world_size)
     from repro_torch.launch.mesh import make_test_mesh
 
+    out = {"tp": {}, "steps": {}}
+    for name, (data, model) in MESHES.items():
+        mesh = make_test_mesh(data, model, device_type="cpu")
+        out["tp"][name] = _tp_case(mesh)
+        for arch in MESH_ARCHS[name]:
+            for case, got in _step_cases(mesh, arch).items():
+                out["steps"][f"{name}/{arch}/{case}"] = got
     mesh = make_test_mesh(2, 2, device_type="cpu")
-    out = {"steps": _step_cases(mesh),
-           "ring": {"2x2-k2-d2": _ring_case(mesh, 2, 2, torch.float32),
-                    "2x2-k4-d4-bf16": _ring_case(mesh, 4, 4,
-                                                 torch.bfloat16)},
-           "widths": {"2x2": call_widths(mesh)}}
+    out["ring"] = {"2x2-k2-d2": _ring_case(mesh, 2, 2, torch.float32),
+                   "2x2-k4-d4-bf16": _ring_case(mesh, 4, 4, torch.bfloat16)}
+    out["widths"] = {"2x2": call_widths(mesh)}
     mesh41 = make_test_mesh(4, 1, device_type="cpu")
     out["ring"]["4x1-k8-d4"] = _ring_case(mesh41, 8, 4, torch.float32)
     out["widths"]["4x1"] = call_widths(mesh41)

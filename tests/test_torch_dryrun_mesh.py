@@ -3,8 +3,13 @@ repro_torch.launch.dryrun --smoke --multi-pod`` and ``run_one`` on the
 single-pod mesh), on a fake world of 4 or 8 ranks, in one subprocess: a fake process group is
 process-wide, and the other tests of a pytest worker hold that no world
 is up.  The reference's three assertions (``tests/test_dryrun_integration.py``)
-on the port's records, and the ring gossip traced alone: its bytes a rank
-exactly the boundary rows' weight and int8-mask bytes, no all-gather.
+on the port's records (split over 'model': ``"tp": true``, no op left
+replicated at these shapes, a decode step's cache named as gathered
+whole), the ring gossip traced alone: its bytes a
+rank exactly the boundary rows' weight and int8-mask bytes, no
+all-gather; and the qwen3-8b smoke arch's train step traced on a fake 2x2
+and a fake 2x1 world (K=2, one client a rank; at 2x2 every head splits
+whole): rank 0's FLOPs at 2x2 at most 1.25/2 of those at 2x1.
 """
 import json
 import os
@@ -51,9 +56,26 @@ n = tree_leaves(params)[0].to_local().shape[0]
 boundary = sum(2 * min(1, n) * (w.to_local()[0].numel() * w.element_size()
                                 + m.to_local()[0].numel())
                for w, m in zip(tree_leaves(params), tree_leaves(masks)))
-print(json.dumps({"bytes": stats.bytes_by_kind,
-                  "counts": stats.count_by_kind, "boundary": boundary,
-                  "k": plan.n_clients, "n": n}))
+ring = {"bytes": stats.bytes_by_kind, "counts": stats.count_by_kind,
+        "boundary": boundary, "k": plan.n_clients, "n": n}
+# the qwen3-8b smoke train step on a fake 2x2 and a fake 2x1 world
+import dataclasses
+from repro_torch.sharding.tp import record_replicated
+from repro_torch.utils.trace_cost import step_cost
+flops = {}
+shape = dataclasses.replace(shape, seq_len=64, global_batch=2)
+for data, model in ((2, 2), (2, 1)):
+    mesh = make_test_mesh(data, model, device_type="cpu", backend="fake")
+    plan, step = steps.lower_for(SMOKE_ARCHS["qwen3-8b"], shape, mesh)
+    with FakeTensorMode(), record_replicated() as rep:
+        args = step.abstract_args("cpu")
+        _, cost = step_cost(step, *args)
+    flops[f"{data}x{model}"] = {"flops": cost.flops, "k": plan.n_clients,
+                                "rows": plan.per_client_batch,
+                                "local_k": tree_leaves(args[0])[0]
+                                .to_local().shape[0],
+                                "replicated": sorted(rep)}
+print(json.dumps({"ring": ring, "flops": flops}))
 """
 
 
@@ -78,6 +100,31 @@ def dry(tmp_path_factory):
     return rec, json.loads(r.stdout.strip().splitlines()[-1])
 
 
+def test_smoke_dryrun_tp_records_split_every_op(dry):
+    """The meshed records say ``"tp": true`` and, at the smoke archs'
+    widths on 'model' of 2, name no op left replicated; a decode record
+    names the one input its ranks gathered whole where the reference
+    splits it, the serving cache (ROADMAP A16's rest)."""
+    for arch, shape in SINGLE_POD:
+        rec = dry[0](arch, shape, "pod16x16")
+        want = ["serve cache"] if shape == "decode_32k" else []
+        assert (rec["tp"], rec["replicated"]) == (True, want), rec["tag"]
+    rec = dry[0]("gemma3-1b", "train_4k", "pod2x16x16")
+    assert (rec["tp"], rec["replicated"]) == (True, [])
+
+
+def test_tp_divides_rank_flops_over_model(dry):
+    """qwen3-8b smoke train step, one client a rank: rank 0's FLOPs on a
+    fake 2x2 world (its 4 q and 2 kv heads split whole over 'model' of
+    2) at most 1.25/2 of those on a fake 2x1 world."""
+    flops = dry[1]["flops"]
+    for mesh in ("2x2", "2x1"):
+        got = flops[mesh]
+        assert (got["k"], got["local_k"], got["rows"], got["replicated"]) \
+            == (2, 1, 1, []), (mesh, got)
+    assert flops["2x2"]["flops"] <= 0.625 * flops["2x1"]["flops"], flops
+
+
 @pytest.mark.parametrize("arch,shape", SINGLE_POD)
 def test_smoke_dryrun_single_pod(dry, arch, shape):
     rec = dry[0](arch, shape, "pod16x16")
@@ -92,9 +139,9 @@ def test_smoke_dryrun_single_pod(dry, arch, shape):
                 "analytic_state_bytes_per_device"):
         assert key in rec, key
     assert (rec["n_clients"], rec["per_client_batch"]) == (2, 4)
-    # each rank computes whole clients: not comparable to the reference's
-    # tensor-parallel records of the same mesh
-    assert rec["tp"] is False
+    # each rank splits its clients over 'model', as the reference's
+    # tensor-parallel records of the same mesh do
+    assert rec["tp"] is True
 
 
 def test_smoke_dryrun_multi_pod_has_cross_pod_collectives(dry):
@@ -116,7 +163,7 @@ def test_smoke_dryrun_ring_gossip_uses_permute(dry):
 
 
 def test_traced_ring_moves_exactly_the_boundary_rows(dry):
-    ring = dry[1]
+    ring = dry[1]["ring"]
     assert (ring["k"], ring["n"]) == (2, 1)
     assert ring["bytes"] == {"collective-permute": float(ring["boundary"])}
     assert "all-gather" not in ring["counts"]

@@ -28,6 +28,7 @@ from repro_torch.launch import steps
 from repro_torch.launch.gossip_opt import ppermute_gossip
 from repro_torch.models import bind
 from repro_torch.utils.tree import tree_leaves_with_path
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.tier1
 

@@ -22,6 +22,7 @@ from repro.sparse.packed import _pack_bits, _unpack_bits, n_words
 from repro_torch.kernels.gossip_avg import gossip_avg
 from repro_torch.kernels.packed_accum import packed_accum
 from repro_torch.sparse.packed import words_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.tier1
 

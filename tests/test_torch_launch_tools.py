@@ -384,3 +384,48 @@ def test_port_mesh_records_table_apart_from_the_reference(tmp_path):
     for i, rec in enumerate((REF_RECORD, port)):
         (tmp_path / f"{i}.json").write_text(json.dumps(rec))
     assert len(report.load_records(str(tmp_path))) == 2
+
+
+def test_port_tp_records_table_beside_the_reference(tmp_path):
+    """A port mesh record that splits its clients over 'model' (``"tp":
+    true``) is tabled under the reference's mesh heading, its row beside
+    the reference's row of the same arch and shape and marked as the
+    port's, and both load from one directory under one tag."""
+    port = {**REF_RECORD, "tp": True, "replicated": [], "unroll": False,
+            "cost": {"flops": 1.5e13, "bytes accessed": 9.0e10},
+            "peak_live_bytes": 2 ** 34, "device_memory_bytes": 80 * 2 ** 30,
+            "dtype": "bf16", "trace_s": 12.0, "fits": True}
+    assert report.table_mesh(port) == "pod16x16"
+    for i, rec in enumerate((REF_RECORD, port)):
+        (tmp_path / f"{i}.json").write_text(json.dumps(rec))
+    records = report.load_records(str(tmp_path))
+    assert len(records) == 2
+    table = report.dryrun_table(records, "pod16x16").splitlines()
+    rows = [r for r in table if r.startswith("| qwen3-8b")]
+    assert [r.split(" | ")[0] for r in rows] == [
+        "| qwen3-8b", "| qwen3-8b" + report.PORT_ROW]
+    assert " | 240000.0 | " in rows[0] and " | 15000.0 | " in rows[1]
+    assert report.roofline_table(records, "pod16x16").count(
+        report.PORT_ROW) == 1
+    fit = report.fit_table(records, "pod16x16")
+    assert fit.count("| qwen3-8b") == 1 and report.PORT_ROW in fit
+
+
+@pytest.mark.parametrize("whole", [["serve cache"], ["fsdp2d batch"]])
+def test_port_tp_records_with_whole_inputs_are_marked(whole):
+    """A ``"tp": true`` record whose ranks gathered an input whole that the
+    reference splits (``sharding.tp.WHOLE_INPUTS`` in ``replicated``) is
+    tabled beside the reference's row, after it, its arch cell naming
+    those inputs (``report.WHOLE_ROW``) rather than ``PORT_ROW``; an op
+    left replicated over 'model' alone does not mark it."""
+    port = {**REF_RECORD, "tp": True, "unroll": False,
+            "replicated": ["attention core"] + whole,
+            "cost": {"flops": 1.5e13, "bytes accessed": 9.0e10}}
+    mark = report.WHOLE_ROW.format(whole[0])
+    table = report.dryrun_table([port, REF_RECORD], "pod16x16").splitlines()
+    rows = [r for r in table if r.startswith("| qwen3-8b")]
+    assert [r.split(" | ")[0] for r in rows] == [
+        "| qwen3-8b", "| qwen3-8b" + mark]
+    split = {**port, "replicated": ["attention core"]}
+    assert report.dryrun_table([split], "pod16x16").count(
+        "| qwen3-8b" + report.PORT_ROW + " |") == 1

@@ -34,6 +34,7 @@ from repro_torch.checkpoint.npz import load_pytree
 from repro_torch.launch import mesh as port_mesh
 from repro_torch.launch import train as port_train
 from repro_torch.utils.tree import tree_leaves_with_path
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.tier1
 

@@ -7,14 +7,22 @@ vmapped calls.
 input shape and mesh (the production meshes and the 2x2(x2) test meshes,
 as duck-typed fakes that both packages read).  One spawned world of four
 gloo ranks (``_torch_mesh_steps_world.run_rank``, which imports no jax)
-runs the rest, on a 2x2 mesh where ``plan_for`` gives the ``qwen3-8b``
-smoke arch K=2 clients of 2 rows.
+runs the rest: ``sharding.tp``'s ops, and the meshed steps split over
+'model' on a 2x2 mesh (``plan_for`` gives the ``qwen3-8b``,
+``deepseek-moe-16b`` and ``mamba2-1.3b`` smoke archs K=2 clients of 2
+rows; the jamba smoke arch takes the FSDP2D plan, one client of 4 rows,
+weights 2-D sharded) and a 1x4 mesh (K=1 of 4 rows, 'model' of 4: the
+qwen3 smoke arch's k/v columns cut a kv head).
 
 Tolerances:
+- ``sharding.tp``'s ops under ``vmap(grad)`` and ``grad(vmap)`` against
+  the one-process function: value and gradients within ``1e-5 * max(1,
+  max|ref|)`` (measured ~2e-7);
 - the meshed train step (``einsum``, ``ppermute``), prefill and decode
   against the unsharded step on the same inputs: ``max|meshed - plain| <=
   1e-5 * max(1, max|plain|)`` (``assert_close``'s criterion of the port's
-  LM tests; on this CPU the measured gap is 0);
+  LM tests; measured up to 3.5e-6 of scale here, the all-reduced partial
+  sums' order);
 - the sharded ring: bit-equal to ``ppermute_gossip`` on the whole stack,
   its collective bytes exactly the boundary rows' (per hop h, min(h, n)
   of a rank's n rows each way, per leaf the weight's shard in its dtype
@@ -91,30 +99,102 @@ def ranks(tmp_path_factory):
 
 
 STEPS = ["train-einsum", "train-ppermute", "prefill", "decode"]
+#: every (mesh, arch, step) the world runs; the qwen3 smoke arch's steps
+#: at 2x2 are ``STEPS``' cases
+CASES = [f"{mesh}/{arch}/{step}" for mesh, archs in world.MESH_ARCHS.items()
+         for arch in archs for step in STEPS]
+TP_CASES = [c for c in CASES if not c.startswith(f"2x2/{world.ARCH}/")]
+#: (n_clients, per_client_batch) of each mesh's plans
+PLANS = {"2x2": (2, 2), "1x4": (1, 4)}
+
+
+def _step(rank, case):
+    return rank["steps"][case if "/" in case else f"2x2/{world.ARCH}/{case}"]
+
+
+def _within_fp32(ranks, case):
+    mesh, arch = (case.split("/")[:2] if "/" in case else ("2x2",
+                                                          world.ARCH))
+    want = (1, world.GLOBAL_BATCH) if arch in world.FSDP2D else PLANS[mesh]
+    for r, rank in enumerate(ranks):
+        got = _step(rank, case)
+        assert (got["n_clients"], got["per_client_batch"]) == want
+        assert got["max_abs"] <= REL_TOL * max(1.0, got["scale"]), (r, got)
 
 
 @pytest.mark.parametrize("case", STEPS)
 def test_meshed_step_within_fp32_of_unsharded(ranks, case):
-    for r, rank in enumerate(ranks):
-        got = rank["steps"][case]
-        assert (got["n_clients"], got["per_client_batch"]) == (2, 2)
-        assert got["max_abs"] <= REL_TOL * max(1.0, got["scale"]), (r, got)
+    _within_fp32(ranks, case)
+
+
+@pytest.mark.parametrize("case", TP_CASES)
+def test_tp_step_within_fp32_of_unsharded(ranks, case):
+    """The steps split over 'model' (and the jamba plan's FSDP over
+    'data') on the other archs and on the 1x4 mesh."""
+    _within_fp32(ranks, case)
+
+
+@pytest.mark.parametrize("mesh", sorted(world.MESHES))
+def test_tp_ops_match_one_process(ranks, mesh):
+    """``copy_to``, ``reduce_from``, ``gather_from``, ``split_to`` and
+    ``whole`` (an FSDP weight's gather) in one function, its value and each gradient (this
+    rank's slice) under ``vmap(grad)``, ``grad(vmap)`` and a ``backward()``
+    run outside the mesh context (where the GPU's autograd thread runs
+    it), against the one-process function on the whole weights ('model'
+    of 2 and of 4 ranks)."""
+    for rank in ranks:
+        got = rank["tp"][mesh]
+        assert len(got) == 10
+        for name, gap in got.items():
+            assert gap <= REL_TOL, (mesh, name, gap)
 
 
 def test_meshed_step_collectives(ranks):
-    """The einsum step all-gathers (the K clients and the 'model'
-    shards); the ring step's mix is collective-permutes, and its
-    all-gathers are only the 'model' shards, fewer bytes than einsum's;
-    prefill and decode gather the 'model' shards and the outputs."""
+    """The einsum step all-gathers (the K clients' shards over the client
+    axes, and activations over 'model') and all-reduces the row-split
+    matmuls' partial sums over 'model'; the ring step's mix is
+    collective-permutes, and its all-gathers (activations over 'model'
+    only) are fewer bytes than einsum's; prefill and decode gather the
+    cache and activations and all-reduce over 'model'."""
     for rank in ranks:
-        s = rank["steps"]
-        assert set(s["train-einsum"]["counts"]) == {"all-gather"}
-        assert set(s["train-ppermute"]["counts"]) == {"all-gather",
-                                                      "collective-permute"}
+        s = {c: _step(rank, c) for c in STEPS}
+        assert set(s["train-einsum"]["counts"]) == {"all-gather",
+                                                    "all-reduce"}
+        assert set(s["train-ppermute"]["counts"]) == {
+            "all-gather", "all-reduce", "collective-permute"}
         assert (s["train-ppermute"]["bytes"]["all-gather"]
                 < s["train-einsum"]["bytes"]["all-gather"])
         for mode in ("prefill", "decode"):
-            assert set(s[mode]["counts"]) == {"all-gather"}
+            assert set(s[mode]["counts"]) == {"all-gather", "all-reduce"}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_no_whole_model_sharded_weight_is_gathered(ranks, case):
+    """No all-gather over 'model' carries a whole 'model'-sharded weight
+    leaf of the rank's clients (its shape and its values' sum), and each
+    step all-reduces over 'model'."""
+    for rank in ranks:
+        got = _step(rank, case)
+        assert got["whole_weight_gathers"] == [], got
+        assert got["model_counts"].get("all-reduce", 0) > 0, got
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_whole_inputs_are_recorded(ranks, case):
+    """The inputs a step gathers whole where the reference splits them are
+    named in what it records (the dry run's ``replicated`` field): every
+    prefill and decode step's cache (split over 'model' at rest), and the
+    jamba FSDP2D plan's batch (its rows over 'data'); no other step names
+    either."""
+    from repro_torch.sharding.tp import WHOLE_INPUTS
+
+    _, arch, step = case.split("/")
+    want = ({"serve cache"} if step in ("prefill", "decode") else set()) | (
+        {"fsdp2d batch"} if arch in world.FSDP2D else set())
+    for rank in ranks:
+        got = {op for op in _step(rank, case)["replicated"]
+               if op in WHOLE_INPUTS}
+        assert got == want, (case, got)
 
 
 RINGS = ["2x2-k2-d2", "2x2-k4-d4-bf16", "4x1-k8-d4"]
@@ -139,15 +219,24 @@ def test_ring_moves_exactly_the_boundary_rows(ranks, case):
                for p in ranks[0]["ring"]["2x2-k2-d2"]["placements"])
 
 
+def _state_at_placements(ranks, case):
+    for rank in ranks:
+        got = _step(rank, case)
+        assert got["placements_out"] == got["placements_in"]
+        assert any(p[-1] != "R" for p in got["placements_in"]), case
+
+
 @pytest.mark.parametrize("case", STEPS)
 def test_meshed_step_returns_its_state_at_the_placements(ranks, case):
     """Train's params and serve's cache come back at the placements they
-    went in at, 'model' and FSDP shards included (the step gathers them
-    to compute whole clients and keeps its own chunk)."""
-    for rank in ranks:
-        got = rank["steps"][case]
-        assert got["placements_out"] == got["placements_in"]
-        assert any(p[1] != "R" for p in got["placements_in"]), case
+    went in at, 'model' and FSDP shards included (train updates its
+    shards; serve gathers the cache and keeps its own chunk)."""
+    _state_at_placements(ranks, case)
+
+
+@pytest.mark.parametrize("case", TP_CASES)
+def test_tp_step_returns_its_state_at_the_placements(ranks, case):
+    _state_at_placements(ranks, case)
 
 
 def test_engine_calls_take_one_client_whatever_the_mesh(ranks):

@@ -49,6 +49,7 @@ from repro_torch.sparse.packed import (
     words_to_numpy,
 )
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map, tree_nnz
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.tier1
 

@@ -28,6 +28,7 @@ from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
 from repro_torch.obs import counters as port_counters
 from repro_torch.sim.report import MetricsStream
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.tier1
 

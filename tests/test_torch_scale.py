@@ -1,5 +1,8 @@
-"""The port's stacked engine (``repro_torch.scale``) against the reference's
-``repro.scale``, on the CPU, from the same numpy inputs or one archive.
+"""The port's stacked primitives (``repro_torch.scale.stacked``) against the
+reference's ``repro.scale``, on the CPU, from the same numpy inputs; the
+``ScaleEngine``'s ragged schedules and momentum against the port's loop
+engine, its refusals and the ``--scale`` CLI.  The engine's runs from one
+reference archive are ``test_torch_scale_engine.py``'s.
 
 Setup as the reference's own suite: K=8, smallcnn width 4, hw 8, 3 rounds,
 degree 2.  Tolerances:
@@ -22,21 +25,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro.data import build_federated_image_task as ref_build
-from repro.fl import Checkpointer as RefCheckpointer
-from repro.fl import FLConfig as RefFLConfig
-from repro.fl import RoundEngine as RefRoundEngine
-from repro.fl import make_cnn_task as ref_make_task
-from repro.fl import make_strategy as ref_make_strategy
-from repro.fl.base import evaluate_clients_stacked as ref_eval_stacked
 from repro.kernels import ops as ref_ops
-from repro.scale import ScaleEngine as RefScaleEngine
 from repro.scale import stacked as ref_stacked
 from repro.utils.tree import tree_leaves_with_path as ref_leaves
 from repro_torch.data.loader import build_federated_image_task
 from repro_torch.fl.base import (
     FLConfig,
-    evaluate_clients,
     evaluate_clients_stacked,
     make_cnn_task,
 )
@@ -56,13 +50,13 @@ from repro_torch.scale import (
     stacked_evolve_exact,
     stacked_nnz_per_client,
     stacked_prune_regrow_threshold,
-    stacked_state_from_numpy,
     stacked_strategy_names,
     unpack_stacked,
 )
 from repro_torch.scale.stacked import evolve_counts_for
 from repro_torch.sparse.packed import words_to_numpy
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.tier1
 
@@ -353,109 +347,6 @@ RUNS = {"dispfl-ordered": ("dispfl", "ordered"),
         "dispfl_anneal-ordered": ("dispfl_anneal", "ordered")}
 
 
-@pytest.fixture(scope="module")
-def ref_runs(tmp_path_factory):
-    """Each reference ScaleEngine run once: its round-0 archive, its
-    per-round metrics and stacked states, and (ordered dispfl) the archive
-    after round 2 — computed on first use."""
-    d = tmp_path_factory.mktemp("ref_scale")
-    clients = ref_build(0, **DATA)[0]
-    task = ref_make_task("smallcnn", 10, 8, width=4)
-    cache = {}
-
-    def get(key):
-        if key not in cache:
-            name, reduction = RUNS[key]
-            mid = str(d / f"{key}-r2.npz")
-            eng = RefScaleEngine(ref_make_strategy(name), task, clients,
-                                 RefFLConfig(**CFG), reduction=reduction,
-                                 callbacks=[_SaveAt(mid, 1)])
-            start = str(d / f"{key}-r0.npz")
-            eng.save(start)
-            rounds = [(m.to_dict(), _ref_np(eng.state))
-                      for m in eng.rounds()]
-            cache[key] = dict(start=start, mid=mid, rounds=rounds,
-                              result=eng.result(), engine=eng)
-        return cache[key]
-
-    return get
-
-
-class _SaveAt(RefCheckpointer):
-    """Save once, after round ``at`` (0-based)."""
-
-    def __init__(self, path, at):
-        super().__init__(path)
-        self.at = at
-
-    def on_round_end(self, engine, metrics):
-        if metrics.round == self.at:
-            engine.save(self.path)
-
-    def on_run_end(self, engine):
-        pass
-
-
-def _port_scale(name, reduction, **kw):
-    return ScaleEngine(make_strategy(name), _port_task(), _port_clients(),
-                       FLConfig(**CFG), reduction=reduction, **kw)
-
-
-@pytest.mark.parametrize("key", list(RUNS))
-def test_scale_engine_matches_reference_from_one_archive(ref_runs, key):
-    ref = ref_runs(key)
-    name, reduction = RUNS[key]
-    port = _port_scale(name, reduction).restore(ref["start"])
-    n = 0
-    for (want, want_state), got in zip(ref["rounds"], port.rounds()):
-        got = got.to_dict()
-        for d in (want, got):
-            d.pop("wall_s")
-        for field in ("acc_mean", "acc_std"):
-            np.testing.assert_allclose(got.pop(field), want.pop(field),
-                                       rtol=0, atol=ACC_ATOL)
-        assert got == dict(want)             # comm rows, FLOPs, lr, rate
-        got_state = _port_np(port.state)
-        for p, x in want_state.items():
-            if p.startswith("masks"):
-                np.testing.assert_array_equal(x, got_state[p], err_msg=p)
-            else:
-                np.testing.assert_allclose(x, got_state[p], rtol=0,
-                                           atol=PARAM_ATOL, err_msg=p)
-        n += 1
-    assert n == CFG["rounds"]
-    np.testing.assert_allclose(port.result().final_accs,
-                               ref["result"].final_accs, rtol=0, atol=ACC_ATOL)
-    assert port.step_compiles == 0
-    assert port.scale_obs.snapshot() == {"step_calls": 3, "step_compiles": 0}
-    assert len(port.scale_series.series("step_calls", kind="counter")) == 3
-    assert set(port.phase_s[0]) == {"inputs", "mix", "local", "evolve",
-                                    "eval"}
-
-
-def test_ordered_masks_equal_port_loop_engine(ref_runs):
-    start = ref_runs("dispfl-ordered")["start"]
-    scale = _port_scale("dispfl", "ordered").restore(start)
-    loop = RoundEngine(make_strategy("dispfl"), _port_task(), _port_clients(),
-                       FLConfig(**CFG), local_exec="loop").restore(start)
-    for a, b in zip(scale.rounds(), loop.rounds()):
-        da, db = a.to_dict(), b.to_dict()
-        for d in (da, db):
-            d.pop("wall_s")
-        assert da == db
-        for k in range(CFG["n_clients"]):
-            for (p, x), (_, y) in zip(
-                    tree_leaves_with_path(scale.adapter.unstack_state(
-                        scale.state)["masks"][k]),
-                    tree_leaves_with_path(loop.state["masks"][k])):
-                assert torch.equal(x, y), (a.round, k, p)
-    for x, y in zip(scale.adapter.eval_params(scale.state),
-                    loop.state["params"]):
-        for (p, u), (_, v) in zip(tree_leaves_with_path(x),
-                                  tree_leaves_with_path(y)):
-            torch.testing.assert_close(u, v, rtol=0, atol=PARAM_ATOL)
-
-
 def test_ragged_schedules_and_momentum_match_port_loop_engine():
     """Clients with 29 to 82 samples (padded no-op steps) and momentum 0.9
     (stacked optimizer state), dispfl_anneal, ``ordered``: the stacked run
@@ -480,86 +371,6 @@ def test_ragged_schedules_and_momentum_match_port_loop_engine():
             for (p, a), (_, b) in zip(tree_leaves_with_path(got[key][k]),
                                       tree_leaves_with_path(loop.state[key][k])):
                 torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=p)
-
-
-def test_checkpoints_interchange_with_reference(ref_runs, tmp_path):
-    """Reference archive -> port: resuming the reference ScaleEngine's
-    round-2 archive finishes on the reference's masks.  Port archive ->
-    reference: both of its engines load the port ScaleEngine's archive
-    with every leaf and history bit-equal."""
-    ref = ref_runs("dispfl-ordered")
-    port = _port_scale("dispfl", "ordered").restore(ref["mid"])
-    assert port._next_round == 2
-    for _ in port.rounds():
-        pass
-    want = ref["rounds"][-1][1]
-    got = _port_np(port.state)
-    for p, x in want.items():
-        if p.startswith("masks"):
-            np.testing.assert_array_equal(x, got[p], err_msg=p)
-        else:
-            np.testing.assert_allclose(x, got[p], rtol=0, atol=PARAM_ATOL)
-    path = str(tmp_path / "port.npz")
-    port.save(path)
-    ref_clients = ref_build(0, **DATA)[0]
-    task = ref_make_task("smallcnn", 10, 8, width=4)
-    for eng in (RefRoundEngine(ref_make_strategy("dispfl"), task, ref_clients,
-                               RefFLConfig(**CFG), local_exec="loop"),
-                RefScaleEngine(ref_make_strategy("dispfl"), task, ref_clients,
-                               RefFLConfig(**CFG), reduction="ordered")):
-        eng.restore(path)
-        assert eng._next_round == CFG["rounds"]
-        assert eng._acc_history == port._acc_history
-        assert eng._comm == port._comm
-        state = _ref_np(eng.state)
-        if type(eng) is RefRoundEngine:       # per-client lists
-            state = _ref_np({k: jax.tree.map(lambda *xs: np.stack(xs), *v)
-                             for k, v in eng.state.items()})
-        for p, x in got.items():
-            np.testing.assert_array_equal(state[p], x, err_msg=p)
-    # the reference's stacked state as numpy, straight into the port
-    stacked = stacked_state_from_numpy(
-        jax.tree.map(np.asarray, ref["engine"].state))
-    _assert_trees(ref["engine"].state, stacked)
-
-
-def test_stacked_eval_equals_loop_eval(ref_runs):
-    """Ragged test sets (padding and the live mask): the stacked eval is
-    bit-equal to the port's loop eval and to the reference's stacked eval,
-    on a trained state."""
-    ragged = [dataclasses.replace(c, test_x=c.test_x[: len(c.test_y) - k],
-                                  test_y=c.test_y[: len(c.test_y) - k])
-              for k, c in enumerate(_port_clients())]
-    eng = ScaleEngine(make_strategy("dispfl"), _port_task(), ragged,
-                      FLConfig(**CFG), reduction="ordered").restore(
-                          ref_runs("dispfl-ordered")["mid"])
-    loop = evaluate_clients(eng.task, eng.adapter.eval_params(eng.state),
-                            ragged)
-    assert evaluate_clients_stacked(eng.task, eng.state["params"],
-                                    ragged) == loop
-    assert eng._stacked_eval() == loop
-    ref_clients = [dataclasses.replace(c, test_x=c.test_x[: len(c.test_y) - k],
-                                       test_y=c.test_y[: len(c.test_y) - k])
-                   for k, c in enumerate(ref_build(0, **DATA)[0])]
-    ref_params = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
-                              eng.state["params"])
-    assert ref_eval_stacked(ref_make_task("smallcnn", 10, 8, width=4),
-                            ref_params, ref_clients) == loop
-
-
-def test_snapshot_messages_byte_identical(ref_runs):
-    ref = ref_runs("dispfl-einsum")["engine"]
-    port = _port_scale("dispfl", "einsum")
-    port.state = stacked_state_from_numpy(jax.tree.map(np.asarray, ref.state))
-    want, got = ref.snapshot_messages(), port.snapshot_messages()
-    assert len(want) == len(got) == CFG["n_clients"]
-    for a, b in zip(want, got):
-        _assert_payloads(a["packed"], b["packed"])
-
-
-# ---------------------------------------------------------------------------
-# refusals and the CLI
-# ---------------------------------------------------------------------------
 
 
 class _Named(StrategyBase):

@@ -51,6 +51,7 @@ from repro_torch.sparse.codec import (
 )
 from repro_torch.sparse.packed import pack_tree, unpack_mask_tree, unpack_tree
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.tier1
 

@@ -30,6 +30,7 @@ from repro_torch.models import bind
 from repro_torch.sharding import ctx, rules
 from repro_torch.sharding.rules import PartitionSpec
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.tier1
 

@@ -29,6 +29,7 @@ from repro_torch.sparse.packed import is_packed
 from repro_torch.utils.tree import tree_leaves as port_tree_leaves
 from repro_torch.utils.tree import tree_leaves_with_path as port_leaves
 from repro_torch.utils.tree import tree_map as port_tree_map
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.tier1
 
