@@ -4515,14 +4515,22 @@ def mesh_path(torch, train, counters, card):
 # and 1x4 (K=1 of 4 rows; one q head a rank, the k/v columns cut a kv head
 # and are gathered), the deepseek-moe-16b (experts split) and mamba2-1.3b
 # (SSM projections, conv channels and scan heads split) smoke archs and
-# jamba's FSDP2D plan (weights' 'data' shards gathered before use) on 2x2:
-# the train step (einsum, ppermute), prefill and decode within fp32
-# rounding of the unsharded steps, each rank's collectives by kind, none
-# sending a 'model'-sharded weight's shard to gather it whole; (c) the dry
-# run's multi-pod records (gemma3-1b train_4k,
-# einsum and ppermute; qwen3-8b train_4k), traced by phase 17's background
-# process after its sweep, rank 0's FLOPs beside the parent tree's
-# ("tp": false: a rank computed whole clients)
+# jamba's FSDP2D plan (weights' 'data' shards gathered before use, the
+# rows split over 'data', gradients reduce-scattered there) on 2x2: the
+# train step (einsum, ppermute), prefill and decode (on a random cache at
+# its placements) within fp32 rounding of the unsharded steps; then the
+# long-context decode of one row (seq_data: the cache's 64 positions in
+# two chunks of 32 over 'data') of the gemma3-1b and jamba smoke archs at
+# 2x2, a position in each chunk, gemma3's 16-wide window crossing the
+# chunk edge at one; each rank's collectives by kind, none sending a
+# 'model'-sharded weight's shard to gather it whole, nor a cache leaf's
+# shard nor an FSDP2D batch's rows, and no step naming an input gathered
+# whole; (c) the dry run's multi-pod records (gemma3-1b train_4k,
+# einsum and ppermute; qwen3-8b train_4k; jamba decode_32k, its cache and
+# batch rows split), traced by phase 17's background process after its
+# sweep, rank 0's FLOPs beside the parent tree's ("tp": false: a rank
+# computed whole clients; for jamba, the parent tree's record, which
+# gathered its cache and batch whole)
 STEPS_A_ARCH = "gemma3-1b"
 STEPS_SEQ = 1024
 # (b): each mesh (data, model) and the smoke archs run on it
@@ -4534,17 +4542,25 @@ STEPS_B_CASES = (((2, 2), ("qwen3-8b", "deepseek-moe-16b", "mamba2-1.3b",
 STEPS_B_FSDP2D = ("jamba-1.5-large-398b",)
 STEPS_B_SEQ, STEPS_B_BATCH = 64, 4
 STEPS_B_WORLD = 4
+# (b): the seq_data decode cases (one client of one row) at 2x2, and
+# their decode positions: one in each of the cache's two chunks
+STEPS_B_SEQ_DATA = ("gemma3-1b", "jamba-1.5-large-398b")
+STEPS_B_SEQ_DATA_POS = (20, 40)
+# the names an earlier tree's steps recorded for the inputs they gathered
+# whole
+STEPS_B_WHOLE = ("serve cache", "fsdp2d batch")
 # (b): max|meshed - plain| <= STEPS_REL_TOL * max(1, max|plain|), the
 # port's LM tests' criterion (a rank's matmuls take its K_local clients)
 STEPS_REL_TOL = 1e-5
 STEPS_CHILD_TIMEOUT_S = 300
 # timed calls of each step and its unsharded twin, interleaved: median and
-# range ((a); (b) fewer, it times smoke shapes)
+# range ((a); (b) one, it times smoke shapes within the script's budget)
 STEPS_TIMED_CALLS = 5
-STEPS_B_TIMED_CALLS = 3
+STEPS_B_TIMED_CALLS = 1
 STEPS_DIR = os.path.join(ROOT, "runs", "chip_smoke_steps")
 STEPS_DRYRUN = ([("gemma3-1b", "train_4k", g) for g in ("einsum", "ppermute")]
-                + [("qwen3-8b", "train_4k", "einsum")])
+                + [("qwen3-8b", "train_4k", "einsum"),
+                   ("jamba-1.5-large-398b", "decode_32k", "einsum")])
 # rank 0's FLOPs of the parent tree's multi-pod records ("tp": false), by
 # (arch, shape, gossip): tools/mesh_dryrun_flops.py --src <parent's src>,
 # as PERF.md records them
@@ -4556,13 +4572,23 @@ PARENT_TP_FALSE_FLOPS = {
 # qwen3-8b's 32 q heads split over 'model' of 16: rank 0's FLOPs at most
 # 1.25/16 of the parent's
 TP_FLOPS_SHARE = {"qwen3-8b": 1.25 / 16}
+# rank 0's FLOPs and collective bytes of the parent tree's multi-pod jamba
+# decode_32k record, whose ranks gathered the cache and the batch whole
+# (tools/mesh_dryrun_flops.py --src <the parent's src>, as PERF.md records
+# them): its rows now split over 'data' (FLOPs at most 1.25/16 of it) and
+# its cache read where it lies (fewer collective bytes)
+PARENT_WHOLE_INPUTS = {
+    ("jamba-1.5-large-398b", "decode_32k", "einsum"): (1129769328640.0,
+                                                       196260578048.0),
+}
 
 
-def _steps_inputs(torch, step, gen, init=None):
+def _steps_inputs(torch, step, gen, init=None, pos=None):
     """A meshed step's arguments, the same global tensors on every rank
     (drawn from ``gen``): ``init`` params (else N(0, 0.05^2)) masked by 0/1
     int8 masks, tokens in the vocabulary, an all-ones adjacency, lr 0.1, a
-    zero cache, decode positions near the cache's end."""
+    cache ~ N(0, 1) (zero with ``init``: (a)'s prefill), decode positions
+    ``pos`` or near the cache's end."""
     from repro_torch.launch.dryrun import materialize
     from repro_torch.utils.tree import tree_map
     dev = gen.device
@@ -4578,12 +4604,15 @@ def _steps_inputs(torch, step, gen, init=None):
         args[3] = torch.ones_like(args[3])
         args[4] = 0.1
     else:
-        args[2] = tree_map(torch.zeros_like, args[2])
+        if init is not None:
+            args[2] = tree_map(torch.zeros_like, args[2])
         if step.mode == "decode":
             k = step.plan.n_clients
-            args[1]["pos"] = torch.arange(
+            args[1]["pos"] = (torch.tensor(pos, dtype=torch.int32,
+                                           device=dev) if pos is not None
+                              else torch.arange(
                 step.plan.max_cache_len - k, step.plan.max_cache_len,
-                dtype=torch.int32, device=dev)
+                dtype=torch.int32, device=dev))
     return args
 
 
@@ -4621,17 +4650,24 @@ def _steps_cmp(torch, got, want):
 
 
 def _steps_case(torch, steps, api, plan, gossip, args, calls):
-    """The meshed step and the plain one on ``args``, each once to warm,
-    then ``calls`` timed calls of each, interleaved (synchronised);
-    returns the meshed outputs, the plain ones, each one's sorted
-    seconds, the meshed call's collectives, this rank's clients ``(k0,
+    """The meshed step and the plain one on ``args``: the plain step once
+    to warm, the meshed step's first call counted (its collectives and
+    notes) as its warm-up, then ``calls`` timed calls of each,
+    interleaved (synchronised); returns the meshed outputs of the counted
+    call, the plain ones, each one's sorted seconds, that call's
+    collectives, this rank's clients ``(k0,
     k1)``, the all-gathers over 'model' that sent a 'model'-sharded weight
     leaf's shard (``weight_shard_gathers`` of
     ``tests/_torch_mesh_steps_world.py``: none, where no weight is gathered
-    whole) and the ops and inputs it noted as replicated or gathered
-    whole."""
+    whole), the all-gathers that sent a shard of a cache or batch leaf
+    (``input_shard_gathers``: none, where no input is gathered whole) and
+    the ops it noted as replicated."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from _torch_mesh_steps_world import SentSums, weight_shard_gathers
+    from _torch_mesh_steps_world import (
+        SentSums,
+        input_shard_gathers,
+        weight_shard_gathers,
+    )
 
     from repro_torch.sharding.tp import record_replicated
     from repro_torch.utils.tree import tree_leaves, tree_map
@@ -4643,8 +4679,10 @@ def _steps_case(torch, steps, api, plan, gossip, args, calls):
              for a in args]
     fns = (("plain", plain, clone), ("meshed", step, placed))
     times = {name: [] for name, _, _ in fns}
-    for name, fn, a in fns:
-        fn(*a)
+    plain(*clone)
+    counter = SentSums()
+    with counter, record_replicated() as rep:
+        got = step(*placed)
     for _ in range(calls):
         for name, fn, a in fns:
             torch.cuda.synchronize()
@@ -4656,15 +4694,15 @@ def _steps_case(torch, steps, api, plan, gossip, args, calls):
                 want = out
             del out
     times = {name: sorted(t) for name, t in times.items()}
-    counter = SentSums()
-    with counter, record_replicated() as rep:
-        got = step(*placed)
     gathers = []
     if counter.sent:
         gathers = weight_shard_gathers(counter.sent, placed[0], args[0],
                                        *_steps_mixed(plan, gossip, args))
+    train = plan.shape.mode == "train"
+    inputs = input_shard_gathers(counter.sent_all,
+                                 *(placed[2:3] if train else placed[1:3]))
     return (got, want, times, counter.stats,
-            steps.client_range(tree_leaves(placed[0])[0]), gathers,
+            steps.client_range(tree_leaves(placed[0])[0]), gathers, inputs,
             sorted(rep))
 
 
@@ -4722,7 +4760,7 @@ def steps_mesh_path(torch, counters, card, sweep):
         args = _steps_inputs(torch, step, gen, init=stacked)
         if mode == "decode" and cache is not None:
             args[2] = cache
-        got, want, times, stats, _, _, _ = _steps_case(
+        got, want, times, stats, _, _, _, _ = _steps_case(
             torch, steps, api, plan, "einsum", args, STEPS_TIMED_CALLS)
         same, diff, scale, finite = _steps_cmp(torch, got, want)
         if mode == "prefill":
@@ -4774,42 +4812,50 @@ def steps_mesh_path(torch, counters, card, sweep):
             r = json.load(f)
         runs.append(r["launches"])
         for case, c in r["cases"].items():
+            fsdp2d_train = case.startswith("2x2 jamba") and "train" in case
             ok = (c["max_abs"] <= STEPS_REL_TOL * max(1.0, c["scale"])
                   and c["finite"] and not c["weight_gathers"]
-                  and c["whole"] == c["whole_want"]
-                  and c["model_counts"].get("all-reduce", 0) > 0)
+                  and not c["input_gathers"] and not c["whole"]
+                  and c["model_counts"].get("all-reduce", 0) > 0
+                  and (not fsdp2d_train
+                       or c["axis_counts"].get("reduce-scatter/data", 0)))
             log(f"mesh steps (b) {case} rank {rank}: clients "
                 f"{c['clients']}, max abs diff {c['max_abs']} (scale "
                 f"{c['scale']}), finite {c['finite']}, "
                 f"{_median_range(c['seconds']['meshed'])} vs unsharded "
                 f"{_median_range(c['seconds']['plain'])}; collectives "
-                f"{c['collectives']}, over 'model' {c['model_counts']}, "
+                f"{c['collectives']}, by axis {c['axis_counts']}, "
                 f"'model'-sharded weights gathered whole: "
-                f"{len(c['weight_gathers'])}, left replicated or gathered "
-                f"whole {c['replicated']} ({card})")
+                f"{len(c['weight_gathers'])}, cache or batch shards "
+                f"all-gathered: {len(c['input_gathers'])}, left replicated "
+                f"{c['replicated']} ({card})")
             if not ok:
                 bad.append((rank, case))
     if bad:
         raise AssertionError(f"mesh steps (b): outside fp32 rounding, a "
-                             f"weight gathered whole, no all-reduce over "
-                             f"'model' or an input gathered whole unnamed: "
-                             f"{bad}")
+                             f"weight, cache or batch shard gathered, no "
+                             f"all-reduce over 'model', an input named as "
+                             f"gathered whole or no reduce-scatter over "
+                             f"'data' in jamba's train step: {bad}")
     log(f"mesh steps (b): four gloo ranks sharing the card, "
         + ", ".join(f"{d}x{m} {' '.join(archs)}"
                     for (d, m), archs in STEPS_B_CASES)
-        + f", {time.perf_counter() - t_b:.1f} s ({card})")
+        + f", seq_data decode 2x2 {' '.join(STEPS_B_SEQ_DATA)} at "
+        f"{STEPS_B_SEQ_DATA_POS}, {time.perf_counter() - t_b:.1f} s "
+        f"({card})")
     shutil.rmtree(STEPS_DIR, ignore_errors=True)
 
     # (c) the multi-pod dry run, traced beside phases 15 and 4-12
     for rec in sweep.mesh_records:
         key = (rec["arch"], rec["shape"], rec["gossip"])
-        parent = PARENT_TP_FALSE_FLOPS.get(key)
+        parent, parent_coll = PARENT_WHOLE_INPUTS.get(
+            key, (PARENT_TP_FALSE_FLOPS.get(key), None))
         flops = rec.get("cost", {}).get("flops")
         log(f"mesh steps (c) {rec['tag']}: {rec['status']}, chips "
             f"{rec.get('chips')}, K {rec.get('n_clients')} x "
             f"{rec.get('per_client_batch')}, tp {rec.get('tp')}, left "
             f"replicated {rec.get('replicated')}, rank 0's FLOPs {flops} "
-            f"(the parent's \"tp\": false record {parent}: "
+            f"(the parent's record {parent}: "
             f"{flops / parent if flops and parent else None} of it), peak "
             f"{rec.get('peak_live_bytes')} bytes, fits {rec.get('fits')}, "
             f"trace {rec.get('trace_s')} s, coll "
@@ -4818,7 +4864,13 @@ def steps_mesh_path(torch, counters, card, sweep):
         if (rec["status"] != "ok" or not rec["coll_bytes_per_device"] > 0
                 or rec["tp"] is not True):
             raise AssertionError(f"mesh steps (c): {rec['tag']}")
-        share = TP_FLOPS_SHARE.get(rec["arch"])
+        share = TP_FLOPS_SHARE.get(rec["arch"], 1.25 / 16 if parent_coll
+                                   else None)
+        if parent_coll and not rec["coll_bytes_per_device"] < parent_coll:
+            raise AssertionError(f"mesh steps (c): {rec['tag']}: "
+                                 f"{rec['coll_bytes_per_device']} collective "
+                                 f"bytes a rank, not below the parent's "
+                                 f"{parent_coll}")
         if parent and share and flops > share * parent:
             raise AssertionError(f"mesh steps (c): {rec['tag']}: rank 0's "
                                  f"FLOPs {flops} above {share} of the "
@@ -4878,62 +4930,69 @@ def steps_child(argv):
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import bind
-    from repro_torch.sharding.tp import WHOLE_INPUTS
     setup_device("cuda")
     torch.cuda.set_device(0)    # every rank shares the one card
     counters = (ga, pa, mmk, pr)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
-    cases = {}
-    _zero(counters)
+    # (label, plan, gossip, decode positions) of every case, in order
+    runs = []
     for (data, model), archs in STEPS_B_CASES:
         mesh = make_test_mesh(data, model, device_type="cuda",
                               backend="gloo")
         for arch, (mode, name) in itertools.product(archs, (
                 ("train", "train_4k"), ("prefill", "prefill_32k"),
                 ("decode", "decode_32k"))):
-            cfg = SMOKE_ARCHS[arch]
-            api = bind(cfg)
             shape = dataclasses.replace(INPUT_SHAPES[name],
                                         seq_len=STEPS_B_SEQ,
                                         global_batch=STEPS_B_BATCH)
-            plan = steps.plan_for(cfg, shape, mesh, torch.float32)
+            plan = steps.plan_for(SMOKE_ARCHS[arch], shape, mesh,
+                                  torch.float32)
             if arch in STEPS_B_FSDP2D:
                 plan = dataclasses.replace(plan, n_clients=1,
                                            per_client_batch=STEPS_B_BATCH,
                                            fsdp2d=True)
             for gossip in (("einsum", "ppermute") if mode == "train" else
                            ("einsum",)):
-                gen = torch.Generator(device="cuda").manual_seed(len(cases))
-                step = (steps.lower_train(api, plan, gossip)
-                        if mode == "train" else steps.lower_serve(api, plan))
-                args = _steps_inputs(torch, step, gen)
-                print(f"rank {rank}: {data}x{model} {arch} {mode} "
-                      f"{gossip}", flush=True)
-                (got, want, times, stats, (k0, k1), gathers,
-                 replicated) = _steps_case(torch, steps, api, plan, gossip,
-                                           args, STEPS_B_TIMED_CALLS)
-                same, diff, scale, finite = _steps_cmp(torch, got, want)
-                counts = {}
-                for kind, axis, _ in stats.ops:
-                    if axis == "model":
-                        counts[kind] = counts.get(kind, 0) + 1
                 case = f"{mode}-{gossip}" if mode == "train" else mode
-                cases[f"{data}x{model} {arch} {case}"] = {
-                    "clients": f"{k0}:{k1} of {plan.n_clients} x "
-                               f"{plan.per_client_batch}",
-                    "bit_equal": same, "max_abs": diff, "scale": scale,
-                    "finite": finite, "seconds": times,
-                    "collectives": stats.row(), "model_counts": counts,
-                    "weight_gathers": gathers, "replicated": replicated,
-                    # the inputs gathered whole where the reference splits
-                    # them, and those this step should name
-                    "whole": sorted(set(replicated) & set(WHOLE_INPUTS)),
-                    "whole_want": sorted(
-                        ({"serve cache"} if mode != "train" else set())
-                        | ({"fsdp2d batch"} if arch in STEPS_B_FSDP2D
-                           else set()))}
-                del got, want, args, step
+                runs.append((f"{data}x{model} {arch} {case}", plan, gossip,
+                             None))
+        if (data, model) == (2, 2):
+            shape = dataclasses.replace(INPUT_SHAPES["long_500k"],
+                                        seq_len=STEPS_B_SEQ, global_batch=1)
+            for arch in STEPS_B_SEQ_DATA:
+                plan = dataclasses.replace(steps.plan_for(
+                    SMOKE_ARCHS[arch], shape, mesh, torch.float32),
+                    seq_data=True)
+                for pos in STEPS_B_SEQ_DATA_POS:
+                    runs.append((f"2x2 {arch} seq_data decode pos {pos}",
+                                 plan, "einsum", [pos]))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_mesh_steps_world import axis_counts, model_counts
+    cases = {}
+    _zero(counters)
+    for label, plan, gossip, pos in runs:
+        api = bind(plan.arch)
+        gen = torch.Generator(device="cuda").manual_seed(len(cases))
+        step = (steps.lower_train(api, plan, gossip)
+                if plan.shape.mode == "train" else steps.lower_serve(api, plan))
+        args = _steps_inputs(torch, step, gen, pos=pos)
+        print(f"rank {rank}: {label}", flush=True)
+        (got, want, times, stats, (k0, k1), gathers, inputs,
+         replicated) = _steps_case(torch, steps, api, plan, gossip, args,
+                                   STEPS_B_TIMED_CALLS)
+        same, diff, scale, finite = _steps_cmp(torch, got, want)
+        cases[label] = {
+            "clients": f"{k0}:{k1} of {plan.n_clients} x "
+                       f"{plan.per_client_batch}",
+            "bit_equal": same, "max_abs": diff, "scale": scale,
+            "finite": finite, "seconds": times,
+            "collectives": stats.row(), "model_counts": model_counts(stats),
+            "axis_counts": axis_counts(stats), "weight_gathers": gathers,
+            "input_gathers": inputs, "replicated": replicated,
+            # an input named as gathered whole (none is)
+            "whole": sorted(set(replicated) & set(STEPS_B_WHOLE))}
+        del got, want, args, step
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump({"cases": cases, "launches": _launches(counters)}, f)
     dist.destroy_process_group()

@@ -51,13 +51,9 @@ reference's GSPMD program does, so a mesh record says ``"tp": true``, its
 FLOPs, bytes and peak are a rank's share, and ``launch.report`` tables it
 beside the reference's record of the same mesh.  ``replicated`` names the
 ops the models computed replicated over 'model' because |model| does not
-divide the dim they would split (``sharding.tp.replicated``), and the
-inputs the step gathered whole where the reference splits them
-(``sharding.tp.WHOLE_INPUTS``): ``"serve cache"`` (a prefill or decode
-step's cache, gathered over 'model' and, for long-context decode, over
-'data') and ``"fsdp2d batch"`` (the 'data' ranks of an FSDP2D plan
-compute their client's whole batch).  Such a record prices that gather
-and that compute, and ``launch.report`` marks its row.
+divide the dim they would split (``sharding.tp.replicated``).  No input
+is gathered whole: the batch and the cache reach the models at their
+placements.
 """
 from __future__ import annotations
 

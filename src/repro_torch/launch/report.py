@@ -7,12 +7,7 @@ fake-world ``pod16x16`` and ``pod2x16x16`` records) and the reference's
 (``pod16x16``, ``pod2x16x16``) alike; on one card the collective columns
 read 0.  A port mesh record says ``"tp": true``: its ranks split each
 client over 'model', as the reference's do, so it is tabled beside the
-reference's record of the same mesh, its row marked ``PORT_ROW``.  Where
-its ranks also gathered an input whole that the reference splits (its
-``replicated`` field names one of ``sharding.tp.WHOLE_INPUTS``: a serve
-step's cache, an FSDP2D plan's batch), its FLOPs, bytes and peak price
-that gather and the compute on the whole input, and its row is marked
-``WHOLE_ROW`` with their names instead.  A
+reference's record of the same mesh, its row marked ``PORT_ROW``.  A
 record that says ``"tp": false`` (a rank computed whole clients,
 replicated over 'model': the port before tensor parallelism) is tabled
 under a mesh heading of its own (``table_mesh``), never beside the
@@ -36,7 +31,6 @@ import os
 
 from repro_torch.configs import ARCHS, INPUT_SHAPES, SMOKE_ARCHS
 from repro_torch.launch.roofline import build_report
-from repro_torch.sharding.tp import WHOLE_INPUTS
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "torch_dryrun")
@@ -47,9 +41,6 @@ REPLICATED = " (port: whole clients a rank, no tensor parallelism)"
 #: the arch cell's suffix of a port mesh record that says ``"tp": true``,
 #: tabled beside the reference's row of the same arch and shape
 PORT_ROW = " (port)"
-#: the suffix of such a record whose ranks gathered inputs whole where
-#: the reference splits them (their names filled in)
-WHOLE_ROW = " (port, whole: {})"
 
 
 def table_mesh(rec: dict) -> str:
@@ -59,13 +50,9 @@ def table_mesh(rec: dict) -> str:
 
 
 def _source(rec: dict) -> str:
-    """For a port mesh record tabled beside the reference's (``"tp":
-    true``), ``PORT_ROW``, or ``WHOLE_ROW`` naming the inputs its ranks
-    gathered whole; else nothing."""
-    if rec.get("tp") is not True:
-        return ""
-    whole = [op for op in rec.get("replicated", ()) if op in WHOLE_INPUTS]
-    return WHOLE_ROW.format(", ".join(whole)) if whole else PORT_ROW
+    """``PORT_ROW`` for a port mesh record tabled beside the reference's
+    (``"tp": true``); else nothing."""
+    return PORT_ROW if rec.get("tp") is True else ""
 
 
 def load_records(art_dir: str = ART_DIR, gossip: str = "einsum") -> list[dict]:

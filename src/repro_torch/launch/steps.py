@@ -34,19 +34,16 @@ leaf is that shard's, and the masked SGD update runs on the shard.  The
 ``einsum`` gossip all-gathers the K clients over the client axes only
 (each rank's 'model' and FSDP shards of them), as GSPMD's einsum does in
 the reference; ``ppermute`` sends ring neighbours the boundary rows only.
-Two inputs are still gathered whole over their non-client mesh dims
-(``_own``), where the reference's GSPMD program splits them: an FSDP2D
-plan's per-client batch (the port's 'data' ranks compute their client's
-whole batch: the MoE's dispatch and capacity and the loss's mean are
-functions of it), and the serving cache, at every prefill and decode
-step (its placements split ``head_dim`` over 'model', and the sequence
-over 'data' for long-context decode, where the port's attention splits
-heads; so the reference's context parallelism is not ported).  Each
-gather is noted as ``sharding.tp.WHOLE_INPUTS``' ``"fsdp2d batch"`` or
-``"serve cache"`` (the dry run's ``replicated`` field; ROADMAP A16's
-rest).  The same step runs on real tensors in a gloo or NCCL world and
-on fake tensors over a fake process group (``launch.dryrun``'s mesh
-modes).
+The batch and the serving cache reach the models as each rank's shards
+too: an FSDP2D plan's rows split over 'data' (the rules then map the
+logical 'batch' to 'data': ``sharding.tp.rows_split``), and the cache at
+``tree_cache_shardings``' placements (head_dim over 'model'; under
+``seq_data`` the sequence over 'data', by the ``kv_seq`` rule the
+reference's long-context decode sets), which the models read and write
+where it lies; the new cache comes back at those placements.  No input
+is gathered whole.  The same step runs on real tensors in a gloo or NCCL
+world and on fake tensors over a fake process group (``launch.dryrun``'s
+mesh modes).
 ``launch.dryrun.make_plan`` stays the single-card plan (no mesh).
 
 The steps are plain functions, as the reference's are; a caller compiles
@@ -68,6 +65,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch.gossip_opt import ppermute_gossip
 from repro_torch.models.registry import ModelAPI, meta_spec
+from repro_torch.sharding import tp
 from repro_torch.scale.stacked import (
     masked_gossip_stacked,
     stacked_prune_regrow_threshold,
@@ -352,8 +350,8 @@ def client_range(x: DTensor) -> tuple[int, int]:
 
 def gather_shards(x: DTensor, dims: str = "all") -> torch.Tensor:
     """``x``'s local shard all-gathered over every mesh dim that shards it
-    (``dims="all"``), every one but those that shard the client dim, dim 0
-    (``"body"``), or only those (``"clients"``), as a plain tensor: one
+    (``dims="all"``), or only over those that shard the client dim, dim 0
+    (``"clients"``), as a plain tensor: one
     ``all_gather_into_tensor`` on each such mesh dim's group,
     the last mesh dim first (DTensor splits a dim over its mesh dims left
     to right; a mesh dim of size 1 holds the whole dim).  The port's
@@ -371,7 +369,6 @@ def gather_shards(x: DTensor, dims: str = "all") -> torch.Tensor:
     for i in reversed(range(mesh.ndim)):
         p = x.placements[i]
         if (not isinstance(p, Shard) or mesh.size(i) == 1
-                or (dims == "body" and p.dim == 0)
                 or (dims == "clients" and p.dim != 0)):
             continue
         src = t.movedim(p.dim, 0).contiguous()
@@ -385,23 +382,6 @@ def gather_shards(x: DTensor, dims: str = "all") -> torch.Tensor:
 
 def _replicated(mesh) -> tuple:
     return (Replicate(),) * mesh.ndim
-
-
-def _own(x, what: str):
-    """This rank's clients of a stacked ``DTensor``, whole (all-gathered
-    over the mesh dims that shard its body), as a plain tensor; a plain
-    tensor or number passes through.  Only for the inputs the port
-    computes whole where the reference splits them (the module's
-    docstring), ``what`` naming one of ``sharding.tp.WHOLE_INPUTS``, which
-    is noted where a mesh dim of more than one rank shards its body."""
-    from repro_torch.sharding.tp import replicated
-
-    if not isinstance(x, DTensor):
-        return x
-    for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
-        if isinstance(p, Shard) and p.dim != 0:
-            replicated(what, name)
-    return gather_shards(x, "body")
 
 
 def _local(x):
@@ -443,20 +423,28 @@ def _at_clients(own: torch.Tensor, like: DTensor) -> DTensor:
                               stride=_contiguous_stride(shape))
 
 
-def _like(own: torch.Tensor, like: DTensor) -> DTensor:
-    """This rank's whole clients ``own`` back at ``like``'s placements: a
-    replicated dim becomes a shard by a local chunk, with no traffic."""
-    return _at_clients(own, like).redistribute(like.device_mesh,
-                                               like.placements)
-
-
 def _gathered(own: torch.Tensor, like: DTensor) -> DTensor:
-    """This rank's clients' rows of an output, all-gathered over the client
-    axes into the whole (K, ...) output, replicated (the reference's
+    """This rank's clients' part of an output, all-gathered over the
+    client axes into the whole (K, ...) output, replicated (the reference's
     ``P()`` out-sharding for losses, logits and tokens)."""
     mesh = like.device_mesh
     return DTensor.from_local(gather_shards(_at_clients(own, like)), mesh,
                               _replicated(mesh), run_check=False)
+
+
+def _rules(plan: ScalePlan, b_sh) -> dict:
+    """The overrides of a step's mesh rules: 'batch' on 'data' where the
+    batch's placements split its rows there (an FSDP2D plan's rows,
+    ``batch_spec``), and the reference's ``kv_seq`` on 'data' under
+    ``plan.seq_data``."""
+    data = plan.mesh.mesh_dim_names.index("data")
+    rows = any(pl[data] == Shard(1) for pl in tree_leaves(
+        b_sh, is_leaf=lambda x: isinstance(x, tuple)))
+    if rows and plan.seq_data:
+        raise ValueError("a batch split over 'data' and a sequence split "
+                         "over 'data' in one step")
+    return {**({"batch": ("data",)} if rows else {}),
+            **({"kv_seq": ("data",)} if plan.seq_data else {})}
 
 
 @dataclasses.dataclass
@@ -520,8 +508,9 @@ def lower_train(api: ModelAPI, plan: ScalePlan,
     placements and the K losses replicated.  ``ppermute`` runs the sharded
     ring on the placed leaves; an ``einsum`` mix all-gathers the K clients'
     shards of params and masks over the client axes and mixes this rank's
-    receivers.  The masked SGD step then runs on this rank's shards, the
-    models splitting each client over 'model' (``sharding.tp``)."""
+    receivers.  The masked SGD step then runs on this rank's shards and
+    batch rows, the models splitting each client over 'model' and an
+    FSDP2D plan's rows over 'data' (``sharding.tp``)."""
     if gossip not in GOSSIP_MODES:
         raise ValueError(f"gossip must be one of {GOSSIP_MODES}, got "
                          f"{gossip!r}")
@@ -532,6 +521,7 @@ def lower_train(api: ModelAPI, plan: ScalePlan,
     params_spec, p_sh, m_sh = state_shardings(api, plan)
     batch_spec = input_specs(api, plan)
     b_sh = tree_batch_shardings(batch_spec, mesh, plan.fsdp2d)
+    rules = _rules(plan, b_sh)
     repl = _replicated(mesh)
     update = masked_sgd_update(api)
     mixes = _einsum_mixes(gossip, plan.n_clients)
@@ -548,11 +538,9 @@ def lower_train(api: ModelAPI, plan: ScalePlan,
                 accum_dtype=_ACCUM[gossip], receivers=client_range(first))
         else:
             own_p = tree_map(_local, params)
-        with use_mesh_rules(mesh):
-            new, losses = update(
-                own_p, own_m,
-                tree_map(lambda x: _own(x, "fsdp2d batch"), batch),
-                _whole(lr))
+        with use_mesh_rules(mesh, rules):
+            new, losses = update(own_p, own_m, tree_map(_local, batch),
+                                 _whole(lr))
         return tree_map(_placed, new, params), _gathered(losses, first)
 
     args = (params_spec, abstract_masks(params_spec), batch_spec,
@@ -568,9 +556,9 @@ def lower_serve(api: ModelAPI, plan: ScalePlan) -> MeshedStep:
     sequence over 'data' where ``plan.seq_data``); returns the logits
     (prefill) or next tokens (decode) replicated and the cache at its
     placements.  The models split each client over 'model' on this rank's
-    shards of the params (``sharding.tp``); the cache is gathered whole
-    (the module's docstring) and this rank keeps its shard of the new
-    one."""
+    shards of the params and an FSDP2D plan's rows over 'data', and read
+    and write this rank's shards of the cache (``sharding.tp``): the new
+    cache is this rank's shard, at its placements."""
     from repro_torch.sharding.ctx import use_mesh_rules
     from repro_torch.sharding.rules import (
         tree_batch_shardings,
@@ -584,18 +572,20 @@ def lower_serve(api: ModelAPI, plan: ScalePlan) -> MeshedStep:
                                 fsdp2d=plan.fsdp2d)
     batch_spec = input_specs(api, plan)
     b_sh = tree_batch_shardings(batch_spec, mesh, plan.fsdp2d)
+    rules = _rules(plan, b_sh)
     mode = plan.shape.mode
     inner = (make_prefill_step if mode == "prefill" else
              make_decode_step)(api, plan)
 
     def serve_step(params, batch, cache):
-        with use_mesh_rules(mesh):
-            out, new_cache = inner(
-                tree_map(_local, params),
-                tree_map(lambda x: _own(x, "fsdp2d batch"), batch),
-                tree_map(lambda x: _own(x, "serve cache"), cache))
+        with use_mesh_rules(mesh, rules):
+            out, new_cache = inner(tree_map(_local, params),
+                                   tree_map(_local, batch),
+                                   tree_map(_local, cache))
+            # every row's logits or tokens (the rows after the client dim)
+            out = tp.all_rows(out, dim=1)
         return (_gathered(out, tree_leaves(params)[0]),
-                tree_map(_like, new_cache, cache))
+                tree_map(_placed, new_cache, cache))
 
     return MeshedStep(plan, mode, serve_step,
                       (params_spec, batch_spec, cache_spec),

@@ -16,17 +16,25 @@ concatenation; a ``torch.where`` over the write position), never written
 in place, so the forward runs under ``torch.func.vmap`` with a batched
 ``pos``.
 
-Over a mesh (a ``sharding.ctx.use_mesh_rules`` context: the weights are a
-rank's local shards) ``attention`` gathers the weights' FSDP shards over
-'data' and, where 'model' has more than one rank, runs
+Over a mesh (a ``sharding.ctx.use_mesh_rules`` context: the weights and
+the cache a rank's local shards) ``attention`` gathers the weights' FSDP
+shards over 'data' and, where 'model' has more than one rank, runs
 ``_attention_split``: the core split over q heads where |model| divides
 ``n_heads`` (a rank takes its heads and the kv heads of their GQA groups;
 the k/v columns are gathered over 'model' where their split cuts a kv
 head), else the core replicated on gathered q/k/v; then the o-proj's row
-slice and an all-reduce (``sharding.tp``).  The KV cache a meshed step
-hands in is whole (``launch.steps.lower_serve``); the new tokens' k/v are
-gathered over 'model' to write it.  On one card, and on a 1-rank 'model'
-axis, the code below ``_attention_split`` runs unchanged.
+slice and an all-reduce (``sharding.tp``).  The KV cache stays at its
+placements (``sharding.rules.cache_spec``): every kv head, head_dim split
+over 'model' where |model| divides it, the sequence over 'data' under the
+``kv_seq`` rule (long-context decode), every row.  The prefill writes
+each rank's shard of the new k/v (an all-to-all over 'model' from a
+split core's kv heads, a local slice of whole k/v); the decode reads the
+cache on head_dim shards, its scores' partial sums all-reduced over
+'model', each rank's chunk of the sequence combined over 'data'
+flash-decoding style (``_sdpa_cached``).  Where the step split the rows
+over 'data' (FSDP2D), a rank computes its rows and gathers the new k/v of
+every row over 'data' into its cache.  On one card, and on 1-rank axes,
+the code below ``_attention_split`` runs unchanged.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ from repro_torch.models.common import (
     rmsnorm_init,
     whole_columns,
 )
-from repro_torch.sharding import tp
+from repro_torch.sharding import ctx, tp
 
 NEG_INF = -1e30
 
@@ -176,12 +184,13 @@ def _split_norm(norm_params, split: bool) -> dict:
 
 
 def _attention_split(params, x, positions, cfg, window, cache, pos, cross_kv,
-                     bidirectional):
-    """``attention`` with 'model' of size m > 1 (see the module's
-    docstring).  Heads split where m divides ``n_heads`` and a rank's
-    ``hl`` heads hold whole GQA groups or lie in one (``hl % g == 0`` or
-    ``g % hl == 0``); a rank's heads are ``r*hl:(r+1)*hl`` and its kv heads
-    ``kv0:kv1``, those of their groups."""
+                     bidirectional, cross_cached):
+    """``attention`` over a mesh where 'model' has m > 1 ranks, or where
+    the cache is split over 'data' (see the module's docstring).  Heads
+    split where m divides ``n_heads`` and a rank's ``hl`` heads hold whole
+    GQA groups or lie in one (``hl % g == 0`` or ``g % hl == 0``); a
+    rank's heads are ``r*hl:(r+1)*hl`` and its kv heads ``kv0:kv1``, those
+    of their groups."""
     b, s, _ = x.shape
     dh, h, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     m, r = tp.axis_size("model"), tp.axis_rank("model")
@@ -189,7 +198,12 @@ def _attention_split(params, x, positions, cfg, window, cache, pos, cross_kv,
     core = h % m == 0 and (hl % g == 0 or g % hl == 0)
     kv0, kv1 = (r * hl // g, (r * hl + hl - 1) // g + 1) if core else (0, hkv)
     eps, theta = cfg.norm_eps, cfg.rope_theta
-    if not core:
+    # a decode step reads the cache at rest: split over 'model' by
+    # head_dim (``hd``) even where the heads do not split
+    decode = pos is not None or cross_cached
+    hd = decode and tp.split(
+        (cross_kv[0] if cross_cached else cache["k"]).shape[-1], dh)
+    if not core and not hd:
         tp.replicated("attention core")
 
     # a split core's q columns are its heads (m divides h * dh)
@@ -198,10 +212,11 @@ def _attention_split(params, x, positions, cfg, window, cache, pos, cross_kv,
     if cfg.qk_norm:
         q = rmsnorm(_split_norm(params["q_norm"], core), q, eps)
 
-    k_rep = v_rep = None
+    # the new k/v: this rank's kv heads (``own``) or every kv head
+    own = cross_kv is None and core and hkv % m == 0
     if cross_kv is not None:
-        k_rep, v_rep = cross_kv
-    elif core and hkv % m == 0:
+        k, v = cross_kv
+    elif own:
         # this rank's k/v columns are its heads' kv heads
         q = apply_rope(q, positions, theta)
         k = column_dense(params["wk"], x, hkv * dh)[0].reshape(b, s, -1, dh)
@@ -209,54 +224,45 @@ def _attention_split(params, x, positions, cfg, window, cache, pos, cross_kv,
         if cfg.qk_norm:
             k = rmsnorm(_split_norm(params["k_norm"], True), k, eps)
         k = apply_rope(k, positions, theta)
-        if cache is not None:
-            k_rep, v_rep = tp.gather_from(k, dim=2), tp.gather_from(v, dim=2)
     else:
         q = apply_rope(q, positions, theta)
         k = whole_columns(params["wk"], x, hkv * dh).reshape(b, s, hkv, dh)
         v = whole_columns(params["wv"], x, hkv * dh).reshape(b, s, hkv, dh)
         if cfg.qk_norm:
             k = rmsnorm(params["k_norm"], k, eps)
-        k_rep, v_rep = apply_rope(k, positions, theta), v
-        k, v = _kv_heads(k_rep, v_rep, core, kv0, kv1)
+        k = apply_rope(k, positions, theta)
 
-    if cross_kv is not None:
-        k, v = _kv_heads(k_rep, v_rep, core, kv0, kv1)
-        out = _sdpa(q, k, v, cfg, torch.ones((s, k.shape[1]),
-                                             dtype=torch.bool,
-                                             device=x.device))
-    elif cache is None:
-        if bidirectional:
-            out = _sdpa(q, k, v, cfg, torch.ones((s, s), dtype=torch.bool,
+    if decode:
+        if cross_cached:
+            ck, cv = cross_kv
+        else:
+            cache = _write_token(cache, _kv_at_rest(k, own, hd),
+                                 _kv_at_rest(v, own, hd), pos)
+            ck, cv = cache["k"], cache["v"]
+        out = _decode_read(q, ck, cv, cfg, core, hd, kv0, kv1,
+                           None if cross_cached else pos, window)
+    else:
+        if cache is not None:
+            hd = tp.split(cache["k"].shape[-1], dh)
+            cache = {"k": _write_prefill(cache["k"], _kv_at_rest(k, own, hd)),
+                     "v": _write_prefill(cache["v"], _kv_at_rest(v, own, hd))}
+        if not own:
+            k, v = _kv_heads(k, v, core, kv0, kv1)
+        if cross_kv is not None or bidirectional:
+            out = _sdpa(q, k, v, cfg, torch.ones((s, k.shape[1]),
+                                                 dtype=torch.bool,
                                                  device=x.device))
-        elif window > 0 and s % window == 0 and s > window:
+        elif cache is None and window > 0 and s % window == 0 and s > window:
             out = _local_attention(q, k, v, cfg, window)
         else:
             out = _sdpa(q, k, v, cfg, causal_mask(s, s, 0, window, x.device))
-    elif pos is None:
-        ck, cv = cache["k"], cache["v"]
-        cache = {"k": torch.cat([k_rep.to(ck.dtype), ck[:, s:]], 1),
-                 "v": torch.cat([v_rep.to(cv.dtype), cv[:, s:]], 1)}
-        out = _sdpa(q, k, v, cfg, causal_mask(s, s, 0, window, x.device))
-    else:
-        sk = cache["k"].shape[1]
-        kpos = torch.arange(sk, device=x.device)
-        at = (kpos == torch.clamp(pos, 0, sk - 1))[None, :, None, None]
-        ck = torch.where(at, k_rep.to(cache["k"].dtype), cache["k"])
-        cv = torch.where(at, v_rep.to(cache["v"].dtype), cache["v"])
-        cache = {"k": ck, "v": cv}
-        mk = kpos <= pos
-        if window > 0:
-            mk = mk & (kpos > pos - window)
-        out = _sdpa(q, ck[:, :, kv0:kv1], cv[:, :, kv0:kv1], cfg,
-                    mk.expand(b, 1, sk))
 
     out = out.reshape(b, s, -1)
     wo = params["wo"]
     if tp.split(wo["w"].shape[0], h * dh):
         y = tp.reduce_from((out if core else tp.split_to(out)) @ wo["w"])
         if "b" in wo:
-            y = y + wo["b"]
+            y = y + tp.shared(wo["b"])
     else:
         tp.replicated("attention o-proj")
         y = dense(wo, out)
@@ -272,10 +278,138 @@ def _kv_heads(k, v, core: bool, kv0: int, kv1: int):
     return (tp.copy_to(k)[:, :, kv0:kv1], tp.copy_to(v)[:, :, kv0:kv1])
 
 
+def _context_parallel() -> bool:
+    """Whether the step's rules split the cache's sequence over a 'data'
+    axis of more than one rank (``kv_seq``: long-context decode)."""
+    return "data" in ctx.rule("kv_seq") and tp.axis_size("data") > 1
+
+
+def kv_at_rest(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """New k or v of this rank's rows, every kv head in full head_dim, as
+    a cache leaf like ``like`` holds them at rest (``_kv_at_rest``)."""
+    return _kv_at_rest(t, False, tp.split(like.shape[-1], t.shape[-1]))
+
+
+def _kv_at_rest(t, own: bool, hd: bool) -> torch.Tensor:
+    """New k or v (B, S, kv heads, head_dim) as the cache holds them at
+    rest (``sharding.rules.cache_spec``): every kv head, this rank's
+    head_dim slice where 'model' splits head_dim (``hd``), the rows of
+    every 'data' rank where the step split them.  ``t`` holds this rank's
+    kv heads in full head_dim (``own``), which reach that layout by an
+    all-to-all over 'model', or every kv head, sliced locally."""
+    if hd:
+        t = (tp.all_to_all(t, split_dim=-1, cat_dim=2) if own else
+             tp.split_to(t, dim=-1))
+    else:
+        tp.replicated("kv cache")
+        if own:
+            t = tp.gather_from(t, dim=2)
+    return tp.all_rows(t)
+
+
+def _chunk(c: torch.Tensor) -> int:
+    """The global position of this rank's first cache slot: its chunk of
+    the sequence over 'data' under ``_context_parallel``, else 0."""
+    return tp.axis_rank("data") * c.shape[1] if _context_parallel() else 0
+
+
+def _write_prefill(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The prefill's ``t`` (B, S, ...) written at positions ``[0, S)`` of
+    the cache leaf ``c``, this rank's chunk of it."""
+    n, lo = c.shape[1], _chunk(c)
+    hi = min(t.shape[1], lo + n)
+    if hi <= lo:
+        return c
+    return torch.cat([t[:, lo:hi].to(c.dtype), c[:, hi - lo:]], 1)
+
+
+def _write_token(cache: dict, k: torch.Tensor, v: torch.Tensor, pos) -> dict:
+    """One token's k/v written at ``pos`` (clamped into the cache, as
+    ``dynamic_update_slice`` clamps): only by the rank whose chunk holds
+    it."""
+    ck, cv = cache["k"], cache["v"]
+    n, lo = ck.shape[1], _chunk(ck)
+    total = n * (tp.axis_size("data") if _context_parallel() else 1)
+    kpos = lo + torch.arange(n, device=ck.device)
+    at = (kpos == torch.clamp(pos, 0, total - 1))[None, :, None, None]
+    return {"k": torch.where(at, k.to(ck.dtype), ck),
+            "v": torch.where(at, v.to(cv.dtype), cv)}
+
+
+def _decode_read(q, ck, cv, cfg, core: bool, hd: bool, kv0: int, kv1: int,
+                 pos, window: int) -> torch.Tensor:
+    """One query token against the cache leaves ``ck``/``cv`` at rest
+    (this rank's chunk: keys up to ``pos``, within ``window``, by global
+    position; every key for a cross-attention cache, ``pos`` None).
+    Returns the attention's output in the o-proj's layout: this rank's
+    heads where the core is split, else every head.
+
+    Where 'model' splits head_dim (``hd``), every q head's head_dim slice
+    is taken (an all-to-all over 'model' from a split core's heads, else a
+    local slice), the scores are this slice's partial sums, added over
+    'model' (``reduce_from``) before the fp32 softmax, and ``p @ v``
+    gives every head's slice of the output, sent back to the heads' ranks
+    by an all-to-all (or gathered over 'model' for a replicated o-proj
+    input).  Else the rank's heads read their kv heads of the whole
+    cache.  Where the step split the rows over 'data', the rank reads its
+    rows of the cache."""
+    b = q.shape[0]
+    dh = cfg.resolved_head_dim
+    if hd:
+        q = (tp.all_to_all(q, split_dim=-1, cat_dim=2) if core else
+             tp.split_to(q, dim=-1))
+    elif core:
+        ck, cv = ck[:, :, kv0:kv1], cv[:, :, kv0:kv1]
+    ck, cv = tp.own_rows(ck), tp.own_rows(cv)
+    n = ck.shape[1]
+    kpos = _chunk(ck) + torch.arange(n, device=q.device)
+    if pos is None:
+        mask = torch.ones((1, n), dtype=torch.bool, device=q.device)
+    else:
+        mask = kpos <= pos
+        if window > 0:
+            mask = mask & (kpos > pos - window)
+    out = _sdpa_cached(q, ck, cv, dh ** -0.5, mask.expand(b, 1, n), hd)
+    if hd:
+        out = (tp.all_to_all(out, split_dim=2, cat_dim=-1) if core else
+               tp.gather_from(out, dim=-1))
+    return out
+
+
+def _sdpa_cached(q, k, v, scale: float, mask, hd: bool) -> torch.Tensor:
+    """``_sdpa`` of one query token over a cache at rest: the scores'
+    head_dim partial sums added over 'model' where it splits head_dim
+    (``hd``); under ``_context_parallel`` each rank's chunk's maximum,
+    sum of exponentials and weighted value sum, combined over 'data'
+    flash-decoding style (the global maximum by an all-gather, the
+    rescaled sums added by an all-reduce)."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    q = q.reshape(b, sq, hkv, h // hkv, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float()
+    if hd:
+        scores = tp.reduce_from(scores)
+    scores = torch.where(mask[:, None, None, :, :], scores * scale,
+                         torch.full((), NEG_INF, dtype=scores.dtype,
+                                    device=scores.device))
+    if not _context_parallel():
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+        return out.reshape(b, sq, h, d)
+    peak = tp.gather_from(scores.amax(-1, keepdim=True), "data", dim=-1)
+    e = torch.exp(scores - peak.amax(-1, keepdim=True))
+    num = torch.einsum("bkgqs,bskd->bqkgd", e, v.float())
+    den = e.sum(-1).permute(0, 3, 1, 2)[..., None]          # (b, q, k, g, 1)
+    both = tp.reduce_from(torch.cat([num, den], -1), "data")
+    out = (both[..., :-1] / both[..., -1:]).to(v.dtype)
+    return out.reshape(b, sq, h, d)
+
+
 def attention(params, x: torch.Tensor, positions: torch.Tensor, cfg,
               window: int = 0, cache: Optional[dict] = None,
               pos: Optional[torch.Tensor] = None,
-              cross_kv: Optional[tuple] = None, bidirectional: bool = False):
+              cross_kv: Optional[tuple] = None, bidirectional: bool = False,
+              cross_cached: bool = False):
     """Returns (y, new_cache).
 
     * full-sequence training pass: ``cache=None`` — the banded
@@ -291,11 +425,16 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, cfg,
       encoder; the cache and positions are bypassed.
     * bidirectional (the encoder's): ``bidirectional=True``, no cache;
       every query sees every key.
+    * ``cross_cached``: a decode step's ``cross_kv``, read from the cache
+      as it holds them at rest (over a mesh: this rank's head_dim slice,
+      its chunk of the sequence under ``kv_seq``, every row).
     """
     params = _whole_weights(params, x.shape[-1])
-    if tp.axis_size("model") > 1:
+    if tp.axis_size("model") > 1 or (
+            (cache is not None or cross_cached)
+            and (tp.rows_split() or _context_parallel())):
         return _attention_split(params, x, positions, cfg, window, cache,
-                                pos, cross_kv, bidirectional)
+                                pos, cross_kv, bidirectional, cross_cached)
     b, s, _ = x.shape
     if cross_kv is not None:
         dh = cfg.resolved_head_dim

@@ -61,11 +61,12 @@ def rmsnorm_init(d: int, device, dtype=torch.float32) -> dict:
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in fp32 with the ``(1 + scale)`` parameterization."""
+    """RMSNorm in fp32 with the ``(1 + scale)`` parameterization (over a
+    mesh the scale ``sharding.tp.shared`` over 'data')."""
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + params["scale"].float())).to(x.dtype)
+    return (y * (1.0 + tp.shared(params["scale"]).float())).to(x.dtype)
 
 
 def groupnorm_init(c: int, device="cpu", dtype=torch.float32) -> dict:
@@ -142,9 +143,11 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w (+ b)``; over a mesh the caller gathers ``w``, and the bias
+    is ``sharding.tp.shared`` over 'data'."""
     y = x @ params["w"]
     if "b" in params:
-        y = y + params["b"]
+        y = y + tp.shared(params["b"])
     return y
 
 
@@ -159,7 +162,7 @@ def column_dense(params: dict, x: torch.Tensor, d_out: int):
         return dense(params, x), False
     y = tp.copy_to(x) @ params["w"]
     if "b" in params:
-        y = y + tp.split_to(params["b"], dim=0)
+        y = y + tp.split_to(tp.shared(params["b"]), dim=0)
     return y, True
 
 
@@ -216,12 +219,19 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int,
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy with an fp32 logsumexp; labels < 0 are padding."""
+    """Mean cross-entropy with an fp32 logsumexp; labels < 0 are padding.
+    Where a meshed step split the client's rows over 'data'
+    (``sharding.tp.rows_split``), the mean over all of them: this rank's
+    sum and count all-reduced over 'data' (``reduce_from``)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     valid = (labels >= 0).float()
-    return torch.sum((lse - ll) * valid) / torch.clamp_min(valid.sum(), 1.0)
+    total, count = torch.sum((lse - ll) * valid), valid.sum()
+    if tp.rows_split():
+        total, count = tp.reduce_from(torch.stack([total, count]),
+                                      "data").unbind(0)
+    return total / torch.clamp_min(count, 1.0)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

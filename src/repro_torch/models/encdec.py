@@ -13,7 +13,8 @@ computes the cross-attention K/V once and returns them in the cache beside
 the self-attention KV cache; ``decode_step`` reads both and writes one
 token's self-attention K/V at ``pos``.  Over a mesh the layers split as
 ``models.attention`` and ``models.lm``'s MLP and head do; the cross K/V
-are whole.
+are whole in the training pass and the prefill, and the cache holds
+them, as the self-attention's, at their placements.
 """
 from __future__ import annotations
 
@@ -108,7 +109,7 @@ def _dec_layer(p, x, cfg, positions, cross_kv, cache=None, pos=None):
     x = x + y
     h = rmsnorm(p["norm_x"], x, cfg.norm_eps)
     y, _ = attn_mod.attention(p["cross_attn"], h, positions, cfg,
-                              cross_kv=cross_kv)
+                              cross_kv=cross_kv, cross_cached=pos is not None)
     x = x + y
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     x = x + _mlp_apply(p["mlp"], h, cfg)
@@ -157,7 +158,9 @@ def prefill(params, frames, tokens, cfg: ModelConfig, cache):
         x, c = _dec_layer(p, x, cfg, positions, kv,
                           cache=tree_index(cache["self"], i))
         self_c.append(c)
-        cross_c.append({"k": kv[0], "v": kv[1]})
+        like = cache["cross"]["k"]
+        cross_c.append({"k": attn_mod.kv_at_rest(kv[0], like),
+                        "v": attn_mod.kv_at_rest(kv[1], like)})
     logits = _head(params, x[:, -1:, :], cfg)
     return logits, {"self": tree_stack(self_c), "cross": tree_stack(cross_c)}
 

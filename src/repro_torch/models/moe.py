@@ -31,13 +31,16 @@ tokens are not split over 'model'), each rank runs its own experts' FFN on
 its rows of the (E, C, d) buffer (``split_to``), and the expert outputs are
 gathered over 'model' before the combine, which then adds each token's k
 terms in the same order as on one card.  The shared experts split as an
-MLP (columns, then rows all-reduced).
+MLP (columns, then rows all-reduced).  Where the step split the client's
+rows over 'data' (FSDP2D), the dispatch stays global over gathered rows
+(``moe_apply``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import activation, lecun_init, mlp_split
 from repro_torch.sharding import tp
@@ -137,8 +140,19 @@ def _combine(contrib_s: torch.Tensor, order: torch.Tensor, n: int,
 
 
 def moe_apply(params, x: torch.Tensor, spec, act_name: str = "silu"):
-    """Sorted capacity dispatch.  x: (B, S, d) -> (y, aux_loss)."""
+    """Sorted capacity dispatch.  x: (B, S, d) -> (y, aux_loss).  Where a
+    meshed step split the rows over 'data' (``sharding.tp.rows_split``),
+    ``x`` is this rank's rows: the routing, the dispatch, the combine and
+    the aux loss run on every row, gathered over 'data' (the capacity,
+    the top-k order and the aux loss are functions of the client's whole
+    token set, as the reference's replicated ``xb``), the experts' FFN on
+    this rank's slots of the capacity, the shared experts on this rank's
+    rows; then this rank's rows of the output."""
     act = activation(act_name)
+    rows = tp.rows_split()
+    own = x
+    if rows:
+        x = tp.gather_from(x, "data", 0)
     b, s, d = x.shape
     n = b * s
     xf = x.reshape(n, d)
@@ -163,12 +177,24 @@ def moe_apply(params, x: torch.Tensor, spec, act_name: str = "silu"):
     xb = torch.where(filled[..., None], xf[tt_s[src]],
                      torch.zeros((), dtype=x.dtype, device=x.device))
     experts, split = _expert_weights(params, spec, d)
+
+    def ffn(xb):
+        if not rows:
+            return _expert_ffn(experts, xb, act)
+        # the FFN's slots split over 'data' where the rows are (the
+        # weights' gradients summed over 'data', sharding.tp), padded with
+        # empty slots to a multiple of |data|: an empty slot's output and
+        # gradient are zero
+        pad = -cap % tp.axis_size("data")
+        yb = tp.gather_from(_expert_ffn(experts, tp.split_to(
+            F.pad(xb, (0, 0, 0, pad)), "data", 1), act), "data", 1)
+        return yb[:, :cap]
+
     if split:
-        yb = tp.gather_from(_expert_ffn(experts, tp.split_to(xb, dim=0),
-                                        act), dim=0)
+        yb = tp.gather_from(ffn(tp.split_to(xb, dim=0)), dim=0)
     else:
         tp.replicated("experts")
-        yb = _expert_ffn(experts, xb, act)
+        yb = ffn(xb)
     yb = yb.reshape(e * cap, d)
 
     # combine: sorted entry i reads its slot, gated; kept entries only
@@ -178,6 +204,10 @@ def moe_apply(params, x: torch.Tensor, spec, act_name: str = "silu"):
                             torch.zeros((), dtype=x.dtype, device=x.device))
     y = _combine(contrib_s * gg_s[:, None], order, n, k)
 
+    if rows:
+        y = tp.split_to(y.reshape(b, s, d), "data", 0)
+        b, xf = own.shape[0], own.reshape(-1, d)
+        y = y.reshape(-1, d)
     if spec.n_shared > 0:
         y = y + _shared_ffn(params["shared"], xf, act,
                             spec.d_expert * spec.n_shared)

@@ -24,7 +24,12 @@ depthwise conv runs on this rank's ``conv_w`` channels and is gathered;
 the scan runs on this rank's heads where |model| divides them (the
 reference's ``constrain(xh, (..., 'heads', ...))``), B and C through
 ``copy_to``, and its output is gathered for the gated norm; then
-``out_proj``'s row slice and an all-reduce (``sharding.tp``).
+``out_proj``'s row slice and an all-reduce (``sharding.tp``).  The cache
+stays at its placements (``sharding.rules.cache_spec``): the prefill
+keeps this rank's heads' final state and its channels' tail, and the
+decode step updates them in place of a whole state.  Where the step split
+the rows over 'data' (FSDP2D) a rank computes its rows and gathers every
+row's new state over 'data' into its cache.
 """
 from __future__ import annotations
 
@@ -95,7 +100,7 @@ def _gated_norm(norm_params, y, z, eps):
     yf = y.float() * F.silu(z.float())
     var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
     out = yf * torch.rsqrt(var + eps)
-    return out * (1.0 + norm_params["scale"].float())
+    return out * (1.0 + tp.shared(norm_params["scale"]).float())
 
 
 def _split_proj(cfg, zxbcdt):
@@ -196,11 +201,12 @@ def _conv_params(params, cfg):
     'model' splits ``conv_w``'s (the replicated bias sliced by
     ``split_to``), else the whole conv."""
     _, _, _, conv_dim = _dims(cfg)
+    conv = {"conv_w": tp.shared(params["conv_w"]),
+            "conv_b": tp.shared(params["conv_b"])}
     if not tp.split(params["conv_w"].shape[-1], conv_dim):
         tp.replicated("ssm conv")
-        return params, False
-    return {"conv_w": params["conv_w"],
-            "conv_b": tp.split_to(params["conv_b"], dim=0)}, True
+        return conv, False
+    return {**conv, "conv_b": tp.split_to(conv["conv_b"], dim=0)}, True
 
 
 def _heads_split(cfg) -> bool:
@@ -224,20 +230,30 @@ def _proj_out(params, y, x_dtype, cfg):
 
 
 def _scan_split(xh, dtv, a, Bm, Cm, D, spec):
-    """The chunked scan and D skip on this rank's heads, gathered over
-    'model': (y (B, L, H, P) float32, final state (B, H, P, N))."""
+    """The chunked scan and D skip on this rank's heads: (y (B, L, H, P)
+    float32, gathered over 'model'; this rank's heads' final state (B,
+    H / m, P, N), as the cache holds it)."""
     xh = tp.split_to(xh, dim=2)
     y, state = _ssd_chunked(xh, tp.split_to(dtv), tp.split_to(a, dim=0),
                             tp.copy_to(Bm), tp.copy_to(Cm), spec.chunk)
     y = y + tp.split_to(D, dim=0)[None, None, :, None] * xh
-    return tp.gather_from(y, dim=2), tp.gather_from(state, dim=1)
+    return tp.gather_from(y, dim=2), state
+
+
+def _vectors(params):
+    """The per-head ``dt_bias``, ``A_log`` and ``D``, ``sharding.tp.
+    shared`` over 'data'."""
+    return (tp.shared(params["dt_bias"]), tp.shared(params["A_log"]),
+            tp.shared(params["D"]))
 
 
 def ssm_apply(params, x: torch.Tensor, cfg, cache=None):
     """Full-sequence Mamba-2 block.  Returns (y, new_cache).
 
     With ``cache`` (prefill), the new cache holds the final SSD state and
-    the last ``conv_width - 1`` pre-conv inputs, for later decode steps.
+    the last ``conv_width - 1`` pre-conv inputs, for later decode steps;
+    over a mesh, at their placements: this rank's heads' state and its
+    channels' tail, every 'data' rank's rows where the step split them.
     """
     spec, d_inner, n_heads, conv_dim = _dims(cfg)
     b, l, _ = x.shape
@@ -245,28 +261,30 @@ def ssm_apply(params, x: torch.Tensor, cfg, cache=None):
     z, xbc, dt = _split_proj(cfg, zxbcdt)
     conv, conv_split = _conv_params(params, cfg)
     if conv_split:
-        xbc_conv = tp.gather_from(_conv_full(conv, tp.split_to(xbc)))
+        xbc = tp.split_to(xbc)          # this rank's channels
+        xbc_conv = tp.gather_from(_conv_full(conv, xbc))
     else:
         xbc_conv = _conv_full(conv, xbc)
     xs = xbc_conv[..., :d_inner]
     Bm = xbc_conv[..., d_inner: d_inner + spec.d_state]
     Cm = xbc_conv[..., d_inner + spec.d_state:]
-    dtv = softplus(dt.float() + params["dt_bias"])
-    a = -torch.exp(params["A_log"])
+    dt_bias, a_log, D = _vectors(params)
+    dtv = softplus(dt.float() + dt_bias)
+    a = -torch.exp(a_log)
     xh = xs.reshape(b, l, n_heads, spec.head_dim)
     if _heads_split(cfg):
-        y, final_state = _scan_split(xh.float(), dtv, a, Bm, Cm,
-                                     params["D"], spec)
+        y, final_state = _scan_split(xh.float(), dtv, a, Bm, Cm, D, spec)
     else:
         y, final_state = _ssd_chunked(xh.float(), dtv, a, Bm, Cm, spec.chunk)
-        y = y + params["D"][None, None, :, None] * xh.float()
+        y = y + D[None, None, :, None] * xh.float()
     y = y.reshape(b, l, d_inner)
     y = _gated_norm(params["norm"], y, z, cfg.norm_eps)
     out = _proj_out(params, y, x.dtype, cfg)
     if cache is not None:
         tail = xbc[:, -(spec.conv_width - 1):, :]
-        cache = {"ssm_state": final_state,
-                 "conv_state": tail.to(cache["conv_state"].dtype)}
+        cache = {"ssm_state": tp.all_rows(final_state),
+                 "conv_state": tp.all_rows(
+                     tail.to(cache["conv_state"].dtype))}
     return out, cache
 
 
@@ -278,13 +296,16 @@ def ssm_decode_step(params, x: torch.Tensor, cfg, cache: dict):
     zxbcdt = _proj_in(params, x[:, 0, :], cfg)   # (B, d_in_proj)
     z, xbc, dt = _split_proj(cfg, zxbcdt)
 
-    # depthwise conv via the cached tail
-    conv_state = cache["conv_state"]             # (B, W-1, conv_dim)
-    window = torch.cat([conv_state.float(), xbc.float()[:, None, :]], 1)
+    # depthwise conv via the cached tail (over a mesh the cache's
+    # channels and heads are this rank's, at their placements: the window
+    # is this rank's channels and the scan updates its heads' state)
+    conv_state = tp.own_rows(cache["conv_state"])  # (B, W-1, conv_dim)
     conv, conv_split = _conv_params(params, cfg)
+    if conv_split:
+        xbc = tp.split_to(xbc)
+    window = torch.cat([conv_state.float(), xbc.float()[:, None, :]], 1)
     w = conv["conv_w"].float()                   # (W, conv_dim)
-    conv_out = (torch.einsum("bwc,wc->bc",
-                             tp.split_to(window) if conv_split else window, w)
+    conv_out = (torch.einsum("bwc,wc->bc", window, w)
                 + conv["conv_b"].float())
     xbc_c = F.silu(conv_out)
     if conv_split:
@@ -294,27 +315,27 @@ def ssm_decode_step(params, x: torch.Tensor, cfg, cache: dict):
     xs = xbc_c[..., :d_inner]
     Bm = xbc_c[..., d_inner: d_inner + spec.d_state]
     Cm = xbc_c[..., d_inner + spec.d_state:]
-    dtv = softplus(dt.float() + params["dt_bias"])   # (B, H)
-    a = -torch.exp(params["A_log"])              # (H,)
+    dt_bias, a_log, D = _vectors(params)
+    dtv = softplus(dt.float() + dt_bias)         # (B, H)
+    a = -torch.exp(a_log)                        # (H,)
     dA = torch.exp(dtv * a)                      # (B, H)
     xh = xs.reshape(b, n_heads, spec.head_dim).float()
 
-    st = cache["ssm_state"]                      # (B, H, P, N)
-    D = params["D"]
+    st = tp.own_rows(cache["ssm_state"])         # (B, H, P, N)
     split = _heads_split(cfg)
     if split:
-        # this rank's heads; the new state and y are gathered over 'model'
-        st, dA, dtv, xh, D = (tp.split_to(st, dim=1), tp.split_to(dA),
-                              tp.split_to(dtv), tp.split_to(xh, dim=1),
-                              tp.split_to(D, dim=0))
+        # this rank's heads; y is gathered over 'model'
+        dA, dtv, xh, D = (tp.split_to(dA), tp.split_to(dtv),
+                          tp.split_to(xh, dim=1), tp.split_to(D, dim=0))
     # dt x B x x as an outer product: (dt ⊙ x) first, then with B
     st = (st * dA[..., None, None]
           + (dtv[..., None] * xh)[..., None] * Bm.float()[:, None, None, :])
     y = torch.einsum("bn,bhpn->bhp", Cm.float(), st)
     y = y + D[None, :, None] * xh
     if split:
-        y, st = tp.gather_from(y, dim=1), tp.gather_from(st, dim=1)
+        y = tp.gather_from(y, dim=1)
     y = y.reshape(b, d_inner)
     y = _gated_norm(params["norm"], y, z, cfg.norm_eps)
     out = _proj_out(params, y, x.dtype, cfg)
-    return out[:, None, :], {"ssm_state": st, "conv_state": new_conv_state}
+    return out[:, None, :], {"ssm_state": tp.all_rows(st),
+                             "conv_state": tp.all_rows(new_conv_state)}

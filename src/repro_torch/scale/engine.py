@@ -249,7 +249,7 @@ class ScaleEngine(RoundEngine):
         self.mesh = mesh
         self.shard = (None if mesh is None else
                       ClientShard(mesh, len(self.clients)))
-        self.state = self._own(self.adapter.stack_state(self.state))
+        self.state = self._mine(self.adapter.stack_state(self.state))
         self.capture = ("eager" if self.device.type == "cpu" else
                         "whole" if self.shard is None or not self.shard.axes
                         else collective_capture(self.shard.backend))
@@ -294,7 +294,7 @@ class ScaleEngine(RoundEngine):
     def _gathers(self) -> bool:
         return self.shard is not None and bool(self.shard.axes)
 
-    def _own(self, state: dict) -> dict:
+    def _mine(self, state: dict) -> dict:
         """This rank's clients of a stacked (K) state."""
         if not self._gathers:
             return state
@@ -554,4 +554,4 @@ class ScaleEngine(RoundEngine):
 
     def _restore_payload(self, payload: dict) -> None:
         super()._restore_payload(payload)
-        self.state = self._own(self.adapter.stack_state(self.state))
+        self.state = self._mine(self.adapter.stack_state(self.state))

@@ -94,6 +94,13 @@ def use_mesh_rules(mesh, overrides: dict | None = None):
         _state.rules = prev_rules
 
 
+def rule(name: str) -> tuple:
+    """The mesh axes the context's rules map the logical ``name`` to; ()
+    outside a context."""
+    rules = _rules()
+    return () if rules is None else tuple(rules.get(name, ()))
+
+
 def constrain(x: torch.Tensor, names: Sequence[Optional[str]]) -> torch.Tensor:
     """A ``DTensor`` redistributed to the placements of ``names`` on the
     context's mesh; no-op without a context, and for a plain tensor."""

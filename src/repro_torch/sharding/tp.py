@@ -1,19 +1,31 @@
-"""Tensor-parallel and FSDP collectives as differentiable, vmappable ops on
-plain local tensors: the port's hand-written form of what GSPMD inserts
-into the reference's meshed steps (``repro.launch.steps.lower_*`` traced
-under ``use_mesh_rules``).
+"""Tensor-parallel, FSDP and context-parallel collectives as
+differentiable, vmappable ops on plain local tensors: the port's
+hand-written form of what GSPMD inserts into the reference's meshed steps
+(``repro.launch.steps.lower_*`` traced under ``use_mesh_rules``).
 
 A meshed LM step (``launch.steps.lower_train`` / ``lower_serve``) hands the
-models each rank's local shards, under ``sharding.ctx.use_mesh_rules``.
-The models then split a client's compute over the mesh axis 'model' with
-Megatron's pairs, and gather a weight's FSDP shard over 'data' just
-before its use (``whole``):
+models each rank's local shards of the params, the batch and the cache,
+under ``sharding.ctx.use_mesh_rules``.  The models then split a client's
+compute over the mesh axis 'model' with Megatron's pairs, gather a
+weight's FSDP shard over 'data' just before its use (``whole``), and move
+activations between layouts with an all-to-all:
 
   copy_to(x, axis)           identity forward, all-reduce backward
   reduce_from(x, axis)       all-reduce forward, identity backward
   gather_from(x, axis, dim)  all-gather along ``dim`` forward, own slice
                              backward
   split_to(x, axis, dim)     own slice forward, all-gather backward
+  all_to_all(x, axis, split_dim, cat_dim)
+                             ``x`` cut along ``split_dim`` into one piece
+                             a rank, piece j sent to rank j, the pieces
+                             received joined along ``cat_dim`` in rank
+                             order; backward, the same op with the dims
+                             swapped
+  whole(w, dim, full)        an FSDP shard all-gathered over 'data'
+                             forward; backward, its gradient
+                             reduce-scattered where the compute is split
+                             over 'data' (a pair: reduce-scatter forward,
+                             all-gather backward), else the own slice
 
 Each is a ``torch.autograd.Function`` in the ``setup_context`` style with
 an explicit ``vmap`` rule: the rule moves the batch dim to the front and
@@ -26,9 +38,10 @@ group, size and this rank's place) and carried to the backward, which on
 the GPU runs on autograd's device thread, outside the caller's
 ``use_mesh_rules``.  The collectives are c10d ops on the mesh dim's group
 (``mesh.get_group(i)``), as ``launch.steps.gather_shards`` issues them:
-``all_reduce`` (SUM) and ``all_gather_into_tensor``, which NCCL, gloo (CPU
-and CUDA tensors) and a fake process group carry, and which
-``utils.collectives`` books as all-reduce and all-gather.
+``all_reduce`` (SUM), ``all_gather_into_tensor``, ``reduce_scatter`` and
+``all_to_all_single``, which NCCL, gloo (CPU and CUDA tensors) and a fake
+process group carry, and which ``utils.collectives`` books as all-reduce,
+all-gather, reduce-scatter and all-to-all.
 
 Outside a ``use_mesh_rules`` context, and on a mesh axis of size 1, every
 op returns its input and dispatches nothing.
@@ -37,15 +50,22 @@ Where |model| does not divide the dim an op would split (gemma3-1b's 4
 heads on a 'model' of 16), that op computes replicated over 'model': a
 stated rule of the models, not a fallback.  They name each such op with
 ``replicated``; ``record_replicated`` collects the names (the dry run's
-``replicated`` field), beside the inputs ``launch.steps`` gathers whole
-where the reference splits them (``WHOLE_INPUTS``).
+``replicated`` field).
 
-An FSDP weight's gather takes the own slice of its gradient backward
-where the reference's FSDP reduce-scatters: a meshed port step computes a
-client's whole batch on each of its 'data' ranks (``"fsdp2d batch"``;
-the MoE's dispatch and capacity and the loss's mean are functions of the
-client's whole batch), so the gradient of the gathered weight is already
-whole on every rank, and a reduce-scatter would add |data| copies of it.
+The batch split over 'data'.  Where an FSDP2D plan's batch rows are
+split over 'data' (``batch_spec``), the step maps the logical 'batch' to
+'data' (``rows_split``), and each rank computes its own rows.  **A
+weight's gradient is summed over 'data' exactly where the compute that
+reads it is split over 'data'**: an FSDP weight read there is gathered
+by ``whole`` with its gradient reduce-scattered, and a leaf every
+'data' rank holds whole enters through ``copy_to(w, "data")``
+(``shared``: norm scales, biases, the SSM's vectors, dims 'data' does
+not divide).  Compute that needs the client's whole batch (the MoE's
+routing, dispatch and combine) runs on rows gathered over 'data',
+repeated on every 'data' rank: a weight read only there (the router)
+takes no collective, its whole gradient already on every rank.  The loss
+is the client's mean: the rank's sum all-reduced over 'data' over the
+client's count.
 """
 from __future__ import annotations
 
@@ -70,18 +90,10 @@ def axis_size(axis: str) -> int:
 _notes = threading.local()
 
 
-#: the inputs a meshed step gathers whole over an axis of more than one
-#: rank where the reference splits them (``launch.steps``): a serve
-#: step's cache (its head_dim over 'model', its sequence over 'data'
-#: under ``seq_data``) and an FSDP2D plan's batch (its rows over 'data')
-WHOLE_INPUTS = ("serve cache", "fsdp2d batch")
-
-
 @contextlib.contextmanager
 def record_replicated():
     """Inside it, the names of the ops the models compute replicated over
-    a 'model' axis of more than one rank, and of the ``WHOLE_INPUTS`` a
-    step gathered, are added to the set it yields."""
+    a mesh axis of more than one rank are added to the set it yields."""
     prev = getattr(_notes, "ops", None)
     _notes.ops = set()
     try:
@@ -92,8 +104,8 @@ def record_replicated():
 
 def replicated(op: str, axis: str = "model") -> None:
     """Notes that ``op`` computes replicated over ``axis`` where that axis
-    has more than one rank (for a model op: |model| does not divide the
-    dim it would split)."""
+    has more than one rank (|model| does not divide the dim it would
+    split)."""
     ops = getattr(_notes, "ops", None)
     if ops is not None and axis_size(axis) > 1:
         ops.add(op)
@@ -140,7 +152,32 @@ def _all_gather(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def _own_slice(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
+def _reduce_scatter(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+    scatter = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // ax.size,) + src.shape[1:],
+                      dtype=src.dtype, device=src.device)
+    with on_axis(ax.name):
+        scatter(out, src, group=ax.group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _all_to_all(x: torch.Tensor, ax: _Axis, split_dim: int,
+                cat_dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+    # piece j of ``split_dim`` leads, for rank j
+    src = x.unflatten(split_dim, (ax.size, -1)).movedim(split_dim, 0)
+    src = src.contiguous()
+    out = torch.empty_like(src)
+    with on_axis(ax.name):
+        dist.all_to_all_single(out, src, group=ax.group)
+    # out[j] came from rank j: joined along ``cat_dim`` in rank order
+    return out.movedim(0, cat_dim).flatten(cat_dim, cat_dim + 1).contiguous()
+
+
+def _rank_slice(x: torch.Tensor, ax: _Axis, dim: int) -> torch.Tensor:
     n = x.shape[dim] // ax.size
     return x.narrow(dim, ax.rank * n, n).contiguous()
 
@@ -219,7 +256,7 @@ class _GatherFrom(torch.autograd.Function):
 class _SplitTo(torch.autograd.Function):
     @staticmethod
     def forward(x, ax, dim):
-        return _own_slice(x, ax, dim)
+        return _rank_slice(x, ax, dim)
 
     @staticmethod
     def setup_context(ctx_, inputs, output):
@@ -234,6 +271,73 @@ class _SplitTo(torch.autograd.Function):
         d = _physical_dim(in_dims[0], x.dim() - (in_dims[0] is not None),
                           dim)
         return _SplitTo.apply(_batched(in_dims[0], x), ax, d), (
+            None if in_dims[0] is None else 0)
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ax, dim):
+        return _all_gather(x, ax, dim)
+
+    @staticmethod
+    def setup_context(ctx_, inputs, output):
+        ctx_.ax, ctx_.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx_, g):
+        return _ScatterSum.apply(g, ctx_.ax, ctx_.dim), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, ax, dim):
+        d = _physical_dim(in_dims[0], x.dim() - (in_dims[0] is not None),
+                          dim)
+        return _GatherSum.apply(_batched(in_dims[0], x), ax, d), (
+            None if in_dims[0] is None else 0)
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ax, dim):
+        return _reduce_scatter(x, ax, dim)
+
+    @staticmethod
+    def setup_context(ctx_, inputs, output):
+        ctx_.ax, ctx_.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx_, g):
+        return _GatherSum.apply(g, ctx_.ax, ctx_.dim), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, ax, dim):
+        d = _physical_dim(in_dims[0], x.dim() - (in_dims[0] is not None),
+                          dim)
+        return _ScatterSum.apply(_batched(in_dims[0], x), ax, d), (
+            None if in_dims[0] is None else 0)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ax, split_dim, cat_dim):
+        return _all_to_all(x, ax, split_dim, cat_dim)
+
+    @staticmethod
+    def setup_context(ctx_, inputs, output):
+        ctx_.ax, ctx_.dims = inputs[1], inputs[2:]
+
+    @staticmethod
+    def backward(ctx_, g):
+        split_dim, cat_dim = ctx_.dims
+        return _AllToAll.apply(g, ctx_.ax, cat_dim, split_dim), None, None, \
+            None
+
+    @staticmethod
+    def vmap(info, in_dims, x, ax, split_dim, cat_dim):
+        n = x.dim() - (in_dims[0] is not None)
+        return _AllToAll.apply(
+            _batched(in_dims[0], x), ax,
+            _physical_dim(in_dims[0], n, split_dim),
+            _physical_dim(in_dims[0], n, cat_dim)), (
             None if in_dims[0] is None else 0)
 
 
@@ -268,11 +372,57 @@ def split_to(x: torch.Tensor, axis: str = "model",
     return x if ax.size == 1 else _SplitTo.apply(x, ax, dim)
 
 
+def all_to_all(x: torch.Tensor, axis: str = "model", split_dim: int = -1,
+               cat_dim: int = -1) -> torch.Tensor:
+    """``x`` cut along ``split_dim`` into one even piece a rank of
+    ``axis``, piece j sent to rank j, and the pieces this rank receives
+    joined along ``cat_dim`` in rank order; backward, the gradient sent
+    back the same way."""
+    ax = _axis(axis)
+    if ax.size == 1:
+        return x
+    n = x.dim()
+    return _AllToAll.apply(x, ax, split_dim % n, cat_dim % n)
+
+
+def rows_split() -> bool:
+    """Whether the context's compute holds this rank's rows of each
+    client's batch, split over a 'data' axis of more than one rank: the
+    step mapped the logical 'batch' to 'data' (``launch.steps``, an
+    FSDP2D plan's rows at ``tree_batch_shardings``' placements)."""
+    return "data" in ctx.rule("batch") and axis_size("data") > 1
+
+
+def own_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This rank's rows (along ``dim``) of ``x``, which every 'data' rank
+    holds whole (a cache leaf), where ``rows_split``; else ``x``."""
+    return split_to(x, "data", dim) if rows_split() else x
+
+
+def all_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every 'data' rank's rows (along ``dim``) of ``x`` joined in rank
+    order, where ``rows_split``; else ``x``."""
+    return gather_from(x, "data", dim) if rows_split() else x
+
+
+def shared(w: torch.Tensor) -> torch.Tensor:
+    """``w``, a leaf every 'data' rank holds whole, as compute reads it:
+    through ``copy_to(w, "data")`` where ``rows_split``, so its gradient
+    sums every rank's rows; else ``w``."""
+    return copy_to(w, "data") if rows_split() else w
+
+
 def whole(w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
     """``w`` whole along ``dim`` (``full`` entries): its FSDP shard over
-    'data' gathered just before its use where it holds one, else ``w``;
-    backward, the own slice of its gradient (the module's docstring)."""
-    return w if w.shape[dim] == full else gather_from(w, "data", dim)
+    'data' gathered just before its use where it holds one, the gradient
+    reduce-scattered over 'data' where ``rows_split`` and its own slice
+    taken elsewhere (the module's docstring); a ``w`` already whole is
+    ``shared``."""
+    if w.shape[dim] == full:
+        return shared(w)
+    if not rows_split():
+        return gather_from(w, "data", dim)
+    return _GatherSum.apply(w, _axis("data"), dim)
 
 
 def split(local: int, full: int) -> bool:

@@ -34,20 +34,20 @@ class MetricsStream:
         self.path = path
         self.header = bool(header)
         self._fh: Optional[IO] = None
-        self._owns = False          # True iff we opened (and must close) it
+        self._closes = False          # True iff we opened (and must close) it
         self._header_written = False
 
     def _handle(self) -> IO:
         if self._fh is None:
             if self.path in ("-", ""):
                 self._fh = sys.stdout
-                self._owns = False
+                self._closes = False
             else:
                 import os
                 d = os.path.dirname(os.path.abspath(self.path))
                 os.makedirs(d, exist_ok=True)
                 self._fh = open(self.path, "w")
-                self._owns = True
+                self._closes = True
         return self._fh
 
     def emit(self, record: dict) -> None:
@@ -61,10 +61,10 @@ class MetricsStream:
         fh.flush()
 
     def close(self) -> None:
-        if self._fh is not None and self._owns:
+        if self._fh is not None and self._closes:
             self._fh.close()
         self._fh = None
-        self._owns = False
+        self._closes = False
 
     def __enter__(self) -> "MetricsStream":
         return self

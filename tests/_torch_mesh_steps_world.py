@@ -3,14 +3,17 @@
 jax).  ``run_rank`` runs every case and writes ``rank<r>.json``: on the
 2x2 and 1x4 meshes, ``sharding.tp``'s ops under ``vmap(grad)`` and
 ``grad(vmap)`` against the one-process function, and per arch and meshed
-step its gap to the unsharded step on the same inputs, the collectives it
-dispatched (by kind, and the 'model' all-gathers that sent a shard of a
-'model'-sharded weight leaf: ``SentSums``, ``weight_shard_gathers``, which
-``chip_smoke.py`` imports too), the ops and inputs it noted as computed
-replicated or gathered whole (``sharding.tp.record_replicated``) and the
-placements its state comes back at; the sharded ring against the roll of
-the whole stack; and the client widths of the ``ScaleEngine``'s vmapped
-calls."""
+step its gap to the unsharded step on the same inputs (a random cache),
+the collectives it dispatched (by kind and by kind and axis, the 'model'
+all-gathers that sent a shard of a 'model'-sharded weight leaf, and the
+all-gathers that sent a shard of a cache leaf or of a batch leaf split
+over 'data': ``SentSums``, ``weight_shard_gathers``,
+``input_shard_gathers``, which ``chip_smoke.py`` imports too), the ops it
+noted as computed replicated (``sharding.tp.record_replicated``) and the
+placements its state comes back at; the long-context decode of one row
+on a cache whose sequence is split over 'data' (``seq_data``); the
+sharded ring against the roll of the whole stack; and the client widths
+of the ``ScaleEngine``'s vmapped calls."""
 import dataclasses
 import json
 import os
@@ -34,6 +37,12 @@ MESH_ARCHS = {"2x2": ("qwen3-8b", "deepseek-moe-16b", "mamba2-1.3b",
 #: the smoke archs planned as ``plan_for`` plans the published one: one
 #: client, weights 2-D sharded (FSDP over 'data' + 'model')
 FSDP2D = ("jamba-1.5-large-398b",)
+#: long-context decode at 2x2 (``plan.seq_data``: one client of one row,
+#: the cache's 64 positions in two chunks of 32 over 'data'): the smoke
+#: archs and the decode positions, one in each chunk; at 40 gemma3's
+#: 16-wide window crosses the chunk edge at 32
+SEQ_DATA_ARCHS = ("gemma3-1b", "jamba-1.5-large-398b")
+SEQ_DATA_POS = (20, 40)
 
 
 def _plan(mesh, mode, arch=ARCH):
@@ -49,11 +58,12 @@ def _plan(mesh, mode, arch=ARCH):
     return plan
 
 
-def _inputs(step, seed):
+def _inputs(step, seed, pos=None):
     """The step's arguments, the same global tensors on every rank: params
     ~ N(0, 0.05^2) and masked (DisPFL state is), masks 0/1, tokens in the
-    vocabulary, an all-ones adjacency, lr 0.1, a zero cache, decode
-    positions 3, 5, ... (one a client)."""
+    vocabulary, an all-ones adjacency, lr 0.1, a cache ~ N(0, 1) (so the
+    attention over cached positions counts), decode positions ``pos`` or
+    3, 5, ... (one a client)."""
     from repro_torch.launch.dryrun import materialize
     from repro_torch.utils.tree import tree_map
 
@@ -66,10 +76,10 @@ def _inputs(step, seed):
         args[4] = 0.1
     else:
         args[0] = tree_map(lambda w: w * 0.05, args[0])
-        args[2] = tree_map(torch.zeros_like, args[2])
         if step.mode == "decode":
-            args[1]["pos"] = (3 + 2 * torch.arange(step.plan.n_clients)).to(
-                torch.int32)
+            args[1]["pos"] = (torch.tensor(pos) if pos is not None else
+                              3 + 2 * torch.arange(step.plan.n_clients)).to(
+                torch.int32).reshape(step.plan.n_clients)
     return args
 
 
@@ -83,27 +93,30 @@ def _gap(got, want) -> dict:
 
 
 class SentSums(CollectiveCounter):
-    """``utils.collectives.CollectiveCounter`` that also keeps, in
-    ``sent``, the shape and float64 sum of the tensor this rank sent in
-    each all-gather over 'model': a fingerprint of what travelled (real
-    tensors only; an output is not read, the op may still be filling
-    it)."""
+    """``utils.collectives.CollectiveCounter`` that also keeps the shape
+    and float64 sum of the tensor this rank sent in each all-gather: a
+    fingerprint of what travelled (real tensors only; an output is not
+    read, the op may still be filling it), in ``sent`` for the
+    all-gathers over 'model' and in ``sent_all`` for every all-gather,
+    beside its axis."""
 
     def __init__(self):
         super().__init__()
-        self.sent = []
+        self.sent, self.sent_all = [], []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         n = len(self.stats.ops)
         out = super().__torch_dispatch__(func, types, args, kwargs)
-        if (len(self.stats.ops) > n
-                and self.stats.ops[-1][:2] == ("all-gather", "model")):
+        if len(self.stats.ops) > n and self.stats.ops[-1][0] == "all-gather":
             # c10d's all-gathers take (outputs, input), the functional
             # ones (input, ...)
             src = args[0] if func.namespace == "_c10d_functional" else args[1]
             t = next(t for t in tree_flatten(src)[0]
                      if isinstance(t, torch.Tensor))
-            self.sent.append((tuple(t.shape), float(t.double().sum())))
+            mark = (tuple(t.shape), float(t.double().sum()))
+            self.sent_all.append((self.stats.ops[-1][1],) + mark)
+            if self.stats.ops[-1][1] == "model":
+                self.sent.append(mark)
         return out
 
 
@@ -159,6 +172,43 @@ def weight_shard_gathers(sent, params, *wholes) -> list:
                    for sh, s in shards)]
 
 
+def input_shard_gathers(sent_all, *placed) -> list:
+    """The sends of ``sent_all`` (a ``SentSums``' fingerprints of every
+    all-gather) that carried this rank's shard of a leaf of ``placed``
+    (``DTensor`` trees: a step's cache, its batch) sharded over a mesh
+    dim of more than one rank: what gathering that input whole sends.  A
+    shard is matched by shape and by its values' sum (1e-6 relative): the
+    shard of the rank's clients or of one client, any one of its dims
+    leading (c10d gathers along dim 0).  Returns the matching ``(axis,
+    shape, sum)``s."""
+    from torch.distributed.tensor import Shard
+
+    shards = []
+    for x in (leaf for tree in placed for leaf in tree_flatten(tree)[0]):
+        mesh = x.device_mesh
+        if not any(isinstance(p, Shard) and mesh.size(i) > 1
+                   for i, p in enumerate(x.placements)):
+            continue
+        local = x.to_local()
+        for t in [local] + list(local.unbind(0)):
+            total = float(t.double().sum())
+            for d in range(t.dim()):
+                sh = list(t.shape)
+                shards.append((tuple([sh[d]] + sh[:d] + sh[d + 1:]), total))
+    return [(axis, shape, total) for axis, shape, total in sent_all
+            if any(shape == sh and abs(total - s) <= 1e-6 * max(1.0, abs(s))
+                   for sh, s in shards)]
+
+
+def axis_counts(stats) -> dict:
+    """The collectives in ``stats`` by ``"kind/axis"``."""
+    counts = {}
+    for kind, axis, _ in stats.ops:
+        key = f"{kind}/{axis}"
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
 def model_counts(stats) -> dict:
     """The collectives over 'model' in ``stats``, by kind."""
     counts = {}
@@ -189,50 +239,77 @@ def _mixed(gossip, args) -> list:
     return [ppermute_gossip(args[0], args[1])] if gossip else []
 
 
-def _step_cases(mesh, arch=ARCH) -> dict:
+def _one_step(plan, gossip, seed, pos=None) -> dict:
+    """``plan``'s meshed step (train with ``gossip``, else serve) against
+    its unsharded twin on the same inputs, and what it dispatched."""
     from repro_torch.launch import steps
     from repro_torch.models import bind
     from repro_torch.sharding.tp import record_replicated
     from repro_torch.utils.tree import tree_leaves, tree_map
 
+    mode = plan.shape.mode
+    api = bind(plan.arch)
+    single = dataclasses.replace(plan, mesh=None)
+    step = (steps.lower_train(api, plan, gossip) if gossip else
+            steps.lower_serve(api, plan))
+    args = _inputs(step, seed, pos)
+    plain = (steps.make_train_step(api, single, gossip)
+             if gossip else steps.make_prefill_step(api, single)
+             if mode == "prefill" else steps.make_decode_step(api, single))
+    want = plain(*[tree_map(torch.clone, a)
+                   if not isinstance(a, float) else a for a in args])
+    placed = step.place(*args)
+    counter = SentSums()
+    with counter, record_replicated() as rep:
+        got = step(*placed)
+    stats = counter.stats
+    # the state a step returns: train's params, serve's cache
+    state_in, state_out = placed[0 if gossip else 2], got[0 if gossip else 1]
+    kept = [[str(p) for p in x.placements] for x in tree_leaves(state_out)]
+    got = tree_map(lambda x: x.full_tensor(), got)
+    return {
+        **_gap(got, want),
+        **_model_ops(counter, placed[0], args[0], *_mixed(gossip, args)),
+        # the cache (serve) and the batch: no shard of either all-gathered
+        "input_gathers": input_shard_gathers(
+            counter.sent_all, *(placed[2:3] if gossip else placed[1:3])),
+        "n_clients": plan.n_clients,
+        "placements_in": [[str(p) for p in x.placements]
+                          for x in tree_leaves(state_in)],
+        "placements_out": kept,
+        "per_client_batch": plan.per_client_batch,
+        "replicated": sorted(rep),
+        "bytes": stats.bytes_by_kind, "counts": stats.count_by_kind,
+        "axis_counts": axis_counts(stats)}
+
+
+def _step_cases(mesh, arch=ARCH) -> dict:
     out = {}
     for mode in SHAPES:
         plan = _plan(mesh, mode, arch)
-        api = bind(plan.arch)
-        single = dataclasses.replace(plan, mesh=None)
         for gossip in (("einsum", "ppermute") if mode == "train" else
                        ("",)):
-            step = (steps.lower_train(api, plan, gossip) if gossip else
-                    steps.lower_serve(api, plan))
-            args = _inputs(step, seed=len(out))
-            plain = (steps.make_train_step(api, single, gossip)
-                     if gossip else steps.make_prefill_step(api, single)
-                     if mode == "prefill" else
-                     steps.make_decode_step(api, single))
-            want = plain(*[tree_map(torch.clone, a)
-                           if not isinstance(a, float) else a for a in args])
-            placed = step.place(*args)
-            counter = SentSums()
-            with counter, record_replicated() as rep:
-                got = step(*placed)
-            stats = counter.stats
-            # the state a step returns: train's params, serve's cache
-            state_in, state_out = placed[0 if gossip else 2], got[
-                0 if gossip else 1]
-            kept = [[str(p) for p in x.placements]
-                    for x in tree_leaves(state_out)]
-            got = tree_map(lambda x: x.full_tensor(), got)
-            out[f"{mode}-{gossip}" if gossip else mode] = {
-                **_gap(got, want),
-                **_model_ops(counter, placed[0], args[0],
-                             *_mixed(gossip, args)),
-                "n_clients": plan.n_clients,
-                "placements_in": [[str(p) for p in x.placements]
-                                  for x in tree_leaves(state_in)],
-                "placements_out": kept,
-                "per_client_batch": plan.per_client_batch,
-                "replicated": sorted(rep),
-                "bytes": stats.bytes_by_kind, "counts": stats.count_by_kind}
+            out[f"{mode}-{gossip}" if gossip else mode] = _one_step(
+                plan, gossip, seed=len(out))
+    return out
+
+
+def _seq_data_cases(mesh) -> dict:
+    """Each ``SEQ_DATA_ARCHS`` decode step of one client of one row, the
+    cache's sequence split over 'data' (``seq_data``), at each
+    ``SEQ_DATA_POS``."""
+    from repro_torch.configs import INPUT_SHAPES, SMOKE_ARCHS
+    from repro_torch.launch import steps
+
+    shape = dataclasses.replace(INPUT_SHAPES["long_500k"], seq_len=SEQ,
+                                global_batch=1)
+    out = {}
+    for arch in SEQ_DATA_ARCHS:
+        plan = dataclasses.replace(steps.plan_for(
+            SMOKE_ARCHS[arch], shape, mesh, torch.float32), seq_data=True)
+        for pos in SEQ_DATA_POS:
+            out[f"{arch}/seq_data-pos{pos}"] = _one_step(
+                plan, "", seed=pos, pos=[pos])
     return out
 
 
@@ -285,6 +362,74 @@ def _tp_case(mesh) -> dict:
         loss = total(split)(*leaves)
     # the backward outside the context, as autograd's device thread runs
     # it on the GPU
+    loss.backward()
+    grads["backward()"] = [t.grad for t in leaves]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    return {"value": rel(got_v, want_v),
+            **{f"{order} d{name}": rel(g, w) for order, gs in grads.items()
+               for name, g, w in zip(("w1", "w2", "x"), gs, want_g)}}
+
+
+def _tp_rows_case(mesh) -> dict:
+    """``sharding.tp.all_to_all`` over 'model' and ``whole``'s gather of
+    an FSDP shard whose gradient is reduce-scattered over 'data', in one
+    function of K=3 clients' rows split over 'data' (the rules map
+    'batch' to 'data'): a column weight FSDP-sharded over 'data' on its
+    rows and split over 'model' on its columns, a row weight held whole
+    on every 'data' rank (``whole`` passes it through ``copy_to``), the
+    loss's rows summed over 'data'; under ``vmap(grad)``, ``grad(vmap)``
+    and a ``backward()`` outside the mesh context, against the
+    one-process function: the largest gap of the value and of each
+    gradient (this rank's slice), relative to ``max(1, max|ref|)``."""
+    from repro_torch.sharding import tp
+    from repro_torch.sharding.ctx import use_mesh_rules
+
+    gen = torch.Generator().manual_seed(12)
+    k, b, d, f = 3, 8, 8, 8
+    w1, w2 = torch.randn(k, d, f, generator=gen), torch.randn(
+        k, f, d, generator=gen)
+    x = torch.randn(k, b, d, generator=gen)
+    m, r = mesh["model"].size(), mesh["model"].get_local_rank()
+    nd, rd = mesh["data"].size(), mesh["data"].get_local_rank()
+    cols = slice(r * f // m, (r + 1) * f // m)
+    rows = slice(rd * d // nd, (rd + 1) * d // nd)
+    mine = slice(rd * b // nd, (rd + 1) * b // nd)
+
+    def plain(w1, w2, x):
+        h = torch.tanh(x @ w1)
+        return (torch.square(h @ w2).sum() + (torch.sin(h) * h).sum())
+
+    def split(w1, w2, x):
+        h = torch.tanh(tp.copy_to(x) @ tp.whole(w1, 0, d))
+        # this rank's rows of h and its columns -> a slice of the rows
+        # and every column, and back
+        z = tp.all_to_all(torch.sin(tp.all_to_all(h, split_dim=0,
+                                                  cat_dim=1)),
+                          split_dim=1, cat_dim=0)
+        w2 = tp.whole(w2, 1, d)
+        part = (torch.square(tp.reduce_from(h @ w2)).sum()
+                + tp.reduce_from((z * h).sum()))
+        return tp.reduce_from(part, "data")
+
+    def total(fn):
+        return lambda *a: torch.func.vmap(fn)(*a).sum()
+
+    want_v = torch.func.vmap(plain)(w1, w2, x)
+    want_g = torch.func.grad(total(plain), argnums=(0, 1, 2))(w1, w2, x)
+    want_g = (want_g[0][:, rows, cols], want_g[1][:, cols], want_g[2][:, mine])
+    local = (w1[:, rows, cols].contiguous(), w2[:, cols].contiguous(),
+             x[:, mine].contiguous())
+    with use_mesh_rules(mesh, {"batch": ("data",)}):
+        got_v = torch.func.vmap(split)(*local)
+        grads = {"grad(vmap)": torch.func.grad(
+                     total(split), argnums=(0, 1, 2))(*local),
+                 "vmap(grad)": torch.func.vmap(torch.func.grad(
+                     split, argnums=(0, 1, 2)))(*local)}
+        leaves = [t.clone().requires_grad_() for t in local]
+        loss = total(split)(*leaves)
     loss.backward()
     grads["backward()"] = [t.grad for t in leaves]
 
@@ -387,14 +532,17 @@ def run_rank(rank, world_size, d):
         world_size=world_size)
     from repro_torch.launch.mesh import make_test_mesh
 
-    out = {"tp": {}, "steps": {}}
+    out = {"tp": {}, "tp_rows": {}, "steps": {}}
     for name, (data, model) in MESHES.items():
         mesh = make_test_mesh(data, model, device_type="cpu")
         out["tp"][name] = _tp_case(mesh)
+        out["tp_rows"][name] = _tp_rows_case(mesh)
         for arch in MESH_ARCHS[name]:
             for case, got in _step_cases(mesh, arch).items():
                 out["steps"][f"{name}/{arch}/{case}"] = got
     mesh = make_test_mesh(2, 2, device_type="cpu")
+    for case, got in _seq_data_cases(mesh).items():
+        out["steps"][f"2x2/{case}"] = got
     out["ring"] = {"2x2-k2-d2": _ring_case(mesh, 2, 2, torch.float32),
                    "2x2-k4-d4-bf16": _ring_case(mesh, 4, 4, torch.bfloat16)}
     out["widths"] = {"2x2": call_widths(mesh)}

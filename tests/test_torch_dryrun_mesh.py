@@ -4,12 +4,16 @@ single-pod mesh), on a fake world of 4 or 8 ranks, in one subprocess: a fake pro
 process-wide, and the other tests of a pytest worker hold that no world
 is up.  The reference's three assertions (``tests/test_dryrun_integration.py``)
 on the port's records (split over 'model': ``"tp": true``, no op left
-replicated at these shapes, a decode step's cache named as gathered
-whole), the ring gossip traced alone: its bytes a
-rank exactly the boundary rows' weight and int8-mask bytes, no
-all-gather; and the qwen3-8b smoke arch's train step traced on a fake 2x2
-and a fake 2x1 world (K=2, one client a rank; at 2x2 every head splits
-whole): rank 0's FLOPs at 2x2 at most 1.25/2 of those at 2x1.
+replicated at these shapes, no input gathered whole), the ring gossip
+traced alone: its bytes a rank exactly the boundary rows' weight and
+int8-mask bytes, no all-gather; the qwen3-8b smoke arch's train step
+traced on a fake 2x2 and a fake 2x1 world (K=2, one client a rank; at 2x2
+every head splits whole): rank 0's FLOPs at 2x2 at most 1.25/2 of those
+at 2x1; the jamba smoke arch's FSDP2D train step (one client, its rows
+split over 'data' at 2x2) on a fake 2x2 and a fake 1x2 world: rank 0's
+FLOPs at 2x2 at most 1.25/2 of those at 1x2; and the smoke decode steps'
+all-gather bytes a rank below the bytes of the rank's cache shard (the
+cache is read where it lies).
 """
 import json
 import os
@@ -75,7 +79,39 @@ for data, model in ((2, 2), (2, 1)):
                                 "local_k": tree_leaves(args[0])[0]
                                 .to_local().shape[0],
                                 "replicated": sorted(rep)}
-print(json.dumps({"ring": ring, "flops": flops}))
+# the jamba smoke FSDP2D train step on a fake 2x2 and a fake 1x2 world,
+# planned as plan_for plans the published arch (one client, 2-D weights)
+from repro_torch.models import bind
+jamba = {}
+cfg = SMOKE_ARCHS["jamba-1.5-large-398b"]
+shape = dataclasses.replace(shape, global_batch=8)
+for data, model in ((2, 2), (1, 2)):
+    mesh = make_test_mesh(data, model, device_type="cpu", backend="fake")
+    plan = dataclasses.replace(steps.plan_for(cfg, shape, mesh), n_clients=1,
+                               per_client_batch=8, fsdp2d=True)
+    step = steps.lower_train(bind(cfg), plan)
+    with FakeTensorMode():
+        _, cost = step_cost(step, *step.abstract_args("cpu"))
+    jamba[f"{data}x{model}"] = {"flops": cost.flops, "k": plan.n_clients,
+                                "rows": plan.per_client_batch,
+                                "fsdp2d": plan.fsdp2d}
+# the smoke decode steps on the fake 2x2 world: all-gather bytes a rank
+# against the bytes of the rank's cache shard
+decode = {}
+mesh = make_test_mesh(2, 2, device_type="cpu", backend="fake")
+shape = dataclasses.replace(INPUT_SHAPES["decode_32k"], seq_len=64,
+                            global_batch=8)
+for arch in ("qwen3-8b", "mamba2-1.3b", "gemma3-1b"):
+    plan, step = steps.lower_for(SMOKE_ARCHS[arch], shape, mesh)
+    with FakeTensorMode():
+        args = step.abstract_args("cpu")
+        _, stats = collective_bytes(step, *args)
+    decode[arch] = {"all_gather": stats.bytes_by_kind.get("all-gather", 0.0),
+                    "cache": sum(x.to_local().numel()
+                                 * x.to_local().element_size()
+                                 for x in tree_leaves(args[2]))}
+print(json.dumps({"ring": ring, "flops": flops, "jamba": jamba,
+                  "decode": decode}))
 """
 
 
@@ -102,13 +138,11 @@ def dry(tmp_path_factory):
 
 def test_smoke_dryrun_tp_records_split_every_op(dry):
     """The meshed records say ``"tp": true`` and, at the smoke archs'
-    widths on 'model' of 2, name no op left replicated; a decode record
-    names the one input its ranks gathered whole where the reference
-    splits it, the serving cache (ROADMAP A16's rest)."""
+    widths on 'model' of 2, name no op left replicated, the decode record
+    too: its cache is read at its placements, not gathered whole."""
     for arch, shape in SINGLE_POD:
         rec = dry[0](arch, shape, "pod16x16")
-        want = ["serve cache"] if shape == "decode_32k" else []
-        assert (rec["tp"], rec["replicated"]) == (True, want), rec["tag"]
+        assert (rec["tp"], rec["replicated"]) == (True, []), rec["tag"]
     rec = dry[0]("gemma3-1b", "train_4k", "pod2x16x16")
     assert (rec["tp"], rec["replicated"]) == (True, [])
 
@@ -123,6 +157,28 @@ def test_tp_divides_rank_flops_over_model(dry):
         assert (got["k"], got["local_k"], got["rows"], got["replicated"]) \
             == (2, 1, 1, []), (mesh, got)
     assert flops["2x2"]["flops"] <= 0.625 * flops["2x1"]["flops"], flops
+
+
+def test_fsdp2d_rows_divide_rank_flops_over_data(dry):
+    """The jamba smoke arch's FSDP2D train step, one client of 8 rows:
+    split over 'data' at 2x2 (4 rows a rank; the MoE's routing runs on
+    every row, its experts on the rank's capacity slots), rank 0's FLOPs
+    at most 1.25/2 of those on a fake 1x2 world (every row a rank)."""
+    jamba = dry[1]["jamba"]
+    for mesh in ("2x2", "1x2"):
+        got = jamba[mesh]
+        assert (got["k"], got["rows"], got["fsdp2d"]) == (1, 8, True), got
+    assert jamba["2x2"]["flops"] <= 0.625 * jamba["1x2"]["flops"], jamba
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-1.3b", "gemma3-1b"])
+def test_smoke_decode_gathers_less_than_its_cache(dry, arch):
+    """A smoke decode step on the fake 2x2 world all-gathers fewer bytes a
+    rank than the rank's shard of the cache holds: the cache is read
+    where it lies (a step that gathered it whole over 'model' would send
+    at least that shard and receive the rest)."""
+    got = dry[1]["decode"][arch]
+    assert 0 < got["all_gather"] < got["cache"], got
 
 
 @pytest.mark.parametrize("arch,shape", SINGLE_POD)

@@ -409,23 +409,3 @@ def test_port_tp_records_table_beside_the_reference(tmp_path):
         report.PORT_ROW) == 1
     fit = report.fit_table(records, "pod16x16")
     assert fit.count("| qwen3-8b") == 1 and report.PORT_ROW in fit
-
-
-@pytest.mark.parametrize("whole", [["serve cache"], ["fsdp2d batch"]])
-def test_port_tp_records_with_whole_inputs_are_marked(whole):
-    """A ``"tp": true`` record whose ranks gathered an input whole that the
-    reference splits (``sharding.tp.WHOLE_INPUTS`` in ``replicated``) is
-    tabled beside the reference's row, after it, its arch cell naming
-    those inputs (``report.WHOLE_ROW``) rather than ``PORT_ROW``; an op
-    left replicated over 'model' alone does not mark it."""
-    port = {**REF_RECORD, "tp": True, "unroll": False,
-            "replicated": ["attention core"] + whole,
-            "cost": {"flops": 1.5e13, "bytes accessed": 9.0e10}}
-    mark = report.WHOLE_ROW.format(whole[0])
-    table = report.dryrun_table([port, REF_RECORD], "pod16x16").splitlines()
-    rows = [r for r in table if r.startswith("| qwen3-8b")]
-    assert [r.split(" | ")[0] for r in rows] == [
-        "| qwen3-8b", "| qwen3-8b" + mark]
-    split = {**port, "replicated": ["attention core"]}
-    assert report.dryrun_table([split], "pod16x16").count(
-        "| qwen3-8b" + report.PORT_ROW + " |") == 1

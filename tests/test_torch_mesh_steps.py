@@ -11,16 +11,22 @@ runs the rest: ``sharding.tp``'s ops, and the meshed steps split over
 'model' on a 2x2 mesh (``plan_for`` gives the ``qwen3-8b``,
 ``deepseek-moe-16b`` and ``mamba2-1.3b`` smoke archs K=2 clients of 2
 rows; the jamba smoke arch takes the FSDP2D plan, one client of 4 rows,
-weights 2-D sharded) and a 1x4 mesh (K=1 of 4 rows, 'model' of 4: the
-qwen3 smoke arch's k/v columns cut a kv head).
+weights 2-D sharded, its rows split over 'data') and a 1x4 mesh (K=1 of
+4 rows, 'model' of 4: the qwen3 smoke arch's k/v columns cut a kv head),
+each serve step on a random cache at its placements; and the long-context
+decode of one row (``seq_data``) of the gemma3-1b and jamba smoke archs at
+2x2, the cache's sequence in two chunks over 'data', at a position in
+each chunk (gemma3's window crossing the chunk edge at one).
 
 Tolerances:
-- ``sharding.tp``'s ops under ``vmap(grad)`` and ``grad(vmap)`` against
-  the one-process function: value and gradients within ``1e-5 * max(1,
-  max|ref|)`` (measured ~2e-7);
+- ``sharding.tp``'s ops (the all-to-all and the FSDP gather whose
+  gradient is reduce-scattered over 'data' among them) under
+  ``vmap(grad)`` and ``grad(vmap)`` against the one-process function:
+  value and gradients within ``1e-5 * max(1, max|ref|)`` (measured
+  ~2e-7);
 - the meshed train step (``einsum``, ``ppermute``), prefill and decode
-  against the unsharded step on the same inputs: ``max|meshed - plain| <=
-  1e-5 * max(1, max|plain|)`` (``assert_close``'s criterion of the port's
+  (the ``seq_data`` decodes too) against the unsharded step on the same
+  inputs: ``max|meshed - plain| <= 1e-5 * max(1, max|plain|)`` (``assert_close``'s criterion of the port's
   LM tests; measured up to 3.5e-6 of scale here, the all-reduced partial
   sums' order);
 - the sharded ring: bit-equal to ``ppermute_gossip`` on the whole stack,
@@ -154,8 +160,13 @@ def test_meshed_step_collectives(ranks):
     axes, and activations over 'model') and all-reduces the row-split
     matmuls' partial sums over 'model'; the ring step's mix is
     collective-permutes, and its all-gathers (activations over 'model'
-    only) are fewer bytes than einsum's; prefill and decode gather the
-    cache and activations and all-reduce over 'model'."""
+    only) are fewer bytes than einsum's; prefill and decode all-to-all
+    the new k/v (and the decode its q and output) between a split core's
+    heads and the cache's head_dim shards, and all-reduce over 'model'
+    (the decode's partial scores among them)."""
+    from repro_torch.configs import SMOKE_ARCHS
+
+    layers = SMOKE_ARCHS[world.ARCH].n_layers
     for rank in ranks:
         s = {c: _step(rank, c) for c in STEPS}
         assert set(s["train-einsum"]["counts"]) == {"all-gather",
@@ -165,7 +176,11 @@ def test_meshed_step_collectives(ranks):
         assert (s["train-ppermute"]["bytes"]["all-gather"]
                 < s["train-einsum"]["bytes"]["all-gather"])
         for mode in ("prefill", "decode"):
-            assert set(s[mode]["counts"]) == {"all-gather", "all-reduce"}
+            assert set(s[mode]["counts"]) == {"all-gather", "all-reduce",
+                                              "all-to-all"}
+            # a layer's k and v, and the decode's q and output
+            assert s[mode]["axis_counts"]["all-to-all/model"] == (
+                2 if mode == "prefill" else 4) * layers
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -179,22 +194,84 @@ def test_no_whole_model_sharded_weight_is_gathered(ranks, case):
         assert got["model_counts"].get("all-reduce", 0) > 0, got
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_whole_inputs_are_recorded(ranks, case):
-    """The inputs a step gathers whole where the reference splits them are
-    named in what it records (the dry run's ``replicated`` field): every
-    prefill and decode step's cache (split over 'model' at rest), and the
-    jamba FSDP2D plan's batch (its rows over 'data'); no other step names
-    either."""
-    from repro_torch.sharding.tp import WHOLE_INPUTS
+#: the names an earlier tree's steps recorded for the inputs they
+#: gathered whole
+WHOLE_INPUTS = ("serve cache", "fsdp2d batch")
 
-    _, arch, step = case.split("/")
-    want = ({"serve cache"} if step in ("prefill", "decode") else set()) | (
-        {"fsdp2d batch"} if arch in world.FSDP2D else set())
+
+@pytest.mark.parametrize("case", CASES)
+def test_no_input_is_gathered_whole(ranks, case):
+    """No step gathers an input whole where the reference splits it: none
+    records one (the dry run's ``replicated`` field names only the ops
+    the models leave replicated), and no all-gather sends a shard of a
+    cache leaf or of a batch leaf."""
     for rank in ranks:
-        got = {op for op in _step(rank, case)["replicated"]
-               if op in WHOLE_INPUTS}
-        assert got == want, (case, got)
+        got = _step(rank, case)
+        assert not set(got["replicated"]) & set(WHOLE_INPUTS), (case, got)
+        assert got["input_gathers"] == [], (case, got["input_gathers"])
+
+
+SEQ_CASES = [f"2x2/{arch}/seq_data-pos{pos}" for arch in world.SEQ_DATA_ARCHS
+             for pos in world.SEQ_DATA_POS]
+#: the serve steps and the FSDP2D plan's steps: their cache or their rows
+#: split over the mesh
+INPUT_CASES = [c for c in CASES if c.split("/")[2] in ("prefill", "decode")
+               or c.split("/")[1] in world.FSDP2D] + SEQ_CASES
+
+
+@pytest.mark.parametrize("case", SEQ_CASES)
+def test_seq_data_decode_within_fp32_of_unsharded(ranks, case):
+    """Long-context decode, one client of one row: the cache's sequence
+    split over 'data' in two chunks, each rank's partial softmax combined
+    flash-decoding style, the window masked by global position and the
+    new token written by the rank whose chunk holds it; within fp32 of
+    the unsharded step, the cache back at its placements (its sequence
+    over 'data')."""
+    for r, rank in enumerate(ranks):
+        got = _step(rank, case)
+        assert (got["n_clients"], got["per_client_batch"]) == (1, 1)
+        assert got["max_abs"] <= REL_TOL * max(1.0, got["scale"]), (r, got)
+        assert got["placements_out"] == got["placements_in"]
+        assert any(p[0].startswith("S(") for p in got["placements_in"]), got
+        assert got["axis_counts"].get("all-reduce/data", 0) > 0, got
+
+
+@pytest.mark.parametrize("case", INPUT_CASES)
+def test_no_cache_or_batch_shard_is_all_gathered(ranks, case):
+    """No all-gather, over any axis, sends this rank's shard of a cache
+    leaf or of a batch leaf split over 'data' (their shapes, any dim
+    leading, and their values' sums: the cache is random)."""
+    for rank in ranks:
+        assert _step(rank, case)["input_gathers"] == [], case
+
+
+FSDP2D_TRAIN = [c for c in CASES if c.split("/")[1] in world.FSDP2D
+                and c.split("/")[2].startswith("train")]
+
+
+@pytest.mark.parametrize("case", FSDP2D_TRAIN)
+def test_fsdp2d_train_reduce_scatters_over_data(ranks, case):
+    """The FSDP2D plan's rows split over 'data': the FSDP weights' gathers
+    reduce-scatter their gradients over 'data', and the loss's sum is
+    all-reduced there."""
+    for rank in ranks:
+        got = _step(rank, case)["axis_counts"]
+        assert got.get("reduce-scatter/data", 0) > 0, got
+        assert got.get("all-reduce/data", 0) > 0, got
+
+
+@pytest.mark.parametrize("mesh", sorted(world.MESHES))
+def test_tp_rows_ops_match_one_process(ranks, mesh):
+    """``all_to_all`` over 'model' and ``whole``'s FSDP gather with its
+    gradient reduce-scattered over 'data' (the rows split over 'data'),
+    its value and each gradient under ``vmap(grad)``, ``grad(vmap)`` and
+    a ``backward()`` outside the mesh context, against the one-process
+    function."""
+    for rank in ranks:
+        got = rank["tp_rows"][mesh]
+        assert len(got) == 10
+        for name, gap in got.items():
+            assert gap <= REL_TOL, (mesh, name, gap)
 
 
 RINGS = ["2x2-k2-d2", "2x2-k4-d4-bf16", "4x1-k8-d4"]
@@ -230,7 +307,7 @@ def _state_at_placements(ranks, case):
 def test_meshed_step_returns_its_state_at_the_placements(ranks, case):
     """Train's params and serve's cache come back at the placements they
     went in at, 'model' and FSDP shards included (train updates its
-    shards; serve gathers the cache and keeps its own chunk)."""
+    shards; serve writes its shard of the cache)."""
     _state_at_placements(ranks, case)
 
 
