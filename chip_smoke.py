@@ -172,7 +172,16 @@ line):
     the train step's time and tokens/s, the mask update's time and its
     sorts' share, prefill and per-token decode times, peak memory (and
     what each stage leaves allocated), and profiled train and decode
-    steps' busy shares and top three kernels;
+    steps' busy shares and top three kernels (the models bound with
+    ``remat=False`` in (a) and (b), and in phases 16-18 and 21 unless
+    stated); (c) the same plan and dtype from one state, the models
+    bound under each of ``REMAT_POLICIES`` (``models.remat``; "none" is
+    ``remat=False``): a train step (its peak above what was held before
+    it), ``REMAT_TIMED_STEPS`` timed ones and a counted mask update (one
+    prune/regrow launch per sparsifiable leaf), params, losses and masks
+    bit-equal to "none"'s; the "full" train step graphed (a capture and
+    ``REMAT_TIMED_STEPS`` replays) bit-equal to eager; "full"'s peak
+    below "none"'s;
 15. the observability plane (run right after phase 3, while no engine of
     the other phases is alive: a run archive's counters are the
     process-wide snapshot, as in the reference CLI's one-run process):
@@ -226,11 +235,16 @@ line):
     and in this phase's own run, each ratio within ``DRYRUN_PEAK_BAND``;
     the ``RooflineReport`` row of each step and the achieved ``mfu``
     (``model_flops`` over phase 14's / 16 (a)'s warm train-step time x the
-    dtype's peak); then the sweep, ``python -m repro_torch.launch.dryrun``
+    dtype's peak); at bf16 also under ``DRYRUN_REMAT``'s policies, each
+    traced and run for real (FLOPs and bytes equal, the predicted peak
+    within ``DRYRUN_PEAK_BAND`` of this phase's measured one; "dots"'
+    FLOPs equal to "none"'s, "full"'s above them and its predicted peak
+    below "none"'s); then the sweep, ``python -m repro_torch.launch.dryrun``
     over every arch at ``DRYRUN_SWEEP_SHAPE`` (train_4k) at published
-    width (bf16, K=2 x 1) into a temporary directory (started in the
-    background after phase 3, as host-only tracing beside phases 15 and
-    4-12, and awaited before phase 13's full-width stores), every artifact
+    width (bf16, K=2 x 1, the default ``--remat full``) into a temporary
+    directory (started after phase 3 in ``DRYRUN_SWEEP_PROCS`` background
+    processes, as host-only tracing beside phases 15 and 4-12, and
+    awaited before phase 13's full-width stores), every artifact
     ``ok`` or ``skipped``, which of them fit the card, and ``python -m
     repro_torch.launch.report`` over them;
 18. compiled steps (``repro_torch.utils.graph.graphed``, CUDA graphs), run
@@ -267,8 +281,9 @@ line):
     capture seconds and the graph pools' memory; then the serving path
     (``serve/model.py``'s pool-wide forwards through ``graphed``; a miss
     decodes straight into its slot, so no slot write is compiled): the
-    MLP at ``SERVE_ARGS`` on the ``kernel`` and ``vmap`` backends (the
-    ``ref`` backend's graph is held to eager by the card tests), smallcnn
+    MLP at ``COMPILED_SERVE_ARGS`` (``SERVE_ARGS`` with 2048 requests) on
+    the ``kernel`` and ``vmap`` backends (the ``ref`` backend's graph is
+    held to eager by the card tests), smallcnn
     and each smoke arch at ``SERVE_MODEL_ARGS``, each served through
     ``ServeEngine`` as
     the CLI serves, graphed and under ``graph.disabled()`` from stores
@@ -307,7 +322,8 @@ line):
     published width, fp32, one 1024-token row a client, on a world of one
     NCCL rank (mesh 1x1): the placed train, prefill and decode steps
     bit-equal to the unsharded steps of the same plan, each timed beside
-    it; (b) four gloo ranks sharing the card (``chip_smoke.py
+    it, and the train step under remat "full" bit-equal to it; (b) four
+    gloo ranks sharing the card (``chip_smoke.py
     --steps-child``): the qwen3-8b smoke arch on meshes 2x2 (K=2 of 2
     rows) and 1x4 (K=1 of 4 rows), the deepseek-moe-16b and mamba2-1.3b
     smoke archs and jamba's FSDP2D plan (one client of 4 rows, weights
@@ -317,12 +333,17 @@ line):
     ``utils.collectives`` counts, the all-reduces over 'model', the inputs
     gathered whole where the reference splits them, and no all-gather
     sending a 'model'-sharded weight's shard (the fingerprints of
-    ``tests/_torch_mesh_steps_world.py``'s ``SentSums``); (c) the dry run's
-    ``--multi-pod`` records of gemma3-1b train_4k (``einsum``,
-    ``ppermute``) and qwen3-8b train_4k, traced by phase 17's background
+    ``tests/_torch_mesh_steps_world.py``'s ``SentSums``), and the 2x2
+    qwen3-8b train step (``STEPS_B_REMAT``) again under remat "full",
+    bit-equal to it with every collective kind and axis issued at least
+    as often (the recompute's 'model' all-reduces more often); (c) the
+    dry run's ``--multi-pod`` records of gemma3-1b train_4k (``einsum``,
+    ``ppermute``) and qwen3-8b train_4k, each under ``--remat full`` and
+    ``none``, and jamba decode_32k, traced by phase 17's background
     process: ok, ``"tp": true``, collective bytes, the ring's
-    collective-permutes, rank 0's FLOPs beside the parent tree's
-    whole-client records (qwen3-8b's at most 1.25/16 of it);
+    collective-permutes; a "none" record's rank-0 FLOPs beside the parent
+    tree's whole-client records (qwen3-8b's at most 1.25/16 of it), a
+    "full" one's FLOPs and collective bytes above its "none" twin's;
 22. a ``{"kernels": [...]}`` line, one row per C entry (``entry``, its
     dtypes in ``shape``).  Each row's launches are that entry's own, as
     its wrapper counted them where it launched (``LAUNCHES_BY_ENTRY``; the
@@ -334,8 +355,9 @@ line):
     runs), ``serve_models`` (13), ``lm`` (14 (a) and (b)), ``obs`` (15's
     traced runs), ``precision`` (16 (a), (c) and (d)), ``compiled``
     (18's graphed runs, warm-up runs included), ``examples`` (19),
-    ``mesh`` (20: (a)'s runs and every (b) rank's) and ``mesh_steps``
-    (21: (a)'s and every (b) rank's; no kernel is on this path);
+    ``mesh`` (20: (a)'s runs and every (b) rank's), ``mesh_steps``
+    (21: (a)'s and every (b) rank's; no kernel is on this path) and
+    ``remat`` (14 (c)'s three mask updates);
     then the last
     line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
     "count": ...}}``.
@@ -374,6 +396,11 @@ SCALE_EINSUM_ATOL = 3e-4
 LOOP_GAP_FACTOR = 2.0
 SERVE_ARGS = ["--users", "1024", "--cache-size", "256", "--max-batch", "256",
               "--requests", "4096", "--rows", "4", "--density", "0.5"]
+# phase 18's MLP cells: the same store and model, half the request stream
+# (four passes of it a cell, graphed and eager)
+COMPILED_SERVE_ARGS = ["--users", "1024", "--cache-size", "256",
+                       "--max-batch", "256", "--requests", "2048", "--rows",
+                       "4", "--density", "0.5"]
 SERVE_MODEL_ARGS = ["--users", "4", "--density", "0.5", "--cache-size", "2",
                     "--max-batch", "4", "--requests", "16", "--rows", "1"]
 # served outputs on the card against the same store served on the CPU, max
@@ -403,6 +430,10 @@ LM_FULL_CLIENTS, LM_FULL_SEQ, LM_FULL_DECODE = 2, 1024, 16
 # shapes: on an H100 the bf16 gemma3-1b reading is 4.0e-3, so 1e-2
 LM_DECODE_TOL = 1e-4
 LM_DECODE_TOL_BF16 = 1e-2
+# phase 14 (c): the models' rematerialisation ("none": remat=False), and the
+# warm train steps timed a policy
+REMAT_POLICIES = ("none", "full", "dots")
+REMAT_TIMED_STEPS = 3
 # make obs-smoke's simulate arguments (Makefile), and the local and evolve
 # spans' totals against phase_s: each span opens and closes within
 # microseconds of its phase's clock (after the synchronise), on phases of
@@ -424,7 +455,12 @@ DRYRUN_PEAK_BAND = (0.5, 2.0)
 # traces 132.5-177.6 s, so they run in a process of their own beside the
 # small-card phases
 DRYRUN_SWEEP_SHAPE = "train_4k"
+# phase 17's rematerialisation policies, traced and run beside remat=False
+DRYRUN_REMAT = ("full", "dots")
 DRYRUN_SWEEP_TIMEOUT_S = 600
+# its processes: under --remat full one took 298.5 s, 120.3 s past phases
+# 15 and 4-12 (NVIDIA H100 80GB HBM3, 700.00 W); the host has 8 cores
+DRYRUN_SWEEP_PROCS = 3
 
 
 def log(*a):
@@ -1014,7 +1050,7 @@ def main() -> int:
         + _library(mm1, "torch.mm"))
     mm_bf16 = bf16_matmul_checks(torch, mmk, dev)
 
-    # 17's sweep: host-only tracing in a process of its own from here on
+    # 17's sweep: host-only tracing in processes of its own from here on
     sweep = DryrunSweep()
 
     # 15. the observability plane, while no other engine is alive
@@ -1122,8 +1158,8 @@ def main() -> int:
     log(f"strategy phase: {time.perf_counter() - t_strat:.1f} s; launches "
         f"{strat_launches}")
 
-    # (phase 13 (b)'s stores need the card's memory: the sweep's process,
-    # which holds a CUDA context, ends first)
+    # (phase 13 (b)'s stores need the card's memory: the sweep's
+    # processes, which hold CUDA contexts, end first)
     sweep.wait()
 
     # 13. the serving CLI's other families: smallcnn and the smoke archs,
@@ -1139,6 +1175,8 @@ def main() -> int:
     lm_launches, lm_fp32 = lm_path(torch, counters)
     log(f"lm phase: {time.perf_counter() - t_lm:.1f} s; launches "
         f"{lm_launches}")
+    # 14 (c). the same step under the models' rematerialisation
+    remat_launches, _ = lm_remat(torch, counters)
 
     # 16 (a), (c), (d). reduced precision: gemma3-1b at bf16 beside phase
     # 14's fp32, fp16 stacked payloads, an fp16 store
@@ -1179,7 +1217,7 @@ def main() -> int:
              "lm": lm_launches, "obs": obs_launches,
              "precision": prec["launches"], "compiled": compiled_launches,
              "examples": examples_launches, "mesh": mesh_launches,
-             "mesh_steps": steps_launches}
+             "mesh_steps": steps_launches, "remat": remat_launches}
 
     def row(name, source, replaces, entry, main, shape, r):
         timed = {key: r[key] for key in (
@@ -2577,7 +2615,7 @@ def lm_full_width(torch, counters, pr, dtype=None):
     dname = str(dtype).replace("torch.", "")
     cfg = ARCHS[LM_FULL_ARCH]
     k, s, n_dec = LM_FULL_CLIENTS, LM_FULL_SEQ, LM_FULL_DECODE
-    api = bind(cfg)
+    api = bind(cfg, remat=False)
     plan = steps.ScalePlan(cfg, InputShape("lm_full", s, k, "train"), k, 1,
                            dtype)
     torch.cuda.empty_cache()
@@ -2712,7 +2750,8 @@ def lm_full_width(torch, counters, pr, dtype=None):
     seq = torch.cat([batch["tokens"], torch.cat(gen_toks[:-1], -1)], -1)
     with torch.no_grad():
         full = torch.func.vmap(
-            lambda p, t: lm_mod.forward_train(p, t, cfg)[0])(params, seq)
+            lambda p, t: lm_mod.forward_train(p, t, cfg, remat=False)[0])(
+                params, seq)
     want = full[:, :, s - 1:]
     got = torch.stack(dec_logits, 2)
     scale = float(want.float().abs().max())
@@ -2819,6 +2858,156 @@ def lm_full_width(torch, counters, pr, dtype=None):
     figures["train step peak above held GiB"] = (
         peaks["train step"][0] - held) / 2 ** 30
     return launches, figures
+
+
+def lm_remat(torch, counters):
+    """Phase 14 (c): gemma3-1b at phase 14's plan, fp32, its models bound
+    under each of ``REMAT_POLICIES`` ("none": ``remat=False``) from one
+    state: a warm train step (its peak above what was held before it),
+    ``REMAT_TIMED_STEPS`` timed ones (CUDA events) on the same inputs and
+    a mask update; params, losses and masks bit-equal to "none"'s, or the
+    phase fails.  Then the "full" train step through ``utils.graph.
+    graphed`` (a capture, ``REMAT_TIMED_STEPS`` replays from the same
+    state) bit-equal to eager.  Returns the launches of the mask updates
+    (one prune/regrow launch per sparsifiable leaf each) and the
+    figures."""
+    import gc
+
+    import numpy as np
+
+    import repro_torch.scale.stacked as stacked
+    from repro_torch.configs import ARCHS, InputShape
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import bind
+    from repro_torch.utils import graph
+    from repro_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = ARCHS[LM_FULL_ARCH]
+    k, s = LM_FULL_CLIENTS, LM_FULL_SEQ
+    plan = steps.ScalePlan(cfg, InputShape("lm_full", s, k, "train"), k, 1,
+                           torch.float32)
+    apis = {p: bind(cfg, **dryrun.remat_options(p)) for p in REMAT_POLICIES}
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    params, masks = _lm_full_state(torch, apis["none"], plan, gen)
+    sparse = sum(1 for x in tree_leaves(params)
+                 if stacked.default_threshold_sparsifiable(x))
+    toks = torch.randint(0, cfg.vocab, (k, 1, s + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[..., :s].contiguous(),
+             "labels": toks[..., 1:].contiguous()}
+    adj = torch.ones((k, k), device="cuda")
+    lr = torch.tensor(0.01, dtype=torch.float32, device="cuda")
+    rate = torch.tensor(0.25, dtype=torch.float32, device="cuda")
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    figs, launches, ref = {}, [], {}
+
+    def same(what, policy, got, want):
+        if not _trees_bit_equal(torch, got, want):
+            raise AssertionError(f"remat {policy}: {what} not bit-equal to "
+                                 f"remat=False's")
+
+    # the train step: its first call's peak, then the timed calls
+    for policy in REMAT_POLICIES:
+        step = steps.make_train_step(apis[policy], plan, "einsum")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        new_params, losses = step(params, masks, batch, adj, lr)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        ms = []
+        for _ in range(REMAT_TIMED_STEPS):
+            a, b = ev(), ev()
+            a.record()
+            out = step(params, masks, batch, adj, lr)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+            del out
+        if policy == "none":
+            ref["losses"] = losses.cpu()
+            ref["params"] = _to(torch, new_params, "cpu")
+        else:
+            same("train-step losses", policy, losses, ref["losses"])
+            same("train-step params", policy, new_params, ref["params"])
+        del new_params
+        figs[f"{policy} train step ms"] = float(np.median(ms))
+        figs[f"{policy} train step peak above held GiB"] = peak
+        log(f"lm remat {policy} {cfg.name} fp32 K={k} x {s}: train step "
+            f"{np.median(ms):.3f} ms (median of {REMAT_TIMED_STEPS} warm "
+            f"calls: "
+            + ", ".join(f"{m:.3f}" for m in ms) + f"), peak {peak:.3f} GiB "
+            f"above the {held / 2 ** 30:.3f} GiB held, losses "
+            f"{losses.tolist()}" + ("" if policy == "none" else
+                                   ", params and losses bit-equal to none"))
+
+    # the "full" train step graphed: a capture and its replays, each from
+    # the same state into the donated params
+    builder = steps.make_train_step(apis["full"], plan, "einsum")
+    g = graph.graphed(builder, donate=(0, 1))
+    into = _to(torch, params, "cuda")
+    for i in range(REMAT_TIMED_STEPS):
+        out, g_losses = g(into if i == 0 else params, masks, batch, adj, lr)
+        same(f"graphed train step {i} losses", "full", g_losses,
+             ref["losses"])
+        same(f"graphed train step {i} params", "full", out, ref["params"])
+    if g.captures != 1 or g.replays != REMAT_TIMED_STEPS:
+        raise AssertionError(f"remat full graphed: {g.captures} captures, "
+                             f"{g.replays} replays")
+    figs["full graphed capture s"] = g.capture_s
+    del out, into
+    _release(g)
+    del ref["params"]
+    log(f"lm remat full graphed: 1 capture ({figs['full graphed capture s']:.2f}"
+        f" s), {REMAT_TIMED_STEPS} replays bit-equal to eager")
+
+    # the mask update, counted
+    for policy in REMAT_POLICIES:
+        update = steps.make_mask_update_step(apis[policy], plan, density=0.5)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _zero(counters)
+        a, b = ev(), ev()
+        a.record()
+        new_params, new_masks = update(params, masks, batch, rate)
+        b.record()
+        torch.cuda.synchronize()
+        la = _launches(counters)
+        launches.append(la)
+        if la["prune_regrow_rows_f32_i8"] != sparse or any(
+                v for key, v in _totals(la).items() if key != "prune_regrow"):
+            raise AssertionError(f"remat {policy} mask update launches {la}, "
+                                 f"{sparse} sparsifiable leaves")
+        if policy == "none":
+            ref["update"] = _to(torch, (new_params, new_masks), "cpu")
+        else:
+            same("mask update", policy, (new_params, new_masks),
+                 ref["update"])
+        del new_params, new_masks
+        figs[f"{policy} mask update ms"] = a.elapsed_time(b)
+        log(f"lm remat {policy}: mask update {a.elapsed_time(b):.3f} ms, "
+            f"{la['prune_regrow_rows_f32_i8']} prune_regrow launches"
+            + ("" if policy == "none" else
+               ", params and masks bit-equal to none"))
+    del params, masks, batch, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    none_ms = figs["none train step ms"]
+    none_peak = figs["none train step peak above held GiB"]
+    for policy in REMAT_POLICIES[1:]:
+        log(f"lm remat {policy} against none: train step "
+            f"{figs[f'{policy} train step ms'] / none_ms:.4f}x, peak "
+            f"{figs[f'{policy} train step peak above held GiB'] / none_peak:.4f}x")
+    if not figs["full train step peak above held GiB"] < none_peak:
+        raise AssertionError(f"remat full: train-step peak not below none's: "
+                             f"{figs}")
+    log(f"lm remat phase (14 (c)): {time.perf_counter() - t0:.1f} s")
+    return _sum_launches(launches), figs
 
 
 def lm_path(torch, counters):
@@ -2961,73 +3150,87 @@ def precision_path(torch, counters, lm_fp32):
 
 
 class DryrunSweep:
-    """Phase 17's sweep, ``repro_torch.launch.dryrun``'s ``main`` over
-    every arch at ``DRYRUN_SWEEP_SHAPE``, then phase 21 (c)'s multi-pod
-    records (``STEPS_DRYRUN``, fake tensors on the CPU of a fake world),
-    started at construction in a process of its own (its output in a
-    temporary directory); ``wait`` ends it, ``report`` checks the sweep
-    and keeps the multi-pod records in ``mesh_records``.  The process is
-    killed and the directory removed at exit."""
+    """Phase 17's sweep, ``repro_torch.launch.dryrun``'s ``main`` for each
+    arch at ``DRYRUN_SWEEP_SHAPE``, then phase 21 (c)'s multi-pod records
+    (``STEPS_DRYRUN``, fake tensors on the CPU of a fake world), dealt in
+    turn to ``DRYRUN_SWEEP_PROCS`` processes of their own started at
+    construction (each one's single-card runs before its multi-pod ones;
+    their output in a temporary directory); ``wait`` ends them,
+    ``report`` checks the sweep and keeps the multi-pod records in
+    ``mesh_records``.  The processes are killed and the directory removed
+    at exit."""
 
     def __init__(self):
         import atexit
         import tempfile
+
+        from repro_torch.configs import ARCHS
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
         self.out = os.path.join(self.dir, "artifacts")
         self.mesh_out = os.path.join(self.dir, "mesh")
         self.mesh_records = []
-        self.log = open(os.path.join(self.dir, "stdout"), "w+")
-        self.err = open(os.path.join(self.dir, "stderr"), "w+")
         self.t0 = time.perf_counter()
         self.seconds = None
-        runs = [["--shape", DRYRUN_SWEEP_SHAPE, "--out", self.out]] + [
+        runs = [["--arch", a, "--shape", DRYRUN_SWEEP_SHAPE, "--out",
+                 self.out] for a in ARCHS] + [
             ["--multi-pod", "--arch", a, "--shape", s, "--gossip", g,
-             "--device", "cpu", "--out", self.mesh_out]
-            for a, s, g in STEPS_DRYRUN]
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", "import json, sys\n"
-             "from repro_torch.launch import dryrun\n"
-             "for argv in json.loads(sys.argv[1]):\n"
-             "    dryrun.main(argv)\n", json.dumps(runs)],
-            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
-            stdout=self.log, stderr=self.err, cwd=ROOT)
+             "--remat", r, "--device", "cpu", "--out", self.mesh_out]
+            for a, s, g, r in STEPS_DRYRUN]
+        self.procs = []
+        for i in range(DRYRUN_SWEEP_PROCS):
+            outs = tuple(open(os.path.join(self.dir, f"{name}{i}"), "w+")
+                         for name in ("stdout", "stderr"))
+            self.procs.append((subprocess.Popen(
+                [sys.executable, "-c", "import json, sys\n"
+                 "from repro_torch.launch import dryrun\n"
+                 "for argv in json.loads(sys.argv[1]):\n"
+                 "    dryrun.main(argv)\n",
+                 json.dumps(runs[i::DRYRUN_SWEEP_PROCS])],
+                env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+                     "OMP_NUM_THREADS": "1"},
+                stdout=outs[0], stderr=outs[1], cwd=ROOT),) + outs)
         atexit.register(self.close)
 
     def wait(self):
         if self.seconds is not None:
             return
         t_wait = time.perf_counter()
-        left = DRYRUN_SWEEP_TIMEOUT_S - (t_wait - self.t0)
+        deadline = self.t0 + DRYRUN_SWEEP_TIMEOUT_S
         try:
-            code = self.proc.wait(timeout=max(1.0, left))
+            codes = [proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+                     for proc, _, _ in self.procs]
         except subprocess.TimeoutExpired:
             self.close()
             raise AssertionError(f"dry-run sweep: over "
                                  f"{DRYRUN_SWEEP_TIMEOUT_S} s")
         self.seconds = time.perf_counter() - self.t0
-        log(f"dry-run sweep (phase 17) ended after {self.seconds:.1f} s, "
+        log(f"dry-run sweep (phase 17) ended after {self.seconds:.1f} s "
+            f"({DRYRUN_SWEEP_PROCS} processes), "
             f"{time.perf_counter() - t_wait:.1f} s of them waited for")
-        if code != 0:
-            self.err.seek(0)
-            raise AssertionError(f"dry-run sweep exited {code}: "
-                                 f"{self.err.read()[-3000:]}")
+        for code, (_, _, err) in zip(codes, self.procs):
+            if code != 0:
+                err.seek(0)
+                raise AssertionError(f"dry-run sweep exited {code}: "
+                                     f"{err.read()[-3000:]}")
 
     def close(self):
         import shutil
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
-        self.log.close()
-        self.err.close()
+        for proc, out, err in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
         shutil.rmtree(self.dir, ignore_errors=True)
 
     def report(self, n_archs):
         """Logs the sweep's output, checks its artifacts (``n_archs``, each
         ``ok`` or ``skipped``) and logs their report."""
         self.wait()
-        self.log.seek(0)
-        for line in self.log.read().splitlines():
-            log(f"  {line}")
+        for _, out, _ in self.procs:
+            out.seek(0)
+            for line in out.read().splitlines():
+                log(f"  {line}")
         recs = []
         for name in sorted(os.listdir(self.out)):
             with open(os.path.join(self.out, name)) as f:
@@ -3065,11 +3268,14 @@ class DryrunSweep:
 
 def dryrun_path(torch, measured, sweep):
     """Phase 17: ``measured`` holds phase 14's (``fp32``) and 16 (a)'s
-    (``bf16``) full-width figures.  For each dtype, gemma3-1b at their
-    plan traced on ``cuda`` fake tensors, then the same step run for real
-    under the same counters: FLOPs and bytes accessed equal; the predicted
-    peak against the measured ones; the roofline row and the achieved
-    ``mfu``.  Then ``sweep`` (a ``DryrunSweep``) and its report."""
+    (``bf16``) full-width figures, whose steps keep every activation
+    (``remat=False``).  For each dtype, gemma3-1b at their plan traced on
+    ``cuda`` fake tensors without rematerialisation, then the same step
+    run for real under the same counters: FLOPs and bytes accessed equal;
+    the predicted peak against the measured ones; the roofline row and the
+    achieved ``mfu``.  Then at bf16 the same for ``DRYRUN_REMAT``'s
+    policies, the predicted peak against this phase's counted step under
+    the policy.  Then ``sweep`` (a ``DryrunSweep``) and its report."""
     import gc
 
     from repro_torch.configs import ARCHS, InputShape
@@ -3079,10 +3285,14 @@ def dryrun_path(torch, measured, sweep):
 
     cfg = ARCHS[LM_FULL_ARCH]
     shape = InputShape("lm_full", LM_FULL_SEQ, LM_FULL_CLIENTS, "train")
-    api = bind(cfg)
-    for dname, figs in measured.items():
+    cases = [(dname, "none") for dname in measured] + [
+        ("bf16", remat) for remat in DRYRUN_REMAT]
+    peaks = {}
+    for dname, remat in cases:
+        figs = measured[dname] if remat == "none" else None
+        api = bind(cfg, **dryrun.remat_options(remat))
         plan = dryrun.make_plan(cfg, shape, LM_FULL_CLIENTS, 1, dname)
-        fake, trace_s = dryrun.trace_plan(plan, device="cuda")
+        fake, trace_s = dryrun.trace_plan(plan, device="cuda", remat=remat)
         step, specs = dryrun.step_and_specs(api, plan)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3094,10 +3304,11 @@ def dryrun_path(torch, measured, sweep):
         out, real = step_cost(step, *args)
         torch.cuda.synchronize()
         own_peak = torch.cuda.max_memory_allocated() - held
+        peaks[(dname, remat)] = (fake.flops, fake.peak_live_bytes, own_peak)
         del out, args
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"dry run {cfg.name} {dname} K={LM_FULL_CLIENTS} x "
+        log(f"dry run {cfg.name} {dname} remat {remat} K={LM_FULL_CLIENTS} x "
             f"{LM_FULL_SEQ}: traced on cuda fake tensors in {trace_s:.2f} s; "
             f"flops fake {fake.flops} real {real.flops}; bytes accessed fake "
             f"{fake.bytes_accessed} real {real.bytes_accessed}; peak live "
@@ -3105,20 +3316,26 @@ def dryrun_path(torch, measured, sweep):
             f"arguments {fake.argument_bytes} bytes; top ops {fake.aten_ops}")
         if (fake.flops, fake.bytes_accessed) != (real.flops,
                                                  real.bytes_accessed):
-            raise AssertionError(f"dry run {dname}: the fake trace counts "
-                                 f"{fake} and the real step {real}")
-        phase_peak = figs["train step peak above held GiB"] * 2 ** 30
-        for what, peak in (("phase 14 / 16 (a)'s train step", phase_peak),
-                           ("this phase's counted step", own_peak)):
+            raise AssertionError(f"dry run {dname} remat {remat}: the fake "
+                                 f"trace counts {fake} and the real step "
+                                 f"{real}")
+        measured_peaks = [("this phase's counted step", own_peak)]
+        if figs is not None:
+            measured_peaks.insert(0, ("phase 14 / 16 (a)'s train step",
+                                      figs["train step peak above held GiB"]
+                                      * 2 ** 30))
+        for what, peak in measured_peaks:
             ratio = fake.peak_live_bytes / peak
             log(f"  predicted peak {fake.peak_live_bytes} bytes "
                 f"({fake.peak_live_bytes / 2 ** 30:.3f} GiB) against "
                 f"{what} {peak:.0f} bytes ({peak / 2 ** 30:.3f} GiB above "
                 f"held): predicted/measured {ratio:.4f}")
             if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
-                raise AssertionError(f"dry run {dname}: predicted/measured "
-                                     f"peak {ratio} outside "
-                                     f"{DRYRUN_PEAK_BAND}")
+                raise AssertionError(f"dry run {dname} remat {remat}: "
+                                     f"predicted/measured peak {ratio} "
+                                     f"outside {DRYRUN_PEAK_BAND}")
+        if figs is None:
+            continue
         rep = roofline.build_report(
             cfg, plan.shape, dryrun.MESH, 1,
             {"flops": fake.flops, "bytes accessed": fake.bytes_accessed},
@@ -3132,6 +3349,18 @@ def dryrun_path(torch, measured, sweep):
             f"{rep.model_flops_global / step_s / 1e12:.3f} TFLOP/s of "
             f"model FLOPs, mfu {mfu:.6f} (roofline step / measured "
             f"{rep.step_s / step_s:.6f})")
+    none = peaks[("bf16", "none")]
+    for remat in DRYRUN_REMAT:
+        flops, fake_peak, own_peak = peaks[("bf16", remat)]
+        log(f"dry run bf16 remat {remat} against none: flops "
+            f"{flops / none[0]:.6f}x, predicted peak "
+            f"{fake_peak / none[1]:.4f}x, measured peak "
+            f"{own_peak / none[2]:.4f}x")
+    if not (peaks[("bf16", "dots")][0] == none[0] < peaks[("bf16", "full")][0]
+            and peaks[("bf16", "full")][1] < none[1]):
+        raise AssertionError(f"dry run bf16: dots' FLOPs not none's, full's "
+                             f"not above them or full's predicted peak not "
+                             f"below none's: {peaks}")
 
     # the sweep at published width, every arch at DRYRUN_SWEEP_SHAPE, then
     # its report
@@ -3551,7 +3780,7 @@ def lm_compiled(torch, counters, dtype, eager):
     dname = str(dtype).replace("torch.", "")
     cfg = ARCHS[LM_FULL_ARCH]
     k, s, n_dec = LM_FULL_CLIENTS, LM_FULL_SEQ, LM_FULL_DECODE
-    api = bind(cfg)
+    api = bind(cfg, remat=False)
     plan = steps.ScalePlan(cfg, InputShape("lm_full", s, k, "train"), k, 1,
                            dtype)
     dev = torch.device("cuda")
@@ -4293,14 +4522,15 @@ def serve_cell(torch, counters, name, backend, cli_args):
 
 
 def serve_compiled(torch, counters):
-    """Phase 18's serving cells: the MLP at ``SERVE_ARGS`` on the kernel
-    and vmap backends (the ``ref`` backend's graph is held to eager by the
-    card tests), smallcnn and each smoke arch at ``SERVE_MODEL_ARGS``.
+    """Phase 18's serving cells: the MLP at ``COMPILED_SERVE_ARGS`` on the
+    kernel and vmap backends (the ``ref`` backend's graph is held to eager
+    by the card tests), smallcnn and each smoke arch at
+    ``SERVE_MODEL_ARGS``.
     The full-width cells are phase 13 (b)'s.  Returns the graphed runs'
     launches summed."""
     from repro_torch.configs import SMOKE_ARCHS
 
-    runs = [serve_cell(torch, counters, "mlp", backend, SERVE_ARGS)
+    runs = [serve_cell(torch, counters, "mlp", backend, COMPILED_SERVE_ARGS)
             for backend in ("kernel", "vmap")]
     for name in ["smallcnn"] + sorted(SMOKE_ARCHS):
         runs.append(serve_cell(torch, counters, name, "vmap",
@@ -4542,6 +4772,9 @@ STEPS_B_CASES = (((2, 2), ("qwen3-8b", "deepseek-moe-16b", "mamba2-1.3b",
 STEPS_B_FSDP2D = ("jamba-1.5-large-398b",)
 STEPS_B_SEQ, STEPS_B_BATCH = 64, 4
 STEPS_B_WORLD = 4
+# (b): the rank-case run again with its models under remat "full", against
+# its remat=False twin: (data, model), arch, gossip
+STEPS_B_REMAT = ((2, 2), "qwen3-8b", "einsum")
 # (b): the seq_data decode cases (one client of one row) at 2x2, and
 # their decode positions: one in each of the cache's two chunks
 STEPS_B_SEQ_DATA = ("gemma3-1b", "jamba-1.5-large-398b")
@@ -4555,12 +4788,17 @@ STEPS_REL_TOL = 1e-5
 STEPS_CHILD_TIMEOUT_S = 300
 # timed calls of each step and its unsharded twin, interleaved: median and
 # range ((a); (b) one, it times smoke shapes within the script's budget)
-STEPS_TIMED_CALLS = 5
+STEPS_TIMED_CALLS = 3
 STEPS_B_TIMED_CALLS = 1
 STEPS_DIR = os.path.join(ROOT, "runs", "chip_smoke_steps")
-STEPS_DRYRUN = ([("gemma3-1b", "train_4k", g) for g in ("einsum", "ppermute")]
-                + [("qwen3-8b", "train_4k", "einsum"),
-                   ("jamba-1.5-large-398b", "decode_32k", "einsum")])
+# (c): the multi-pod records (arch, shape, gossip, --remat): each train
+# record at the reference's default "full" and at "none", the program the
+# parent trees' figures below were taken of
+STEPS_DRYRUN = ([("gemma3-1b", "train_4k", g, r) for g in ("einsum", "ppermute")
+                 for r in ("full", "none")]
+                + [("qwen3-8b", "train_4k", "einsum", r)
+                   for r in ("full", "none")]
+                + [("jamba-1.5-large-398b", "decode_32k", "einsum", "full")])
 # rank 0's FLOPs of the parent tree's multi-pod records ("tp": false), by
 # (arch, shape, gossip): tools/mesh_dryrun_flops.py --src <parent's src>,
 # as PERF.md records them
@@ -4745,7 +4983,7 @@ def steps_mesh_path(torch, counters, card, sweep):
     # (a) a world of one NCCL rank
     mesh = make_test_mesh(1, 1, device_type="cuda")
     cfg = ARCHS[STEPS_A_ARCH]
-    api = bind(cfg)
+    api = bind(cfg, remat=False)
     gen = torch.Generator(device="cuda").manual_seed(21)
     init = api.init(gen, torch.float32)
     n_params = sum(x.numel() for x in tree_leaves(init))
@@ -4763,6 +5001,16 @@ def steps_mesh_path(torch, counters, card, sweep):
         got, want, times, stats, _, _, _, _ = _steps_case(
             torch, steps, api, plan, "einsum", args, STEPS_TIMED_CALLS)
         same, diff, scale, finite = _steps_cmp(torch, got, want)
+        remat_note = ""
+        if mode == "train":
+            # the same meshed step, its models under remat "full"
+            full = steps.lower_train(bind(cfg), plan, "einsum")
+            same_full = _steps_cmp(torch, full(*full.place(*args)),
+                                   tree_map(steps.gather_shards, got))[0]
+            remat_note = f"; under remat full bit-equal {same_full}"
+            if not same_full:
+                raise AssertionError("mesh steps (a) train: remat full not "
+                                     "bit-equal to remat=False")
         if mode == "prefill":
             cache = tree_map(steps.gather_shards, got[1])
         log(f"mesh steps (a) {STEPS_A_ARCH} {mode} ({n_params} params, fp32, "
@@ -4774,7 +5022,7 @@ def steps_mesh_path(torch, counters, card, sweep):
             f"{_median_range(times['plain'])} ({STEPS_TIMED_CALLS} calls "
             f"each, interleaved), median ratio "
             f"{_median(times['meshed']) / _median(times['plain']):.4f}; "
-            f"collectives {stats.row()} ({card})")
+            f"collectives {stats.row()}{remat_note} ({card})")
         if not (same and finite):
             raise AssertionError(f"mesh steps (a) {mode}: not bit-equal")
         del got, want, args, stacked
@@ -4811,6 +5059,16 @@ def steps_mesh_path(torch, counters, card, sweep):
         with open(os.path.join(STEPS_DIR, f"rank{rank}.json")) as f:
             r = json.load(f)
         runs.append(r["launches"])
+        rc = r["remat"]
+        full, none = (rc["axis_counts"]["full"], rc["axis_counts"]["none"])
+        log(f"mesh steps (b) {rc['case']} rank {rank} under remat full: "
+            f"bit-equal to remat=False {rc['bit_equal']}; collectives by "
+            f"axis {full} against {none} ({card})")
+        if not (rc["bit_equal"] and set(full) == set(none)
+                and all(full[k] >= none[k] for k in none)
+                and full.get("all-reduce/model", 0)
+                > none.get("all-reduce/model", 0)):
+            bad.append((rank, rc["case"] + " remat full"))
         for case, c in r["cases"].items():
             fsdp2d_train = case.startswith("2x2 jamba") and "train" in case
             ok = (c["max_abs"] <= STEPS_REL_TOL * max(1.0, c["scale"])
@@ -4845,11 +5103,17 @@ def steps_mesh_path(torch, counters, card, sweep):
         f"({card})")
     shutil.rmtree(STEPS_DIR, ignore_errors=True)
 
-    # (c) the multi-pod dry run, traced beside phases 15 and 4-12
+    # (c) the multi-pod dry run, traced beside phases 15 and 4-12; a train
+    # record under remat "full" against its "none" twin, the others
+    # against the parent trees' figures
+    twins = {(r["arch"], r["shape"], r["gossip"]): r
+             for r in sweep.mesh_records if r.get("remat") == "none"}
     for rec in sweep.mesh_records:
         key = (rec["arch"], rec["shape"], rec["gossip"])
-        parent, parent_coll = PARENT_WHOLE_INPUTS.get(
-            key, (PARENT_TP_FALSE_FLOPS.get(key), None))
+        twin = twins.get(key) if rec.get("remat") == "full" else None
+        parent, parent_coll = (None, None) if twin else \
+            PARENT_WHOLE_INPUTS.get(key, (PARENT_TP_FALSE_FLOPS.get(key),
+                                          None))
         flops = rec.get("cost", {}).get("flops")
         log(f"mesh steps (c) {rec['tag']}: {rec['status']}, chips "
             f"{rec.get('chips')}, K {rec.get('n_clients')} x "
@@ -4864,6 +5128,17 @@ def steps_mesh_path(torch, counters, card, sweep):
         if (rec["status"] != "ok" or not rec["coll_bytes_per_device"] > 0
                 or rec["tp"] is not True):
             raise AssertionError(f"mesh steps (c): {rec['tag']}")
+        if twin:
+            log(f"mesh steps (c) {rec['tag']} against remat none: FLOPs "
+                f"{flops / twin['cost']['flops']:.6f}x, peak "
+                f"{rec['peak_live_bytes'] / twin['peak_live_bytes']:.4f}x, "
+                f"collective bytes "
+                f"{rec['coll_bytes_per_device'] / twin['coll_bytes_per_device']:.4f}x")
+            if not (flops > twin["cost"]["flops"] and rec[
+                    "coll_bytes_per_device"] >= twin["coll_bytes_per_device"]):
+                raise AssertionError(f"mesh steps (c): {rec['tag']}: remat "
+                                     f"full not above its none twin's FLOPs "
+                                     f"and collective bytes")
         share = TP_FLOPS_SHARE.get(rec["arch"], 1.25 / 16 if parent_coll
                                    else None)
         if parent_coll and not rec["coll_bytes_per_device"] < parent_coll:
@@ -4969,10 +5244,13 @@ def steps_child(argv):
                                  plan, "einsum", [pos]))
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from _torch_mesh_steps_world import axis_counts, model_counts
+
+    from repro_torch.utils.collectives import CollectiveCounter
+    from repro_torch.utils.tree import tree_map
     cases = {}
     _zero(counters)
     for label, plan, gossip, pos in runs:
-        api = bind(plan.arch)
+        api = bind(plan.arch, remat=False)
         gen = torch.Generator(device="cuda").manual_seed(len(cases))
         step = (steps.lower_train(api, plan, gossip)
                 if plan.shape.mode == "train" else steps.lower_serve(api, plan))
@@ -4993,8 +5271,31 @@ def steps_child(argv):
             # an input named as gathered whole (none is)
             "whole": sorted(set(replicated) & set(STEPS_B_WHOLE))}
         del got, want, args, step
+    # one rank-case again, its models under remat "full" (the recompute in
+    # the backward on autograd's device thread issues the blocks'
+    # collectives again), against its remat=False twin on the same inputs
+    (data, model), arch, gossip = STEPS_B_REMAT
+    mesh = make_test_mesh(data, model, device_type="cuda", backend="gloo")
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=STEPS_B_SEQ,
+                                global_batch=STEPS_B_BATCH)
+    plan = steps.plan_for(SMOKE_ARCHS[arch], shape, mesh, torch.float32)
+    outs, remat_counts = {}, {}
+    for name, remat in (("none", False), ("full", True)):
+        step = steps.lower_train(bind(plan.arch, remat=remat), plan, gossip)
+        args = _steps_inputs(torch, step,
+                             torch.Generator(device="cuda").manual_seed(99))
+        counter = CollectiveCounter()
+        with counter:
+            outs[name] = step(*step.place(*args))
+        remat_counts[name] = axis_counts(counter.stats)
+    remat_case = {"case": f"{data}x{model} {arch} train-{gossip}",
+                  "bit_equal": _steps_cmp(
+                      torch, outs["full"],
+                      tree_map(steps.gather_shards, outs["none"]))[0],
+                  "axis_counts": remat_counts}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump({"cases": cases, "launches": _launches(counters)}, f)
+        json.dump({"cases": cases, "remat": remat_case,
+                   "launches": _launches(counters)}, f)
     dist.destroy_process_group()
     return 0
 

@@ -19,8 +19,13 @@ For each combination this script
   1. plans K = ``--clients`` clients of ``--per-client-batch`` rows each
      (the least K with a gossip by default, 2 x 1) at the shape's sequence
      length, in ``--dtype`` (bf16 by default, as the reference's plan);
-  2. builds params, int8 masks, batch and cache as fake tensors
-     (``FakeTensorMode``: shapes and dtypes, no storage) on ``--device``;
+  2. binds the models under ``--remat`` (``full`` by default, as the
+     reference's: each block recomputed in the backward, ``models.remat``;
+     ``dots`` keeps the matmul outputs too; ``none`` keeps every
+     activation; a record of another value than ``full`` is tagged
+     ``__remat_<p>``, as the reference's) and builds params, int8 masks,
+     batch and cache as fake tensors (``FakeTensorMode``: shapes and
+     dtypes, no storage) on ``--device``;
   3. runs the train (train shapes), prefill or decode step once under
      ``utils.trace_cost.step_cost``: FLOPs, bytes accessed, the arguments',
      outputs' and peak live bytes, the top aten ops;
@@ -90,15 +95,23 @@ DEFAULT_CLIENTS, DEFAULT_ROWS = 2, 1
 # the card's memory where no card is present: the H100 SXM data sheet's
 # 80 GB, taken as 80 GiB
 DATA_SHEET_MEMORY = 80 * 2 ** 30
-# the reference's refusals: eager steps have no layer scan or
-# rematerialisation policy
+# the reference's refusal: eager steps have no layer scan
 REFUSED = {
     "--unroll": "the port's steps run eagerly: every layer's ops are "
                 "dispatched and counted, so there is no layer scan to unroll",
-    "--remat": "the port's models have no rematerialisation policy: the "
-               "backward keeps every activation it needs, and the peak "
-               "live bytes count them",
 }
+#: ``--remat``'s values, the reference's: a ``models.remat`` policy, or
+#: ``none`` (every activation kept); ``full`` is the default
+REMAT = ("full", "dots", "none")
+
+
+def remat_options(remat: str) -> dict:
+    """``bind``'s ``remat`` and ``remat_policy`` for a ``--remat`` value,
+    as the reference passes them."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    return {"remat": remat != "none",
+            "remat_policy": "full" if remat == "none" else remat}
 
 
 def should_skip(arch_name: str, shape_name: str) -> str | None:
@@ -154,10 +167,11 @@ def materialize(specs, vocab: int, device, gen: torch.Generator):
 
 
 def trace_plan(plan: steps.ScalePlan, gossip: str = "einsum",
-               device: str = "cuda"):
-    """One step of ``plan`` on fake tensors of ``device``; returns its
-    ``StepCost`` and the trace's seconds."""
-    api = bind(plan.arch)
+               device: str = "cuda", remat: str = "full"):
+    """One step of ``plan`` on fake tensors of ``device``, the model bound
+    under ``remat`` (``REMAT``); returns its ``StepCost`` and the trace's
+    seconds."""
+    api = bind(plan.arch, **remat_options(remat))
     step, specs = step_and_specs(api, plan, gossip)
     t0 = time.perf_counter()
     with FakeTensorMode():
@@ -189,11 +203,14 @@ def _mesh_name(smoke: bool, multi_pod: bool | None) -> str:
 
 
 def _tag(arch_name, shape_name, mesh, gossip, dtype, k=None,
-         rows=None) -> str:
-    """The artifact's name; a one-card plan's K x rows where they are not
-    the default (a mesh's ``plan_for`` sets them: ``k`` None)."""
+         rows=None, remat: str = "full") -> str:
+    """The artifact's name: the reference's (``__remat_<p>`` for a policy
+    other than ``full``), then the dtype where not bf16 and a one-card
+    plan's K x rows where they are not the default (a mesh's ``plan_for``
+    sets them: ``k`` None)."""
     return (f"{arch_name}__{shape_name}__{mesh}"
             + (f"__{gossip}" if gossip != "einsum" else "")
+            + (f"__remat_{remat}" if remat != "full" else "")
             + (f"__{dtype}" if dtype != "bf16" else "")
             + (f"__k{k}x{rows}" if k is not None and (k, rows) != (
                 DEFAULT_CLIENTS, DEFAULT_ROWS) else ""))
@@ -212,7 +229,7 @@ def analytic_state_bytes_per_device(plan, args) -> int:
 
 
 def trace_meshed(arch, shape, multi_pod: bool, gossip: str, smoke: bool,
-                 dtype: str, device: str):
+                 dtype: str, device: str, remat: str = "full"):
     """``lower_for``'s plan on the fake world's mesh (the 2x2(x2) test
     mesh for ``smoke``) and one call of its ``MeshedStep`` for rank 0, on
     fake ``DTensor`` shards of ``device``.  Returns the plan, the mesh's
@@ -230,7 +247,8 @@ def trace_meshed(arch, shape, multi_pod: bool, gossip: str, smoke: bool,
                                     backend="fake")
     from repro_torch.sharding.tp import record_replicated
 
-    plan, step = steps.lower_for(arch, shape, mesh, gossip, DTYPES[dtype])
+    plan, step = steps.lower_for(arch, shape, mesh, gossip, DTYPES[dtype],
+                                 **remat_options(remat))
     t0 = time.perf_counter()
     with FakeTensorMode(), record_replicated() as replicated:
         args = step.abstract_args(device)
@@ -244,10 +262,13 @@ def run_one(arch_name: str, shape_name: str, gossip: str = "einsum",
             out_dir: str = OUT_DIR, verbose: bool = True, smoke: bool = False,
             n_clients: int = DEFAULT_CLIENTS,
             per_client_batch: int = DEFAULT_ROWS, dtype: str = "bf16",
-            device: str = "cuda", multi_pod: bool | None = None) -> dict:
+            device: str = "cuda", multi_pod: bool | None = None,
+            remat: str = "full") -> dict:
     """One combination's record.  ``multi_pod`` None plans one card (mesh
     ``h100x1``, K = ``n_clients``); False and True the reference's
-    single-pod and multi-pod mesh on a fake world (``plan_for`` sets K)."""
+    single-pod and multi-pod mesh on a fake world (``plan_for`` sets K).
+    ``remat`` (``REMAT``) is the models' rematerialisation, as the
+    reference's ``--remat``."""
     meshed = multi_pod is not None
     arch = ARCHS[arch_name]
     shape = INPUT_SHAPES[shape_name]
@@ -262,10 +283,11 @@ def run_one(arch_name: str, shape_name: str, gossip: str = "einsum",
                 shape, global_batch=min(shape.global_batch, 8))
     mesh = _mesh_name(smoke, multi_pod)
     tag = _tag(arch_name, shape_name, mesh, gossip, dtype,
-               *(() if meshed else (n_clients, per_client_batch)))
+               *(() if meshed else (n_clients, per_client_batch)),
+               remat=remat)
     record: dict = {"arch": arch_name, "shape": shape_name, "mesh": mesh,
                     "gossip": gossip, "tag": tag, "dtype": dtype,
-                    "smoke": smoke}
+                    "remat": remat, "smoke": smoke}
     if not meshed:
         record.update(n_clients=n_clients, per_client_batch=per_client_batch)
     skip = should_skip(arch_name, shape_name)
@@ -279,7 +301,7 @@ def run_one(arch_name: str, shape_name: str, gossip: str = "einsum",
     coll_row, coll_bytes, extra = {"total_GB": 0.0, "counts": {}}, 0.0, {}
     if meshed:
         plan, chips, cost, coll, state_bytes, repl, trace_s = trace_meshed(
-            arch, shape, multi_pod, gossip, smoke, dtype, device)
+            arch, shape, multi_pod, gossip, smoke, dtype, device, remat)
         coll_row, coll_bytes = coll.row(), coll.total_bytes
         extra = {"tp": True, "replicated": repl,
                  "n_clients": plan.n_clients,
@@ -289,7 +311,7 @@ def run_one(arch_name: str, shape_name: str, gossip: str = "einsum",
     else:
         chips = 1
         plan = make_plan(arch, shape, n_clients, per_client_batch, dtype)
-        cost, trace_s = trace_plan(plan, gossip, device)
+        cost, trace_s = trace_plan(plan, gossip, device, remat)
     mem_bytes, mem_source = device_memory()
     cost_row = {"flops": float(cost.flops),
                 "bytes accessed": float(cost.bytes_accessed)}
@@ -361,18 +383,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the reference's multi-pod mesh on a fake world")
     ap.add_argument("--both-meshes", action="store_true", dest="both_meshes",
                     help="the single-pod mesh, then the multi-pod one")
+    ap.add_argument("--remat", default="full", choices=REMAT,
+                    help="the models' rematerialisation (models.remat): "
+                         "full (default, as the reference's), dots, or none")
     ap.add_argument("--unroll", action="store_true")
-    ap.add_argument("--remat", default=None)
     return ap
 
 
 def parse_args(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    used = {"--unroll": args.unroll, "--remat": args.remat is not None}
-    for flag, on in used.items():
-        if on:
-            ap.error(f"{flag}: {REFUSED[flag]}")
+    if args.unroll:
+        ap.error(f"--unroll: {REFUSED['--unroll']}")
     args.meshes = ([False, True] if args.both_meshes else
                    [True] if args.multi_pod else [None])
     if args.meshes != [None] and (args.clients, args.per_client_batch) != (
@@ -399,7 +421,8 @@ def main(argv=None) -> None:
             for s in shapes:
                 tag = _tag(a, s, mesh, args.gossip, args.dtype,
                            *(() if mp is not None else
-                             (args.clients, args.per_client_batch)))
+                             (args.clients, args.per_client_batch)),
+                           remat=args.remat)
                 path = os.path.join(args.out, tag + ".json")
                 if args.skip_existing and os.path.exists(path):
                     with open(path) as f:
@@ -411,13 +434,14 @@ def main(argv=None) -> None:
                             smoke=args.smoke, n_clients=args.clients,
                             per_client_batch=args.per_client_batch,
                             dtype=args.dtype, device=args.device,
-                            multi_pod=mp)
+                            multi_pod=mp, remat=args.remat)
                 except Exception:
                     traceback.print_exc()
                     failures.append(tag)
                     _write(args.out, tag,
                            {"arch": a, "shape": s, "mesh": mesh, "tag": tag,
-                            "gossip": args.gossip, "status": "failed",
+                            "gossip": args.gossip, "remat": args.remat,
+                            "status": "failed",
                             "error": traceback.format_exc()[-2000:]})
     if failures:
         print(f"[dryrun] FAILURES ({len(failures)}):")

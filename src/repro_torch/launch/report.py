@@ -16,6 +16,10 @@ table: rank 0's peak live bytes against one card's memory.
 
     PYTHONPATH=src python -m repro_torch.launch.report [--dir D]
 
+A record of a ``--remat`` other than the default ``full`` (its tag ends
+``__remat_<p>``, as the reference's) is its own row, the arch cell
+marked `` [remat <p>]``.
+
 A port record carries the plan it traced (``seq_len``, ``global_batch`` =
 K x rows, ``dtype``): its roofline prices that batch at that dtype's peak.
 A reference record carries none, and is priced as the reference prices
@@ -84,15 +88,19 @@ def fresh_report(rec: dict):
 
 
 def _arch(rec: dict) -> str:
-    """The table's arch cell: the arch, marked (``_source``) for a port
-    mesh record tabled beside the reference's."""
-    return rec["arch"] + _source(rec)
+    """The table's arch cell: the arch, marked with its ``--remat`` where
+    not ``full`` and (``_source``) for a port mesh record tabled beside
+    the reference's."""
+    remat = rec.get("remat", "full")
+    return (rec["arch"] + (f" [remat {remat}]" if remat != "full" else "")
+            + _source(rec))
 
 
-def _order(arch: str, shape: str) -> tuple[int, int, bool]:
-    """Arch, then shape, then a port row after the reference's."""
-    name = arch.split(" (port")[0]
-    return list(ARCHS).index(name), SHAPE_ORDER.index(shape), name != arch
+def _order(arch: str, shape: str) -> tuple[int, int, str]:
+    """Arch, then shape, then the reference's row before the port's
+    ones."""
+    name = arch.split(" ")[0]
+    return list(ARCHS).index(name), SHAPE_ORDER.index(shape), arch
 
 
 def roofline_table(records: list[dict], mesh: str) -> str:

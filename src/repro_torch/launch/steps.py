@@ -593,15 +593,18 @@ def lower_serve(api: ModelAPI, plan: ScalePlan) -> MeshedStep:
 
 
 def lower_for(arch: ModelConfig, shape: InputShape, mesh,
-              gossip: str = "einsum", dtype: torch.dtype = torch.bfloat16):
+              gossip: str = "einsum", dtype: torch.dtype = torch.bfloat16,
+              remat: bool = True, remat_policy: str = "full"):
     """``(plan, step)``: ``plan_for``'s plan and its train step (train
-    shapes) or serve step (prefill and decode shapes) over ``mesh``.  The
-    reference's ``remat``/``unroll`` options change how XLA lowers the same
-    numbers and have no counterpart in the port's eager steps."""
+    shapes) or serve step (prefill and decode shapes) over ``mesh``, the
+    models bound with ``remat`` under ``remat_policy`` (``models.remat``:
+    the train step's backward recomputes each block, its ``sharding.tp``
+    collectives included).  The reference's ``unroll`` has no counterpart
+    in the port's eager steps."""
     from repro_torch.models.registry import bind
 
     plan = plan_for(arch, shape, mesh, dtype)
-    api = bind(arch)
+    api = bind(arch, remat=remat, remat_policy=remat_policy)
     if shape.mode == "train":
         return plan, lower_train(api, plan, gossip)
     return plan, lower_serve(api, plan)

@@ -340,7 +340,7 @@ def init_lm_clients(args, cfg, device) -> tuple[list, list]:
     from repro_torch.core.masks import init_mask
     from repro_torch.models import bind
 
-    api = bind(cfg)
+    api = bind(cfg, remat=False)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = [api.init(gen) for _ in range(args.clients)]
     masks = [init_mask(gen, p, args.density) for p in params]
@@ -383,7 +383,7 @@ def lm_loop(args, cfg, params: list, masks: list,
         tree_unstack,
     )
 
-    api = bind(cfg)
+    api = bind(cfg, remat=False)
     k_clients = args.clients
     seq, bs = args.seq, args.batch_size
     streams = make_lm_corpus(args.seed, vocab=256, n_domains=k_clients,

@@ -30,6 +30,7 @@ from repro_torch.models.common import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.models import remat as remat_mod
 from repro_torch.models.lm import _head, _mlp_apply, _mlp_init
 from repro_torch.utils.tree import tree_index, tree_stack, tree_unstack
 
@@ -129,16 +130,28 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
                       "v": torch.zeros(cross, dtype=dtype, device=device)}}
 
 
-def decode_train(params, frames, tokens, cfg: ModelConfig):
-    """Teacher-forced training pass.  Returns (logits (B, S, V), aux=0)."""
+def decode_train(params, frames, tokens, cfg: ModelConfig,
+                 remat: bool = True):
+    """Teacher-forced training pass.  Returns (logits (B, S, V), aux=0).
+    ``remat`` recomputes each decoder layer, its cross K/V projection
+    included, in the backward (``models.remat``, ``"full"``); the encoder
+    output is an input of each, and gets its gradient."""
     enc_out = encode(params, frames, cfg)
     x = embed_lookup(params["embed"]["table"], tokens, cfg.vocab,
                      cfg.d_model)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    for p in tree_unstack(params["decoder"], cfg.n_layers):
+
+    def layer(x, enc_out, positions, p):
         kv = attn_mod.cross_kv_from_encoder(p["cross_attn"], enc_out, cfg)
-        x, _ = _dec_layer(p, x, cfg, positions, kv)
+        return _dec_layer(p, x, cfg, positions, kv)[:1]
+
+    for p in tree_unstack(params["decoder"], cfg.n_layers):
+        # each layer reads the encoder output through a node of its own,
+        # so its k and v gradients are summed before the sum over layers
+        # with or without remat (the recompute's pullback sums them so)
+        args = (x, enc_out.view_as(enc_out), positions, p)
+        x, = (remat_mod.checkpoint(layer, args) if remat else layer(*args))
     return (_head(params, x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

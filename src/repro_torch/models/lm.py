@@ -19,8 +19,11 @@ Modes:
 ``forward_train`` unbinds each stacked block leaf once (``tree_unstack``),
 so the backward stacks the per-block gradients into one tensor (indexing
 ``leaf[i]`` per block would make a full-size zero gradient per block).
-The reference's ``jax.checkpoint`` (remat) trades memory for recompute
-with the same numbers; the port does not recompute.
+Under ``remat`` (the default, as the reference's) each periodic block
+runs through ``models.remat.checkpoint``, the port's ``jax.checkpoint``
+of the reference's scan body: the backward recomputes the block from its
+input (``"full"``) or from its input and its matmul outputs
+(``"dots"``), with the same numbers.
 
 VLM variants accept ``prefix`` — precomputed patch embeddings (B, P, d)
 occupying the first P positions (the allowed frontend stub).
@@ -35,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, SubLayer, layer_kinds
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import remat as remat_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     activation,
@@ -266,9 +270,13 @@ def _head(params, x, cfg):
 
 
 def forward_train(params, tokens, cfg: ModelConfig, prefix=None,
+                  remat: bool = True, remat_policy: str = "full",
                   moe_dense: bool = False):
     """tokens: (B, S_text); prefix: optional (B, P, d).  Returns
-    (logits (B, S_total, V), aux_loss scalar)."""
+    (logits (B, S_total, V), aux_loss scalar).  ``remat`` recomputes each
+    periodic block in the backward under ``remat_policy``
+    (``models.remat``); the prelude, the tail, the embedding and the head
+    keep their activations, as in the reference."""
     prelude, period, n_blocks, tail, kinds = layer_plan(cfg)
     x = _embed(params, tokens, cfg, prefix)
     b, s, _ = x.shape
@@ -282,14 +290,23 @@ def forward_train(params, tokens, cfg: ModelConfig, prefix=None,
 
     if n_blocks > 0:
         start = len(prelude)
-        auxs = []
-        for block_params in tree_unstack(params["blocks"], n_blocks):
+
+        def block_fn(x, positions, block_params):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for j in range(period):
                 x, _, a = layer_apply(block_params[f"p{j}"], x,
                                       kinds[start + j], cfg, positions,
                                       moe_dense=moe_dense)
                 aux = aux + a
+            return x, aux
+
+        auxs = []
+        for block_params in tree_unstack(params["blocks"], n_blocks):
+            if remat:
+                x, aux = remat_mod.checkpoint(
+                    block_fn, (x, positions, block_params), remat_policy)
+            else:
+                x, aux = block_fn(x, positions, block_params)
             auxs.append(aux)
         aux_total = aux_total + torch.sum(torch.stack(auxs))
 

@@ -20,8 +20,12 @@ Batch layout (per client, no client axis here — the step builders vmap):
 the reference's reduced-precision params, caches and float inputs.
 ``input_specs`` gives the shapes and dtypes of a batch as tensors on the
 ``meta`` device (no storage), the port's form of ``jax.ShapeDtypeStruct``.
-The reference's ``remat``/``unroll`` options change how XLA lowers the same
-numbers and have no counterpart here.
+``remat`` (default True, as the reference's) recomputes the LM's periodic
+blocks, or the encoder-decoder's decoder layers, in the backward of
+``train_loss`` under ``remat_policy`` (``"full"`` or ``"dots"``,
+``models.remat``), with the same numbers; the serving entry points do not
+differentiate and are not affected.  The reference's ``unroll`` (a layer
+scan's unrolling) has no counterpart: the port's layers run as a loop.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import remat as remat_mod
 from repro_torch.models.common import softmax_xent
 
 
@@ -58,19 +63,27 @@ def _enc_dec_split(seq_len: int) -> tuple[int, int]:
     return seq_len // 2, seq_len - seq_len // 2
 
 
-def bind(cfg: ModelConfig, moe_dense: bool = False) -> ModelAPI:
+def bind(cfg: ModelConfig, moe_dense: bool = False, remat: bool = True,
+         remat_policy: str = "full") -> ModelAPI:
+    """The family's ``ModelAPI``.  An unknown ``remat_policy`` raises; the
+    encoder-decoder takes ``remat`` only (its policy is ``"full"``), as
+    the reference's."""
+    remat_mod.check_policy(remat_policy)
     if cfg.enc_layers > 0:
-        return _bind_encdec(cfg)
-    return _bind_lm(cfg, moe_dense)
+        return _bind_encdec(cfg, remat)
+    return _bind_lm(cfg, moe_dense, remat, remat_policy)
 
 
-def _bind_lm(cfg: ModelConfig, moe_dense: bool) -> ModelAPI:
+def _bind_lm(cfg: ModelConfig, moe_dense: bool, remat: bool,
+             remat_policy: str) -> ModelAPI:
     def init(gen: torch.Generator, dtype=torch.float32):
         return lm_mod.init_lm(gen, cfg, dtype)
 
     def train_loss(params, batch):
         logits, aux = lm_mod.forward_train(params, batch["tokens"], cfg,
                                            prefix=batch.get("prefix"),
+                                           remat=remat,
+                                           remat_policy=remat_policy,
                                            moe_dense=moe_dense)
         loss = softmax_xent(logits, batch["labels"])
         return loss + aux, {"xent": loss, "aux": aux}
@@ -106,13 +119,14 @@ def _bind_lm(cfg: ModelConfig, moe_dense: bool) -> ModelAPI:
                     input_specs)
 
 
-def _bind_encdec(cfg: ModelConfig) -> ModelAPI:
+def _bind_encdec(cfg: ModelConfig, remat: bool) -> ModelAPI:
     def init(gen: torch.Generator, dtype=torch.float32):
         return encdec_mod.init_encdec(gen, cfg, dtype)
 
     def train_loss(params, batch):
         logits, aux = encdec_mod.decode_train(params, batch["frames"],
-                                              batch["tokens"], cfg)
+                                              batch["tokens"], cfg,
+                                              remat=remat)
         loss = softmax_xent(logits, batch["labels"])
         return loss + aux, {"xent": loss, "aux": aux}
 

@@ -211,7 +211,7 @@ class ArchModel(_VmapForward):
 
     def __init__(self, cfg, prompt_len: int = 8, rows: int = 1):
         self.cfg = cfg
-        self.api = bind(cfg)
+        self.api = bind(cfg, remat=False)
         self.prompt_len = int(prompt_len)
         self.rows = int(rows)
 

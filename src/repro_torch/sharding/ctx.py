@@ -78,20 +78,30 @@ def _spec_for(names: Sequence[Optional[str]], rules: dict) -> PartitionSpec:
     return PartitionSpec(*parts)
 
 
+def snapshot() -> tuple:
+    """This thread's mesh and rules (both None outside a context), for
+    ``restored``."""
+    return current_mesh(), _rules()
+
+
 @contextlib.contextmanager
+def restored(state: tuple):
+    """Within it, this thread's mesh and rules are ``state`` (a
+    ``snapshot``, maybe taken on another thread); the previous ones come
+    back on exit."""
+    prev = snapshot()
+    _state.mesh, _state.rules = state
+    try:
+        yield
+    finally:
+        _state.mesh, _state.rules = prev
+
+
 def use_mesh_rules(mesh, overrides: dict | None = None):
     """Within it, ``constrain`` maps logical names onto ``mesh`` by the
     default rules (updated by ``overrides``); the previous mesh and rules
     of this thread come back on exit."""
-    prev_mesh = getattr(_state, "mesh", None)
-    prev_rules = getattr(_state, "rules", None)
-    _state.mesh = mesh
-    _state.rules = axis_rules(mesh, overrides)
-    try:
-        yield
-    finally:
-        _state.mesh = prev_mesh
-        _state.rules = prev_rules
+    return restored((mesh, axis_rules(mesh, overrides)))
 
 
 def rule(name: str) -> tuple:

@@ -248,7 +248,7 @@ def _one_step(plan, gossip, seed, pos=None) -> dict:
     from repro_torch.utils.tree import tree_leaves, tree_map
 
     mode = plan.shape.mode
-    api = bind(plan.arch)
+    api = bind(plan.arch, remat=False)
     single = dataclasses.replace(plan, mesh=None)
     step = (steps.lower_train(api, plan, gossip) if gossip else
             steps.lower_serve(api, plan))
@@ -292,6 +292,78 @@ def _step_cases(mesh, arch=ARCH) -> dict:
             out[f"{mode}-{gossip}" if gossip else mode] = _one_step(
                 plan, gossip, seed=len(out))
     return out
+
+
+#: the archs whose meshed train step runs under ``remat="full"`` beside
+#: its ``remat=False`` twin at 2x2 (``_remat_case``)
+REMAT_ARCHS = ("qwen3-8b", "jamba-1.5-large-398b")
+
+
+def _remat_case(mesh, arch) -> dict:
+    """``arch``'s meshed train step (einsum gossip) bound with
+    ``remat=True`` (``"full"``) and with ``remat=False``, on the same
+    inputs: whether the params and losses are bit-equal, and each one's
+    collective counts by kind and axis (the recompute issues the blocks'
+    collectives again)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import bind
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    plan = _plan(mesh, "train", arch)
+    out, got = {}, {}
+    for name, remat in (("none", False), ("full", True)):
+        step = steps.lower_train(bind(plan.arch, remat=remat), plan,
+                                 "einsum")
+        placed = step.place(*_inputs(step, seed=5))
+        counter = CollectiveCounter()
+        with counter:
+            res = step(*placed)
+        got[name] = tree_map(lambda x: x.full_tensor(), res)
+        out[f"axis_counts_{name}"] = axis_counts(counter.stats)
+    out["bit_equal"] = all(
+        torch.equal(_bits(a), _bits(b)) for a, b in
+        zip(tree_leaves(got["full"]), tree_leaves(got["none"])))
+    out["n_leaves"] = len(tree_leaves(got["full"]))
+    return out
+
+
+def _remat_tp_case(mesh) -> dict:
+    """A block of ``sharding.tp`` ops (a column weight split over 'model'
+    and a row weight, K=2 clients vmapped) through ``models.remat.
+    checkpoint`` under each policy, its forward under ``use_mesh_rules``
+    and ``backward()`` called outside the context (where the GPU's
+    autograd thread runs it): per policy, whether this rank's gradients
+    are bit-equal to the block's without rematerialisation (the recompute
+    must run under the forward's mesh, issuing its collectives again)."""
+    from repro_torch.models import remat
+    from repro_torch.sharding import tp
+    from repro_torch.sharding.ctx import use_mesh_rules
+
+    gen = torch.Generator().manual_seed(13)
+    k, b, d, f = 2, 4, 8, 8
+    x, w1, w2 = (torch.randn(k, b, d, generator=gen),
+                 torch.randn(k, d, f, generator=gen),
+                 torch.randn(k, f, d, generator=gen))
+    with use_mesh_rules(mesh):
+        n, r = tp.axis_size("model"), tp.axis_rank("model")
+    cols = slice(r * f // n, (r + 1) * f // n)
+    local = (x, w1[:, :, cols].contiguous(), w2[:, cols].contiguous())
+
+    def block(x, w1, w2):
+        h = torch.tanh(tp.copy_to(x) @ w1)
+        return (tp.reduce_from(h @ w2),)
+
+    grads = {}
+    for policy in ("none",) + remat.POLICIES:
+        fn = block if policy == "none" else (
+            lambda *a, p=policy: remat.checkpoint(block, a, p))
+        leaves = [t.clone().requires_grad_() for t in local]
+        with use_mesh_rules(mesh):
+            loss = torch.square(torch.func.vmap(fn)(*leaves)[0]).sum()
+        loss.backward()
+        grads[policy] = [t.grad for t in leaves]
+    return {p: all(torch.equal(a, b) for a, b in
+                   zip(grads[p], grads["none"])) for p in remat.POLICIES}
 
 
 def _seq_data_cases(mesh) -> dict:
@@ -543,6 +615,8 @@ def run_rank(rank, world_size, d):
     mesh = make_test_mesh(2, 2, device_type="cpu")
     for case, got in _seq_data_cases(mesh).items():
         out["steps"][f"2x2/{case}"] = got
+    out["remat"] = {arch: _remat_case(mesh, arch) for arch in REMAT_ARCHS}
+    out["remat_tp"] = _remat_tp_case(mesh)
     out["ring"] = {"2x2-k2-d2": _ring_case(mesh, 2, 2, torch.float32),
                    "2x2-k4-d4-bf16": _ring_case(mesh, 4, 4, torch.bfloat16)}
     out["widths"] = {"2x2": call_widths(mesh)}

@@ -103,8 +103,8 @@ def test_ppermute_train_step_matches_reference():
     shape = dataclasses.replace(configs.INPUT_SHAPES["train_4k"], seq_len=s,
                                 global_batch=k * b)
     plan = steps.ScalePlan(configs.SMOKE_ARCHS[name], shape, k, b)
-    step = steps.make_train_step(bind(configs.SMOKE_ARCHS[name]), plan,
-                                 "ppermute")
+    step = steps.make_train_step(
+        bind(configs.SMOKE_ARCHS[name], remat=False), plan, "ppermute")
     got_params, got_losses = step(
         tree_from_numpy(params), tree_from_numpy(masks),
         tree_from_numpy(batch), torch.from_numpy(adj),

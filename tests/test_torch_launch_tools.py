@@ -218,11 +218,13 @@ def test_full_attention_arch_skips_long_500k(tmp_path):
 
 def test_gemma3_published_width_flops_near_model_flops():
     """chip_smoke's full-width plan, K=2 clients x one 1024-token row at
-    bf16: the counted matmul and attention FLOPs against 6ND."""
+    bf16: the counted matmul and attention FLOPs against 6ND, without
+    rematerialisation (``full`` adds a forward of the blocks:
+    ``test_torch_remat.py``)."""
     cfg = configs.ARCHS["gemma3-1b"]
     shape = configs.InputShape("lm_full", 1024, 2, "train")
     plan = dryrun.make_plan(cfg, shape, 2, 1, "bf16")
-    cost, _ = dryrun.trace_plan(plan, device="cpu")
+    cost, _ = dryrun.trace_plan(plan, device="cpu", remat="none")
     ratio = cost.flops / roofline.model_flops(cfg, plan.shape)
     assert 1.0 <= ratio <= 1.2, ratio
     # bf16 params and int8 masks for two clients, and a batch
@@ -232,14 +234,17 @@ def test_gemma3_published_width_flops_near_model_flops():
 
 
 def test_dryrun_refuses_mesh_flags_with_reasons(capsys):
-    """--unroll and --remat stay refused; the mesh flags now plan the
-    reference's meshes, and refuse the single-card plan's flags."""
+    """--unroll stays refused, and --remat takes the reference's three
+    values only; the mesh flags now plan the reference's meshes, and
+    refuse the single-card plan's flags."""
     for argv, reason in ((["--unroll"], "eagerly"),
-                         (["--remat", "full"], "rematerialisation"),
+                         (["--remat", "bogus"], "invalid choice"),
                          (["--multi-pod", "--clients", "4"], "plan_for")):
         with pytest.raises(SystemExit):
             dryrun.parse_args(argv)
         assert reason in capsys.readouterr().err
+    assert dryrun.parse_args([]).remat == "full"
+    assert dryrun.parse_args(["--remat", "dots"]).remat == "dots"
     for argv, meshes in (([], [None]), (["--multi-pod"], [True]),
                          (["--both-meshes"], [False, True])):
         assert dryrun.parse_args(argv).meshes == meshes

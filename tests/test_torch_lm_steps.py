@@ -142,8 +142,8 @@ def test_train_step_matches_reference(qwen, gossip):
         qwen["params"], qwen["masks"], jax.tree.map(jnp.asarray,
                                                     qwen["batch"]),
         jnp.asarray(adj), jnp.float32(lr))
-    step = steps.make_train_step(bind(configs.SMOKE_ARCHS[qwen["name"]]),
-                                 plan, gossip)
+    step = steps.make_train_step(
+        bind(configs.SMOKE_ARCHS[qwen["name"]], remat=False), plan, gossip)
     masks = tree_from_numpy(qwen["masks"])
     got_params, got_losses = step(tree_from_numpy(qwen["params"]), masks,
                                   tree_from_numpy(qwen["batch"]),
@@ -169,7 +169,7 @@ def test_train_step_skips_the_identity_mix_at_one_client(qwen):
     want, _ = jax.jit(ref_steps.make_train_step(qwen["api"], ref_plan))(
         params, masks, jax.tree.map(jnp.asarray, batch), jnp.asarray(adj),
         jnp.float32(0.01))
-    api = bind(configs.SMOKE_ARCHS[qwen["name"]])
+    api = bind(configs.SMOKE_ARCHS[qwen["name"]], remat=False)
     for gossip in ("einsum", "einsum_noopt"):
         got, _ = steps.make_train_step(api, plan, gossip)(
             tree_from_numpy(params), tree_from_numpy(masks),
@@ -203,7 +203,8 @@ def test_mask_update_step_matches_reference(qwen):
         ref_steps.make_mask_update_step(qwen["api"], ref_plan, density=0.5))(
         params, masks, jax.tree.map(jnp.asarray, batch), jnp.float32(rate))
     got_params, got_masks = steps.make_mask_update_step(
-        bind(configs.SMOKE_ARCHS[qwen["name"]]), plan, density=0.5)(
+        bind(configs.SMOKE_ARCHS[qwen["name"]], remat=False), plan,
+        density=0.5)(
         tree_from_numpy(params), tree_from_numpy(masks),
         tree_from_numpy(batch), rate)
     n_sparse = 0
@@ -259,7 +260,7 @@ def test_prefill_and_decode_steps_match_reference(name):
         toks.append(np.asarray(tok))
         want.append((None, _np(cache)))
 
-    papi = bind(configs.SMOKE_ARCHS[name])
+    papi = bind(configs.SMOKE_ARCHS[name], remat=False)
     tparams = tree_from_numpy(params)
     pcache = tree_map(lambda t: torch.stack([t] * k),
                       papi.init_cache(b, max_len))

@@ -139,7 +139,7 @@ def arch(request):
 
 
 def test_train_loss_and_grads_match_reference(arch):
-    api = bind(configs.SMOKE_ARCHS[arch["name"]])
+    api = bind(configs.SMOKE_ARCHS[arch["name"]], remat=False)
     grads, (loss, metrics) = torch.func.grad_and_value(
         api.train_loss, has_aux=True)(tree_from_numpy(arch["params"]),
                                       tree_from_numpy(arch["batch"]))

@@ -34,7 +34,10 @@ Tolerances:
   of a rank's n rows each way, per leaf the weight's shard in its dtype
   and the int8 mask's), and no all-gather;
 - the engine's vmapped calls: one client each, unsharded and on both
-  meshes.
+  meshes;
+- the train step under ``remat="full"`` (the qwen3 smoke arch's K=2 plan
+  and jamba's FSDP2D plan at 2x2): bit-equal to its ``remat=False``
+  twin, its recompute issuing the blocks' collectives again.
 """
 import json
 import os
@@ -334,3 +337,26 @@ def test_engine_calls_take_one_client_whatever_the_mesh(ranks):
                 n = sum(1 for k, _ in calls if k == kind)
                 assert n * 8 == k_local * sum(1 for k, _ in plain
                                               if k == kind), (mesh, kind)
+
+
+@pytest.mark.parametrize("arch", world.REMAT_ARCHS)
+def test_remat_full_train_step_bit_equal_to_none(ranks, arch):
+    """The meshed train step bound with ``remat="full"`` returns the same
+    bits as its ``remat=False`` twin on every rank, and its recompute
+    issues the blocks' collectives again: every kind and axis at least as
+    often, the 'model' all-reduces more often."""
+    for r, rank in enumerate(ranks):
+        got = rank["remat"][arch]
+        assert got["bit_equal"] and got["n_leaves"] > 2, (r, got)
+        full, none = got["axis_counts_full"], got["axis_counts_none"]
+        assert set(full) == set(none), (r, got)
+        assert all(full[k] >= none[k] for k in none), (r, got)
+        assert full["all-reduce/model"] > none["all-reduce/model"], (r, got)
+
+
+def test_remat_recompute_runs_under_the_forwards_mesh(ranks):
+    """``sharding.tp`` ops inside a checkpointed block, ``backward()``
+    called outside the mesh context: each policy's gradients bit-equal to
+    the block's without rematerialisation, on every rank."""
+    for r, rank in enumerate(ranks):
+        assert rank["remat_tp"] == {"full": True, "dots": True}, r

@@ -451,7 +451,7 @@ def bf16_steps():
     plan = steps.ScalePlan(port_cfg, dataclasses.replace(
         configs.INPUT_SHAPES["train_4k"], seq_len=S, global_batch=K * B),
         K, B, torch.bfloat16)
-    return {"api_port": bind(port_cfg), "plan": plan, "ref_plan": ref_plan, "api": api,
+    return {"api_port": bind(port_cfg, remat=False), "plan": plan, "ref_plan": ref_plan, "api": api,
             "params": _np(params), "masks": _np(masks), "batch": batch,
             "adj": adj, "new_params": _np(new_p), "losses": np.asarray(losses),
             "gossip_params": _np(gossip_p),

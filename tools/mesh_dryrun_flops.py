@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python3 tools/mesh_dryrun_flops.py [--src DIR]
         [--case ARCH:SHAPE:MESH[:GOSSIP] ... | --all] [--jobs N]
+        [--remat full|dots|none]
 
 Each case (default: qwen3-8b and gemma3-1b train_4k on pod16x16 and on
 pod2x16x16, published widths, bf16, ``einsum`` gossip unless the case
@@ -14,7 +15,9 @@ rank, ``tp`` and ``replicated`` where the tree writes them, and the
 trace's seconds.  ``--all`` takes every arch x input shape on both
 meshes (the dry run's ``--both-meshes`` sweep; long_500k of the
 full-attention archs is skipped, as the dry run skips it), ``--jobs`` runs
-that many cases at once.  Run it on two trees (``git archive`` of the
+that many cases at once.  ``--remat`` traces the models under that
+rematerialisation (the dry run's ``--remat``; a tree from before it
+takes none, and runs without ``--remat``).  Run it on two trees (``git archive`` of the
 other into a git-ignored directory) to set their records side by side.
 """
 from __future__ import annotations
@@ -33,11 +36,13 @@ CASES = [f"{a}:train_4k:{m}" for a in ("qwen3-8b", "gemma3-1b")
 CODE = """
 import json, sys
 from repro_torch.launch import dryrun
-arch, shape, mesh, gossip, out = sys.argv[1:6]
+arch, shape, mesh, gossip, out, remat = sys.argv[1:7]
 rec = dryrun.run_one(arch, shape, gossip=gossip, out_dir=out, verbose=False,
-                     device="cpu", multi_pod=mesh == "pod2x16x16")
+                     device="cpu", multi_pod=mesh == "pod2x16x16",
+                     **({"remat": remat} if remat else {}))
 print(json.dumps({k: rec.get(k) for k in (
-    "arch", "shape", "mesh", "gossip", "chips", "n_clients", "per_client_batch",
+    "arch", "shape", "mesh", "gossip", "remat", "chips", "n_clients",
+    "per_client_batch",
     "fsdp2d", "tp", "replicated", "cost", "peak_live_bytes", "fits",
     "coll_bytes_per_device", "collectives", "trace_s")}))
 """
@@ -59,6 +64,10 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true",
                     help="every arch x shape on both meshes")
     ap.add_argument("--jobs", type=int, default=1)
+    ap.add_argument("--remat", default="", choices=["", "full", "dots",
+                                                    "none"],
+                    help="the models' rematerialisation (default: the "
+                         "tree's own default)")
     args = ap.parse_args(argv)
     env = {**os.environ, "PYTHONPATH": os.path.abspath(args.src),
            "OMP_NUM_THREADS": "1"}
@@ -67,7 +76,7 @@ def main(argv=None) -> int:
         def one(case):
             arch, shape, mesh, gossip = (case.split(":") + ["einsum"])[:4]
             r = subprocess.run([sys.executable, "-c", CODE, arch, shape,
-                                mesh, gossip, out], env=env,
+                                mesh, gossip, out, args.remat], env=env,
                                capture_output=True, text=True, timeout=1200)
             if r.returncode:
                 return {"case": case, "src": args.src,
